@@ -3,35 +3,48 @@
     python3 chip_smoke.py
 
 Drives the port (gubernator_tpu_torch) through the entry points a user
-calls, at the repo's "Zipfian 10M keys, 1 GiB store" deployment (the
-exact tier, GUBER_SKETCH=0): a slot store of int32[2^21, 128] (1 GiB,
-GUBER_STORE_MIB=1024) resident on the card, zipf(a=1.2) key ids over 10M
-keys, token bucket hits=1 limit=1000 duration=60 s, device batches of
-32,768 (the ladder buckets_for_limit(32768)). Phases, one JSON line each:
+calls, at two of the repo's deployments:
 
-1. build    compile csrc/writeback.cu with nvcc (seconds);
-2. kernel   the writeback kernel against its plain version, bit for bit,
-            at the main path's shape (2^21 buckets, G from a real zipf
-            batch) and at the sweep's own regime (4096 buckets, B=32768),
-            with ms / plain_ms / library_ms (CUDA events, median of 30
-            calls timed in turns)
-            and bound_ms (bytes over the H100's 3.35 TB/s);
-3. walk     get_rate_limits: a limit-2 key goes 1 -> 0 -> OVER_LIMIT with
-            a stable reset time;
-4. main     53 batches through decide_submit/decide_wait with an
-            advancing `now`; the first 3 are held against the same port
-            run on the CPU (identical outputs and store bytes), the other
-            50 timed; reports decisions/s, batch ms, groups per batch,
-            kernel launches (must equal the decides of phases 3-4) and
-            the store's bytes;
-5. profile  torch.profiler over 10 more batches: device busy and idle
-            share, the top device kernels;
-6. kernels  the contract line over every kernel of the path.
+- exact tier, "Zipfian 10M keys, 1 GiB store" (GUBER_SKETCH=0): a slot
+  store of int32[2^21, 128] (GUBER_STORE_MIB=1024), zipf(a=1.2) ids over
+  10M keys, token bucket hits=1 limit=1000 duration=60 s;
+- two-tier, the default decide path at the "zipf100m_sketch_tier"
+  deployment (cli/bench_serving.py:run_zipf100m): GUBER_STORE_MIB=1024
+  with the sketch on and auto-sized, so a v2 int32[2, 2^25] sketch
+  (256 MiB) is carved out and the exact tier is int32[2^20, 128]
+  (805,306,368 bytes on the card in all); the exact tier is prefilled
+  with 1.25x its capacity of sequential ids (640 batches), then zipf(1.2)
+  ids over 100M keys, token bucket hits=1 limit=1000 duration=600 s.
 
-Prints the card's name and power limit (nvidia-smi) on a line of its
-own and, last, {"ok": true, "device": {...}}. Exits non-zero, printing
-no result, if there is no CUDA device, if the port is not importable, or
-if any phase fails. Imports nothing of JAX or of gubernator_tpu.
+Both use device batches of 32,768 (the ladder buckets_for_limit(32768)).
+Phases, one JSON line each:
+
+1. build     compile csrc/writeback.cu with nvcc (seconds);
+2. kernel    the writeback kernel against its plain version, bit for bit,
+             at the exact path's shape (2^21 buckets, G of a zipf batch),
+             the sweep's own regime (4096 buckets, B=32768) and the
+             two-tier path's shape (2^20 buckets, G of a zipf100m batch):
+             ms / plain_ms / library_ms are device time per call of a run
+             of back-to-back calls (CUDA events around the run, over the
+             count), cycling through 8 batches whose rows exceed the L2
+             cache; bound_ms is bytes over the H100's 3.35 TB/s;
+3. walk      get_rate_limits: a limit-2 key goes 1 -> 0 -> OVER_LIMIT;
+4. main      exact tier: 3 batches held against the same port on the CPU
+             (identical outputs and store bytes), 50 timed, then a profile;
+5. two_tier  prefill, 3 checked batches (token, sliding, GCRA) held
+             against the CPU in responses, stats, store and sketch bytes,
+             50 timed token batches, a promote of the 1,024 most frequent
+             sketch-served keys held against the CPU, a profile, then one
+             batch after the first 32 prefill batches expired (dead token
+             victims fold into the sketch), held against the CPU;
+6. kernels   the contract line over every kernel of the path.
+
+The writeback kernel's launch count is set to 0 before each path and read
+after it; each must equal that path's decides plus window-install chunks.
+Prints the card's name and power limit (nvidia-smi) on a line of its own
+and, last, {"ok": true, "device": {...}}. Exits non-zero, printing no
+result, if there is no CUDA device, if the port is not importable, or if
+any phase fails. Imports nothing of JAX or of gubernator_tpu.
 """
 
 from __future__ import annotations
@@ -49,16 +62,22 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 T0 = 1_700_000_000_000
 
-# the repo's zipf key recipe (gubernator_tpu/cli/keystreams.py:34-36)
+# the repo's zipf key recipe (gubernator_tpu/cli/keystreams.py:34-65)
 ZIPF_A = 1.2
 MIX_MUL = 0x9E3779B97F4A7C15
 MIX_XOR = 0xDEADBEEFCAFEF00D
 KEY_SPACE = 10_000_000
+KEY_SPACE_100M = 100_000_000
 DEPTH = 32_768
 HITS, LIMIT, DURATION = 1, 1000, 60_000
+DURATION_100M = 600_000
 CHECKED_BATCHES = 3
 TIMED_BATCHES = 50
 PROFILED_BATCHES = 10
+PROMOTED_KEYS = 1024
+EXPIRED_PREFILL = 32  # prefill batches dead at the two-tier eviction batch
+KERNEL_SETS = 8  # batches cycled per kernel timing run
+KERNEL_CALLS = 192  # calls per timing run
 
 
 def emit(obj) -> None:
@@ -70,9 +89,12 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def zipf_hashes(n: int, seed: int = 42) -> np.ndarray:
-    ids = np.random.default_rng(seed).zipf(ZIPF_A, n) % KEY_SPACE
+def hash_ids(ids: np.ndarray) -> np.ndarray:
     return (ids.astype(np.uint64) * np.uint64(MIX_MUL)) ^ np.uint64(MIX_XOR)
+
+
+def zipf_hashes(n: int, seed: int = 42, key_space: int = KEY_SPACE) -> np.ndarray:
+    return hash_ids(np.random.default_rng(seed).zipf(ZIPF_A, n) % key_space)
 
 
 def spin_up(seconds: float = 0.5) -> None:
@@ -85,14 +107,22 @@ def spin_up(seconds: float = 0.5) -> None:
         torch.cuda.synchronize()
 
 
-def time_samples(fn, reps: int = 15, warm: int = 3) -> list:
-    """Device time (ms) of `reps` single calls, CUDA events around each.
-    A ~0.5 ms spin queued ahead of the start event keeps the card busy
-    while the host enqueues the call, so the events bracket the call's
-    device work and not the host's launch latency (a ~50 us spin was too
-    short on a slow host: the wrapper alone takes ~30 us there)."""
-    for _ in range(warm):
-        fn()
+def sleep_cycles_per_ms() -> float:
+    """Clock cycles of torch.cuda._sleep per device millisecond."""
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    torch.cuda._sleep(20_000_000)
+    e.record()
+    e.synchronize()
+    return 20_000_000 / s.elapsed_time(e)
+
+
+def single_call_ms(fn, reps: int = 15) -> float:
+    """Median device time of ONE call, CUDA events around it (a spin
+    queued ahead keeps the host's launch gap out). For one ~4 us launch
+    this includes the event records' own cost: kept under its own name."""
+    fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -104,7 +134,32 @@ def time_samples(fn, reps: int = 15, warm: int = 3) -> list:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return times
+    return statistics.median(times)
+
+
+def run_ms(calls: list, cycles_per_ms: float, n: int = KERNEL_CALLS) -> float:
+    """Device ms per call of `n` back-to-back calls cycling through
+    `calls`: CUDA events around the whole run, over the count. A sleep
+    queued ahead of the start event lasts longer than the host takes to
+    enqueue the run, so the run executes back to back on the card and the
+    host's launch gaps stay outside it."""
+    for c in calls:
+        c()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        calls[i % len(calls)]()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int((2 * host_ms + 2) * cycles_per_ms))
+    start.record()
+    for i in range(n):
+        calls[i % len(calls)]()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def host_us(fn, n: int = 200) -> float:
@@ -116,16 +171,6 @@ def host_us(fn, n: int = 200) -> float:
     dt = (time.perf_counter() - t0) / n * 1e6
     torch.cuda.synchronize()
     return dt
-
-
-def time_in_turns(fns: dict) -> dict:
-    """Median ms of each function, timed in turns (a, b, c, c, b, a) so
-    that clock and cache drift falls on all of them alike."""
-    samples = {k: [] for k in fns}
-    for order in (list(fns), list(fns)[::-1]):
-        for k in order:
-            samples[k] += time_samples(fns[k])
-    return {k: statistics.median(v) for k, v in samples.items()}
 
 
 def way_disjoint_rows(bkt: np.ndarray, ways: int, rng) -> np.ndarray:
@@ -141,7 +186,24 @@ def way_disjoint_rows(bkt: np.ndarray, ways: int, rng) -> np.ndarray:
     return drow.reshape(B, ways * 8)
 
 
-def kernel_case(name: str, buckets: int, bkt_np: np.ndarray, seed: int) -> dict:
+def group_buckets(ladder, buckets: int, kh: np.ndarray) -> np.ndarray:
+    """The decide's writeback stream for one batch: the bucket of every
+    padded group slot (engine.pad_request_sorted's group structure)."""
+    from gubernator_tpu_torch.core.engine import pad_request_sorted
+    from gubernator_tpu_torch.core.store import bucket_index, key_hash_tensor
+
+    n = kh.shape[0]
+    ones = np.ones(n, np.int64)
+    _req, _order, groups = pad_request_sorted(
+        ladder, buckets, kh, ones, ones, ones,
+        np.zeros(n, np.int32), np.zeros(n, bool), with_groups=True,
+    )
+    return bucket_index(key_hash_tensor(groups.key_hash), buckets).numpy()
+
+
+def kernel_case(name: str, buckets: int, bkts: list, seed: int, cyc: float) -> dict:
+    """The kernel against its plain version on the first of `bkts`, then
+    per-call device times of runs cycling through all of them."""
     from gubernator_tpu_torch.core.writeback import writeback_add, writeback_add_plain
 
     W = 128
@@ -151,101 +213,185 @@ def kernel_case(name: str, buckets: int, bkt_np: np.ndarray, seed: int) -> dict:
         -(2**31), 2**31 - 1, (buckets, W), dtype=torch.int32, device="cuda",
         generator=gen,
     )
-    bkt = torch.from_numpy(bkt_np).cuda()
-    drow = torch.from_numpy(way_disjoint_rows(bkt_np, W // 8, rng)).cuda()
+    sets = []
+    for b in bkts:
+        sets.append((
+            torch.from_numpy(b).cuda(),
+            torch.from_numpy(way_disjoint_rows(b, W // 8, rng)).cuda(),
+            int(np.unique(b).shape[0]),
+        ))
+    bkt, drow, _u = sets[0]
     want = writeback_add_plain(data.clone(), bkt, drow)
     got = writeback_add(data.clone(), bkt, drow)
     torch.cuda.synchronize()
     touched = torch.unique(bkt).long()
-    max_abs_err = int(
-        (got[touched].long() - want[touched].long()).abs().max().item()
-    )
+    max_abs_err = int((got[touched].long() - want[touched].long()).abs().max().item())
     if not torch.equal(got, want) or max_abs_err != 0:
         fail(f"kernel {name}: writeback_add disagrees with writeback_add_plain")
     del got, want
-    G = int(bkt_np.shape[0])
-    U = int(touched.numel())
-    nbytes = G * W * 4 + G * 4 + 2 * U * W * 4
+    G = int(bkt.shape[0])
+    nbytes = [s[0].shape[0] * W * 4 + s[0].shape[0] * 4 + 2 * s[2] * W * 4 for s in sets]
+    mean_bytes = float(np.mean(nbytes))
     work = data.clone()
+    fns = dict(
+        ms=[lambda b=b, d=d: writeback_add(work, b, d) for b, d, _ in sets],
+        plain_ms=[lambda b=b, d=d: writeback_add_plain(work, b, d) for b, d, _ in sets],
+        library_ms=[lambda b=b, d=d: work.index_add_(0, b, d) for b, d, _ in sets],
+    )
     spin_up()
+    samples = {k: [] for k in fns}
+    for order in (list(fns), list(fns)[::-1], list(fns), list(fns)[::-1]):
+        for k in order:
+            samples[k].append(run_ms(fns[k], cyc))
+    times = {k: statistics.median(v) for k, v in samples.items()}
+    bound_ms = mean_bytes / HBM_BYTES_PER_S * 1e3
     out = dict(
-        shape=name, buckets=buckets, G=G, touched_rows=U, bytes=nbytes,
-        max_abs_err=max_abs_err,
-        **time_in_turns(dict(
-            ms=lambda: writeback_add(work, bkt, drow),
-            plain_ms=lambda: writeback_add_plain(work, bkt, drow),
-            library_ms=lambda: work.index_add_(0, bkt, drow),
-        )),
-        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-        bound_by="bytes",
+        shape=name, buckets=buckets, G=G, touched_rows=sets[0][2],
+        bytes_mean=mean_bytes, sets=len(sets), calls_per_run=KERNEL_CALLS,
+        max_abs_err=max_abs_err, **times,
+        ms_samples=samples["ms"],
+        l2_warm_ms=run_ms(fns["ms"][:1], cyc),  # one batch repeated
+        single_call_ms=single_call_ms(lambda: writeback_add(work, bkt, drow)),
+        bound_ms=bound_ms, bound_by="bytes", share_of_bound=bound_ms / times["ms"],
         host_us=host_us(lambda: writeback_add(work, bkt, drow)),
         plain_host_us=host_us(lambda: writeback_add_plain(work, bkt, drow)),
     )
-    del data, work
+    del data, work, sets, fns
     torch.cuda.empty_cache()
     return out
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
-              "false); this script measures the port on a GPU", file=sys.stderr)
-        return 2
-    # the port, from this checkout (fails here when run outside the repo)
+def profile_batches(eng, pool, fields, now: int, step: int):
+    """torch.profiler over len(pool) batches: device busy and idle share,
+    the top device events, and the writeback kernel's time per launch.
+    Returns (that dict, the last `now`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for kh in pool:
+            now += step
+            eng.decide_arrays(kh, *fields, now)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = []  # device-side events only (kernels, copies, memsets)
+    for e in prof.key_averages():
+        if "CUDA" not in str(getattr(e, "device_type", "")):
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0)
+        if dev_us > 0:
+            rows.append((e.key, dev_us, e.count))
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    wb = [r for r in rows if "writeback_add_kernel" in r[0]]
+    if not wb:
+        fail("torch.profiler saw no writeback kernel in the traced batches")
+    if busy <= 0:
+        fail("torch.profiler recorded no device time for the traced batches")
+    nb = len(pool)
+
+    def share(*words):
+        return sum(r[1] for r in rows if any(w in r[0] for w in words)) / busy
+
+    return dict(
+        batches=nb, wall_us=wall_us, device_busy_us=busy,
+        device_idle_share=1 - busy / wall_us,
+        device_busy_us_per_batch=busy / nb,
+        device_events_per_batch=sum(r[2] for r in rows) / nb,
+        writeback_device_us_per_call=wb[0][1] / wb[0][2],
+        writeback_launches=wb[0][2],
+        busy_share=dict(
+            writeback=share("writeback_add_kernel"),
+            gathers=share("index", "gather", "Gather"),
+            scatter_reduce=share("scatter"),
+            scans=share("scan", "cumsum", "cummax", "cummin", "Scan"),
+            copies=share("Memcpy", "Memset", "copy"),
+        ),
+        top=[dict(name=k[:90], device_us=d, count=c) for k, d, c in rows[:20]],
+    ), now
+
+
+def check_responses(out, limit: int, min_reset: int, what: str) -> None:
+    """Finite responses of the expected shape and range; a token batch's
+    resets all lie after `now` (pass now), GCRA's may not (pass 0)."""
+    status, rlimit, remaining, reset = out
+    if not (
+        status.shape == (DEPTH,) and np.isin(status, (0, 1)).all()
+        and (rlimit == limit).all() and (remaining >= 0).all()
+        and (remaining <= limit).all() and (reset > min_reset).all()
+    ):
+        fail(f"{what}: responses out of range")
+
+
+def same_as_cpu(eng, cpu, out, ref, what: str, stats=None) -> None:
+    for a, b, name in zip(out, ref, ("status", "limit", "remaining", "reset")):
+        if not np.array_equal(a, b):
+            fail(f"{what}: {name} differs from the CPU run")
+    if stats is not None and stats[0] != stats[1]:
+        fail(f"{what}: stats differ from the CPU run: {stats}")
+    if not torch.equal(eng.store.data.cpu(), cpu.store.data):
+        fail(f"{what}: store bytes differ from the CPU run")
+    if eng.sketch is not None and not torch.equal(eng.sketch.data.cpu(), cpu.sketch.data):
+        fail(f"{what}: sketch bytes differ from the CPU run")
+
+
+def delta(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+def timed_batches(eng, pool, fields, now: int, step: int, what: str):
+    """Decide each batch of `pool` (token bucket) through decide_submit /
+    decide_wait, host-timed with the card drained before each, responses
+    checked. Returns (batch ms, per-batch stats deltas, the last `now`)."""
+    batch_ms, per_batch = [], []
+    for i, kh in enumerate(pool):
+        now += step
+        before = eng.stats.snapshot()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.decide_wait(eng.decide_submit(kh, *fields, now))
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+        per_batch.append(delta(eng.stats.snapshot(), before))
+        check_responses(out, LIMIT, now, f"{what} batch {i}")
+    return batch_ms, per_batch, now
+
+
+def rate_fields(ladder, slots: int, pool, fields, batch_ms, per_batch) -> dict:
+    """The numbers both paths' main lines share: decisions/s, batch median
+    and p99, groups per batch, and the host prep (pad_request_sorted)
+    median over the first 10 batches of `pool`."""
+    from gubernator_tpu_torch.core.engine import pad_request_sorted
+
+    prep_ms = []
+    for kh in pool[:10]:
+        t0 = time.perf_counter()
+        pad_request_sorted(ladder, slots, kh, *fields, with_groups=True)
+        prep_ms.append((time.perf_counter() - t0) * 1e3)
+    return dict(
+        timed_batches=len(batch_ms),
+        decisions_per_s=len(batch_ms) * DEPTH / (sum(batch_ms) / 1e3),
+        batch_ms_median=statistics.median(batch_ms),
+        batch_ms_p99=float(np.percentile(batch_ms, 99)),
+        host_prep_ms_median=statistics.median(prep_ms),
+        groups_per_batch_mean=float(np.mean([b["hits"] + b["misses"] for b in per_batch])),
+    )
+
+
+def exact_path(card: str, ladder, writeback) -> dict:
+    """The exact-tier 1 GiB zipf10m path (GUBER_SKETCH=0)."""
     from gubernator_tpu_torch import RateLimitReq, Status
-    from gubernator_tpu_torch.core import writeback
-    from gubernator_tpu_torch.core.engine import (
-        TorchEngine, buckets_for_limit, pad_request_sorted,
-    )
-    from gubernator_tpu_torch.core.store import (
-        bucket_index, derive_store_config, key_hash_tensor, store_to_numpy,
-    )
+    from gubernator_tpu_torch.core.engine import TorchEngine
+    from gubernator_tpu_torch.core.store import derive_store_config, store_to_numpy
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
-    print(card, flush=True)
-    kind = torch.cuda.get_device_name(0)
-    emit(dict(phase="device", kind=kind, nvidia_smi=card, torch=torch.__version__,
-              cuda=torch.version.cuda, count=torch.cuda.device_count()))
-
-    # 1. build --------------------------------------------------------------
-    t0 = time.monotonic()
-    lib_path = writeback.build()
-    writeback._load()
-    log_path = lib_path.with_suffix(".log")
-    emit(dict(phase="build", seconds=time.monotonic() - t0, library=lib_path.name,
-              ptxas=[ln.strip() for ln in log_path.read_text().splitlines()
-                     if "registers" in ln or "spill" in ln] if log_path.exists() else []))
-
-    # 2. kernel vs plain at the path's shapes --------------------------------
     config = derive_store_config(mib=1024)
-    if (config.rows, config.slots) != (16, 1 << 21):
-        fail(f"GUBER_STORE_MIB=1024 derived {config}, not 2^21 x 16")
-    ladder = buckets_for_limit(DEPTH)
-    kh0 = zipf_hashes(DEPTH, seed=7)
-    ones = np.ones(DEPTH, np.int64)
-    _req, _order, groups = pad_request_sorted(
-        ladder, config.slots, kh0, ones, ones, ones,
-        np.zeros(DEPTH, np.int32), np.zeros(DEPTH, bool), with_groups=True,
-    )
-    main_bkt = bucket_index(key_hash_tensor(groups.key_hash), config.slots).numpy()
-    sweep_bkt = np.sort(np.random.default_rng(11).integers(0, 4096, DEPTH)).astype(np.int32)
-    cases = [
-        kernel_case("main path: 2^21 buckets, G of a zipf batch", config.slots, main_bkt, 1),
-        kernel_case("sweep regime: 4096 buckets, B=32768", 4096, sweep_bkt, 2),
-    ]
-    for c in cases:
-        emit(dict(phase="kernel", kernel="writeback_add", card=card, **c))
-
-    # 3. main path: engine on the card ---------------------------------------
     eng = TorchEngine(config, buckets=ladder)
     t0 = time.monotonic()
     eng.warmup(now=T0)
     warm_s = time.monotonic() - t0
-    writeback.writeback_add.launches = 0  # count the main path only
+    writeback.writeback_add.launches = 0  # count this path only
     decides = 0
 
     walk = []
@@ -272,111 +418,287 @@ def main() -> int:
 
     n_batches = CHECKED_BATCHES + TIMED_BATCHES
     pool = zipf_hashes(n_batches * DEPTH).reshape(n_batches, DEPTH)
-    hits = np.full(DEPTH, HITS, np.int64)
-    limit = np.full(DEPTH, LIMIT, np.int64)
-    duration = np.full(DEPTH, DURATION, np.int64)
-    algo = np.zeros(DEPTH, np.int32)
-    gnp = np.zeros(DEPTH, bool)
-    batch_ms, groups_per_batch = [], []
+    fields = (np.full(DEPTH, HITS, np.int64), np.full(DEPTH, LIMIT, np.int64),
+              np.full(DEPTH, DURATION, np.int64), np.zeros(DEPTH, np.int32),
+              np.zeros(DEPTH, bool))
     now = T0 + 10
     torch.cuda.reset_peak_memory_stats()
-    for i in range(n_batches):
+    for i in range(CHECKED_BATCHES):
         now += 2
-        before = eng.stats.snapshot()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = eng.decide_wait(
-            eng.decide_submit(pool[i], hits, limit, duration, algo, gnp, now)
-        )
-        dt = (time.perf_counter() - t0) * 1e3
+        out = eng.decide_arrays(pool[i], *fields, now)
         decides += 1
-        after = eng.stats.snapshot()
-        groups_per_batch.append(after["hits"] + after["misses"] - before["hits"] - before["misses"])
-        status, rlimit, remaining, reset = out
-        if not (
-            status.shape == (DEPTH,) and np.isin(status, (0, 1)).all()
-            and (rlimit == LIMIT).all() and (remaining >= 0).all()
-            and (remaining <= LIMIT).all() and (reset > now).all()
-        ):
-            fail(f"batch {i}: responses out of range")
-        if i < CHECKED_BATCHES:
-            ref = cpu.decide_arrays(pool[i], hits, limit, duration, algo, gnp, now)
-            for a, b, name in zip(out, ref, ("status", "limit", "remaining", "reset")):
-                if not np.array_equal(a, b):
-                    fail(f"batch {i}: {name} differs from the CPU run")
-            if not torch.equal(eng.store.data.cpu(), cpu.store.data):
-                fail(f"batch {i}: store bytes differ from the CPU run")
-            emit(dict(phase="check", batch=i, cpu_identical=True))
-        else:
-            batch_ms.append(dt)
+        check_responses(out, LIMIT, now, f"exact check batch {i}")
+        ref = cpu.decide_arrays(pool[i], *fields, now)
+        same_as_cpu(eng, cpu, out, ref, f"exact batch {i}")
+        emit(dict(phase="check", path="exact", batch=i, cpu_identical=True))
+    del cpu
+    timed = pool[CHECKED_BATCHES:]
+    batch_ms, per_batch, now = timed_batches(eng, timed, fields, now, 2, "exact")
+    decides += len(batch_ms)
     launches = writeback.writeback_add.launches
     if launches != decides or launches == 0:
-        fail(f"writeback kernel launched {launches} times for {decides} decides")
-    total_s = sum(batch_ms) / 1e3
-    p99 = float(np.percentile(batch_ms, 99))
-    # the host presort + padding alone, on the same batches (numpy)
-    prep_ms = []
-    for i in range(CHECKED_BATCHES, min(n_batches, CHECKED_BATCHES + 10)):
-        t0 = time.perf_counter()
-        pad_request_sorted(ladder, config.slots, pool[i], hits, limit, duration,
-                           algo, gnp, with_groups=True)
-        prep_ms.append((time.perf_counter() - t0) * 1e3)
+        fail(f"exact path: writeback kernel launched {launches} times for {decides} decides")
     emit(dict(
-        phase="main", card=card, store_shape=list(eng.store.data.shape),
-        store_bytes=eng.store.data.numel() * 4, batch=DEPTH,
-        warmup_s=warm_s, timed_batches=len(batch_ms),
-        decisions_per_s=len(batch_ms) * DEPTH / total_s,
-        batch_ms_median=statistics.median(batch_ms), batch_ms_p99=p99,
-        host_prep_ms_median=statistics.median(prep_ms),
-        groups_per_batch_mean=float(np.mean(groups_per_batch)),
+        phase="main", path="exact", card=card, store_shape=list(eng.store.data.shape),
+        store_bytes=eng.store.data.numel() * 4, batch=DEPTH, warmup_s=warm_s,
+        **rate_fields(ladder, config.slots, timed, fields, batch_ms, per_batch),
         decides=decides, kernel_launches=launches,
         stats=eng.stats.snapshot(),
         max_memory_allocated=torch.cuda.max_memory_allocated(),
     ))
+    prof, now = profile_batches(
+        eng, pool[CHECKED_BATCHES:CHECKED_BATCHES + PROFILED_BATCHES], fields, now, 2
+    )
+    emit(dict(phase="profile", path="exact", card=card, **prof))
+    del eng
+    torch.cuda.empty_cache()
+    return dict(launches=launches, decides=decides)
 
-    # 5. where a batch's time goes: torch.profiler over a few more batches
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i in range(PROFILED_BATCHES):
-            now += 2
-            eng.decide_arrays(pool[CHECKED_BATCHES + i], hits, limit, duration,
-                              algo, gnp, now)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    rows = []  # device-side events only (kernels, copies, memsets)
-    for e in prof.key_averages():
-        if "CUDA" not in str(getattr(e, "device_type", "")):
-            continue
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0)
-        if dev_us > 0:
-            rows.append((e.key, dev_us, e.count))
-    rows.sort(key=lambda r: -r[1])
-    busy = sum(r[1] for r in rows)
-    wb_rows = [r for r in rows if "writeback_add_kernel" in r[0]]
-    if not wb_rows:
-        fail("torch.profiler saw no writeback kernel in the traced batches")
-    if busy <= 0:
-        fail("torch.profiler recorded no device time for the traced batches")
-    emit(dict(phase="profile", card=card, batches=PROFILED_BATCHES, wall_us=wall_us,
-              device_busy_us=busy, device_idle_share=1 - busy / wall_us,
-              device_events_per_batch=sum(r[2] for r in rows) / PROFILED_BATCHES,
-              writeback_device_us_per_call=wb_rows[0][1] / wb_rows[0][2],
-              top=[dict(name=k[:80], device_us=d, count=c) for k, d, c in rows[:15]]))
+def two_tier_path(card: str, ladder, writeback) -> dict:
+    """The default decide path (sketch on) at the zipf100m deployment."""
+    from gubernator_tpu_torch.core.engine import TorchEngine
+    from gubernator_tpu_torch.core.sketches import derive_two_tier_config, sketch_footprint_bytes
 
-    main_case = cases[0]
+    config, skc = derive_two_tier_config(1024)
+    resident = config.slots * config.rows * 32 + sketch_footprint_bytes(skc)
+    if (config.slots, config.rows, skc.rows, skc.width, skc.counter_bytes) != (
+        1 << 20, 16, 2, 1 << 25, 4
+    ) or resident != 805_306_368:
+        fail(f"GUBER_STORE_MIB=1024 two-tier derived {config} + {skc}")
+    eng = TorchEngine(config, buckets=ladder, sketch=skc)
+    on_card = eng.store.data.numel() * 4 + eng.sketch.data.numel() * 4
+    t0 = time.monotonic()
+    eng.warmup(now=T0)
+    warm_s = time.monotonic() - t0
+    top = max(ladder)
+    writeback.writeback_add.launches = 0  # count this path only
+    decides = install_chunks = 0
+    ones = np.ones(DEPTH, np.int64)
+    tok = (ones * HITS, ones * LIMIT, ones * DURATION_100M, np.zeros(DEPTH, np.int32),
+           np.zeros(DEPTH, bool))
+
+    # prefill: 1.25x the exact tier's capacity of sequential ids
+    # (cli/bench_serving.py:_prefill_sequential)
+    n_ids = int(config.slots * config.rows * 1.25)
+    now = T0
+    t0 = time.monotonic()
+    for c in range(n_ids // DEPTH):
+        now += 1
+        eng.decide_arrays(hash_ids(np.arange(c * DEPTH, (c + 1) * DEPTH)), *tok, now)
+        decides += 1
+    torch.cuda.synchronize()
+    prefill = dict(ids=n_ids, batches=n_ids // DEPTH, seconds=time.monotonic() - t0,
+                   stats=eng.stats.snapshot())
+    emit(dict(phase="prefill", path="two_tier", card=card, **prefill))
+
+    n_batches = CHECKED_BATCHES + TIMED_BATCHES + PROFILED_BATCHES + 1
+    pool = zipf_hashes(n_batches * DEPTH, key_space=KEY_SPACE_100M).reshape(n_batches, DEPTH)
+
+    # checked batches: token, sliding, GCRA against the CPU from the card's state
+    cpu = TorchEngine(config, buckets=ladder, device="cpu", sketch=skc)
+    cpu.load_state(eng.store.data.cpu().numpy(), eng.clock.epoch,
+                   eng.sketch.data.cpu().numpy())
+    for i, algo in enumerate((0, 2, 3)):
+        now += 1
+        fields = tok[:3] + (np.full(DEPTH, algo, np.int32), tok[4])
+        sb, cb = eng.stats.snapshot(), cpu.stats.snapshot()
+        out = eng.decide_arrays(pool[i], *fields, now)
+        decides += 1
+        ref = cpu.decide_arrays(pool[i], *fields, now)
+        d_gpu, d_cpu = delta(eng.stats.snapshot(), sb), delta(cpu.stats.snapshot(), cb)
+        check_responses(out, LIMIT, now if algo == 0 else 0, f"two-tier check {i}")
+        same_as_cpu(eng, cpu, out, ref, f"two-tier check batch {i} (algo {algo})",
+                    stats=(d_gpu, d_cpu))
+        if d_gpu["dropped"] <= 0:
+            fail(f"two-tier check batch {i}: no sketch-served groups")
+        emit(dict(phase="check", path="two_tier", batch=i, algo=algo, cpu_identical=True,
+                  stats=d_gpu))
+    del cpu
+
+    # timed token batches
+    timed = pool[CHECKED_BATCHES:CHECKED_BATCHES + TIMED_BATCHES]
+    torch.cuda.reset_peak_memory_stats()
+    batch_ms, per_batch, now = timed_batches(eng, timed, tok, now, 1, "two-tier")
+    decides += len(batch_ms)
+    peak = torch.cuda.max_memory_allocated()
+    main = dict(
+        phase="main", path="two_tier", card=card,
+        store_shape=list(eng.store.data.shape), sketch_shape=list(eng.sketch.data.shape),
+        sketch_dtype=str(eng.sketch.data.dtype), bytes_on_card=on_card, batch=DEPTH,
+        warmup_s=warm_s, **rate_fields(ladder, config.slots, timed, tok, batch_ms, per_batch),
+        dropped_per_batch_mean=float(np.mean([b["dropped"] for b in per_batch])),
+        evictions_per_batch_mean=float(np.mean([b["evictions"] for b in per_batch])),
+        stats=eng.stats.snapshot(), max_memory_allocated=peak,
+    )
+    if min(b["dropped"] for b in per_batch) <= 0:
+        fail("two-tier timed batches: a batch had no sketch-served groups")
+
+    # promote the most frequent sketch-served keys of the timed stream: a
+    # key of the stream with no live exact entry was decided by the sketch
+    uniq, counts = np.unique(timed.ravel(), return_counts=True)
+    by_freq = uniq[np.argsort(-counts, kind="stable")]
+    keys = by_freq[~eng.live_mask(by_freq, now)][:PROMOTED_KEYS]
+    if keys.shape[0] < PROMOTED_KEYS:
+        fail(f"only {keys.shape[0]} sketch-served keys to promote")
+    cpu = TorchEngine(config, buckets=ladder, device="cpu", sketch=skc)
+    cpu.load_state(eng.store.data.cpu().numpy(), eng.clock.epoch,
+                   eng.sketch.data.cpu().numpy())
+    now += 1
+    lim = np.full(PROMOTED_KEYS, LIMIT, np.int64)
+    dur = np.full(PROMOTED_KEYS, DURATION_100M, np.int64)
+    t0 = time.perf_counter()
+    got = eng.promote_from_sketch(keys, lim, dur, now)
+    promote_ms = (time.perf_counter() - t0) * 1e3
+    install_chunks += -(-int(got[0].sum()) // top)
+    ref = cpu.promote_from_sketch(keys, lim, dur, now)
+    for a, b, name in zip(got, ref, ("installed", "estimate", "reset", "over")):
+        if not np.array_equal(a, b):
+            fail(f"promote: {name} differs from the CPU run")
+    if not got[0].all() or int(got[1].min()) < 1:
+        fail("promote: a sketch-served key was not installed or has no estimate")
+    # two promoted keys of one full bucket: the second install drops
+    live_share = float(eng.live_mask(keys, now).mean())
+    if live_share < 0.9:
+        fail(f"promote: only {live_share:.3f} of the promoted keys are live exact entries")
+    if not torch.equal(eng.store.data.cpu(), cpu.store.data):
+        fail("promote: store bytes differ from the CPU run")
+    now += 1
+    k1 = np.ones(PROMOTED_KEYS, np.int64)
+    pf = (k1 * HITS, lim, dur, np.zeros(PROMOTED_KEYS, np.int32), np.zeros(PROMOTED_KEYS, bool))
+    sb, cb = eng.stats.snapshot(), cpu.stats.snapshot()
+    out = eng.decide_arrays(keys, *pf, now)
+    decides += 1
+    ref = cpu.decide_arrays(keys, *pf, now)
+    same_as_cpu(eng, cpu, out, ref, "decide after promote",
+                stats=(delta(eng.stats.snapshot(), sb), delta(cpu.stats.snapshot(), cb)))
+    expected = np.maximum(LIMIT - got[1] - HITS, 0)
+    if not np.array_equal(out[2], expected):
+        fail("decide after promote: remaining is not limit - estimate - hits")
+    del cpu
+    emit(dict(phase="promote", path="two_tier", keys=PROMOTED_KEYS,
+              installed=int(got[0].sum()), estimate_min=int(got[1].min()),
+              estimate_max=int(got[1].max()), live_share=live_share, promote_ms=promote_ms,
+              install_chunks=install_chunks, cpu_identical=True))
+
+    profiled = pool[CHECKED_BATCHES + TIMED_BATCHES:-1]
+    prof, now = profile_batches(eng, profiled, tok, now, 1)
+    decides += len(profiled)
+    emit(dict(phase="profile", path="two_tier", card=card, **prof))
+
+    # eviction -> sketch fold at full size: move the clock past the expiry
+    # of the first EXPIRED_PREFILL prefill batches (a few % of the exact
+    # tier), so creates in buckets holding one of those recycle a dead
+    # token victim and fold its consumed hit into the sketch at the
+    # current window, while creates in the other buckets still drop to
+    # the sketch. Held against the CPU like the checked batches.
+    now = T0 + 1 + EXPIRED_PREFILL + DURATION_100M
+    expired = hash_ids(np.arange(EXPIRED_PREFILL * DEPTH))
+    exp_dur = np.full(expired.shape[0], DURATION_100M, np.int64)
+    est_before = eng.sketch_estimates(expired, exp_dur, now)
+    cpu = TorchEngine(config, buckets=ladder, device="cpu", sketch=skc)
+    cpu.load_state(eng.store.data.cpu().numpy(), eng.clock.epoch,
+                   eng.sketch.data.cpu().numpy())
+    sb, cb = eng.stats.snapshot(), cpu.stats.snapshot()
+    out = eng.decide_arrays(pool[-1], *tok, now)
+    decides += 1
+    ref = cpu.decide_arrays(pool[-1], *tok, now)
+    d_gpu, d_cpu = delta(eng.stats.snapshot(), sb), delta(cpu.stats.snapshot(), cb)
+    # prefill batch EXPIRED_PREFILL's windows end at `now` itself, still live
+    check_responses(out, LIMIT, now - 1, "two-tier eviction batch")
+    same_as_cpu(eng, cpu, out, ref, "two-tier eviction batch", stats=(d_gpu, d_cpu))
+    del cpu
+    # a folded prefill key's current-window estimate grew by its consumed
+    # hit; other keys' estimates move only on a collision in both rows
+    # with this batch's few updates (older windows' counts stay as noise,
+    # so the estimate alone does not tell)
+    folded = int((eng.sketch_estimates(expired, exp_dur, now) > est_before).sum())
+    if d_gpu["evictions"] <= 0 or folded <= 0 or d_gpu["dropped"] <= 0:
+        fail(f"two-tier eviction batch: {d_gpu['evictions']} evictions, "
+             f"{folded} folded keys, {d_gpu['dropped']} sketch-served groups")
+    emit(dict(phase="check", path="two_tier", batch="eviction", algo=0,
+              cpu_identical=True, folded_keys=folded, stats=d_gpu))
+
+    launches = writeback.writeback_add.launches
+    if launches != decides + install_chunks or launches == 0:
+        fail(f"two-tier path: writeback kernel launched {launches} times for "
+             f"{decides} decides + {install_chunks} install chunks")
+    emit(dict(main, decides=decides, install_chunks=install_chunks, kernel_launches=launches))
+    del eng
+    torch.cuda.empty_cache()
+    return dict(launches=launches, decides=decides, install_chunks=install_chunks)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "false); this script measures the port on a GPU", file=sys.stderr)
+        return 2
+    # the port, from this checkout (fails here when run outside the repo)
+    from gubernator_tpu_torch.core import writeback
+    from gubernator_tpu_torch.core.engine import buckets_for_limit
+    from gubernator_tpu_torch.core.sketches import derive_two_tier_config
+    from gubernator_tpu_torch.core.store import derive_store_config
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
+    print(card, flush=True)
+    kind = torch.cuda.get_device_name(0)
+    emit(dict(phase="device", kind=kind, nvidia_smi=card, torch=torch.__version__,
+              cuda=torch.version.cuda, count=torch.cuda.device_count()))
+
+    # 1. build --------------------------------------------------------------
+    t0 = time.monotonic()
+    lib_path = writeback.build()
+    writeback._load()
+    log_path = lib_path.with_suffix(".log")
+    emit(dict(phase="build", seconds=time.monotonic() - t0, library=lib_path.name,
+              ptxas=[ln.strip() for ln in log_path.read_text().splitlines()
+                     if "registers" in ln or "spill" in ln] if log_path.exists() else []))
+
+    # 2. kernel vs plain at the paths' shapes ---------------------------------
+    exact_cfg = derive_store_config(mib=1024)
+    if (exact_cfg.rows, exact_cfg.slots) != (16, 1 << 21):
+        fail(f"GUBER_STORE_MIB=1024 derived {exact_cfg}, not 2^21 x 16")
+    two_cfg, _skc = derive_two_tier_config(1024)
+    ladder = buckets_for_limit(DEPTH)
+    cyc = sleep_cycles_per_ms()
+    rng = np.random.default_rng(11)
+    cases = {
+        "exact": kernel_case(
+            "exact path: 2^21 buckets, G of a zipf10m batch", exact_cfg.slots,
+            [group_buckets(ladder, exact_cfg.slots, zipf_hashes(DEPTH, seed=7 + s))
+             for s in range(KERNEL_SETS)], 1, cyc),
+        "sweep": kernel_case(
+            "sweep regime: 4096 buckets, B=32768", 4096,
+            [np.sort(rng.integers(0, 4096, DEPTH)).astype(np.int32)
+             for _ in range(KERNEL_SETS)], 2, cyc),
+        "two_tier": kernel_case(
+            "two-tier path: 2^20 buckets, G of a zipf100m batch", two_cfg.slots,
+            [group_buckets(ladder, two_cfg.slots,
+                           zipf_hashes(DEPTH, seed=7 + s, key_space=KEY_SPACE_100M))
+             for s in range(KERNEL_SETS)], 3, cyc),
+    }
+    for path, c in cases.items():
+        emit(dict(phase="kernel", kernel="writeback_add", path=path, card=card, **c))
+
+    # 3-5. the two paths, each with the launch count set to 0 before it -------
+    exact = exact_path(card, ladder, writeback)
+    two = two_tier_path(card, ladder, writeback)
+
+    main_case = cases["two_tier"]
     emit({"kernels": [dict(
         name="writeback_add", route="cuda",
         source="gubernator_tpu_torch/csrc/writeback.cu",
         replaces="gubernator_tpu/core/pallas_sweep.py:97",
-        launches=launches, max_abs_err=main_case["max_abs_err"],
+        launches=two["launches"], max_abs_err=max(c["max_abs_err"] for c in cases.values()),
         ms=main_case["ms"], plain_ms=main_case["plain_ms"],
         bound_ms=main_case["bound_ms"], bound_by="bytes",
         library_ms=main_case["library_ms"],
+        launches_by_path={"exact": exact["launches"], "two_tier": two["launches"]},
     )]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -1,5 +1,5 @@
-"""gubernator-tpu on PyTorch and CUDA: the rate limiter's exact tier for
-one NVIDIA GPU.
+"""gubernator-tpu on PyTorch and CUDA: the rate limiter's two-tier store
+(exact slot store + count-min cold tier) for one NVIDIA GPU.
 
 A port of `gubernator_tpu` (the JAX/TPU package, which stays the
 reference) with the same module names, so each counterpart is found in
@@ -8,11 +8,15 @@ the same place:
 - `api.types`: the wire-level request/response types (a copy).
 - `core.hashing`, `core.store`, `core.algorithms`: key hashing, the
   dense int32 slot store and its lane layout, the algorithm registry.
-- `core.kernels`: the exact-tier batched decide, as eager tensor code.
+- `core.sketches`: the cold tier's geometry, the MiB carve-out of both
+  tiers, and the host twins of its indexing.
+- `core.kernels`: the batched decide (exact tier and two-tier), the
+  device-sorted `decide` and the window install `upsert_globals`, as
+  eager tensor code.
 - `core.writeback`: the store writeback, a hand-written CUDA kernel for
   Hopper (`csrc/writeback.cu`) beside its plain PyTorch version.
 - `core.engine`, `parallel.sharded`: host glue and the single-device
-  `TorchEngine`.
+  `TorchEngine`, with the promoter's engine surfaces.
 
 The package imports `torch` and numpy, never `jax`, and nothing of
 `gubernator_tpu`. Entry points run on `cuda` unless the caller passes

@@ -6,7 +6,8 @@ fingerprint) on the host and derives the duplicate-key group structure
 the decide runs its store I/O on, maps int64 unix-ms onto the store's
 int32 engine-ms envelope (EpochClock) and unpermutes the responses. All
 of it is numpy and byte-identical to the JAX package's numpy path; the
-device side takes the padded arrays as tensors (`to_device`).
+device side takes the padded arrays as tensors (`to_device`) and runs
+`decide_packed` (exact tier) or `decide_packed_sketch` (two-tier).
 
 The engine object itself is `TorchEngine` (parallel/sharded.py), also
 importable from here as in the JAX package.
@@ -21,7 +22,13 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from gubernator_tpu_torch.core.kernels import BatchGroups, BatchRequest
+from gubernator_tpu_torch.core.kernels import (
+    BatchGroups,
+    BatchRequest,
+    decide_presorted,
+    decide_presorted_sketch,
+    pack_outputs,
+)
 from gubernator_tpu_torch.core.store import (
     COUNTER_MAX,
     MAX_DURATION_MS,
@@ -173,6 +180,37 @@ def build_groups(
         valid=g_valid,
         group_id=group_id,
     )
+
+
+def pad_to_bucket(buckets: Sequence[int], n: int, *arrs):
+    """Pad (array, dtype) pairs with zeros to the chosen bucket; returns
+    (padded_arrays..., valid_mask)."""
+    B = choose_bucket(buckets, n)
+    out = []
+    for x, dtype in arrs:
+        p = np.zeros(B, dtype)
+        p[:n] = x
+        out.append(p)
+    valid = np.zeros(B, bool)
+    valid[:n] = True
+    return (*out, valid)
+
+
+def decide_packed(store, req, now, groups=None):
+    """Exact-tier decide_presorted + pack_outputs: (store, packed), one
+    host transfer per batch (the reference's _decide_packed_jit)."""
+    store, resp, stats = decide_presorted(store, req, now, groups)
+    return store, pack_outputs(resp, stats)
+
+
+def decide_packed_sketch(store, sketch, req, now, groups=None):
+    """Two-tier twin of decide_packed (the reference's
+    _decide_packed_sketch_jit): store AND sketch update in place, the
+    packed layout is identical, so decide_wait serves both."""
+    store, sketch, resp, stats = decide_presorted_sketch(
+        store, sketch, req, now, groups
+    )
+    return store, sketch, pack_outputs(resp, stats)
 
 
 def pad_request_sorted(

@@ -1,5 +1,5 @@
-"""The batched rate-limit decide, exact tier (PyTorch port of
-gubernator_tpu.core.kernels).
+"""The batched rate-limit decide (PyTorch port of
+gubernator_tpu.core.kernels): the exact tier and the two-tier store.
 
 One branch-free pass evaluates a whole presorted batch of requests
 against the slot store: every reference branch is a mask, the per-key
@@ -8,7 +8,18 @@ one add of delta rows (core.writeback, a hand-written CUDA kernel on the
 card). Semantics, caller contract and the cumulative-attempt rule for
 duplicate keys are the JAX package's, documented at
 gubernator_tpu/core/kernels.py:1-85 and :563-599; this module reproduces
-its results byte for byte (tests/test_torch_decide.py).
+its results byte for byte (tests/test_torch_decide.py,
+tests/test_torch_sketch.py).
+
+With a `Sketch` (decide_presorted_sketch), creates the exact tier
+refuses (way exhaustion, or a live eviction victim) are decided from the
+count-min cold tier instead, dead token victims' consumed counts fold
+into it, and the tier takes a conservative update: per row, a
+scatter-max of estimate + charged, saturating at the counter dtype's max
+(gubernator_tpu/core/kernels.py:532-560, :841-1011, :1147-1179). The
+sketch tensor is updated in place like the store. `decide` and
+`upsert_globals` sort on the device (stable argsort on the unsigned
+order of core.store.group_sort_key) and reuse the same writeback.
 
 PyTorch idiom: plain functions on tensors, eager. The store tensor is
 updated IN PLACE (JAX donates it), and every tensor of one call lives on
@@ -24,11 +35,12 @@ the store's device. What differs from jnp and is handled here:
 - first-index ties of jnp.argmax/argmin are computed explicitly
   (`_first_true`), so they hold on every device;
 - torch indexing raises on out-of-range indices where jnp.take clips, so
-  the JAX code's explicit clips (lead_clip) are kept.
+  the JAX code's explicit clips (lead_clip) are kept;
+- uint64 casts of window ids and key halves are int64 sign extension
+  and masks; the uint64 multiplies wrap identically in int64.
 
-Not ported in this slice: the sketch cold tier (decide_presorted_sketch)
-and quota chains (decide_presorted_chain); `_decide_presorted` raises
-NotImplementedError for either.
+Not ported yet: quota chains (decide_presorted_chain); `_decide_presorted`
+raises NotImplementedError for a chain.
 """
 
 from __future__ import annotations
@@ -38,14 +50,21 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from gubernator_tpu_torch.core.algorithms import SLIDING_MAX_DURATION_MS
+from gubernator_tpu_torch.core.sketches import (
+    SKETCH_SALTS_I64,
+    WINDOW_MIX_I64,
+    Sketch,
+)
 from gubernator_tpu_torch.core.store import (
     FLAG_ALGO_GCRA,
     FLAG_ALGO_LEAKY,
+    FLAG_ALGO_MASK,
     FLAG_ALGO_SLIDING,
     FLAG_STICKY_OVER,
     L_DURATION,
     L_EXPIRE,
     L_FLAGS,
+    L_KEYLOW,
     L_LIMIT,
     L_REMAINING,
     L_TAG,
@@ -53,8 +72,12 @@ from gubernator_tpu_torch.core.store import (
     LANES,
     Store,
     bucket_index,
+    decode_sort_key,
     fingerprints,
+    group_sort_key,
     low32,
+    mix64,
+    unsigned_order,
 )
 from gubernator_tpu_torch.core.writeback import writeback_add
 
@@ -178,6 +201,31 @@ def _segment_ends(is_leader: torch.Tensor) -> torch.Tensor:
     return torch.cat([next_incl[1:], next_incl.new_full((1,), B)]) - 1
 
 
+def _sketch_lookup(sketch: Sketch, kh: torch.Tensor, wid: torch.Tensor):
+    """Per-group (min-estimate int64[G], per-row index list int32[G]) for
+    window-keyed key hashes (int64 bit patterns). `wid` may be int32: it
+    is sign-extended to int64 as jnp's cast to uint64 does, and the
+    window-mix multiply wraps like uint64. MUST stay bit-identical to
+    core.sketches.sketch_indices_np (test-pinned)."""
+    rows, width = sketch.data.shape
+    base = mix64(kh ^ (wid.to(_i64) * WINDOW_MIX_I64))
+    idxs = [
+        (mix64(base ^ SKETCH_SALTS_I64[r]) & (width - 1)).to(_i32)
+        for r in range(rows)
+    ]
+    return sketch_min(sketch.data, idxs).to(_i64), idxs
+
+
+def sketch_min(data: torch.Tensor, idxs) -> torch.Tensor:
+    """Min over rows r of data[r, idxs[r]]: the count-min estimate at
+    per-row counter indices (a list of [n] tensors or one [rows, n])."""
+    est = None
+    for r, idx in enumerate(idxs):
+        c = data[r].index_select(0, idx)
+        est = c if est is None else torch.minimum(est, c)
+    return est
+
+
 def _writeback_plan(
     cand: torch.Tensor,  # int32[G, ways, LANES] pre-write bucket contents
     bkt: torch.Tensor,  # int32[G] bucket per item, sorted non-decreasing
@@ -247,6 +295,31 @@ def _writeback_apply(
     return writeback_add(data, bkt, drow.view(G, ways * LANES))
 
 
+def _writeback_delta_add(
+    data: torch.Tensor,  # int32[buckets, ways*LANES], updated in place
+    bkt: torch.Tensor,  # int32[B] sorted bucket per item, in range
+    write_item: torch.Tensor,  # bool[B] at most one writer per group
+    found: torch.Tensor,  # bool[B] tag matched in the bucket
+    fway: torch.Tensor,  # int32[B] matching way (valid where found)
+    eway: torch.Tensor,  # int32[B] eviction-candidate way
+    new_vals: torch.Tensor,  # int32[B, LANES] the update for writer rows
+    cand: torch.Tensor,  # int32[B, ways, LANES] pre-write bucket contents
+    is_b_leader: torch.Tensor,  # bool[B] first item of its bucket segment
+    b_end: torch.Tensor,  # int32[B] inclusive end of the bucket segment
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """_writeback_plan + _writeback_apply in one call: (data, n_dropped,
+    n_evicted). The way-disjointness argument that lets the delta rows
+    add without a merge is gubernator_tpu/core/kernels.py:436-470."""
+    writer, way, dropped, evicted = _writeback_plan(
+        cand, bkt, write_item, found, fway, eway, is_b_leader, b_end
+    )
+    return (
+        _writeback_apply(data, bkt, writer, way, new_vals, cand),
+        dropped.sum().to(_i32),
+        evicted.sum().to(_i32),
+    )
+
+
 def decide_presorted(
     store: Store,
     req: BatchRequest,
@@ -259,6 +332,22 @@ def decide_presorted(
     engine-ms. See _decide_presorted for the caller contract."""
     store, _sketch, resp, stats = _decide_presorted(store, req, now, groups, None)
     return store, resp, stats
+
+
+def decide_presorted_sketch(
+    store: Store,
+    sketch: Sketch,
+    req: BatchRequest,
+    now,
+    groups: Optional[BatchGroups] = None,
+) -> Tuple[Store, Sketch, BatchResponse, BatchStats]:
+    """Two-tier decide: the exact slot store stays the heavy-hitter tier
+    with byte-identical semantics, and creates it refuses are decided
+    from the count-min cold tier (fail-closed: estimates never
+    under-count what they were charged). Updates `store.data` and
+    `sketch.data` in place; `stats.dropped` counts the sketch-served
+    groups. Mirrors gubernator_tpu/core/kernels.py:532."""
+    return _decide_presorted(store, req, now, groups, sketch)
 
 
 def _decide_presorted(
@@ -275,11 +364,8 @@ def _decide_presorted(
     padding rows repeat the last real key with valid=False; `groups`
     (optional) is the host-computed group structure padded to a [G]
     rung, else it is derived here at G == B. Mirrors
-    gubernator_tpu/core/kernels.py:563 with sketch=None, chain_id=None."""
-    if sketch is not None:
-        raise NotImplementedError(
-            "the sketch cold tier is not ported yet (exact tier only)"
-        )
+    gubernator_tpu/core/kernels.py:563 with chain_id=None; `sketch` is
+    None (exact only) or the cold tier's Sketch."""
     if chain_id is not None:
         raise NotImplementedError("quota chains are not ported yet")
 
@@ -444,6 +530,90 @@ def _decide_presorted(
         cand, bkt, w_mask, found, fway, eway, is_b_leader_G, b_end_G
     )
 
+    existing0 = existing  # before the sketch override below
+    if sketch is not None:
+        # live-victim protection: a create whose eviction victim is still
+        # LIVE goes to the sketch instead of wiping the victim's window
+        v_sel = cand[torch.arange(G, device=dev), eway.long()]
+        victim_live = (v_sel[:, L_TAG] != 0) & (v_sel[:, L_EXPIRE] >= now)
+        sk_extra = evicted_G & victim_live
+        dropped_G = dropped_G | sk_extra
+        evicted_G = evicted_G & ~sk_extra
+
+        # eviction -> sketch fold: a recycled DEAD token victim whose
+        # window overlaps its key's current fixed window folds its
+        # consumed count (its whole limit if sticky-over) into the sketch
+        # at (victim key, current window); the key hash is rebuilt from
+        # L_TAG (high 32 bits) | L_KEYLOW (low 32 bits)
+        v_dur_pos = torch.clamp_min(v_sel[:, L_DURATION], 1)
+        v_wid = now // v_dur_pos
+        v_overlap = v_sel[:, L_EXPIRE] > v_wid * v_dur_pos
+        v_token = (v_sel[:, L_FLAGS] & FLAG_ALGO_MASK) == 0
+        v_sticky = (v_sel[:, L_FLAGS] & FLAG_STICKY_OVER) != 0
+        v_consumed = torch.clamp_min(
+            torch.where(
+                v_sticky, v_sel[:, L_LIMIT], v_sel[:, L_LIMIT] - v_sel[:, L_REMAINING]
+            ),
+            0,
+        )
+        fold_G = evicted_G & v_overlap & v_token & (v_consumed > 0)
+        v_kh = ((v_sel[:, L_TAG].to(_i64) & 0xFFFFFFFF) << 32) | (
+            v_sel[:, L_KEYLOW].to(_i64) & 0xFFFFFFFF
+        )
+        v_est, v_idx = _sketch_lookup(sketch, v_kh, v_wid)
+        v_upd = torch.where(fold_G, v_est + v_consumed.to(_i64), 0)
+        writer_G = writer_G & ~sk_extra
+
+        # sketch-served groups: token/leaky on fixed-window token math
+        # over the current window's estimate; sliding on the window-ring
+        # blend of the current and previous windows; GCRA on a TAT
+        # re-quantized from the same two estimates (host twins:
+        # core.algorithms.sketch_sliding_budget / sketch_gcra_budget)
+        sk_g = dropped_G
+        sk_tok = sk_g & (eff_algo <= 1)
+        sk_sld = sk_g & (eff_algo == 2)
+        sk_gcra = sk_g & (eff_algo == 3)
+        dur_pos = torch.clamp_min(g_durQ, 1)
+        wid = now // dur_pos  # int32: engine now >= 0
+        window_end = (wid + 1) * dur_pos
+        sk_est, sk_idx = _sketch_lookup(sketch, kh_G, wid)
+        sk_prev, _ = _sketch_lookup(sketch, kh_G, wid - 1)  # -1 at window 0
+        est32 = torch.clamp_max(sk_est, _I32_MAX).to(_i32)
+        lim_pos = torch.clamp_min(g_limQ, 0)
+        est_c = torch.minimum(est32, lim_pos)
+        lim64 = lim_pos.to(_i64)
+        cur_c = torch.minimum(sk_est, lim64)
+        prev_c = torch.minimum(sk_prev, lim64)
+        d64 = dur_pos.to(_i64)
+        wend64 = window_end.to(_i64)
+        sld_used_sk = cur_c + (prev_c * (wend64 - now64)) // d64
+        R0_sk_sld = _clip(g_limQ.to(_i64) - sld_used_sk, 0, lim64).to(_i32)
+        ws64 = wend64 - d64  # current epoch window start
+        tatq = torch.clamp_min(ws64 - d64 + gcra_tau + gcra_T, now64) + (
+            cur_c + prev_c
+        ) * gcra_T
+        # floor division: now + tau - tatq is negative once the TAT runs
+        # past the burst tolerance
+        R0_sk_gcra = _clip(
+            torch.div(now64 + gcra_tau - tatq, gcra_T, rounding_mode="floor"),
+            0,
+            lim64,
+        ).to(_i32)
+        # sketch groups ride the "existing window" machinery; token/leaky
+        # collapse to algo 0, sliding/GCRA keep theirs with the ring budget
+        existing = existing | sk_g
+        eff_leaky = eff_leaky & ~sk_g
+        eff_algo = torch.where(sk_tok, 0, eff_algo)
+        R0 = torch.where(sk_g, torch.clamp_min(g_limQ - est_c, 0), R0)
+        R0 = torch.where(sk_sld, R0_sk_sld, R0)
+        R0 = torch.where(sk_gcra, R0_sk_gcra, R0)
+        sticky0 = sticky0 & ~sk_g
+        g_exp = torch.where(sk_g, window_end, g_exp)  # token reset
+        sld_reset_G = torch.where(sk_sld, window_end, sld_reset_G)
+        gcra_tat0 = torch.where(sk_gcra, torch.clamp_max(tatq, _I32_MAX), gcra_tat0)
+        g_limS = torch.where(sk_g, g_limQ, g_limS)  # params echo the
+        g_durS = torch.where(sk_g, g_durQ, g_durS)  # request's
+
     # ---- bridge: group values needed per request, one stacked gather ------
     bridge = torch.stack(
         [
@@ -460,7 +630,8 @@ def _decide_presorted(
             g_durQ,
             over_c.to(_i32),
             leaky_zero.to(_i32),
-            (existing & (stored_algo == 0)).to(_i32),
+            # existing0: a sketch-served group is not a token replica
+            (existing0 & (stored_algo == 0)).to(_i32),
             charged_ldr.to(_i32),
             g_hits,
             eff_algo,
@@ -536,6 +707,20 @@ def _decide_presorted(
     any_decr = ends[:, 3] > 0
     z_lead = torch.stack([c3, z.to(_i32)], dim=-1)[lead_clip]
     any_z = (ends[:, 4] - (z_lead[:, 0] - z_lead[:, 1])) > 0
+
+    # ---- sketch conservative update at [G] --------------------------------
+    if sketch is not None:
+        # each row takes max(counter, estimate + charged), saturating at
+        # the counter dtype's max; non-sketch groups write 0 (a no-op on
+        # non-negative counters). scatter-max commutes, so duplicate
+        # indices and the fold's order do not matter.
+        data_sk = sketch.data
+        cmax = torch.iinfo(data_sk.dtype).max
+        upd = torch.where(sk_g, sk_est + total_charged.to(_i64), 0)
+        for upd_r, idx_rows in ((upd, sk_idx), (v_upd, v_idx)):
+            upd_w = torch.clamp_max(upd_r, cmax).to(data_sk.dtype)
+            for r, idx in enumerate(idx_rows):
+                data_sk[r].scatter_reduce_(0, idx.long(), upd_w, reduce="amax")
 
     # ---- responses --------------------------------------------------------
     st_cached = torch.where(sticky_live, OVER, UNDER)
@@ -685,7 +870,142 @@ def _decide_presorted(
         dropped=dropped_G.sum().to(_i32),
         evictions=evicted_G.sum().to(_i32),
     )
-    return store, None, resp, stats
+    return store, sketch, resp, stats
+
+
+def decide(
+    store: Store, req: BatchRequest, now
+) -> Tuple[Store, BatchResponse, BatchStats]:
+    """Exact-tier decide of one padded batch in ARBITRARY row order:
+    sorts on the device (stable, invalid rows last), runs
+    decide_presorted and unsorts the responses. For callers without a
+    host presort; the engine presorts on the host. Mirrors
+    gubernator_tpu/core/kernels.py:1458."""
+    buckets = store.data.shape[0]
+    sort_key = group_sort_key(req.key_hash, req.valid, buckets)
+    order = torch.argsort(unsigned_order(sort_key), stable=True)
+    kh_s = req.key_hash[order]
+    req_stack = torch.stack(
+        [
+            req.hits,
+            req.limit,
+            req.duration,
+            req.algo,
+            req.gnp.to(_i32),
+            req.valid.to(_i32),
+        ],
+        dim=-1,
+    )[order]
+    valid_s = req_stack[:, 5] != 0
+    # invalid rows sorted to the tail repeat the last valid row's key so
+    # the bucket stream stays monotonic (the presorted caller contract)
+    n_valid = valid_s.sum()
+    last_kh = kh_s[torch.clamp_min(n_valid - 1, 0)]
+    kh_s = torch.where(valid_s, kh_s, last_kh)
+    sorted_req = BatchRequest(
+        key_hash=kh_s,
+        hits=req_stack[:, 0],
+        limit=req_stack[:, 1],
+        duration=req_stack[:, 2],
+        algo=req_stack[:, 3],
+        gnp=req_stack[:, 4] != 0,
+        valid=valid_s,
+    )
+    store, resp_s, stats = decide_presorted(store, sorted_req, now)
+    resp_stack = torch.stack(
+        [resp_s.status, resp_s.limit, resp_s.remaining, resp_s.reset_time], dim=-1
+    )
+    unsorted = torch.zeros_like(resp_stack)
+    unsorted[order] = resp_stack
+    resp = BatchResponse(
+        status=unsorted[:, 0],
+        limit=unsorted[:, 1],
+        remaining=unsorted[:, 2],
+        reset_time=unsorted[:, 3],
+    )
+    return store, resp, stats
+
+
+def upsert_globals(
+    store: Store,
+    key_hash: torch.Tensor,  # int64 bit patterns [B]
+    limit: torch.Tensor,  # int32[B]
+    remaining: torch.Tensor,  # int32[B]
+    reset_time: torch.Tensor,  # int32[B] engine-ms
+    is_over: torch.Tensor,  # bool[B]
+    valid: torch.Tensor,  # bool[B]
+    duration: Optional[torch.Tensor] = None,  # int32[B] raw L_DURATION
+    ts: Optional[torch.Tensor] = None,  # int32[B] raw L_TS
+    flags: Optional[torch.Tensor] = None,  # int32[B] full L_FLAGS word
+) -> Store:
+    """Install windows for pre-hashed keys IN PLACE: the GLOBAL replica
+    install and the sketch promoter's migration surface. Sorts by bucket
+    on the device and writes through the decide's writeback; for
+    duplicate keys the LAST in batch order wins. Without the optional
+    lanes the entry is a token replica (zero duration/ts, a flags word of
+    the sticky bit alone); with them the raw lanes land verbatim, so an
+    entry of any algorithm reinstalls byte-exact. Mirrors
+    gubernator_tpu/core/kernels.py:1518."""
+    data = store.data
+    buckets, W = data.shape
+    ways = W // LANES
+    B = key_hash.shape[0]
+    dev = data.device
+
+    sort_key = group_sort_key(key_hash, valid, buckets)
+    order = torch.argsort(unsigned_order(sort_key), stable=True)
+    skey = sort_key[order]
+    bkt, fp = decode_sort_key(skey, buckets)
+    valid_s = valid[order]
+    stack = torch.stack(
+        [limit, remaining, reset_time, is_over.to(_i32)], dim=-1
+    )[order]
+
+    cand = data.index_select(0, bkt).view(B, ways, LANES)
+    match = (cand[:, :, L_TAG] == fp[:, None]) & valid_s[:, None]
+    found = match.any(dim=1)
+    fway = _first_true(match)
+    evict_key = torch.where(cand[:, :, L_TAG] == 0, _I32_MIN, cand[:, :, L_EXPIRE])
+    eway = _argmin_first(evict_key)
+
+    zero = torch.zeros_like(bkt)
+    if flags is None:
+        flags_s = torch.where(stack[:, 3] != 0, FLAG_STICKY_OVER, 0).to(_i32)
+    else:
+        flags_s = flags.to(_i32)[order]
+    dur_s = zero if duration is None else duration.to(_i32)[order]
+    ts_s = zero if ts is None else ts.to(_i32)[order]
+    new_vals = torch.stack(
+        [fp, stack[:, 2], stack[:, 1], ts_s, stack[:, 0], dur_s, flags_s,
+         low32(key_hash[order])],
+        dim=-1,
+    )
+
+    # the writer of each (bucket, fp) group is its LAST member
+    true1 = torch.ones(1, dtype=torch.bool, device=dev)
+    is_last = torch.cat([skey[:-1] != skey[1:], true1])
+    writer = valid_s & is_last
+    is_b_leader = torch.cat([true1, bkt[1:] != bkt[:-1]])
+    # drop/eviction counts are discarded: installs shed replica state,
+    # not the owner-side admission state the over-admission alarm watches
+    _writeback_delta_add(
+        data, bkt, writer, found, fway, eway, new_vals, cand,
+        is_b_leader, _segment_ends(is_b_leader),
+    )
+    return store
+
+
+def upsert_windows(
+    store: Store, key_hash, limit, remaining, reset_time, duration, ts, flags, valid
+) -> Store:
+    """Full-lane window install (the reference's upsert_windows_jit,
+    kernels.py:1672): upsert_globals carrying the raw L_DURATION / L_TS /
+    L_FLAGS words; the sticky bit comes from `flags`."""
+    return upsert_globals(
+        store, key_hash, limit, remaining, reset_time,
+        (flags & FLAG_STICKY_OVER) != 0, valid,
+        duration=duration, ts=ts, flags=flags,
+    )
 
 
 def pack_outputs(resp: BatchResponse, stats: BatchStats) -> torch.Tensor:

@@ -255,6 +255,38 @@ def key_hash_tensor(
     return torch.from_numpy(kh).to(device or "cpu")
 
 
+_SORT_KEY_INVALID = -1  # the reference's all-ones uint64 sentinel
+_SIGN_BIT = -(1 << 63)
+
+
+def group_sort_key(
+    key_hash: torch.Tensor, valid: torch.Tensor, buckets: int
+) -> torch.Tensor:
+    """[B] (bucket << 32 | fingerprint) sort key as int64 bit patterns of
+    the reference's uint64 key; invalid rows carry the all-ones sentinel
+    (-1 here), which must sort LAST: sort on `unsigned_order(key)`.
+    Decode with decode_sort_key."""
+    bkt = bucket_index(key_hash, buckets).to(torch.int64)
+    fp = fingerprints(key_hash).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(valid, (bkt << 32) | fp, _SORT_KEY_INVALID)
+
+
+def unsigned_order(key: torch.Tensor) -> torch.Tensor:
+    """int64 bit patterns mapped so that signed order is the uint64 order
+    of the same bits (flip the sign bit)."""
+    return key ^ _SIGN_BIT
+
+
+def decode_sort_key(skey: torch.Tensor, buckets: int):
+    """(bkt int32, fp int32) from sorted group_sort_key values. The
+    invalid tail decodes to 2^32-1 and is clamped (as the reference's
+    unsigned minimum) to buckets-1, so the bucket stream stays
+    non-decreasing; its fp is garbage that the caller's valid mask
+    ignores."""
+    bkt = torch.clamp_max(_srl(skey, 32), buckets - 1).to(torch.int32)
+    return bkt, low32(skey)
+
+
 def group_sort_key_np(key_hash: np.ndarray, buckets: int) -> np.ndarray:
     """uint64 (bucket << 32 | fingerprint) for presorting batches on the
     host (engine.pad_request_sorted). Must stay bit-identical to the

@@ -1,19 +1,22 @@
 """TorchEngine: the single-device engine (PyTorch port of the flat half
 of gubernator_tpu.parallel.sharded.PartitionedEngine).
 
-Host glue + the exact-tier decide for a slot store resident on one
-device: presort and pad each batch on the host (core.engine), copy the
-padded arrays to the device, run the decide (which updates the store
-tensor in place; JAX donates it instead), and fetch ONE packed int32
-array of responses + stats per batch.
+Host glue + the decide for a slot store resident on one device, with or
+without the count-min cold tier: presort and pad each batch on the host
+(core.engine), copy the padded arrays to the device, run the exact-tier
+or two-tier decide (which update the store and sketch tensors in place;
+JAX donates them instead), and fetch ONE packed int32 array of
+responses + stats per batch.
 
-Ported surfaces: construction, reset and the epoch clock with its store
-rebase, the request-object API (get_rate_limits[_submit/_wait]), the
-array API (decide_submit / decide_wait / decide_arrays), warmup, and
-load_state, which carries a JAX engine's store and clock across. Not
-ported in this slice: the mesh policy, the sketch cold tier, quota
-chains, GLOBAL replica install/sync, the promoter's host reads and the
-arrival-prep merge path.
+Ported surfaces: construction (optionally with a SketchConfig), reset
+and the epoch clock with its store rebase (both clear the sketch), the
+request-object API (get_rate_limits[_submit/_wait]), the array API
+(decide_submit / decide_wait / decide_arrays), the promoter's engine
+surfaces (sketch_estimates, live_mask, snapshot_read, install_windows,
+promote_from_sketch), warmup, and load_state, which carries a JAX
+engine's store, sketch and clock across. Not ported yet: the mesh
+policy, quota chains, GLOBAL sync, the serving tier's promoter loop and
+the arrival-prep merge path.
 
 Thread model: not thread-safe, like the reference engine; one serving
 thread owns it.
@@ -30,18 +33,41 @@ from gubernator_tpu_torch.api import types as api_types
 from gubernator_tpu_torch.core.engine import (
     EngineStats,
     EpochClock,
+    _sat_i32,
+    decide_packed,
+    decide_packed_sketch,
     pad_request_sorted,
+    pad_to_bucket,
     to_device,
     unpermute_responses,
 )
 from gubernator_tpu_torch.core.kernels import (
-    decide_presorted,
-    pack_outputs,
+    sketch_min,
     unpack_outputs,
+    upsert_globals,
+    upsert_windows,
+)
+from gubernator_tpu_torch.core.sketches import (
+    SketchConfig,
+    new_sketch,
+    sketch_indices_np,
+    window_id_np,
 )
 from gubernator_tpu_torch.core.store import (
+    FLAG_ALGO_LEAKY,
+    FLAG_STICKY_OVER,
+    L_DURATION,
+    L_EXPIRE,
+    L_FLAGS,
+    L_LIMIT,
+    L_REMAINING,
+    L_TAG,
+    LANES,
     DeviceLike,
     StoreConfig,
+    bucket_index,
+    fingerprints,
+    key_hash_tensor,
     new_store,
     rebase,
     resolve_device,
@@ -50,13 +76,15 @@ from gubernator_tpu_torch.core.store import (
 
 class TorchEngine:
     """Single-device engine over a slot store on `device` (cuda unless
-    the caller passes another; see core.store.resolve_device)."""
+    the caller passes another; see core.store.resolve_device), with the
+    count-min cold tier beside it when `sketch` is a SketchConfig."""
 
     def __init__(
         self,
         config: StoreConfig = StoreConfig(),
         buckets: Sequence[int] = (64, 256, 1024, 4096),
         device: DeviceLike = None,
+        sketch: Optional[SketchConfig] = None,
     ):
         self.config = config
         self.buckets = sorted(buckets)
@@ -64,10 +92,18 @@ class TorchEngine:
         self.clock = EpochClock()
         self.stats = EngineStats()
         self.store = new_store(config, self.device)
+        # `sketch_on` flips between the two-tier and the exact-only
+        # decide at run time (the reference's A/B flag)
+        self.sketch_config = sketch
+        self.sketch = None if sketch is None else new_sketch(sketch, self.device)
+        self.sketch_on = sketch is not None
 
     def reset(self) -> None:
-        """Wipe the store in place (the clock keeps its epoch)."""
+        """Wipe the store and the sketch in place (the clock keeps its
+        epoch)."""
         self.store.data.zero_()
+        if self.sketch is not None:
+            self.sketch.data.zero_()
 
     def _engine_now(self, now: int) -> np.int32:
         e, delta, reset_required = self.clock.advance(now)
@@ -75,20 +111,48 @@ class TorchEngine:
             self.reset()
         elif delta is not None:
             rebase(self.store, delta)
+            if self.sketch is not None:
+                # sketch windows are keyed by engine-ms // duration: a
+                # rebase moves every window id, so the counts are cleared
+                self.sketch.data.zero_()
         return e
 
-    def load_state(self, store_np: np.ndarray, epoch: Optional[int]) -> None:
+    def load_state(
+        self,
+        store_np: np.ndarray,
+        epoch: Optional[int],
+        sketch_np: Optional[np.ndarray] = None,
+    ) -> None:
         """Carry another engine's state across: the int32[buckets, W]
-        store bytes (e.g. a JAX TpuEngine's `np.asarray(store.data)`)
-        and its clock epoch (`clock.epoch`)."""
+        store bytes (e.g. a JAX TpuEngine's `np.asarray(store.data)`),
+        its clock epoch (`clock.epoch`) and, for a two-tier engine, its
+        sketch counters (`np.asarray(sketch.data)`, int32 or int64
+        [rows, width]); a two-tier engine given no sketch starts with an
+        empty one."""
         want = tuple(self.store.data.shape)
         if store_np.dtype != np.int32 or tuple(store_np.shape) != want:
             raise ValueError(
                 f"store {store_np.dtype}{list(store_np.shape)} does not "
                 f"match this engine's int32{list(want)}"
             )
+        if sketch_np is not None:
+            if self.sketch is None:
+                raise ValueError("this engine has no sketch tier to load into")
+            sk = self.sketch.data
+            want_dtype = np.int32 if sk.dtype == torch.int32 else np.int64
+            if sketch_np.dtype != want_dtype or tuple(sketch_np.shape) != tuple(sk.shape):
+                raise ValueError(
+                    f"sketch {sketch_np.dtype}{list(sketch_np.shape)} does not "
+                    f"match this engine's {sk.dtype}{list(sk.shape)}"
+                )
         arr = np.require(store_np, requirements=["C", "W"])
         self.store.data.copy_(torch.from_numpy(arr))
+        if self.sketch is not None:
+            if sketch_np is None:
+                self.sketch.data.zero_()
+            else:
+                sk_arr = np.require(sketch_np, requirements=["C", "W"])
+                self.sketch.data.copy_(torch.from_numpy(sk_arr))
         self.clock.epoch = None if epoch is None else int(epoch)
 
     # -- request-object API --------------------------------------------------
@@ -135,6 +199,17 @@ class TorchEngine:
 
     # -- array decide paths --------------------------------------------------
 
+    def _dispatch(self, req_t, groups_t, e_now) -> torch.Tensor:
+        """Run the exact-only or the two-tier decide on the device; returns
+        the packed output tensor."""
+        if self.sketch is not None and self.sketch_on:
+            _store, _sketch, packed = decide_packed_sketch(
+                self.store, self.sketch, req_t, e_now, groups_t
+            )
+            return packed
+        _store, packed = decide_packed(self.store, req_t, e_now, groups_t)
+        return packed
+
     def decide_submit(
         self,
         key_hash: np.ndarray,
@@ -162,10 +237,9 @@ class TorchEngine:
             gnp,
             with_groups=True,
         )
-        req_t = to_device(req, self.device)
-        groups_t = to_device(groups, self.device)
-        _store, resp, stats = decide_presorted(self.store, req_t, e_now, groups_t)
-        packed = pack_outputs(resp, stats)
+        packed = self._dispatch(
+            to_device(req, self.device), to_device(groups, self.device), e_now
+        )
         return packed, order, n, req.key_hash.shape[0], self.clock.epoch
 
     def decide_wait(
@@ -203,11 +277,233 @@ class TorchEngine:
             self.decide_submit(key_hash, hits, limit, duration, algo, gnp, now)
         )
 
+    # -- host-side state reads (non-mutating) --------------------------------
+
+    @staticmethod
+    def _pad_keys_pow2(key_hash: np.ndarray, *cols):
+        """Pad key hashes (+ parallel int64 columns) to a power-of-two
+        length (floor 64) by repeating the last row, so the reads run at
+        a few fixed shapes. Returns (kh, cols..., n)."""
+        n = int(key_hash.shape[0])
+        B = 1 << max(6, (n - 1).bit_length())
+        kh = np.empty(B, np.uint64)
+        kh[:n] = key_hash
+        kh[n:] = kh[n - 1] if n else 0
+        out = [kh]
+        for c in cols:
+            p = np.empty(B, np.int64)
+            p[:n] = c
+            p[n:] = p[n - 1] if n else 0
+            out.append(p)
+        out.append(n)
+        return tuple(out)
+
+    def _gather_entries(self, kh_padded: np.ndarray):
+        """(rows int32[B, ways, LANES], fp int32[B]) as host arrays: each
+        key's bucket row and tag, gathered on the device. The one lookup
+        snapshot_read and live_mask share."""
+        kh = key_hash_tensor(kh_padded, self.device)
+        rows = self.store.data.index_select(0, bucket_index(kh, self.config.slots))
+        return (
+            rows.cpu().numpy().reshape(kh_padded.shape[0], -1, LANES),
+            fingerprints(kh).cpu().numpy(),
+        )
+
+    def snapshot_read(self, key_hash: np.ndarray, now: Optional[int] = None):
+        """NON-MUTATING host read of the store for these uint64 key
+        hashes: per key, (limit, duration, remaining, reset_time_unix,
+        over) for a live non-leaky window, or None (missing, expired or
+        leaky). Nothing is written: no eviction, no expiry, no stats."""
+        n = int(key_hash.shape[0])
+        if n == 0:
+            return []
+        if self.clock.epoch is None:
+            return [None] * n  # nothing ever decided
+        if now is None:
+            now = api_types.millisecond_now()
+        kh_p, _n = self._pad_keys_pow2(np.ascontiguousarray(key_hash, np.uint64))
+        ent_rows, fp = self._gather_entries(kh_p)
+        ent_rows, fp = ent_rows[:n], fp[:n]
+        match = ent_rows[:, :, L_TAG] == fp[:, None]
+        found = match.any(axis=1)
+        ent = ent_rows[np.arange(n), np.argmax(match, axis=1)]
+        e_now = int(self.clock.to_engine(now))
+        out = []
+        for i in range(n):
+            flags = int(ent[i, L_FLAGS])
+            if not found[i] or int(ent[i, L_EXPIRE]) < e_now or flags & FLAG_ALGO_LEAKY:
+                out.append(None)
+                continue
+            remaining = int(ent[i, L_REMAINING])
+            out.append((
+                int(ent[i, L_LIMIT]),
+                int(ent[i, L_DURATION]),
+                remaining,
+                int(self.clock.from_engine(np.int64(ent[i, L_EXPIRE]))),
+                bool(flags & FLAG_STICKY_OVER) or remaining == 0,
+            ))
+        return out
+
+    def live_mask(self, key_hash: np.ndarray, now: Optional[int] = None) -> np.ndarray:
+        """bool[n]: the key holds a LIVE exact-tier entry (tag match, not
+        expired). Non-mutating; the promoter screens candidates with it so
+        an install never clobbers live exact state."""
+        n = int(key_hash.shape[0])
+        if n == 0 or self.clock.epoch is None:
+            return np.zeros(n, bool)
+        if now is None:
+            now = api_types.millisecond_now()
+        kh_p, _n = self._pad_keys_pow2(np.ascontiguousarray(key_hash, np.uint64))
+        rows, fp = self._gather_entries(kh_p)
+        e_now = int(self.clock.to_engine(now))
+        live = (rows[:, :, L_TAG] == fp[:, None]) & (rows[:, :, L_EXPIRE] >= e_now)
+        return live.any(axis=1)[:n]
+
+    # -- window install ------------------------------------------------------
+
+    def install_windows(
+        self,
+        key_hash: np.ndarray,
+        limit: np.ndarray,
+        remaining: np.ndarray,
+        reset_time: np.ndarray,
+        is_over: np.ndarray,
+        now: Optional[int] = None,
+        duration: Optional[np.ndarray] = None,
+        ts: Optional[np.ndarray] = None,
+        flags: Optional[np.ndarray] = None,
+    ) -> None:
+        """Install windows for pre-hashed keys (reset_time in unix-ms):
+        the GLOBAL replica install and the sketch promoter's migration
+        surface. Batches past the ladder's top rung are CHUNKED, in order,
+        so duplicates stay last-wins. Without `flags` the install is the
+        token-replica form (zero duration/ts, sticky-only flags); with
+        `duration`/`ts`/`flags` the raw lanes land verbatim and `is_over`
+        is ignored. Each chunk is one upsert, one writeback launch."""
+        kh = np.ascontiguousarray(key_hash, np.uint64)
+        n = int(kh.shape[0])
+        if n == 0:
+            return
+        if now is None:
+            now = api_types.millisecond_now()
+        self._engine_now(now)  # pin/refresh the epoch
+        top = max(self.buckets)
+        limit = np.asarray(limit)
+        remaining = np.asarray(remaining)
+        reset_time = np.asarray(reset_time)
+        full = flags is not None
+        if full:
+            duration = np.asarray(duration)
+            ts = np.zeros(n, np.int64) if ts is None else np.asarray(ts)
+            flags = np.asarray(flags)
+        else:
+            is_over = np.asarray(is_over, bool)
+        for s in range(0, n, top):
+            e = min(s + top, n)
+            head = (
+                (kh[s:e], np.uint64),
+                (_sat_i32(limit[s:e]), np.int32),
+                (_sat_i32(remaining[s:e]), np.int32),
+                (self.clock.to_engine(reset_time[s:e]), np.int32),
+            )
+            if full:
+                cols = pad_to_bucket(
+                    self.buckets, e - s, *head,
+                    (_sat_i32(duration[s:e]), np.int32),
+                    (_sat_i32(ts[s:e]), np.int32),
+                    (_sat_i32(flags[s:e]), np.int32),
+                )
+                kh_t, *rest = self._cols_to_device(cols)
+                upsert_windows(self.store, kh_t, *rest)
+            else:
+                cols = pad_to_bucket(self.buckets, e - s, *head, (is_over[s:e], bool))
+                upsert_globals(self.store, *self._cols_to_device(cols))
+
+    def _cols_to_device(self, cols):
+        kh, *rest = cols
+        return [key_hash_tensor(kh, self.device)] + [
+            torch.from_numpy(np.ascontiguousarray(c)).to(self.device) for c in rest
+        ]
+
+    # -- sketch cold tier ----------------------------------------------------
+
+    def _sketch_windows(self, durations: np.ndarray, now: int):
+        """(window_id int64[n], window_end_unix int64[n]) of the current
+        fixed windows of these durations."""
+        e_now = int(self.clock.to_engine(now))
+        wid = window_id_np(e_now, durations)
+        d = np.maximum(np.asarray(durations, np.int64), 1)
+        return wid, np.asarray(self.clock.from_engine((wid + 1) * d))
+
+    def sketch_estimates(
+        self, key_hash: np.ndarray, durations: np.ndarray, now: Optional[int] = None
+    ) -> np.ndarray:
+        """NON-MUTATING current-window count-min estimates int64[n] (0
+        when the tier is off or nothing was ever decided), at the same
+        indices the decide charges."""
+        n = int(key_hash.shape[0])
+        if self.sketch is None or self.clock.epoch is None or n == 0:
+            return np.zeros(n, np.int64)
+        if now is None:
+            now = api_types.millisecond_now()
+        kh, dur, _n = self._pad_keys_pow2(
+            np.ascontiguousarray(key_hash, np.uint64), np.asarray(durations, np.int64)
+        )
+        wid, _ = self._sketch_windows(dur, now)
+        idx = torch.from_numpy(sketch_indices_np(kh, wid, self.sketch_config))
+        est = sketch_min(self.sketch.data, idx.to(self.device))
+        return est.cpu().numpy().astype(np.int64)[:n]
+
+    def promote_from_sketch(
+        self,
+        key_hash: np.ndarray,
+        limits: np.ndarray,
+        durations: np.ndarray,
+        now: Optional[int] = None,
+    ):
+        """Migrate hot sketch-tier keys into exact buckets: install a
+        token window with remaining = max(limit - estimate, 0) and reset
+        = the current window's end, skipping keys that hold a LIVE exact
+        entry. Returns (installed bool[n], estimate int64[n], reset_unix
+        int64[n], over bool[n])."""
+        n = int(key_hash.shape[0])
+        if n == 0 or self.sketch is None:
+            z = np.zeros(n, np.int64)
+            return np.zeros(n, bool), z, z, np.zeros(n, bool)
+        if now is None:
+            now = api_types.millisecond_now()
+        self._engine_now(now)  # pin the epoch before window math
+        kh = np.ascontiguousarray(key_hash, np.uint64)
+        limits = np.asarray(limits, np.int64)
+        est = self.sketch_estimates(kh, durations, now)
+        _, reset_unix = self._sketch_windows(durations, now)
+        over = est >= limits
+        remaining = np.maximum(limits - est, 0)
+        todo = ~self.live_mask(kh, now)
+        if todo.any():
+            self.install_windows(
+                kh[todo], limits[todo], remaining[todo], reset_unix[todo],
+                over[todo], now,
+            )
+        return todo, est, reset_unix, over
+
+    # -- warmup --------------------------------------------------------------
+
+    def _warmup_sketch_reads(self, now: int) -> None:
+        """Run the promoter's host reads at their pow2 rungs once."""
+        if self.sketch is None:
+            return
+        for B in (64, 128, 256, 512, 1024):
+            kh = np.arange(1, B + 1, dtype=np.uint64) << np.uint64(32)
+            self.sketch_estimates(kh, np.full(B, 1000, np.int64), now)
+            self.live_mask(kh, now)
+
     def warmup(self, now: Optional[int] = None) -> None:
-        """Run one decide per ladder rung (first launches, allocator
-        pools, the kernel's build and load) so none of it lands inside a
-        serving deadline, then wipe the state and counters the warmup
-        traffic dirtied."""
+        """Run one decide (two-tier when the sketch is on) and one window
+        install per ladder rung, plus the sketch reads (first launches,
+        allocator pools, the kernel's build and load) so none of it lands
+        inside a serving deadline; then wipe the state and counters the
+        warmup traffic dirtied."""
         if now is None:
             now = api_types.millisecond_now()
         for b in self.buckets:
@@ -217,6 +513,8 @@ class TorchEngine:
                 k, ones, ones * 10, ones * 1000,
                 np.zeros(b, np.int32), np.zeros(b, bool), now,
             )
+            self.install_windows(k, ones, ones, ones * now, np.zeros(b, bool), now)
+        self._warmup_sketch_reads(now)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.reset()

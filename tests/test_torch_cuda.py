@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from gubernator_tpu_torch.core.engine import TorchEngine
+from gubernator_tpu_torch.core.sketches import derive_sketch_config
 from gubernator_tpu_torch.core.store import StoreConfig
 from gubernator_tpu_torch.core.writeback import writeback_add, writeback_add_plain
 
@@ -82,3 +83,45 @@ def test_engine_on_card_matches_cpu():
         assert torch.equal(gpu.store.data.cpu(), cpu.store.data), f"step {step}"
     assert writeback_add.launches == before + 20
     assert gpu.stats.snapshot() == cpu.stats.snapshot()
+
+
+@pytest.mark.parametrize("derivation", ["v2", "r13"])
+def test_two_tier_engine_on_card_matches_cpu(derivation):
+    """The two-tier decide under tier pressure (a pool 4x the store, all
+    four algorithms) and a promote: identical responses, store bytes and
+    sketch counters on the card and on the CPU; every decide and every
+    install chunk launches the writeback kernel once."""
+    _need_card()
+    rng = np.random.default_rng(5)
+    pool = rng.integers(0, 2**64, 4096, dtype=np.uint64)
+    cfg = StoreConfig(rows=16, slots=64)
+    skc = derive_sketch_config(1, derivation=derivation)
+    gpu = TorchEngine(cfg, buckets=(256, 1024), sketch=skc)
+    cpu = TorchEngine(cfg, buckets=(256, 1024), device="cpu", sketch=skc)
+    now = 1_700_000_000_000
+    before = writeback_add.launches
+    for step in range(16):
+        now += int(rng.choice([1, 50, 5000]))
+        n = int(rng.integers(1, 1025))
+        idx = np.minimum(rng.zipf(1.1, n) - 1, pool.shape[0] - 1)
+        fields = (
+            pool[idx], rng.choice([0, 1, 2], n), rng.choice([3, 100], n),
+            rng.choice([1000, 60_000], n), rng.integers(0, 4, n).astype(np.int32),
+            rng.random(n) < 0.05,
+        )
+        for a, b in zip(gpu.decide_arrays(*fields, now), cpu.decide_arrays(*fields, now)):
+            np.testing.assert_array_equal(a, b, err_msg=f"step {step}")
+        assert torch.equal(gpu.store.data.cpu(), cpu.store.data), f"step {step}"
+        assert torch.equal(gpu.sketch.data.cpu(), cpu.sketch.data), f"step {step}"
+    assert gpu.stats.snapshot() == cpu.stats.snapshot()
+    assert gpu.stats.snapshot()["dropped"] > 0
+    keys = pool[:1500]  # 1500 > top rung 1024: two install chunks at most
+    lim = np.full(keys.shape[0], 100)
+    dur = np.full(keys.shape[0], 60_000)
+    g = gpu.promote_from_sketch(keys, lim, dur, now + 1)
+    c = cpu.promote_from_sketch(keys, lim, dur, now + 1)
+    for a, b in zip(g, c):
+        np.testing.assert_array_equal(a, b)
+    assert torch.equal(gpu.store.data.cpu(), cpu.store.data)
+    chunks = -(-int(g[0].sum()) // 1024)
+    assert writeback_add.launches == before + 16 + chunks

@@ -26,6 +26,7 @@ from gubernator_tpu.core import kernels as jk
 from gubernator_tpu.core import store as jstore
 from gubernator_tpu_torch.core import kernels as tk
 from gubernator_tpu_torch.core import store as tstore
+from gubernator_tpu_torch.core.sketches import SketchConfig, new_sketch
 from gubernator_tpu_torch.core.engine import (
     _np_presort_grouped,
     build_groups,
@@ -139,10 +140,15 @@ def test_decide_presorted_matches_jax(seed, buckets, rows, use_groups):
 
 
 def test_decide_unported_tiers_raise():
+    """Quota chains are not ported and raise; the sketch tier is ported
+    (tests/test_torch_sketch.py) and runs."""
     st = tstore.new_store(tstore.StoreConfig(rows=1, slots=16), CPU)
     req, groups = _pad(_batch(np.random.default_rng(0), np.arange(1, 9, dtype=np.uint64)), 16)
-    with pytest.raises(NotImplementedError):
-        tk._decide_presorted(st, to_device(req, CPU), 1, None, sketch=object())
+    sk = new_sketch(SketchConfig(rows=2, width=64), CPU)
+    _st, got_sk, _resp, _stats = tk._decide_presorted(
+        st, to_device(req, CPU), 1, None, sketch=sk
+    )
+    assert got_sk is sk
     with pytest.raises(NotImplementedError):
         tk._decide_presorted(st, to_device(req, CPU), 1, None, None,
                              chain_id=torch.zeros(B, dtype=torch.int32))

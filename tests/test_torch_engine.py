@@ -143,12 +143,23 @@ def test_import_loads_no_jax_and_nothing_of_the_jax_package():
     code = (
         "import sys\n"
         "import gubernator_tpu_torch\n"
-        "from gubernator_tpu_torch.core import engine, kernels, store, writeback\n"
+        "import numpy as np\n"
+        "from gubernator_tpu_torch.core import (\n"
+        "    algorithms, engine, kernels, sketches, store, writeback)\n"
         "from gubernator_tpu_torch.parallel.sharded import TorchEngine\n"
         "e = TorchEngine(store.StoreConfig(rows=1, slots=16), buckets=(64,),"
         " device='cpu')\n"
         "e.get_rate_limits([gubernator_tpu_torch.RateLimitReq("
         "name='a', unique_key='b', hits=1, limit=1, duration=1000)])\n"
+        "cfg, skc = sketches.derive_two_tier_config(4)\n"
+        "s = TorchEngine(store.StoreConfig(rows=1, slots=16), buckets=(64,),"
+        " device='cpu', sketch=sketches.SketchConfig(2, 1024, 4))\n"
+        "kh = np.arange(1, 65, dtype=np.uint64) << np.uint64(32)\n"
+        "one = np.ones(64, np.int64)\n"
+        "s.decide_arrays(kh, one, one * 5, one * 1000, np.zeros(64, np.int32),"
+        " np.zeros(64, bool), 1_700_000_000_000)\n"
+        "assert s.stats.snapshot()['dropped'] > 0\n"
+        "s.promote_from_sketch(kh, one * 5, one * 1000, 1_700_000_000_001)\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'gubernator_tpu')"
         " or m.startswith(('jax.', 'jaxlib.', 'gubernator_tpu.'))]\n"
         "assert not bad, bad\n"
