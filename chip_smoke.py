@@ -14,9 +14,10 @@ calls, at two of the repo's deployments:
   (256 MiB) is carved out and the exact tier is int32[2^20, 128]
   (805,306,368 bytes on the card in all); the exact tier is prefilled
   with 1.25x its capacity of sequential ids (640 batches), then zipf(1.2)
-  ids over 100M keys, token bucket hits=1 limit=1000 duration=600 s.
+  ids over 100M keys, token bucket hits=1 limit=1000 duration=600 s;
+  first at the engine (TorchEngine), then through the serving core.
 
-Both use device batches of 32,768 (the ladder buckets_for_limit(32768)).
+All use device batches of 32,768 (the ladder buckets_for_limit(32768)).
 Phases, one JSON line each:
 
 1. build     compile csrc/writeback.cu with nvcc (seconds);
@@ -37,7 +38,18 @@ Phases, one JSON line each:
              sketch-served keys held against the CPU, a profile, then one
              batch after the first 32 prefill batches expired (dead token
              victims fold into the sketch), held against the CPU;
-6. kernels   the contract line over every kernel of the path.
+6. serving   the serving core booted as cli/bench_serving.py boots the
+             JAX one (config_from_env -> make_backend -> warmup ->
+             Instance -> start, this node alone on the ring): the same
+             prefill through batcher.decide_arrays in groups of 4,096
+             from 8 fillers, a timed window of >= 10 s of zipf groups
+             from 16 workers (decisions/s, mean device batch, promoter,
+             shed cache, queue stats, stage times, beside the two-tier
+             engine phase's decisions/s), a profiled 1 s window, and a
+             checked leg: 24 request-object groups, a sketch-served tail
+             key walk and one promoter tick, identical to a CPU Instance
+             started from the card's state;
+7. kernels   the contract line over every kernel of the path.
 
 The writeback kernel's launch count is set to 0 before each path and read
 after it; each must equal that path's decides plus window-install chunks.
@@ -142,24 +154,32 @@ def run_ms(calls: list, cycles_per_ms: float, n: int = KERNEL_CALLS) -> float:
     `calls`: CUDA events around the whole run, over the count. A sleep
     queued ahead of the start event lasts longer than the host takes to
     enqueue the run, so the run executes back to back on the card and the
-    host's launch gaps stay outside it."""
+    host's launch gaps stay outside it. A run whose start event had
+    already passed when the host finished enqueueing (the sleep ran out:
+    clocks above the calibration's, or a slow host) is run again with a
+    longer sleep."""
     for c in calls:
         c()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(n):
         calls[i % len(calls)]()
-    host_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int((2 * host_ms + 2) * cycles_per_ms))
-    start.record()
-    for i in range(n):
-        calls[i % len(calls)]()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / n
+    sleep_ms = 2 * (time.perf_counter() - t0) * 1e3 + 2
+    for _ in range(4):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(sleep_ms * cycles_per_ms))
+        start.record()
+        for i in range(n):
+            calls[i % len(calls)]()
+        end.record()
+        covered = not start.query()
+        end.synchronize()
+        if covered:
+            return start.elapsed_time(end) / n
+        sleep_ms *= 4
+    fail("run_ms: the host never enqueued a run before the card reached it")
 
 
 def host_us(fn, n: int = 200) -> float:
@@ -275,6 +295,13 @@ def profile_batches(eng, pool, fields, now: int, step: int):
             eng.decide_arrays(kh, *fields, now)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    return device_profile(prof, wall_us, len(pool)), now
+
+
+def device_profile(prof, wall_us: float, nb: int) -> dict:
+    """Device busy and idle share over `wall_us`, the top device events,
+    busy shares by kind and the writeback kernel's time per launch, from
+    a finished torch.profiler run that decided `nb` batches."""
     rows = []  # device-side events only (kernels, copies, memsets)
     for e in prof.key_averages():
         if "CUDA" not in str(getattr(e, "device_type", "")):
@@ -289,9 +316,8 @@ def profile_batches(eng, pool, fields, now: int, step: int):
     wb = [r for r in rows if "writeback_add_kernel" in r[0]]
     if not wb:
         fail("torch.profiler saw no writeback kernel in the traced batches")
-    if busy <= 0:
+    if busy <= 0 or nb <= 0:
         fail("torch.profiler recorded no device time for the traced batches")
-    nb = len(pool)
 
     def share(*words):
         return sum(r[1] for r in rows if any(w in r[0] for w in words)) / busy
@@ -311,7 +337,7 @@ def profile_batches(eng, pool, fields, now: int, step: int):
             copies=share("Memcpy", "Memset", "copy"),
         ),
         top=[dict(name=k[:90], device_us=d, count=c) for k, d, c in rows[:20]],
-    ), now
+    )
 
 
 def check_responses(out, limit: int, min_reset: int, what: str) -> None:
@@ -626,7 +652,425 @@ def two_tier_path(card: str, ladder, writeback) -> dict:
     emit(dict(main, decides=decides, install_chunks=install_chunks, kernel_launches=launches))
     del eng
     torch.cuda.empty_cache()
-    return dict(launches=launches, decides=decides, install_chunks=install_chunks)
+    return dict(launches=launches, decides=decides, install_chunks=install_chunks,
+                decisions_per_s=main["decisions_per_s"])
+
+
+# -- the serving phase: the port's serving core at the zipf100m deployment --
+
+SERVING_ADDR = "127.0.0.1:9990"  # this node's ring address (never dialed)
+SERVING_ENV = {  # cli/bench_serving.py:747-761 (run_zipf100m's conf_for)
+    "GUBER_BACKEND": "tpu",
+    "GUBER_DEVICE_BATCH_LIMIT": str(DEPTH),
+    "GUBER_DEVICE_DEEP_BATCH": "1",
+    "GUBER_STORE_MIB": "1024",
+    "GUBER_STORE_TARGET_KEYS": "100000000",
+    "GUBER_SKETCH": "1",
+    "GUBER_GRPC_ADDRESS": SERVING_ADDR,
+}
+SERVING_BYTES = 805_306_368  # int32[2^20, 128] store + int32[2, 2^25] sketch
+GROUP = 4096  # rows per caller group (bench_serving's --group)
+FILLERS = 8  # concurrent prefill callers (_prefill_sequential)
+WINDOW_S = 10.0  # the timed window (_measure_window)
+PROFILE_S = 1.0  # the profiled window
+ZIPF_POOL = 1 << 22  # pre-hashed zipf pool the window's workers slide over
+CHECKED_GROUPS = 24  # request-object groups held against the CPU
+CHECKED_ITEMS = 1000  # at most, per group (MAX_BATCH_SIZE)
+CHECKED_KEYS = 5000  # distinct key ids the checked groups draw from
+DEEP_SHARE = 0.995  # the window's mean device batch, at least, over DEPTH
+RAMP_S = 0.5  # a window's start, left out of its mean device batch
+
+
+def serving_path(card: str, writeback, engine_rate: float) -> dict:
+    """The port's serving core on the card, booted as the JAX package's
+    serving bench boots its stack (cli/bench_serving.py `_boot_stack`):
+    config_from_env -> make_backend -> warmup -> Instance -> start, with
+    this node alone on the ring. Then the prefill, the timed window, a
+    profiled window and the checked leg against a CPU Instance."""
+    import asyncio
+
+    return asyncio.run(_serving(card, writeback, engine_rate))
+
+
+async def _serving(card, writeback, engine_rate):
+    import asyncio
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from gubernator_tpu_torch.api.types import PeerInfo
+    from gubernator_tpu_torch.serve.backends import make_backend
+    from gubernator_tpu_torch.serve.config import config_from_env
+    from gubernator_tpu_torch.serve.instance import Instance
+    from gubernator_tpu_torch.serve.stages import STAGES
+
+    conf = config_from_env(dict(SERVING_ENV))
+    backend = make_backend(conf)
+    eng = backend.engine
+    on_card = eng.store.data.numel() * 4 + eng.sketch.data.numel() * 4
+    geometry = dict(store_shape=list(eng.store.data.shape),
+                    sketch_shape=list(eng.sketch.data.shape),
+                    sketch_dtype=str(eng.sketch.data.dtype), bytes_on_card=on_card,
+                    ladder=list(eng.buckets))
+    if (geometry["store_shape"] != [1 << 20, 128] or geometry["sketch_shape"] != [2, 1 << 25]
+            or eng.sketch.data.dtype != torch.int32 or on_card != SERVING_BYTES):
+        fail(f"serving: the zipf100m env derived {geometry}")
+    t0 = time.monotonic()
+    await asyncio.to_thread(backend.warmup)
+    warm_s = time.monotonic() - t0
+    inst = Instance(conf, backend)
+    inst.start()
+    await inst.set_peers([PeerInfo(address=SERVING_ADDR, is_owner=True)])
+    if inst.promoter is None or inst.shed is None:
+        fail("serving: the instance built no promoter or no shed cache")
+    emit(dict(phase="boot", path="serving", card=card, warmup_s=warm_s, **geometry,
+              fetch_depth=inst.batcher.fetch_depth, prep_threads=inst.batcher.prep_threads,
+              prep_at_arrival=inst.batcher.prep_at_arrival,
+              deep_batch=inst.batcher.deep_batch))
+
+    # every window install is one writeback launch per ladder-top chunk:
+    # count the chunks the promoter's installs take
+    chunks = [0]
+    top = max(eng.buckets)
+    install = eng.install_windows
+
+    def counted_install(key_hash, *args, **kw):
+        chunks[0] += -(-int(np.asarray(key_hash).shape[0]) // top)
+        return install(key_hash, *args, **kw)
+
+    eng.install_windows = counted_install
+    writeback.writeback_add.launches = 0  # count this path only
+    base = backend.stats()
+
+    # prefill: 1.25x the exact tier's capacity of sequential ids, in
+    # groups from 8 concurrent fillers (_prefill_sequential)
+    capacity = eng.config.slots * eng.config.rows
+    n_ids = int(capacity * 1.25)
+    n_groups = -(-n_ids // GROUP)
+    ones = np.ones(GROUP, np.int64)
+    tok = dict(hits=ones, limit=ones * LIMIT, duration=ones * DURATION_100M,
+               algo=np.zeros(GROUP, np.int32))
+
+    async def filler(w: int):
+        for c in range(w, n_groups, FILLERS):
+            out = await inst.batcher.decide_arrays(
+                dict(tok, key_hash=hash_ids(np.arange(c * GROUP, (c + 1) * GROUP))))
+            if not (out[0] == 0).all():
+                fail(f"serving prefill group {c}: a fresh id was refused")
+
+    t0 = time.monotonic()
+    await asyncio.gather(*[filler(w) for w in range(FILLERS)])
+    prefill = dict(ids=n_groups * GROUP, groups=n_groups, seconds=time.monotonic() - t0,
+                   stats=delta(backend.stats(), base),
+                   promoter=inst.promoter.stats())
+    emit(dict(phase="prefill", path="serving", card=card, **prefill))
+
+    # the timed window: zipf(1.2) over 100M keys from 16 workers
+    pool = zipf_hashes(ZIPF_POOL, key_space=KEY_SPACE_100M)
+    STAGES.reset()
+    p0, shed0 = inst.promoter.stats(), inst.shed.hits
+    window = await serving_window(inst, backend, pool, WINDOW_S)
+    window.update(
+        promoter=inst.promoter.stats(),
+        promoter_window=delta(inst.promoter.stats(), p0),
+        shed_hits=inst.shed.hits - shed0, shed=inst.shed.stats(),
+        stages=STAGES.snapshot()["stages"],
+        engine_two_tier_decisions_per_s=engine_rate,
+        serving_over_engine=window["decisions_per_s"] / engine_rate if engine_rate else None,
+    )
+    if window["mean_device_batch"] < DEEP_SHARE * DEPTH:
+        fail(f"serving window: mean device batch {window['mean_device_batch']} "
+             f"is below {DEEP_SHARE} of the {DEPTH} rung")
+    if window["dropped_creates"] <= 0 or window["promoter"]["promotions"] <= 0:
+        fail(f"serving window: {window['dropped_creates']} sketch-served creates, "
+             f"{window['promoter']['promotions']} promotions")
+
+    window["alone_ms"] = serving_stages_alone(backend, pool)
+    emit(dict(phase="window", path="serving", card=card, **window))
+
+    b0 = backend.stats()["batches"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        await serving_window(inst, backend, pool, PROFILE_S)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    emit(dict(phase="profile", path="serving", card=card,
+              **device_profile(tp, wall_us, backend.stats()["batches"] - b0)))
+
+    checked = await serving_checked_leg(inst, conf, backend)
+
+    decides = backend.stats()["batches"] - base["batches"]
+    launches = writeback.writeback_add.launches
+    await inst.stop()
+    if launches != decides + chunks[0] or launches == 0:
+        fail(f"serving path: writeback kernel launched {launches} times for "
+             f"{decides} decides + {chunks[0]} install chunks")
+    emit(dict(phase="main", path="serving", card=card, **geometry, warmup_s=warm_s,
+              batch=DEPTH, group_rows=GROUP, **window,
+              prefill_seconds=prefill["seconds"], checked=checked,
+              decides=decides, install_chunks=chunks[0], kernel_launches=launches,
+              max_memory_allocated=torch.cuda.max_memory_allocated()))
+    del eng, backend, inst
+    torch.cuda.empty_cache()
+    return dict(launches=launches, decides=decides, install_chunks=chunks[0])
+
+
+def batch_histogram() -> tuple:
+    """(rows, batches) the batcher's device_batch_size histogram holds."""
+    from gubernator_tpu_torch.serve import metrics
+
+    samples = {x.name: x.value for x in metrics.DEVICE_BATCH_SIZE.collect()[0].samples}
+    return samples["device_batch_size_sum"], samples["device_batch_size_count"]
+
+
+async def serving_window(inst, backend, pool, seconds: float) -> dict:
+    """One timed window of pre-hashed zipf groups through the batcher's
+    array door (cli/bench_serving.py `_measure_window`): enough workers
+    to keep ~2 deep batches of groups outstanding, every response
+    checked, the batcher's queue sampled every 50 ms. The mean device
+    batch counts the batches answered from RAMP_S into the window to its
+    end: the first flush from an idle pipeline, and the last batch that
+    the workers who stopped at the end left short, are not deep
+    accumulation's to fill."""
+    import asyncio
+
+    workers = max(8, 2 * DEPTH // GROUP)
+    stop_at = time.monotonic() + seconds
+    done = [0]
+    base = backend.stats()
+    ones = np.ones(GROUP, np.int64)
+    fields = dict(hits=ones, limit=ones * LIMIT, duration=ones * DURATION_100M,
+                  algo=np.zeros(GROUP, np.int32))
+
+    async def worker(w: int):
+        i = w * 101
+        while time.monotonic() < stop_at:
+            off = (i * GROUP) % (pool.shape[0] - GROUP)
+            i += 1
+            status, limit, remaining, reset = await inst.batcher.decide_arrays(
+                dict(fields, key_hash=pool[off:off + GROUP]))
+            if not (np.isin(status, (0, 1)).all() and (limit == LIMIT).all()
+                    and (remaining >= 0).all() and (remaining <= LIMIT).all()
+                    and (reset > 0).all()):
+                fail("serving window: responses out of range")
+            done[0] += GROUP
+
+    samples = []
+    marks = []
+
+    async def sampler():
+        while time.monotonic() < stop_at:
+            samples.append(inst.batcher.queue_stats())
+            await asyncio.sleep(0.05)
+
+    async def steady():
+        await asyncio.sleep(RAMP_S)
+        marks.append(batch_histogram())
+        await asyncio.sleep(max(0.0, stop_at - time.monotonic()))
+        marks.append(batch_histogram())
+
+    t0 = time.monotonic()
+    await asyncio.gather(sampler(), steady(), *[worker(w) for w in range(workers)])
+    elapsed = time.monotonic() - t0
+    d = delta(backend.stats(), base)
+    rows, batches = (int(b - a) for a, b in zip(*marks))
+    return dict(
+        decisions_per_s=done[0] / elapsed,
+        mean_device_batch=rows / batches if batches else 0.0,
+        steady_batches=batches,
+        mean_device_batch_all=done[0] / d["batches"] if d["batches"] else 0.0,
+        device_batches=d["batches"], rows=done[0], seconds=elapsed, workers=workers,
+        dropped_creates=d["dropped"], evictions=d["evictions"],
+        queue_stats=dict(
+            samples=len(samples),
+            depth_max=max(q["depth"] for q in samples),
+            depth_mean=float(np.mean([q["depth"] for q in samples])),
+            oldest_age_s_max=max(q["oldest_age_s"] for q in samples),
+            prep_backlog_max=max(q["prep_backlog"] for q in samples),
+        ),
+    )
+
+
+def serving_stages_alone(backend, pool, reps: int = 5) -> dict:
+    """Median host ms of the submit thread's stages for one window-shaped
+    batch (8 groups of 4,096 zipf rows), run with no serving thread
+    busy: a group's arrival prep, the merge of the 8 runs, the dispatch
+    and the fetch. Beside the in-window stage means they show what the
+    window's contention adds. The dispatched batches decide for real
+    (counted decides and launches)."""
+    ones = np.ones(GROUP, np.int64)
+    groups = [dict(hits=ones, limit=ones * LIMIT, duration=ones * DURATION_100M,
+                   algo=np.zeros(GROUP, np.int32),
+                   key_hash=pool[(i + 1000) * GROUP:(i + 1001) * GROUP])
+              for i in range(DEPTH // GROUP)]
+    out = {k: [] for k in ("prep_group", "merge", "dispatch", "fetch")}
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        runs = [backend.prep_group(g) for g in groups]
+        out["prep_group"].append((time.perf_counter() - t0) * 1e3 / len(groups))
+        t0 = time.perf_counter()
+        merged = backend.merge_prepped(runs)
+        out["merge"].append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        handle = backend.decide_submit_merged(merged)
+        out["dispatch"].append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        backend.decide_wait_arrays(handle)
+        out["fetch"].append((time.perf_counter() - t0) * 1e3)
+    return {k: statistics.median(v) for k, v in out.items()}
+
+
+def _checked_groups(rng, types):
+    """CHECKED_GROUPS request-object groups over CHECKED_KEYS key ids:
+    per key a fixed algorithm (even ids token, odd ids one of the other
+    three), limit and duration, so frozen token refusals shed; duplicates,
+    hits-0 peeks and GLOBAL items throughout."""
+    params = [
+        (0 if k % 2 == 0 else 1 + k % 3, (2, 10, 1000)[k % 3], (1000, 60_000, 600_000)[k % 5 % 3])
+        for k in range(CHECKED_KEYS)
+    ]
+    for _ in range(CHECKED_GROUPS):
+        n = int(rng.integers(1, CHECKED_ITEMS + 1))
+        ks = np.minimum(rng.zipf(1.2, n) - 1, CHECKED_KEYS - 1)
+        hits = rng.choice([0, 1, 1, 1, 2, 5], n)
+        glob = rng.random(n) < 0.1
+        yield [
+            types.RateLimitReq(
+                name="smoke", unique_key=f"user{k}", hits=int(h),
+                limit=params[k][1], duration=params[k][2],
+                algorithm=types.Algorithm(params[k][0]),
+                behavior=types.Behavior.GLOBAL if g else types.Behavior.BATCHING,
+            )
+            for k, h, g in zip(ks.tolist(), hits.tolist(), glob.tolist())
+        ]
+
+
+def _bucket_full(eng, kh: int, e_now: int) -> bool:
+    """Every way of the key's bucket holds a live entry (so a create of
+    this key drops to the sketch)."""
+    from gubernator_tpu_torch.core.store import L_EXPIRE, L_TAG, LANES, bucket_index, key_hash_tensor
+
+    b = int(bucket_index(key_hash_tensor(np.array([kh], np.uint64)), eng.config.slots)[0])
+    row = eng.store.data[b].cpu().numpy().reshape(-1, LANES)
+    return bool(((row[:, L_TAG] != 0) & (row[:, L_EXPIRE] >= e_now)).all())
+
+
+async def serving_checked_leg(inst, conf, backend) -> dict:
+    """The serving core on the card against a CPU Instance that starts
+    from the card's state: the promoter's loop and the GLOBAL loops
+    stopped (their work runs by explicit calls on both sides, so batch
+    composition is the same), one pinned clock, the same request-object
+    groups one await at a time, a sketch-served tail key walked to
+    OVER_LIMIT, then one batch folded into both promoters and one
+    flush_once each. Everything must be identical."""
+    from collections import OrderedDict
+
+    import gubernator_tpu_torch.api.types as types
+    from gubernator_tpu_torch.core.hashing import slot_hash_batch
+    from gubernator_tpu_torch.core.kernels import BatchRequest
+    from gubernator_tpu_torch.serve.backends import TorchBackend
+    from gubernator_tpu_torch.serve.instance import Instance
+    from gubernator_tpu_torch.serve.promoter import SketchPromoter
+
+    eng = backend.engine
+    await inst.promoter.stop()
+    await inst.global_mgr.stop()
+    await inst.batcher.drain()
+    torch.cuda.synchronize()
+    cpu_backend = TorchBackend(eng.config, buckets=eng.buckets, sketch=eng.sketch_config,
+                               device="cpu")
+    cpu_backend.load_state(eng.store.data.cpu().numpy(), eng.clock.epoch,
+                           eng.sketch.data.cpu().numpy())
+    cpu_backend.engine.reset_generation = eng.reset_generation
+    cpu = Instance(conf, cpu_backend)
+    cpu.start()
+    await cpu.promoter.stop()
+    await cpu.global_mgr.stop()
+    await cpu.set_peers([types.PeerInfo(address=SERVING_ADDR, is_owner=True)])
+    cpu.shed._entries = OrderedDict(inst.shed._entries)
+    cpu.shed._snap = None
+    real_now = types.millisecond_now
+    pinned = [real_now() + 1]
+    types.millisecond_now = lambda: pinned[0]
+    try:
+        for side in (inst, cpu):
+            side.shed.reset_counters()
+            side.shed.now_fn = types.millisecond_now
+            side.promoter = SketchPromoter(conf, side)  # fresh, loop not started
+        sg, sc = backend.stats(), cpu_backend.stats()
+        rng = np.random.default_rng(17)
+        items = 0
+        token_keys = []
+        for i, group in enumerate(_checked_groups(rng, types)):
+            pinned[0] += int(rng.choice([0, 1, 7, 300]))
+            a = await inst.get_rate_limits(group)
+            b = await cpu.get_rate_limits(group)
+            for x, y, r in zip(a, b, group):
+                if (x.status, x.limit, x.remaining, x.reset_time, x.error, x.metadata) != (
+                        y.status, y.limit, y.remaining, y.reset_time, y.error, y.metadata):
+                    fail(f"serving checked group {i}: {r} -> card {x}, cpu {y}")
+                if x.error or x.remaining < 0 or x.remaining > r.limit:
+                    fail(f"serving checked group {i}: {r} -> {x}")
+            await inst.global_mgr.drain()
+            await cpu.global_mgr.drain()
+            items += len(group)
+            token_keys += [r for r in group if r.algorithm == 0 and r.hits > 0]
+        # a new tail key with limit 2 in a bucket full of live entries: the
+        # sketch decides it, 1 -> 0 -> OVER_LIMIT with one window-aligned reset
+        e_now = int(eng.clock.to_engine(pinned[0]))
+        name = next(f"tail{j}" for j in range(1000)
+                    if _bucket_full(eng, int(slot_hash_batch([f"smoke_tail{j}"])[0]), e_now))
+        walk, before = [], backend.stats()
+        for _ in range(3):
+            pinned[0] += 1
+            req = [types.RateLimitReq(name="smoke", unique_key=name, hits=1, limit=2,
+                                      duration=60_000)]
+            x, y = (await inst.get_rate_limits(req))[0], (await cpu.get_rate_limits(req))[0]
+            if (x.status, x.remaining, x.reset_time) != (y.status, y.remaining, y.reset_time):
+                fail(f"serving tail walk: card {x}, cpu {y}")
+            walk.append(x)
+        window_end = int(eng.clock.from_engine(
+            (int(eng.clock.to_engine(pinned[0])) // 60_000 + 1) * 60_000))
+        walk_dropped = backend.stats()["dropped"] - before["dropped"]
+        if ([w.remaining for w in walk] != [1, 0, 0]
+                or [int(w.status) for w in walk] != [0, 0, 1]
+                or {w.reset_time for w in walk} != {window_end} or walk_dropped < 3):
+            fail(f"serving tail walk: {walk}, window end {window_end}, "
+                 f"{walk_dropped} sketch-served")
+        # one batch folded into both promoters' top-K, one tick each
+        n = len(token_keys)
+        fold = BatchRequest(
+            key_hash=slot_hash_batch([r.hash_key() for r in token_keys]),
+            hits=np.array([r.hits for r in token_keys], np.int32),
+            limit=np.array([r.limit for r in token_keys], np.int32),
+            duration=np.array([r.duration for r in token_keys], np.int32),
+            algo=np.zeros(n, np.int32), gnp=np.zeros(n, bool), valid=np.ones(n, bool))
+        for side in (inst, cpu):
+            side.promoter.tracker.observe(fold)
+            await side.promoter.flush_once()
+        pg, pc = inst.promoter.stats(), cpu.promoter.stats()
+        if pg != pc or pg["promotions"] <= 0:
+            fail(f"serving promoter tick: card {pg}, cpu {pc}")
+        dg, dc = delta(backend.stats(), sg), delta(cpu_backend.stats(), sc)
+        if dg != dc or dg["dropped"] <= 0:
+            fail(f"serving checked leg: stats card {dg}, cpu {dc}")
+        if (inst.shed.stats() != cpu.shed.stats() or inst.shed._entries != cpu.shed._entries
+                or inst.shed.hits <= 0):
+            fail(f"serving checked leg: shed card {inst.shed.stats()}, cpu {cpu.shed.stats()}")
+        if not torch.equal(eng.store.data.cpu(), cpu_backend.engine.store.data):
+            fail("serving checked leg: store bytes differ from the CPU run")
+        if not torch.equal(eng.sketch.data.cpu(), cpu_backend.engine.sketch.data):
+            fail("serving checked leg: sketch bytes differ from the CPU run")
+    finally:
+        types.millisecond_now = real_now
+        await cpu.stop()
+    out = dict(groups=CHECKED_GROUPS, items=items, stats=dg, promoter_tick=pg,
+               shed=inst.shed.stats(), tail_walk=[[w.remaining, int(w.status), w.reset_time]
+                                                 for w in walk],
+               cpu_identical=True)
+    emit(dict(phase="check", path="serving", **out))
+    return out
 
 
 def main() -> int:
@@ -665,6 +1109,7 @@ def main() -> int:
         fail(f"GUBER_STORE_MIB=1024 derived {exact_cfg}, not 2^21 x 16")
     two_cfg, _skc = derive_two_tier_config(1024)
     ladder = buckets_for_limit(DEPTH)
+    spin_up()  # calibrate the sleep at working clocks, not idle ones
     cyc = sleep_cycles_per_ms()
     rng = np.random.default_rng(11)
     cases = {
@@ -685,20 +1130,23 @@ def main() -> int:
     for path, c in cases.items():
         emit(dict(phase="kernel", kernel="writeback_add", path=path, card=card, **c))
 
-    # 3-5. the two paths, each with the launch count set to 0 before it -------
+    # 3-6. the paths, each with the launch count set to 0 before it ----------
     exact = exact_path(card, ladder, writeback)
     two = two_tier_path(card, ladder, writeback)
+    serving = serving_path(card, writeback, two["decisions_per_s"])
 
     main_case = cases["two_tier"]
     emit({"kernels": [dict(
         name="writeback_add", route="cuda",
         source="gubernator_tpu_torch/csrc/writeback.cu",
         replaces="gubernator_tpu/core/pallas_sweep.py:97",
-        launches=two["launches"], max_abs_err=max(c["max_abs_err"] for c in cases.values()),
+        launches=serving["launches"],
+        max_abs_err=max(c["max_abs_err"] for c in cases.values()),
         ms=main_case["ms"], plain_ms=main_case["plain_ms"],
         bound_ms=main_case["bound_ms"], bound_by="bytes",
         library_ms=main_case["library_ms"],
-        launches_by_path={"exact": exact["launches"], "two_tier": two["launches"]},
+        launches_by_path={"exact": exact["launches"], "two_tier": two["launches"],
+                          "serving": serving["launches"]},
     )]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

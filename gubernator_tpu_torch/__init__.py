@@ -16,10 +16,15 @@ the same place:
 - `core.writeback`: the store writeback, a hand-written CUDA kernel for
   Hopper (`csrc/writeback.cu`) beside its plain PyTorch version.
 - `core.engine`, `parallel.sharded`: host glue and the single-device
-  `TorchEngine`, with the promoter's engine surfaces.
+  `TorchEngine`, with the arrival-prep, GLOBAL and promoter surfaces.
+- `serve`: the serving core: `Instance`, the `DeviceBatcher` (arrival
+  prep, deep batches, pipelined fetch), `TorchBackend` and
+  `make_backend`, the over-limit shed cache, the sketch promoter loop,
+  the GLOBAL manager, config, metrics and tracing. The doors (gRPC,
+  HTTP, GEB) are not ported yet.
 
-The package imports `torch` and numpy, never `jax`, and nothing of
-`gubernator_tpu`. Entry points run on `cuda` unless the caller passes
+The package imports `torch`, numpy and (in `serve.metrics`)
+`prometheus_client`, never `jax`, and nothing of `gubernator_tpu`. Entry points run on `cuda` unless the caller passes
 `device="cpu"`; with no device given and no GPU present they raise.
 This root imports no torch either, so the API types load anywhere.
 """

@@ -1,5 +1,6 @@
 """Algorithm registry and the sketch tier's host twins (the parts of
-gubernator_tpu.core.algorithms that the decide and its tests read).
+gubernator_tpu.core.algorithms that the decide, the serving tier and the
+tests read).
 
 Ids are the wire enum (api.types.Algorithm) and the decide's `algo`
 column; each stored algorithm other than token owns one FLAG_ALGO_* bit
@@ -33,6 +34,14 @@ SLIDING_MAX_DURATION_MS = (1 << 29) - 1
 #: algorithms whose dropped creates the count-min tier serves (all four:
 #: token/leaky on fixed-window math, sliding and GCRA from the ring)
 SKETCH_SERVABLE_ALGOS = frozenset({ALGO_TOKEN, ALGO_LEAKY, ALGO_SLIDING, ALGO_GCRA})
+
+#: shed-cache gate (serve/shedcache.py): algorithms whose over-limit
+#: verdict is frozen for the rest of the window
+SHEDDABLE_ALGOS = frozenset({ALGO_TOKEN})
+
+#: sketch promotion gate (serve/promoter.py): install_windows writes the
+#: token fixed-window layout, so only token keys promote
+PROMOTABLE_ALGOS = frozenset({ALGO_TOKEN})
 
 
 def gcra_params(limit: int, duration: int) -> Tuple[int, int]:

@@ -8,6 +8,8 @@ int32 engine-ms envelope (EpochClock) and unpermutes the responses. All
 of it is numpy and byte-identical to the JAX package's numpy path; the
 device side takes the padded arrays as tensors (`to_device`) and runs
 `decide_packed` (exact tier) or `decide_packed_sketch` (two-tier).
+Arrival prep (`prep_run_single`, `build_presorted_request`) splits the
+presort into per-group sorted runs that serve/prep.py merges.
 
 The engine object itself is `TorchEngine` (parallel/sharded.py), also
 importable from here as in the JAX package.
@@ -268,6 +270,88 @@ def pad_request_sorted(
         )
         return req, order, groups
     return req, order
+
+
+def groups_from_sorted_keys(
+    skey_sorted: np.ndarray, kh_padded: np.ndarray, n: int, B: int
+) -> BatchGroups:
+    """Duplicate-key group structure of an ALREADY-SORTED key stream:
+    one O(n) diff instead of an argsort; bit-identical to the grouping
+    pad_request_sorted derives."""
+    is_leader = np.empty(n, bool)
+    if n:
+        is_leader[0] = True
+        np.not_equal(skey_sorted[1:n], skey_sorted[: n - 1], out=is_leader[1:])
+    group_id_n = np.cumsum(is_leader).astype(np.int32) - 1
+    leader_pos_n = np.flatnonzero(is_leader).astype(np.int32)
+    G_real = int(leader_pos_n.shape[0])
+    G = choose_bucket(group_rungs(B), max(G_real, 1))
+    return build_groups(kh_padded, group_id_n, leader_pos_n, G_real, n, B, G)
+
+
+def pad_sorted_fields(fields: dict, n: int, B: int) -> BatchRequest:
+    """BatchRequest from device-dtype arrays ALREADY in sorted order: the
+    same tail pad_request_sorted emits (the last sorted row repeated,
+    valid=False)."""
+
+    def pad(x, dtype):
+        out = np.empty(B, dtype)
+        out[:n] = x
+        out[n:] = out[n - 1] if n else 0
+        return out
+
+    valid = np.zeros(B, bool)
+    valid[:n] = True
+    return BatchRequest(
+        key_hash=pad(fields["key_hash"], np.uint64),
+        hits=pad(fields["hits"], np.int32),
+        limit=pad(fields["limit"], np.int32),
+        duration=pad(fields["duration"], np.int32),
+        algo=pad(fields["algo"], np.int32),
+        gnp=pad(fields["gnp"], bool),
+        valid=valid,
+    )
+
+
+def prep_run_single(fields: dict, store_buckets: int) -> dict:
+    """Arrival-time prep of one caller group (serve/batcher.py): presort
+    it by (bucket, fingerprint) and clip every field into its device
+    dtype, giving a sorted run that the flush-time merge (serve/prep.py)
+    stitches into one batch. `order[j]` is the caller index of sorted row
+    j; `counts` is the row count as a shape-[1] array (the reference's
+    per-shard counts on its flat policy)."""
+    kh = np.ascontiguousarray(fields["key_hash"], np.uint64)
+    n = kh.shape[0]
+    order = _np_presort(kh, store_buckets)
+    sorted_fields = dict(
+        key_hash=kh[order],
+        hits=_sat_i32(fields["hits"])[order],
+        limit=_sat_i32(fields["limit"])[order],
+        duration=_sat_duration(fields["duration"])[order],
+        algo=np.asarray(fields["algo"], np.int32)[order],
+        gnp=np.asarray(fields["gnp"], bool)[order],
+    )
+    return dict(
+        n=n,
+        # the sort key is elementwise in the key hash, so computing it on
+        # the SORTED hashes equals gathering the unsorted keys'
+        skey=group_sort_key_np(sorted_fields["key_hash"], store_buckets),
+        order=order,
+        counts=np.array([n], np.int64),
+        fields=sorted_fields,
+    )
+
+
+def build_presorted_request(
+    buckets: Sequence[int], fields: dict, skey: np.ndarray, n: int
+):
+    """(req, groups, B) for an already-sorted batch: the merge-path twin
+    of pad_request_sorted(with_groups=True), without its argsort and
+    byte-identical to it."""
+    B = choose_bucket(buckets, n)
+    req = pad_sorted_fields(fields, n, B)
+    groups = groups_from_sorted_keys(skey, req.key_hash, n, B)
+    return req, groups, B
 
 
 def to_device(batch, device: torch.device):

@@ -60,6 +60,9 @@ SLOTS_PER_DENSE_ROW = DENSE_LANES // LANES  # 16
 BYTES_PER_ENTRY = LANES * 4  # one packed int32 entry = 32 bytes
 
 MAX_LOAD = 0.68
+# below ~1/OVERSIZE_FACTOR load the extra footprint buys nothing
+# (check_store_budget's boot lint)
+OVERSIZE_FACTOR = 4.0
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -104,6 +107,15 @@ class Store(NamedTuple):
     data: torch.Tensor
 
 
+def store_capacity(config: StoreConfig) -> int:
+    """Total entry capacity (rows x slots)."""
+    return config.rows * config.slots
+
+
+def store_footprint_bytes(config: StoreConfig) -> int:
+    return store_capacity(config) * BYTES_PER_ENTRY
+
+
 def _pow2_at_least(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
 
@@ -132,6 +144,58 @@ def derive_store_config(
         slots = 1 << ((entries // rows).bit_length() - 1)
     slots = max(slots, SLOTS_PER_DENSE_ROW)
     return StoreConfig(rows=rows, slots=slots)
+
+
+def check_store_budget(
+    config: StoreConfig, target_keys: int, cold_tier: bool = False
+) -> str:
+    """Boot-time footprint lint against a key budget: '' when the shape
+    suits `target_keys` live keys, else a one-line diagnosis (the caller
+    warns or fails). With the sketch tier on (`cold_tier`), an exact
+    tier smaller than the key budget is the design (the overflow is
+    decided by the sketch), so only the oversize lint fires."""
+    if target_keys <= 0:
+        return ""
+    cap = store_capacity(config)
+    mib = store_footprint_bytes(config) / (1 << 20)
+    if cap > target_keys * OVERSIZE_FACTOR:
+        return (
+            f"store is oversized for the key budget: {cap} entries "
+            f"({mib:.0f} MiB) provisioned for {target_keys} live keys "
+            f"(load {target_keys / cap:.2f}); right-size with "
+            f"GUBER_STORE_TARGET_KEYS={target_keys} "
+            f"(~{derive_store_config(target_keys=target_keys, rows=config.rows).slots} slots) "
+            f"or accept the throughput cost explicitly"
+        )
+    if cold_tier:
+        return ""
+    if target_keys > cap * MAX_LOAD:
+        return (
+            f"store is undersized for the key budget: {target_keys} live "
+            f"keys against {cap} entries (load {target_keys / cap:.2f} > "
+            f"{MAX_LOAD}) — expect measurable over-admission from "
+            f"eviction pressure; raise GUBER_STORE_TARGET_KEYS sizing or "
+            f"GUBER_STORE_MIB"
+        )
+    return ""
+
+
+def check_host_budget(budget_mib: int, parts: dict) -> str:
+    """Whole-host footprint lint: '' when the tiers in `parts` (name ->
+    bytes: exact store, sketch, shed cache, ...) fit `budget_mib`, else
+    a one-line diagnosis (the caller warns or fails)."""
+    if budget_mib <= 0:
+        return ""
+    total = sum(parts.values())
+    if total <= (budget_mib << 20):
+        return ""
+    detail = " + ".join(f"{k} {v / (1 << 20):.1f} MiB" for k, v in parts.items())
+    return (
+        f"declared GUBER_STORE_MIB={budget_mib} is exceeded by the "
+        f"full rate-limit-state footprint: {detail} = "
+        f"{total / (1 << 20):.1f} MiB; shrink GUBER_SHED_CACHE_KEYS or "
+        f"raise GUBER_STORE_MIB"
+    )
 
 
 def new_store(

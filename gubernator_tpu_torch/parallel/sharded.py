@@ -9,17 +9,27 @@ JAX donates them instead), and fetch ONE packed int32 array of
 responses + stats per batch.
 
 Ported surfaces: construction (optionally with a SketchConfig), reset
-and the epoch clock with its store rebase (both clear the sketch), the
+(bumping `reset_generation`, the shed cache's store-wipe epoch) and the
+epoch clock with its store rebase (both clear the sketch), the
 request-object API (get_rate_limits[_submit/_wait]), the array API
-(decide_submit / decide_wait / decide_arrays), the promoter's engine
-surfaces (sketch_estimates, live_mask, snapshot_read, install_windows,
-promote_from_sketch), warmup, and load_state, which carries a JAX
-engine's store, sketch and clock across. Not ported yet: the mesh
-policy, quota chains, GLOBAL sync, the serving tier's promoter loop and
-the arrival-prep merge path.
+(decide_submit / decide_wait / decide_arrays), the arrival-prep path
+(prep_run / merge_prepped / decide_submit_merged /
+decide_submit_presorted), the GLOBAL surfaces (update_globals in both
+call forms, apply_global_hits), the promoter's engine surfaces
+(observe_hook, sketch_estimates, live_mask, snapshot_read,
+install_windows, promote_from_sketch), warmup, and load_state, which
+carries a JAX engine's store, sketch and clock across. Not ported yet:
+the mesh policy and quota chains.
 
-Thread model: not thread-safe, like the reference engine; one serving
-thread owns it.
+Every submit path ends in `_dispatch`, which feeds `observe_hook` the
+host-side numpy BatchRequest and runs the decide; on a CUDA device the
+submit then starts a non-blocking copy of the packed outputs into pinned
+host memory and records an event, so `decide_wait` waits for its own
+batch only, never for batches submitted after it.
+
+Thread model (the reference's): submits are serialized on one thread;
+decide_wait calls may run concurrently on fetch threads, touching only
+their own handle and the stats, which land under EngineStats' lock.
 """
 
 from __future__ import annotations
@@ -34,10 +44,12 @@ from gubernator_tpu_torch.core.engine import (
     EngineStats,
     EpochClock,
     _sat_i32,
+    build_presorted_request,
     decide_packed,
     decide_packed_sketch,
     pad_request_sorted,
     pad_to_bucket,
+    prep_run_single,
     to_device,
     unpermute_responses,
 )
@@ -91,6 +103,13 @@ class TorchEngine:
         self.device = resolve_device(device)
         self.clock = EpochClock()
         self.stats = EngineStats()
+        # bumped by every reset(): the store-wipe epoch the over-limit
+        # shed cache checks (serve/shedcache.py)
+        self.reset_generation = 0
+        # serve-tier hot-key observer (serve/promoter.py): called with
+        # every dispatched numpy BatchRequest, before it goes to the
+        # device; must never fail a dispatch
+        self.observe_hook = None
         self.store = new_store(config, self.device)
         # `sketch_on` flips between the two-tier and the exact-only
         # decide at run time (the reference's A/B flag)
@@ -104,6 +123,7 @@ class TorchEngine:
         self.store.data.zero_()
         if self.sketch is not None:
             self.sketch.data.zero_()
+        self.reset_generation += 1
 
     def _engine_now(self, now: int) -> np.int32:
         e, delta, reset_required = self.clock.advance(now)
@@ -199,9 +219,19 @@ class TorchEngine:
 
     # -- array decide paths --------------------------------------------------
 
-    def _dispatch(self, req_t, groups_t, e_now) -> torch.Tensor:
-        """Run the exact-only or the two-tier decide on the device; returns
-        the packed output tensor."""
+    def _dispatch(self, req, groups, e_now, observe: bool = True) -> torch.Tensor:
+        """The one dispatch funnel of every submit path: feed the hot-key
+        observer the numpy batch (unless `observe` is False), copy it to
+        the device and run the exact-only or the two-tier decide there;
+        returns the packed output tensor."""
+        hook = self.observe_hook if observe else None
+        if hook is not None:
+            try:
+                hook(req)
+            except Exception:  # pragma: no cover - defensive
+                pass  # observability must never fail a dispatch
+        req_t = to_device(req, self.device)
+        groups_t = to_device(groups, self.device)
         if self.sketch is not None and self.sketch_on:
             _store, _sketch, packed = decide_packed_sketch(
                 self.store, self.sketch, req_t, e_now, groups_t
@@ -219,11 +249,13 @@ class TorchEngine:
         algo: np.ndarray,
         gnp: np.ndarray,
         now: int,
+        observe: bool = True,
     ):
         """Presort + dispatch one batch WITHOUT waiting for the device.
         The store update is queued on the device stream at once, so the
         next submit may follow immediately. Returns a handle for
-        decide_wait that captures the submit-time epoch."""
+        decide_wait that captures the submit-time epoch. `observe=False`
+        keeps the batch from the hot-key observer."""
         n = key_hash.shape[0]
         e_now = self._engine_now(now)
         req, order, groups = pad_request_sorted(
@@ -237,24 +269,90 @@ class TorchEngine:
             gnp,
             with_groups=True,
         )
-        packed = self._dispatch(
-            to_device(req, self.device), to_device(groups, self.device), e_now
-        )
-        return packed, order, n, req.key_hash.shape[0], self.clock.epoch
+        packed = self._dispatch(req, groups, e_now, observe)
+        return self._handle(packed, order, n, req.key_hash.shape[0])
+
+    def _handle(self, packed: torch.Tensor, order: np.ndarray, n: int, B: int):
+        """decide_wait's handle for one dispatched batch: (packed host
+        tensor, its copy's event or None, order, n, B, epoch). On CUDA
+        the packed outputs start copying into pinned host memory at once
+        and the event marks that copy's end in stream order."""
+        event = None
+        if packed.device.type == "cuda":
+            host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+            host.copy_(packed, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            packed = host
+        return packed, event, order, n, B, self.clock.epoch
+
+    def prep_run(self, fields: dict) -> dict:
+        """Arrival-time prep of one caller group (serve/batcher.py): a
+        sorted, device-dtype run for the flush-time merge."""
+        return prep_run_single(fields, self.config.slots)
+
+    def merge_prepped(self, runs) -> dict:
+        """Merge pre-sorted per-group runs into one dispatch-ready batch
+        (the submit thread's `merge` stage)."""
+        from gubernator_tpu_torch.serve.prep import merge_runs
+
+        n = int(sum(r["n"] for r in runs))
+        m = merge_runs(runs)
+        req, groups, B = build_presorted_request(self.buckets, m["fields"], m["skey"], n)
+        order_p = np.empty(B, np.int32)
+        order_p[:n] = m["order"]
+        order_p[n:] = np.arange(n, B, dtype=np.int32)
+        return dict(req=req, groups=groups, order=order_p, n=n, B=B)
+
+    def decide_submit_merged(self, merged: dict, now: int):
+        """Dispatch a merge_prepped batch: epoch bookkeeping + the decide
+        (the submit thread's `dispatch` stage). Handle as decide_submit's."""
+        e_now = self._engine_now(now)
+        packed = self._dispatch(merged["req"], merged["groups"], e_now)
+        return self._handle(packed, merged["order"], merged["n"], merged["B"])
+
+    def decide_submit_presorted(
+        self,
+        fields: dict,
+        skey: np.ndarray,
+        order: Optional[np.ndarray],
+        counts: np.ndarray,
+        now: int,
+    ):
+        """Dispatch a batch whose host presort already happened: `fields`
+        are device-dtype arrays in sorted order, `skey` their sorted keys,
+        `order[k]` the caller index of sorted row k (None = identity);
+        `counts` is the reference's per-shard row count (unused on one
+        device). Pads and derives the groups in O(n), no argsort."""
+        n = skey.shape[0]
+        if n == 0:
+            return None
+        e_now = self._engine_now(now)
+        req, groups, B = build_presorted_request(self.buckets, fields, skey, n)
+        order_p = np.empty(B, np.int32)
+        order_p[:n] = order if order is not None else np.arange(n, dtype=np.int32)
+        order_p[n:] = np.arange(n, B, dtype=np.int32)
+        packed = self._dispatch(req, groups, e_now)
+        return self._handle(packed, order_p, n, B)
 
     def decide_wait(
-        self, handle
+        self, handle, count: bool = True
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
         """Fetch + unpermute the responses for a decide_submit handle:
-        (status, limit, remaining, reset_time int64 unix-ms)."""
-        packed, order, n, B, epoch = handle
-        packed = packed.cpu().numpy()
-        self.stats.add_batch(
-            int(packed[4 * B]),
-            int(packed[4 * B + 1]),
-            int(packed[4 * B + 2]),
-            int(packed[4 * B + 3]),
-        )
+        (status, limit, remaining, reset_time int64 unix-ms). Waits on
+        this batch's own copy event only. `count=False` leaves the batch
+        out of `stats`."""
+        packed, event, order, n, B, epoch = handle
+        if event is not None:
+            event.synchronize()
+        packed = packed.numpy()
+        if count:
+            self.stats.add_batch(
+                int(packed[4 * B]),
+                int(packed[4 * B + 1]),
+                int(packed[4 * B + 2]),
+                int(packed[4 * B + 3]),
+            )
         status, rlimit, remaining, reset = unpermute_responses(
             order, unpack_outputs(packed, B)[:4]
         )
@@ -418,6 +516,81 @@ class TorchEngine:
             else:
                 cols = pad_to_bucket(self.buckets, e - s, *head, (is_over[s:e], bool))
                 upsert_globals(self.store, *self._cols_to_device(cols))
+
+    def update_globals(self, *args, now: Optional[int] = None, **kw):
+        """Install owner-broadcast GLOBAL statuses (the UpdatePeerGlobals
+        receive path). Two call forms, one install path (install_windows):
+
+        - object form: update_globals([(key, RateLimitResp), ...])
+        - array form:  update_globals(key_hash=..., limit=...,
+          remaining=..., reset_time=..., is_over=...), positional ndarrays
+          accepted.
+        """
+        updates_kw = kw.pop("updates", None)
+        if updates_kw is not None:
+            if args or kw:
+                raise TypeError("update_globals(updates=...) excludes other args")
+            args = (updates_kw,)
+        if kw or len(args) > 1 or (args and isinstance(args[0], np.ndarray)):
+            names = ("key_hash", "limit", "remaining", "reset_time", "is_over")
+            vals = dict(zip(names, args))
+            vals.update(kw)
+            return self.install_windows(
+                vals["key_hash"], vals["limit"], vals["remaining"],
+                vals["reset_time"], vals["is_over"], now=now,
+            )
+        from gubernator_tpu_torch.core.hashing import slot_hash_batch
+
+        updates = list(args[0]) if args else []
+        n = len(updates)
+        if n == 0:
+            return
+        return self.install_windows(
+            slot_hash_batch([k for k, _ in updates]),
+            np.fromiter((s.limit for _, s in updates), np.int64, n),
+            np.fromiter((s.remaining for _, s in updates), np.int64, n),
+            np.fromiter((s.reset_time for _, s in updates), np.int64, n),
+            np.fromiter(
+                (s.status == api_types.Status.OVER_LIMIT for _, s in updates), bool, n
+            ),
+            now=now,
+        )
+
+    def apply_global_hits(
+        self,
+        key_hash: np.ndarray,
+        hits: np.ndarray,
+        limit: np.ndarray,
+        duration: np.ndarray,
+        now: int,
+        algo: Optional[np.ndarray] = None,
+    ):
+        """Charge aggregated GLOBAL hits on their owner and return the
+        post-charge windows (status, limit, remaining, reset_time unix-ms)
+        in caller order. On one device the owner is this store, so it is
+        one local decide per ladder-sized chunk. Gossip traffic must not
+        heat the promoter's top-K or count as decide batches in
+        EngineStats, so its chunks skip the observer and the stats. (The
+        reference swaps both attributes out around the call instead; here
+        a fetch thread may be adding an earlier batch to `stats` at the
+        same time, so nothing is swapped.)"""
+        n = key_hash.shape[0]
+        if n == 0:
+            z = np.empty(0, np.int64)
+            return z, z, z, z
+        if algo is None:
+            algo = np.zeros(n, np.int32)
+        top = max(self.buckets)
+        cols = ([], [], [], [])
+        for s in range(0, n, top):
+            e = min(s + top, n)
+            h = self.decide_submit(
+                key_hash[s:e], hits[s:e], limit[s:e], duration[s:e],
+                algo[s:e], np.zeros(e - s, bool), now, observe=False,
+            )
+            for c, v in zip(cols, self.decide_wait(h, count=False)):
+                c.append(v)
+        return tuple(c[0] if len(c) == 1 else np.concatenate(c) for c in cols)
 
     def _cols_to_device(self, cols):
         kh, *rest = cols

@@ -1,0 +1,198 @@
+"""Per-peer circuit breaker for the forwarding path.
+
+The port's copy of gubernator_tpu/serve/breaker.py with its imports
+rewritten; the file references below are the reference package's.
+
+The reference has no breaker: a dead owner costs every forwarded request
+a full RPC failure, forever ("Designing Scalable Rate Limiting Systems",
+PAPERS.md, names this the classic availability gap). This breaker gives
+each PeerClient a three-state machine:
+
+    closed    — calls flow; failures are counted (consecutive + a
+                sliding window ratio).
+    open      — calls fail fast with BreakerOpenError (no RPC, no
+                deadline wait) until `cooldown` elapses.
+    half-open — up to `probes` concurrent calls are let through; all
+                succeeding closes the breaker, any failing re-opens it
+                (restarting the cooldown).
+
+Trip conditions (either): `failures` consecutive failures, or a failure
+ratio >= `ratio` over the last `window` outcomes once the window is
+full. Consecutive-failure tripping catches a dead peer in ~failures
+RPCs; the ratio catches a brown-out that never fails twice in a row.
+
+The breaker is intentionally not thread-safe: like everything else in
+the serving tier it lives on the asyncio loop. acquire/record pairs DO
+straddle awaits (the RPC runs between them), so acquire() hands out an
+epoch token and record_*() ignores outcomes from an earlier epoch — a
+slow pre-trip call resolving after the breaker opened (or while a
+half-open probe is deciding) must not close, re-open, or restart the
+cooldown of a state it was never part of.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import deque
+from typing import Callable, Optional
+
+CLOSED = "closed"
+OPEN = "open"
+HALF_OPEN = "half_open"
+
+#: /metrics encoding of the state (peer_breaker_state gauge)
+STATE_CODES = {CLOSED: 0, HALF_OPEN: 1, OPEN: 2}
+
+
+class BreakerOpenError(RuntimeError):
+    """Fail-fast refusal: the peer's circuit is open."""
+
+
+class CircuitBreaker:
+    def __init__(
+        self,
+        failures: int = 5,
+        ratio: float = 0.5,
+        window: int = 20,
+        cooldown: float = 1.0,
+        probes: int = 1,
+        clock: Callable[[], float] = time.monotonic,
+        on_transition: Optional[Callable[[str, str], None]] = None,
+    ):
+        self.failures = max(1, int(failures))
+        self.ratio = float(ratio)
+        self.window = max(1, int(window))
+        self.cooldown = float(cooldown)
+        self.probes = max(1, int(probes))
+        self._clock = clock
+        self._on_transition = on_transition
+        self.state = CLOSED
+        self._consecutive = 0
+        self._outcomes: deque = deque(maxlen=self.window)
+        self._opened_at = 0.0
+        self._probes_inflight = 0
+        self._probe_successes = 0
+        # epoch: bumped on every state transition. acquire() stamps each
+        # admission with it; a record_* carrying an older stamp is a
+        # STALE outcome (admitted under a previous state) and is ignored
+        # — a slow pre-trip call resolving during a later half-open must
+        # not close the breaker (its success says nothing about the
+        # probes) or restart the cooldown.
+        self._epoch = 1
+
+    # -- gate ---------------------------------------------------------------
+
+    def acquire(self) -> int:
+        """Admission check, called before each RPC. Returns the epoch
+        token (truthy) to hand back to record_*, or 0 (falsy) when the
+        call must fail fast. Every token MUST be paired with exactly
+        one record_success/failure/cancel — in half-open the acquire
+        reserves a probe slot."""
+        if self.state == CLOSED:
+            return self._epoch
+        if self.state == OPEN:
+            if self._clock() - self._opened_at < self.cooldown:
+                return 0
+            self._transition(HALF_OPEN)
+            self._probes_inflight = 0
+            self._probe_successes = 0
+        # HALF_OPEN: bound concurrent probes
+        if self._probes_inflight >= self.probes:
+            return 0
+        self._probes_inflight += 1
+        return self._epoch
+
+    def _stale(self, token) -> bool:
+        # token None = caller predates epochs (ad-hoc/test use): treat
+        # as current
+        return token is not None and token != self._epoch
+
+    # -- outcomes -----------------------------------------------------------
+
+    def record_success(self, token: int = None) -> None:
+        if self._stale(token):
+            return
+        if self.state == HALF_OPEN:
+            self._probes_inflight = max(0, self._probes_inflight - 1)
+            self._probe_successes += 1
+            if self._probe_successes >= self.probes:
+                self._reset()
+                self._transition(CLOSED)
+            return
+        self._consecutive = 0
+        self._outcomes.append(True)
+
+    def record_cancel(self, token: int = None) -> None:
+        """The admitted call was cancelled (teardown): release a
+        half-open probe slot without counting an outcome."""
+        if self.state == HALF_OPEN and not self._stale(token):
+            self._probes_inflight = max(0, self._probes_inflight - 1)
+
+    def record_failure(self, token: int = None) -> None:
+        if self._stale(token):
+            return
+        if self.state == HALF_OPEN:
+            # the probe failed: the peer is still down — re-open and
+            # restart the cooldown clock
+            self._probes_inflight = max(0, self._probes_inflight - 1)
+            self._open()
+            return
+        if self.state == OPEN:
+            # late failure from a call admitted before the trip
+            return
+        self._consecutive += 1
+        self._outcomes.append(False)
+        if self._consecutive >= self.failures:
+            self._open()
+            return
+        if len(self._outcomes) == self.window:
+            bad = sum(1 for ok in self._outcomes if not ok)
+            if bad / self.window >= self.ratio:
+                self._open()
+
+    # -- internals ----------------------------------------------------------
+
+    def _open(self) -> None:
+        self._opened_at = self._clock()
+        self._reset()
+        self._transition(OPEN)
+
+    def _reset(self) -> None:
+        self._consecutive = 0
+        self._outcomes.clear()
+        self._probes_inflight = 0
+        self._probe_successes = 0
+
+    def _transition(self, to: str) -> None:
+        if self.state == to:
+            return
+        frm, self.state = self.state, to
+        self._epoch += 1  # outcomes admitted before this point are stale
+        if self._on_transition is not None:
+            try:
+                self._on_transition(frm, to)
+            except Exception:  # pragma: no cover - defensive
+                pass
+
+    # -- observability ------------------------------------------------------
+
+    def effective_state(self) -> str:
+        """The state an outside observer (health, /metrics) should
+        read. The OPEN->HALF_OPEN transition happens lazily at the
+        next acquire(), so with no traffic the stored state stays OPEN
+        forever — and a health check reading it raw would report a
+        long-recovered peer as down indefinitely (exactly the rotation
+        deadlock the breaker exists to avoid: unhealthy -> traffic
+        routed away -> no acquire -> never probes). OPEN past its
+        cooldown is therefore reported as half-open pending its first
+        probe."""
+        if (
+            self.state == OPEN
+            and self._clock() - self._opened_at >= self.cooldown
+        ):
+            return HALF_OPEN
+        return self.state
+
+    @property
+    def state_code(self) -> int:
+        return STATE_CODES[self.effective_state()]

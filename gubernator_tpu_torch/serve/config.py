@@ -1,0 +1,970 @@
+"""Server configuration: library config + GUBER_* environment parsing.
+
+Two tiers like the reference: a library-level config consumed by the
+Instance (reference config.go:28-75), and a daemon-level env-var surface
+(GUBER_* variables with an optional KEY=value config file injected into
+the environment — reference cmd/gubernator/config.go:59-147). Defaults
+mirror the reference's (config.go:59-75).
+
+The port's copy of gubernator_tpu/serve/config.py: the same fields,
+defaults and env names, except `jax_platform` (GUBER_JAX_PLATFORM),
+which has no meaning here. `store_config()` / `sketch_config()` are thin
+calls into the port's one carve-out of the budget
+(core.sketches.derive_two_tier_config, core.store.derive_store_config).
+Comments name the reference's modules and files.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+MAX_BATCH_SIZE = 1000  # hard request-list cap (reference gubernator.go:34)
+
+
+@dataclass
+class BehaviorConfig:
+    """Batching/gossip knobs; times in seconds (float).
+
+    batch_wait divergence from the reference's 500us default
+    (config.go:62): peer batches here drain everything already enqueued
+    before sending ("batch while busy"), so coalescing scales with load
+    without holding solo requests hostage to a window. Set
+    GUBER_BATCH_WAIT_MS=0.5 to restore the reference's fixed window on
+    top of the drain."""
+
+    batch_timeout: float = 0.5  # peer batch RPC deadline
+    batch_wait: float = 0.0  # extra micro-batch window (0 = drain only)
+    batch_limit: int = MAX_BATCH_SIZE
+
+    global_timeout: float = 0.5  # GLOBAL gossip RPC deadline
+    global_sync_wait: float = 0.0005  # GLOBAL gossip window
+    global_batch_limit: int = MAX_BATCH_SIZE
+    # Mesh-native GLOBAL flush (r20, GUBER_GLOBAL_MESH, default ON):
+    # hits queued for a destination that is THIS node route through one
+    # in-mesh psum collective (engine apply_global_hits) instead of a
+    # loopback gossip RPC; off-mesh peers keep the RPC path, selected
+    # per destination. OFF restores the pre-r20 all-RPC fan-out (the
+    # perf gate's A side; also the escape hatch if a deployment needs
+    # flush traffic to exercise the full RPC door).
+    global_mesh: bool = True
+
+    # -- peer resilience (r8) ----------------------------------------------
+    # Per-RPC deadline for peer calls (GUBER_PEER_TIMEOUT_MS). 0 = fall
+    # back to batch_timeout, the pre-r8 behavior, so existing deployments
+    # pinning only GUBER_BATCH_TIMEOUT_MS keep their deadline.
+    peer_timeout: float = 0.0
+    # Bounded retries with exponential backoff + FULL jitter
+    # (delay ~ U(0, min(max, base * 2^attempt))). Retried only for
+    # failures that are safe to re-send: transport-level errors where
+    # the request never reached the peer (UNAVAILABLE / connection
+    # refused / injected retryable faults), or ANY failure when every
+    # request in the batch is a zero-hit peek (truly idempotent).
+    # DEADLINE_EXCEEDED on a hit-carrying batch is NOT retried — the
+    # peer may have applied the hits (at-most-once over double-count).
+    peer_retries: int = 2  # GUBER_PEER_RETRIES; 0 disables
+    peer_backoff: float = 0.025  # GUBER_PEER_BACKOFF_MS: base delay
+    peer_backoff_max: float = 0.25  # GUBER_PEER_BACKOFF_MAX_MS: cap
+    # Per-peer circuit breaker (serve/breaker.py): trip after
+    # `breaker_failures` consecutive failures OR a failure ratio >=
+    # `breaker_ratio` over the last `breaker_window` calls; fail fast
+    # while open; after `breaker_cooldown` let `breaker_probes`
+    # half-open probes decide. breaker_failures=0 disables the breaker.
+    breaker_failures: int = 5  # GUBER_BREAKER_FAILURES
+    breaker_ratio: float = 0.5  # GUBER_BREAKER_RATIO
+    breaker_window: int = 20  # GUBER_BREAKER_WINDOW
+    breaker_cooldown: float = 1.0  # GUBER_BREAKER_COOLDOWN_MS
+    breaker_probes: int = 1  # GUBER_BREAKER_PROBES
+    # GLOBAL gossip backlog bound (GUBER_GLOBAL_BACKLOG, r11): maximum
+    # distinct keys held in each of GlobalManager's aggregation dicts
+    # (_hits and _updates). An unreachable owner used to let the hit
+    # backlog grow without limit for the whole outage; past the cap,
+    # NEW keys are dropped (existing keys keep aggregating for free)
+    # and counted in global_backlog_dropped_total{queue} — fail-loud,
+    # like the shed-cache footprint lint.
+    global_backlog: int = 1 << 17
+
+    def effective_peer_timeout(self) -> float:
+        return self.peer_timeout if self.peer_timeout > 0 else self.batch_timeout
+
+    def validate(self) -> None:
+        if self.batch_limit > MAX_BATCH_SIZE:
+            raise ValueError(
+                f"behaviors.batch_limit cannot exceed '{MAX_BATCH_SIZE}'"
+            )
+        if self.peer_timeout < 0 or self.peer_retries < 0:
+            raise ValueError(
+                "GUBER_PEER_TIMEOUT_MS / GUBER_PEER_RETRIES must be >= 0"
+            )
+        if self.peer_backoff < 0 or self.peer_backoff_max < self.peer_backoff:
+            raise ValueError(
+                "GUBER_PEER_BACKOFF_MS must be >= 0 and <= "
+                "GUBER_PEER_BACKOFF_MAX_MS"
+            )
+        if self.breaker_failures < 0:
+            raise ValueError("GUBER_BREAKER_FAILURES must be >= 0")
+        if not (0.0 < self.breaker_ratio <= 1.0):
+            raise ValueError("GUBER_BREAKER_RATIO must be in (0, 1]")
+        if self.breaker_window < 1 or self.breaker_probes < 1:
+            raise ValueError(
+                "GUBER_BREAKER_WINDOW / GUBER_BREAKER_PROBES must be >= 1"
+            )
+        if self.breaker_cooldown < 0:
+            raise ValueError("GUBER_BREAKER_COOLDOWN_MS must be >= 0")
+        if self.global_backlog < 1:
+            raise ValueError("GUBER_GLOBAL_BACKLOG must be >= 1")
+
+
+@dataclass
+class ServerConfig:
+    """One daemon's full configuration."""
+
+    grpc_address: str = "localhost:81"
+    http_address: str = "localhost:80"
+    advertise_address: str = ""  # address peers should dial; default grpc
+    behaviors: BehaviorConfig = field(default_factory=BehaviorConfig)
+
+    backend: str = "tpu"  # tpu | exact | mesh | multihost
+    # Shard count for the mesh backend (GUBER_SHARDS, r14): how many
+    # local devices the partitioned engine's sharding policy takes, in
+    # jax.devices() order. 0 = all local devices (the historical mesh
+    # default). On a TPU slice this is the chip count; in CI the
+    # simulated-device flag (XLA_FLAGS
+    # --xla_force_host_platform_device_count=N) makes the same sharded
+    # paths run on N virtual CPU devices — how the sharded scale-out
+    # suite runs in tier-1 (tests/conftest.py).
+    shards: int = 0
+    cache_size: int = 50_000  # exact backend capacity
+    store_rows: int = 16  # slot-store geometry (tpu/mesh backends);
+    # 16 ways = 128-lane bucket rows, the fast TPU layout (core.store).
+    # NOTE: capacity = rows * slots. The defaults changed together
+    # (4 x 2^17 -> 16 x 2^15, same 524,288 entries); deployments pinning
+    # only one of GUBER_STORE_ROWS / GUBER_STORE_SLOTS should re-check
+    # the product, not just one knob.
+    store_slots: int = 1 << 15
+    # store auto-sizing (core.store.derive_store_config): operator-level
+    # budgets that derive slots instead of pinning geometry by hand.
+    # GUBER_STORE_TARGET_KEYS sizes for ~2x the expected live keys (the
+    # measured footprint≍throughput law: provisioned capacity, not live
+    # keys, sets the per-batch HBM cost); GUBER_STORE_MIB pins the
+    # footprint directly. Either overrides store_slots; setting both
+    # sizes from MIB and lints the footprint against the key budget.
+    store_target_keys: int = 0
+    store_mib: int = 0
+    # escalate the boot-time footprint lint (oversized/undersized store
+    # for the declared key budget) from a log warning to a hard failure
+    store_size_strict: bool = False
+    # True when GUBER_STORE_SLOTS was set explicitly (config_from_env):
+    # an explicit pin + a key budget means "lint my footprint", not
+    # "derive over my pin". Library embedders constructing ServerConfig
+    # directly are covered either way: store_config() also treats a
+    # non-default store_slots value as a pin.
+    store_slots_pinned: bool = False
+    edge_socket: str = ""  # unix socket for the native edge bridge
+    # TCP listener for the edge bridge ("host:port"). Lets an edge
+    # fronting a multi-node cluster ship pre-hashed frames directly to
+    # each key's ring owner. Symmetric-fleet convention: every node
+    # listens on the SAME port, so peers' bridge endpoints are derived
+    # as (peer gRPC host, this port). Internal cluster port — do not
+    # expose to clients (serve/edge_bridge.py trust boundary).
+    edge_tcp: str = ""
+    # Explicit peer-bridge map overriding the symmetric convention:
+    # "grpc_addr=bridge_addr,..." — needed when nodes share a host
+    # (different ports per node, e.g. a localhost test cluster) or run
+    # heterogeneous port layouts.
+    edge_peer_bridges: str = ""
+    # Kill switch (GUBER_EDGE_FAST=0): stop advertising the pre-hashed
+    # fast path; every edge item rides the string path through the full
+    # instance. Operational fallback, and the slow-path denominator in
+    # scripts/bench_edge_cluster.py.
+    edge_fast: bool = True
+    # Credit window the bridge advertises in its hello (r7): max frames
+    # one edge connection may keep in flight. Each in-flight frame is a
+    # concurrently-served batch, so this bounds per-connection memory
+    # and co-batching depth; past ~the device fetch pipeline depth,
+    # more window buys only queueing. 0 = GUBER_EDGE_WINDOW (default
+    # 32). Exceeding the window is TCP-backpressured, never dropped.
+    edge_window: int = 0
+    # Daemon-side GEB client-protocol door (r12): TCP port where the
+    # daemon serves the windowed binary frame protocol directly to
+    # GEB clients (gubernator_tpu.client_geb) — the edge wire protocol
+    # without running the edge binary. 0 = off. Listens on 0.0.0.0;
+    # shares the bridge's frame-service core, so shed screen, string
+    # fold, stage clock, and GEBR drain semantics apply identically.
+    # NOTE the fast-framing trust stance: pre-hashed frames bypass
+    # instance routing (serve/edge_bridge.py GebListener docstring) —
+    # the packaged client only sends them on single-node rings.
+    geb_port: int = 0
+    # Credit window the GEB listener advertises (max frames in flight
+    # per client connection). 0 = the edge_window resolution (default
+    # 32). Per-connection memory bound and pipelining depth, exactly
+    # like GUBER_EDGE_WINDOW.
+    geb_window: int = 0
+    # Explicit peer GEB-door map for the ring-routing client (r18):
+    # "grpc_addr=host:port,..." overrides the symmetric-port
+    # convention in the GEB listener's hello, exactly like
+    # GUBER_EDGE_PEER_BRIDGES does for the bridge — needed when nodes
+    # share a host (a localhost test cluster) or run heterogeneous
+    # port layouts and clients route fast frames per owner.
+    geb_peer_doors: str = ""
+    # Shared-memory GEB lane (r18, serve/shm.py): unix-socket bridge
+    # connections may negotiate a mmap'd ring pair (GEBM/GEBN after
+    # the hello) carrying the exact windowed frame bytes with no
+    # kernel socket hop. Served through the same FrameService core as
+    # every other door. GUBER_SHM=0 is the kill switch: the HELLO_SHM
+    # bit disappears and clients stay on the socket.
+    shm: bool = True
+    # Ring capacity per direction, KiB (bounded 64..1048576). One lane
+    # maps 2x this + a 4 KiB header; the client's credit window rides
+    # the ring capacity, so size it >= window * typical frame bytes.
+    shm_ring_kib: int = 1024
+    # Wakeup policy: 0 (default) = futex waits on the ring's seq words
+    # (idle lanes cost no CPU); > 0 = bounded busy-poll sleeping up to
+    # this many microseconds per check — lower latency on dedicated
+    # cores, at the price of burning them.
+    shm_poll_us: int = 0
+    # String->array fold (r7 slow-path owner batching, bridge side): a
+    # string frame whose items are ALL plain (BATCHING/NO_BATCHING,
+    # valid non-empty name/key) and ALL owned by this node skips
+    # request/response objects and instance routing, riding the same
+    # array path as pre-hashed frames. This is what keeps the
+    # GUBER_EDGE_FAST=0 kill switch (and bridge-carrying slow paths in
+    # general) near fast-path latency; GLOBAL items, validation
+    # errors, and misrouted items still take the full instance path.
+    # GUBER_EDGE_STRING_FOLD=0 restores the pre-r7 all-objects path.
+    edge_string_fold: bool = True
+    # Read-side payload cap on the trusted edge->bridge door, in MiB
+    # (r12 hardening): the bridge refuses a frame header advertising
+    # more BEFORE buffering a byte of it. The default (256) clears the
+    # largest legal frame at the edge's default --batch-limit of 1000
+    # items (u16-length names/keys, ~131 KB/item worst case); raise it
+    # in lockstep if you raise --batch-limit with very long keys. The
+    # client-facing GEB doors bound at 8 MiB regardless
+    # (edge_bridge.MAX_FRAME_PAYLOAD, matched by the packaged client).
+    edge_max_frame_mib: int = 256
+
+    # multi-host mesh (GUBER_DIST_*): one jax.distributed program over
+    # several hosts; process 0 serves (backend=multihost), others run the
+    # lockstep follower loop (parallel/multihost.py)
+    dist_coordinator: str = ""
+    dist_num_processes: int = 1
+    dist_process_id: int = 0
+    dist_followers: tuple = ()
+    dist_step_listen: str = ""
+
+    # Device micro-batcher. 0 = flush immediately with whatever has
+    # accumulated ("batch while busy": arrivals during a device launch
+    # coalesce into the next batch, so batching scales with load and a
+    # solo request pays no window). >0 = also hold the batch open that
+    # many seconds after the first arrival (reference BatchWait).
+    device_batch_wait: float = 0.0
+    device_batch_limit: int = MAX_BATCH_SIZE
+    # Throughput mode (GUBER_DEVICE_DEEP_BATCH): while the device
+    # pipeline is saturated, keep accumulating toward device_batch_limit
+    # instead of flushing shallow batches the submit gate would park
+    # anyway. Deep batches amortize the store writeback's full-table
+    # pass (the big-store lever: 4.28M -> 20.6M dec/s on a 1 GiB store,
+    # BENCH_ZIPF10M_PROFILE_r5.json). Idle flush semantics (batch_wait)
+    # are untouched, so latency under light load does not change; under
+    # saturation per-request latency grows toward one deep-batch period.
+    device_deep_batch: bool = False
+    # Arrival-time host prep (r9, GUBER_PREP_AT_ARRIVAL): convert +
+    # hash + ownership/bucket-presort each caller group on a small prep
+    # pool WHEN IT IS ENQUEUED, so groups sit in the device queue as
+    # sorted runs and the submit thread only k-way MERGES them before
+    # dispatch (O(n log k), serve/prep.py) — instead of paying
+    # flatten + concat + full argsort serialized at flush. Only takes
+    # effect on array-capable device backends; decisions are
+    # byte-identical either way (tests/test_prep_pipeline.py).
+    # GUBER_PREP_AT_ARRIVAL=0 restores flush-time prep, the pre-r9
+    # behavior and the A/B baseline of BENCH_SUBMIT_r9.json.
+    prep_at_arrival: bool = True
+    # Python prep-pool width (GUBER_PREP_THREADS). 0 = auto in the
+    # DeviceBatcher: min(4, cores-1), leaving a core for the serving
+    # loop.
+    prep_threads: int = 0
+    # Over-limit shed cache (r10, serve/shedcache.py): a bounded host
+    # LRU of frozen token-bucket over-limit verdicts consulted BEFORE a
+    # request enters the batcher — at the instance tier (gRPC/HTTP/
+    # peer/owner-forwarded traffic) and at the edge bridge (pre-hashed
+    # and folded string frames). Shed is gated to provably
+    # byte-identical cases (token bucket, hits > 0, matching limit/
+    # duration, now < reset_time); invalidation is device-authoritative
+    # (entries expire at reset_time, GLOBAL installs purge their keys,
+    # engine store resets clear everything). GUBER_SHED_CACHE=0
+    # disables; GUBER_SHED_CACHE_KEYS bounds the LRU (footprint linted
+    # at boot like the store sizing pass).
+    shed_cache: bool = True
+    shed_cache_keys: int = 1 << 16
+    # Sketch cold tier (r13/r21, core/sketches.py + serve/promoter.py;
+    # GUBER_SKETCH, default ON): a window-keyed count-min sketch of
+    # dense device counter rows absorbs every create the exact slot
+    # store DROPS to way exhaustion — the silent-over-admission case of
+    # the exact-only store becomes a fail-closed decision with a
+    # one-sided (overestimate-only) error bound, which is what lets a
+    # fixed 1 GiB footprint serve ~100M-key cardinality (zipf100m
+    # bench, BENCH_SKETCH_r21.json). Since r21 ALL FOUR algorithms are
+    # sketch-servable: token/leaky on fixed-window math, sliding on the
+    # window-ring blend, GCRA on its TAT-quantized variant. A streaming
+    # SpaceSaving promoter migrates hot sketch keys into exact buckets
+    # every GUBER_SKETCH_SYNC_WAIT_MS and feeds over-limit candidates
+    # to the r10 shed cache. All device backends since r20: tpu, mesh
+    # (r14, sub-sketches shard over the mesh axis) and multihost
+    # (promotion + estimate reads are lockstep collectives). With no
+    # exact-tier pressure (no dropped creates), ON is byte-identical to
+    # OFF (tests/test_sketch_tier.py).
+    sketch: bool = True
+    # Sketch footprint budget in MiB. 0 = auto: a quarter of
+    # GUBER_STORE_MIB (capped at 256) when the store budget is pinned —
+    # so "GUBER_STORE_MIB=1024" means 1 GiB for BOTH tiers — else
+    # 16 MiB. The exact tier's derivation subtracts this from
+    # GUBER_STORE_MIB (store_config()).
+    sketch_mib: int = 0
+    # Count-min rows (independent hash rows; error confidence
+    # ~1 - e^-rows at overestimate bound e*N/width per window).
+    # 0 = the derivation's default (v2: 2, r13: 4) — see
+    # core/sketches.SKETCH_DERIVATIONS for why v2 spends bytes on
+    # width instead of rows.
+    sketch_rows: int = 0
+    # Counter derivation: "v2" (r21 default — saturating int32
+    # counters, 2 rows, 4x the width and 4x tighter additive error at
+    # the same budget) or "r13" (int64 counters, 4 rows — the
+    # committed r13 geometry, kept for A/B and rollback).
+    sketch_derivation: str = "v2"
+    # Promoter flush tick: candidate scan + promotion install cadence.
+    sketch_sync_wait: float = 0.2  # GUBER_SKETCH_SYNC_WAIT_MS
+    # Top-K candidates screened per tick (SpaceSaving tracks 4x this).
+    sketch_topk: int = 512
+    # Hierarchical quota chains (r15, core/algorithms.py +
+    # serve/instance.py; GUBER_CHAINS, default ON): a request may name
+    # ancestor quota levels (global -> tenant -> key); the whole chain
+    # routes to the chain HEAD's owner and debits every level in ONE
+    # device pass with most-restrictive-wins semantics and the
+    # no-partial-debit contract (a refused level consumes quota
+    # nowhere). GUBER_CHAINS=0 refuses chained requests with a per-item
+    # error (operational kill switch).
+    chains: bool = True
+    # Maximum ANCESTOR levels per request (the leaf is free): bounds
+    # the per-request device-row expansion factor a hostile caller can
+    # demand. Depth-3 (global -> region -> tenant above the leaf)
+    # covers the multi-tenant front-door shape the bench pins.
+    chain_max_depth: int = 3
+    # Bucket replication (r11, serve/replication.py; GUBER_REPLICATION=1
+    # to enable, OFF by default): owned bucket windows are snapshot-read
+    # (non-mutating) every replication_sync_wait and shipped to each
+    # key's ring SUCCESSOR over the new ReplicateBuckets peer RPC, so a
+    # SIGKILLed owner's quota state survives takeover — an over-limit
+    # key stays over-limit instead of resetting to a full window.
+    # Receivers hold snapshots in a bounded standby table consulted
+    # ONLY on takeover (first owned touch after a ring change, a
+    # breaker-open successor forward, or a reconcile handback install);
+    # with no failures, replication ON is byte-identical to OFF
+    # (tests/test_replication.py pins it differentially).
+    replication: bool = False
+    # Flush window for the owner->successor snapshot loop; also the
+    # handback retry tick. Staleness bound on takeover state: one
+    # window + one RTT.
+    replication_sync_wait: float = 0.1  # GUBER_REPLICATION_SYNC_WAIT_MS
+    # Bound on the receiver-side standby table (LRU of snapshots per
+    # node) and on the sender-side dirty-key backlog; entries dropped
+    # past either bound are counted in replication_dropped_total.
+    replication_standby_keys: int = 1 << 16  # GUBER_REPLICATION_STANDBY_KEYS
+    replication_backlog: int = 1 << 16  # GUBER_REPLICATION_BACKLOG
+    # Elastic ring rescale (r17, serve/rescale.py; GUBER_RESCALE=1 to
+    # enable, OFF by default): on every membership change, owned token
+    # windows whose keys the NEW ring routes elsewhere are snapshot-read
+    # (non-mutating) and handed to their new owners over the r11
+    # ReplicateBuckets RPC (LWW installs), so deploys and autoscaling
+    # reassign ownership WITHOUT quota amnesia; a SIGTERM drain ships
+    # every tracked window to the ring-minus-self owners BEFORE
+    # deregistering. With a static ring, ON is byte-identical to OFF
+    # (tests/test_rescale.py pins it differentially). Shares
+    # GUBER_REPLICATION_SYNC_WAIT_MS as its flush/reconcile tick.
+    rescale: bool = False
+    # Double-serve window after a ring change: forwarders keep routing
+    # MOVED keys to their old (warm) owner for this long while the new
+    # owner installs the handoff, then flip; the old owner re-flushes
+    # absorbed hits at the window end (LWW reconcile). 0 disables the
+    # routing override (handoff + seed-on-first-touch still apply).
+    rescale_double_serve: float = 0.5  # GUBER_RESCALE_DOUBLE_SERVE_MS
+    # Bound on the tracked owned-window table (freshest-touched kept)
+    # and on the receiver-side pending handoff table used when
+    # replication is off; evictions count in rescale_dropped_total.
+    rescale_track_keys: int = 1 << 16  # GUBER_RESCALE_TRACK_KEYS
+    # Cluster-wide checkpoint/restore (r19, serve/checkpoint.py).
+    # GUBER_CHECKPOINT_DIR: directory for periodic quota-state
+    # checkpoints (torn-write-safe chunks + CRC'd manifest). Non-empty
+    # enables the supervised checkpoint loop and the boot-time warm
+    # restore; "" (the default) disables both. Restore re-hashes under
+    # the current ring and store geometry, so GUBER_SHARDS may change
+    # across the restart.
+    checkpoint_dir: str = ""
+    # GUBER_CHECKPOINT_INTERVAL_MS: checkpoint cadence — also the
+    # staleness/loss bound of a full-fleet kill (state on disk is at
+    # most one interval + one write behind; a SIGTERM drain flushes a
+    # final checkpoint, shrinking that to one in-flight request).
+    checkpoint_interval: float = 5.0  # GUBER_CHECKPOINT_INTERVAL_MS
+    # GUBER_CHECKPOINT_MAX_AGE_MS: restore gate — a checkpoint older
+    # than this boots COLD (counted in
+    # checkpoint_failures_total{what="stale"}): its windows would have
+    # expired or deserve a fresh start, and a wrong warm restore is
+    # worse than a cold boot. 0 = restore regardless of age.
+    checkpoint_max_age: float = 300.0  # GUBER_CHECKPOINT_MAX_AGE_MS
+    # Bound on the checkpoint-tracked owned-window table and on the
+    # receiver-side pending import table (freshest kept; evictions
+    # count in checkpoint_failures_total{what="track_evict"}).
+    checkpoint_track_keys: int = 1 << 16  # GUBER_CHECKPOINT_TRACK_KEYS
+    # GUBER_CHECKPOINT_EXPORT_PEERS: comma-separated gRPC doors of a
+    # REPLACEMENT fleet (blue-green cutover). Each flush (and the
+    # drain) streams tracked windows to these doors over
+    # ReplicateBuckets with an import marker; receivers install/route
+    # under THEIR ring with LWW, so double delivery is a no-op and the
+    # green fleet takes the ring pre-warmed. Empty disables export.
+    checkpoint_export_peers: List[str] = field(default_factory=list)
+    # Distributed tracing + flight recorder (r16, serve/tracing.py).
+    # GUBER_TRACE_SAMPLE: head-sampling probability in [0, 1] — a
+    # sampled request collects spans across every hop (edge/bridge
+    # decode, shed screen, batcher queue, device submit/fetch with
+    # batch-size/ladder-rung/algo-mix annotations, peer forward, owner
+    # serve) and its context propagates over gRPC metadata, the HTTP
+    # doors' traceparent header, and the GEBT frame extension. 0 (the
+    # default) is provably ~zero-cost: one branch per site, no id
+    # generation.
+    trace_sample: float = 0.0
+    # GUBER_TRACE_SLOW_MS: tail capture — when > 0, EVERY request is
+    # armed for span collection but only requests slower than
+    # max(this floor, rolling p99 of recent requests) are retained, so
+    # the recorder always holds the current outliers even at
+    # GUBER_TRACE_SAMPLE=0. 0 disables tail capture.
+    trace_slow_ms: float = 0.0
+    # GUBER_TRACE_BUFFER: flight-recorder ring capacity (completed
+    # traces held in memory, served at /v1/debug/traces).
+    trace_buffer: int = 256
+    # in-flight device batches the batcher keeps before stalling submits.
+    # 2 suffices co-located (PCIe fetch ~0.1ms); raise toward ~16 when
+    # the accelerator sits behind a high-latency link (fetches pipeline,
+    # so served throughput ~= depth/RTT batches/s instead of 1/RTT).
+    # GUBER_FETCH_DEPTH.
+    device_fetch_depth: int = 2
+
+    # static peers: list of gRPC addresses; advertise address must appear
+    peers: List[str] = field(default_factory=list)
+
+    # discovery
+    etcd_endpoints: List[str] = field(default_factory=list)
+    etcd_prefix: str = "/gubernator-tpu/peers/"
+    # etcd TLS bundle (reference GUBER_ETCD_TLS_*,
+    # cmd/gubernator/config.go:149-192): paths to PEM files; ca alone
+    # verifies the server, cert+key add mutual TLS
+    etcd_tls_cert: str = ""
+    etcd_tls_key: str = ""
+    etcd_tls_ca: str = ""
+    k8s_namespace: str = ""
+    k8s_pod_ip: str = ""
+    k8s_pod_port: str = ""
+    k8s_endpoints_selector: str = ""
+
+    # Degraded mode (GUBER_DEGRADED_LOCAL=1, r8): when the OWNING peer
+    # of a forwarded item is unreachable (circuit open, retries
+    # exhausted, deadline), answer from the LOCAL store with
+    # metadata["degraded"]="true" instead of a per-item error. Trades
+    # global accuracy for availability — the reference's documented
+    # eventual-consistency stance, opt-in because a rate limiter that
+    # silently under-counts is not always the right failure mode.
+    degraded_local: bool = False
+    # Graceful drain bound (GUBER_DRAIN_TIMEOUT_MS): SIGTERM
+    # deregisters from discovery, refuses new edge frames, lets
+    # in-flight gRPC/edge work finish, and flushes the batcher +
+    # GLOBAL queues — all within this budget, then hard-stops.
+    drain_timeout: float = 5.0
+
+    debug: bool = False
+    log_level: str = "info"  # panic|fatal|error|warn|info|debug|trace
+    log_json: bool = False
+
+    def resolved_advertise(self) -> str:
+        return self.advertise_address or self.grpc_address
+
+    def sketch_config(self):
+        """Resolve the count-min cold-tier geometry, None when the tier
+        is off or the backend cannot carry it. Auto sizing
+        (GUBER_SKETCH_MIB=0): a quarter of GUBER_STORE_MIB capped at 256
+        MiB when the store budget is pinned (too small a budget to carve
+        a quarter from leaves the tier off), else 16 MiB."""
+        if not self._sketch_on():
+            return None
+        if self.store_mib > 0:
+            return self._two_tier()[1]
+        from gubernator_tpu_torch.core.sketches import derive_sketch_config
+
+        return derive_sketch_config(
+            mib=self.sketch_mib or 16,
+            rows=self.sketch_rows,
+            derivation=self.sketch_derivation,
+        )
+
+    def _sketch_on(self) -> bool:
+        return self.sketch and self.backend in ("tpu", "mesh", "multihost")
+
+    def _two_tier(self):
+        """(StoreConfig, SketchConfig or None) of a pinned GUBER_STORE_MIB
+        budget covering both tiers: the port's one carve-out."""
+        from gubernator_tpu_torch.core.sketches import derive_two_tier_config
+
+        return derive_two_tier_config(
+            self.store_mib,
+            sketch=self._sketch_on(),
+            sketch_mib=self.sketch_mib,
+            derivation=self.sketch_derivation,
+            rows=self.store_rows,
+            sketch_rows=self.sketch_rows,
+        )
+
+    def store_config(self, logger=None):
+        """Resolve the final slot-store geometry (core.store.StoreConfig)
+        from the sizing knobs, and run the boot-time footprint lint when
+        a key budget is declared. Precedence: GUBER_STORE_MIB >
+        GUBER_STORE_TARGET_KEYS > explicit rows/slots — except that an
+        EXPLICIT GUBER_STORE_SLOTS pin (store_slots_pinned) is never
+        overridden by target_keys: the key budget then lints the pinned
+        footprint instead of deriving over it. The lint is skipped for
+        shapes derived from target_keys alone (right-sized by
+        construction); it fires when an explicit or MiB-pinned
+        footprint disagrees with the declared key budget — warning by
+        default, hard failure under GUBER_STORE_SIZE_STRICT.
+
+        With the sketch tier active (r13), GUBER_STORE_MIB is the
+        budget for BOTH tiers: the sketch's resolved footprint is
+        carved out first and the exact tier derives from the
+        remainder, so "1 GiB" means 1 GiB of device state, not 1 GiB
+        plus a sketch."""
+        from gubernator_tpu_torch.core.store import (
+            StoreConfig,
+            check_store_budget,
+            derive_store_config,
+        )
+
+        # a pin is an env-explicit GUBER_STORE_SLOTS OR a non-default
+        # slots value on a directly constructed ServerConfig (library
+        # embedders never go through config_from_env)
+        slots_pinned = self.store_slots_pinned or (
+            self.store_slots
+            != type(self).__dataclass_fields__["store_slots"].default
+        )
+        if self.store_mib > 0:
+            store, skc = self._two_tier()
+            lint = check_store_budget(
+                store, self.store_target_keys, cold_tier=skc is not None
+            )
+        elif self.store_target_keys > 0 and not slots_pinned:
+            store = derive_store_config(
+                target_keys=self.store_target_keys, rows=self.store_rows
+            )
+            lint = ""
+        else:
+            store = StoreConfig(
+                rows=self.store_rows, slots=self.store_slots
+            )
+            lint = check_store_budget(
+                store,
+                self.store_target_keys,
+                cold_tier=self.sketch_config() is not None,
+            )
+        if lint:
+            if self.store_size_strict:
+                raise ValueError(f"GUBER_STORE_SIZE_STRICT: {lint}")
+            (logger or logging.getLogger("gubernator_tpu_torch.config")).warning(
+                "%s", lint
+            )
+        return store
+
+    def validate(self) -> None:
+        self.behaviors.validate()
+        # Cross-validate the batching knobs against the bucket ladder
+        # the engine will actually generate: the batcher never splits a
+        # caller group, so the ladder's top rung must cover the largest
+        # group any path can enqueue — a V1/PeersV1 RPC (MAX_BATCH_SIZE,
+        # the instance's hard cap), a peer micro-batch (batch_limit), or
+        # a GLOBAL broadcast install (global_batch_limit). Before this
+        # check, GUBER_DEVICE_BATCH_LIMIT below those caps was accepted
+        # silently and crashed choose_bucket on the first big group.
+        if self.backend != "exact":
+            from gubernator_tpu_torch.core.engine import buckets_for_limit
+
+            ladder = buckets_for_limit(self.device_batch_limit)
+            need = max(
+                MAX_BATCH_SIZE,
+                self.behaviors.batch_limit,
+                self.behaviors.global_batch_limit,
+            )
+            if max(ladder) < need:
+                raise ValueError(
+                    f"GUBER_DEVICE_BATCH_LIMIT={self.device_batch_limit} "
+                    f"generates a bucket ladder topping out at "
+                    f"{max(ladder)}, below the largest request group the "
+                    f"serving tier can enqueue ({need}: max of the "
+                    f"per-RPC cap {MAX_BATCH_SIZE}, "
+                    f"GUBER_BATCH_LIMIT={self.behaviors.batch_limit}, "
+                    f"GUBER_GLOBAL_BATCH_LIMIT="
+                    f"{self.behaviors.global_batch_limit}); raise "
+                    f"GUBER_DEVICE_BATCH_LIMIT to at least {need}"
+                )
+        if self.device_deep_batch and self.backend == "exact":
+            raise ValueError(
+                "GUBER_DEVICE_DEEP_BATCH is a device-batching mode; the "
+                "exact backend decides inline and cannot use it"
+            )
+        if self.prep_threads < 0:
+            raise ValueError("GUBER_PREP_THREADS must be >= 0")
+        if self.shards < 0:
+            raise ValueError("GUBER_SHARDS must be >= 0 (0 = all devices)")
+        if self.shards and self.backend != "mesh":
+            raise ValueError(
+                "GUBER_SHARDS selects devices for the mesh sharding "
+                "policy; set GUBER_BACKEND=mesh to use it (multihost "
+                "always spans the full distributed mesh)"
+            )
+        if self.shed_cache_keys < 0:
+            raise ValueError("GUBER_SHED_CACHE_KEYS must be >= 0")
+        if self.chain_max_depth < 0:
+            raise ValueError("GUBER_CHAIN_MAX_DEPTH must be >= 0")
+        if self.sketch_mib < 0:
+            raise ValueError("GUBER_SKETCH_MIB must be >= 0")
+        if not (0 <= self.sketch_rows <= 8):
+            raise ValueError(
+                "GUBER_SKETCH_ROWS must be in 0..8 (0 = derivation "
+                "default)"
+            )
+        if self.sketch_derivation not in ("v2", "r13"):
+            raise ValueError(
+                "GUBER_SKETCH_DERIVATION must be 'v2' or 'r13'"
+            )
+        if self.sketch_sync_wait < 0:
+            raise ValueError("GUBER_SKETCH_SYNC_WAIT_MS must be >= 0")
+        if self.sketch_topk < 1:
+            raise ValueError("GUBER_SKETCH_TOPK must be >= 1")
+        if not (0.0 <= self.trace_sample <= 1.0):
+            raise ValueError("GUBER_TRACE_SAMPLE must be in [0, 1]")
+        if self.trace_slow_ms < 0:
+            raise ValueError("GUBER_TRACE_SLOW_MS must be >= 0")
+        if self.trace_buffer < 1:
+            raise ValueError("GUBER_TRACE_BUFFER must be >= 1")
+        if self.replication_sync_wait < 0:
+            raise ValueError("GUBER_REPLICATION_SYNC_WAIT_MS must be >= 0")
+        if self.replication_standby_keys < 1 or self.replication_backlog < 1:
+            raise ValueError(
+                "GUBER_REPLICATION_STANDBY_KEYS / GUBER_REPLICATION_BACKLOG "
+                "must be >= 1"
+            )
+        if self.rescale_double_serve < 0:
+            raise ValueError("GUBER_RESCALE_DOUBLE_SERVE_MS must be >= 0")
+        if self.rescale_track_keys < 1:
+            raise ValueError("GUBER_RESCALE_TRACK_KEYS must be >= 1")
+        if self.checkpoint_interval <= 0:
+            raise ValueError("GUBER_CHECKPOINT_INTERVAL_MS must be > 0")
+        if self.checkpoint_max_age < 0:
+            raise ValueError("GUBER_CHECKPOINT_MAX_AGE_MS must be >= 0")
+        if self.checkpoint_track_keys < 1:
+            raise ValueError("GUBER_CHECKPOINT_TRACK_KEYS must be >= 1")
+        if self.store_mib < 0 or self.store_target_keys < 0:
+            raise ValueError(
+                "GUBER_STORE_MIB / GUBER_STORE_TARGET_KEYS must be >= 0"
+            )
+        if self.edge_window < 0:
+            raise ValueError("GUBER_EDGE_WINDOW must be >= 0")
+        if self.edge_max_frame_mib <= 0:
+            raise ValueError("GUBER_EDGE_MAX_FRAME_MIB must be > 0")
+        if not (0 <= self.geb_port < 65536):
+            raise ValueError("GUBER_GEB_PORT must be in 0..65535")
+        if self.geb_window < 0:
+            raise ValueError("GUBER_GEB_WINDOW must be >= 0")
+        if not (64 <= self.shm_ring_kib <= 1 << 20):
+            raise ValueError(
+                "GUBER_SHM_RING_KIB must be in 64..1048576"
+            )
+        if self.shm_poll_us < 0:
+            raise ValueError("GUBER_SHM_POLL_US must be >= 0")
+        if self.drain_timeout < 0:
+            raise ValueError("GUBER_DRAIN_TIMEOUT_MS must be >= 0")
+        # bridge endpoints split host:port on the LAST colon — IPv6
+        # literals would misparse silently; refuse at config time
+        # (ADVICE r5 #2; serve/edge_bridge.reject_ipv6_endpoint)
+        if self.edge_tcp:
+            reject_ipv6_endpoint(self.edge_tcp, "GUBER_EDGE_TCP")
+        for pair in self.edge_peer_bridges.split(","):
+            if not pair.strip():
+                continue
+            _, sep, bridge = pair.strip().partition("=")
+            if sep and bridge:
+                reject_ipv6_endpoint(
+                    bridge, "GUBER_EDGE_PEER_BRIDGES entry"
+                )
+        for pair in self.geb_peer_doors.split(","):
+            if not pair.strip():
+                continue
+            _, sep, door = pair.strip().partition("=")
+            if sep and door:
+                reject_ipv6_endpoint(
+                    door, "GUBER_GEB_PEER_DOORS entry"
+                )
+        if self.etcd_endpoints and self.k8s_endpoints_selector:
+            raise ValueError(
+                "choose either etcd or kubernetes discovery, not both"
+            )
+        if bool(self.etcd_tls_cert) != bool(self.etcd_tls_key):
+            raise ValueError(
+                "GUBER_ETCD_TLS_CERT and GUBER_ETCD_TLS_KEY must be set "
+                "together"
+            )
+        if self.etcd_tls_cert and not self.etcd_tls_ca:
+            # python-etcd3 requires ca_cert whenever a client cert pair
+            # is used; fail here with a clear message instead of at pool
+            # startup with an opaque library error
+            raise ValueError(
+                "GUBER_ETCD_TLS_CERT/KEY also require GUBER_ETCD_TLS_CA"
+            )
+        parse_level(self.log_level)  # raises ValueError with a clean message
+
+
+def reject_ipv6_endpoint(spec: str, what: str) -> str:
+    """Refuse an IPv6-ish endpoint at parse time: endpoints split
+    host:port on the LAST colon and would misparse one silently
+    (gubernator_tpu/endpoints.py)."""
+    if "[" in spec or "]" in spec or spec.count(":") > 1:
+        raise ValueError(
+            f"{what} {spec!r} looks like an IPv6 literal; endpoints "
+            f"must be 'host:port' with an IPv4 address or hostname "
+            f"(the wire protocol splits on the last ':')"
+        )
+    return spec
+
+
+#: logrus level names (reference logging/logging.go) -> stdlib levels
+_LEVELS = {
+    "panic": logging.CRITICAL,
+    "fatal": logging.CRITICAL,
+    "error": logging.ERROR,
+    "warning": logging.WARNING,
+    "warn": logging.WARNING,
+    "info": logging.INFO,
+    "debug": logging.DEBUG,
+    "trace": logging.DEBUG,
+}
+
+
+def parse_level(name: str) -> int:
+    """Parse a log level name; raises ValueError on an unknown one
+    (gubernator_tpu/serve/logging_setup.py)."""
+    try:
+        return _LEVELS[name.strip().lower()]
+    except KeyError:
+        raise ValueError(f"unknown log level {name!r}") from None
+
+
+def _get(env, key: str, default: str = "") -> str:
+    return env.get(key, default)
+
+
+def _get_int(env, key: str, default: int) -> int:
+    v = env.get(key)
+    return int(v) if v not in (None, "") else default
+
+
+def _get_float_ms(env, key: str, default: float) -> float:
+    """Env values are milliseconds (matching GUBER_* conventions); config
+    stores seconds."""
+    v = env.get(key)
+    return float(v) / 1000.0 if v not in (None, "") else default
+
+
+def load_config_file(path: str, env: Optional[dict] = None) -> dict:
+    """Inject KEY=value lines from a config file into the environment map
+    (reference cmd/gubernator/config.go:239-267)."""
+    env = dict(os.environ if env is None else env)
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            if "=" not in line:
+                raise ValueError(f"malformed config line: {line!r}")
+            k, _, v = line.partition("=")
+            env[k.strip()] = v.strip()
+    return env
+
+
+def config_from_env(env: Optional[dict] = None) -> ServerConfig:
+    """Build a ServerConfig from GUBER_* variables."""
+    env = os.environ if env is None else env
+    b = BehaviorConfig(
+        batch_timeout=_get_float_ms(env, "GUBER_BATCH_TIMEOUT_MS", 0.5),
+        batch_wait=_get_float_ms(env, "GUBER_BATCH_WAIT_MS", 0.0),
+        batch_limit=_get_int(env, "GUBER_BATCH_LIMIT", MAX_BATCH_SIZE),
+        global_timeout=_get_float_ms(env, "GUBER_GLOBAL_TIMEOUT_MS", 0.5),
+        global_sync_wait=_get_float_ms(
+            env, "GUBER_GLOBAL_SYNC_WAIT_MS", 0.0005
+        ),
+        global_batch_limit=_get_int(
+            env, "GUBER_GLOBAL_BATCH_LIMIT", MAX_BATCH_SIZE
+        ),
+        peer_timeout=_get_float_ms(env, "GUBER_PEER_TIMEOUT_MS", 0.0),
+        peer_retries=_get_int(env, "GUBER_PEER_RETRIES", 2),
+        peer_backoff=_get_float_ms(env, "GUBER_PEER_BACKOFF_MS", 25.0 / 1000),
+        peer_backoff_max=_get_float_ms(
+            env, "GUBER_PEER_BACKOFF_MAX_MS", 250.0 / 1000
+        ),
+        breaker_failures=_get_int(env, "GUBER_BREAKER_FAILURES", 5),
+        breaker_ratio=float(env.get("GUBER_BREAKER_RATIO") or 0.5),
+        breaker_window=_get_int(env, "GUBER_BREAKER_WINDOW", 20),
+        breaker_cooldown=_get_float_ms(
+            env, "GUBER_BREAKER_COOLDOWN_MS", 1.0
+        ),
+        breaker_probes=_get_int(env, "GUBER_BREAKER_PROBES", 1),
+        global_backlog=_get_int(env, "GUBER_GLOBAL_BACKLOG", 1 << 17),
+        global_mesh=_get(env, "GUBER_GLOBAL_MESH", "1").lower()
+        not in ("0", "false", "no", "off"),
+    )
+    peers = [
+        p.strip()
+        for p in _get(env, "GUBER_PEERS").split(",")
+        if p.strip()
+    ]
+    etcd = [
+        p.strip()
+        for p in _get(env, "GUBER_ETCD_ENDPOINTS").split(",")
+        if p.strip()
+    ]
+    conf = ServerConfig(
+        grpc_address=_get(env, "GUBER_GRPC_ADDRESS", "localhost:81"),
+        http_address=_get(env, "GUBER_HTTP_ADDRESS", "localhost:80"),
+        advertise_address=_get(env, "GUBER_ADVERTISE_ADDRESS"),
+        behaviors=b,
+        backend=_get(env, "GUBER_BACKEND", "tpu"),
+        shards=_get_int(env, "GUBER_SHARDS", 0),
+        cache_size=_get_int(env, "GUBER_CACHE_SIZE", 50_000),
+        store_rows=_get_int(env, "GUBER_STORE_ROWS", 16),
+        store_slots=_get_int(env, "GUBER_STORE_SLOTS", 1 << 15),
+        store_target_keys=_get_int(env, "GUBER_STORE_TARGET_KEYS", 0),
+        store_mib=_get_int(env, "GUBER_STORE_MIB", 0),
+        store_size_strict=_get(env, "GUBER_STORE_SIZE_STRICT")
+        in ("1", "true", "yes"),
+        store_slots_pinned=bool(_get(env, "GUBER_STORE_SLOTS")),
+        edge_socket=_get(env, "GUBER_EDGE_SOCKET"),
+        edge_tcp=_get(env, "GUBER_EDGE_TCP"),
+        edge_peer_bridges=_get(env, "GUBER_EDGE_PEER_BRIDGES"),
+        edge_fast=_get(env, "GUBER_EDGE_FAST", "1").lower()
+        not in ("0", "false", "no", "off"),
+        edge_window=_get_int(env, "GUBER_EDGE_WINDOW", 0),
+        geb_port=_get_int(env, "GUBER_GEB_PORT", 0),
+        geb_window=_get_int(env, "GUBER_GEB_WINDOW", 0),
+        geb_peer_doors=_get(env, "GUBER_GEB_PEER_DOORS"),
+        shm=_get(env, "GUBER_SHM", "1").lower()
+        not in ("0", "false", "no", "off"),
+        shm_ring_kib=_get_int(env, "GUBER_SHM_RING_KIB", 1024),
+        shm_poll_us=_get_int(env, "GUBER_SHM_POLL_US", 0),
+        edge_string_fold=_get(env, "GUBER_EDGE_STRING_FOLD", "1").lower()
+        not in ("0", "false", "no", "off"),
+        edge_max_frame_mib=_get_int(env, "GUBER_EDGE_MAX_FRAME_MIB", 256),
+        dist_coordinator=_get(env, "GUBER_DIST_COORDINATOR"),
+        dist_num_processes=_get_int(env, "GUBER_DIST_NUM_PROCESSES", 1),
+        dist_process_id=_get_int(env, "GUBER_DIST_PROCESS_ID", 0),
+        dist_followers=tuple(
+            p.strip()
+            for p in _get(env, "GUBER_DIST_FOLLOWERS").split(",")
+            if p.strip()
+        ),
+        dist_step_listen=_get(env, "GUBER_DIST_STEP_LISTEN"),
+        device_batch_wait=_get_float_ms(
+            env, "GUBER_DEVICE_BATCH_WAIT_MS", 0.0
+        ),
+        device_batch_limit=_get_int(
+            env, "GUBER_DEVICE_BATCH_LIMIT", MAX_BATCH_SIZE
+        ),
+        device_deep_batch=_get(env, "GUBER_DEVICE_DEEP_BATCH")
+        in ("1", "true", "yes"),
+        shed_cache=_get(env, "GUBER_SHED_CACHE", "1").lower()
+        not in ("0", "false", "no", "off"),
+        shed_cache_keys=_get_int(env, "GUBER_SHED_CACHE_KEYS", 1 << 16),
+        chains=_get(env, "GUBER_CHAINS", "1").lower()
+        not in ("0", "false", "no", "off"),
+        chain_max_depth=_get_int(env, "GUBER_CHAIN_MAX_DEPTH", 3),
+        sketch=_get(env, "GUBER_SKETCH", "1").lower()
+        not in ("0", "false", "no", "off"),
+        sketch_mib=_get_int(env, "GUBER_SKETCH_MIB", 0),
+        sketch_rows=_get_int(env, "GUBER_SKETCH_ROWS", 0),
+        sketch_derivation=_get(env, "GUBER_SKETCH_DERIVATION", "v2"),
+        sketch_sync_wait=_get_float_ms(
+            env, "GUBER_SKETCH_SYNC_WAIT_MS", 0.2
+        ),
+        sketch_topk=_get_int(env, "GUBER_SKETCH_TOPK", 512),
+        trace_sample=float(env.get("GUBER_TRACE_SAMPLE") or 0.0),
+        trace_slow_ms=float(env.get("GUBER_TRACE_SLOW_MS") or 0.0),
+        trace_buffer=_get_int(env, "GUBER_TRACE_BUFFER", 256),
+        replication=_get(env, "GUBER_REPLICATION") in ("1", "true", "yes"),
+        replication_sync_wait=_get_float_ms(
+            env, "GUBER_REPLICATION_SYNC_WAIT_MS", 0.1
+        ),
+        replication_standby_keys=_get_int(
+            env, "GUBER_REPLICATION_STANDBY_KEYS", 1 << 16
+        ),
+        replication_backlog=_get_int(
+            env, "GUBER_REPLICATION_BACKLOG", 1 << 16
+        ),
+        rescale=_get(env, "GUBER_RESCALE") in ("1", "true", "yes"),
+        rescale_double_serve=_get_float_ms(
+            env, "GUBER_RESCALE_DOUBLE_SERVE_MS", 0.5
+        ),
+        rescale_track_keys=_get_int(
+            env, "GUBER_RESCALE_TRACK_KEYS", 1 << 16
+        ),
+        checkpoint_dir=_get(env, "GUBER_CHECKPOINT_DIR"),
+        checkpoint_interval=_get_float_ms(
+            env, "GUBER_CHECKPOINT_INTERVAL_MS", 5.0
+        ),
+        checkpoint_max_age=_get_float_ms(
+            env, "GUBER_CHECKPOINT_MAX_AGE_MS", 300.0
+        ),
+        checkpoint_track_keys=_get_int(
+            env, "GUBER_CHECKPOINT_TRACK_KEYS", 1 << 16
+        ),
+        checkpoint_export_peers=[
+            p.strip()
+            for p in _get(env, "GUBER_CHECKPOINT_EXPORT_PEERS").split(",")
+            if p.strip()
+        ],
+        # resolved here, the port's one config source (the reference
+        # leaves these three to environment reads in its DeviceBatcher)
+        prep_at_arrival=_get(env, "GUBER_PREP_AT_ARRIVAL", "1").lower()
+        not in ("0", "false", "no", "off"),
+        prep_threads=_get_int(env, "GUBER_PREP_THREADS", 0),
+        device_fetch_depth=_get_int(env, "GUBER_FETCH_DEPTH", 2),
+        peers=peers,
+        etcd_endpoints=etcd,
+        etcd_prefix=_get(env, "GUBER_ETCD_PREFIX", "/gubernator-tpu/peers/"),
+        etcd_tls_cert=_get(env, "GUBER_ETCD_TLS_CERT"),
+        etcd_tls_key=_get(env, "GUBER_ETCD_TLS_KEY"),
+        etcd_tls_ca=_get(env, "GUBER_ETCD_TLS_CA"),
+        k8s_namespace=_get(env, "GUBER_K8S_NAMESPACE"),
+        k8s_pod_ip=_get(env, "GUBER_K8S_POD_IP"),
+        k8s_pod_port=_get(env, "GUBER_K8S_POD_PORT"),
+        k8s_endpoints_selector=_get(env, "GUBER_K8S_ENDPOINTS_SELECTOR"),
+        degraded_local=_get(env, "GUBER_DEGRADED_LOCAL")
+        in ("1", "true", "yes"),
+        drain_timeout=_get_float_ms(env, "GUBER_DRAIN_TIMEOUT_MS", 5.0),
+        debug=_get(env, "GUBER_DEBUG") in ("1", "true", "yes"),
+        log_level=_get(env, "GUBER_LOG_LEVEL", "info"),
+        log_json=_get(env, "GUBER_LOG_JSON") in ("1", "true", "yes"),
+    )
+    if conf.store_mib > 0 and conf.store_slots_pinned:
+        # two ACTIVE footprint pins: refuse rather than pick one
+        # silently (GUBER_STORE_MIB=0 means "off", not a pin;
+        # GUBER_STORE_TARGET_KEYS + SLOTS is allowed — the key budget
+        # then lints the explicit footprint at boot, store_config())
+        raise ValueError(
+            "GUBER_STORE_MIB and GUBER_STORE_SLOTS both set; pin the "
+            "store footprint one way"
+        )
+    conf.validate()
+    return conf

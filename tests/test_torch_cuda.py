@@ -125,3 +125,130 @@ def test_two_tier_engine_on_card_matches_cpu(derivation):
     assert torch.equal(gpu.store.data.cpu(), cpu.store.data)
     chunks = -(-int(g[0].sum()) // 1024)
     assert writeback_add.launches == before + 16 + chunks
+
+
+def test_instance_on_card_matches_cpu(monkeypatch):
+    """The serving core (Instance -> DeviceBatcher with arrival prep ->
+    TorchBackend) on the card against the same stack on the CPU, one
+    caller group at a time under one pinned clock, tier pressure on:
+    identical responses, store and sketch bytes, stats, shed entries and
+    one promoter tick's promotions."""
+    _need_card()
+    import asyncio
+
+    import gubernator_tpu_torch.api.types as types
+    import gubernator_tpu_torch.serve.promoter as promoter
+    from gubernator_tpu_torch.core.sketches import SketchConfig
+    from gubernator_tpu_torch.serve.backends import TorchBackend
+    from gubernator_tpu_torch.serve.config import BehaviorConfig, ServerConfig
+    from gubernator_tpu_torch.serve.instance import Instance
+
+    now = [1_700_000_000_000]
+    monkeypatch.setattr(types, "millisecond_now", lambda: now[0])
+    monkeypatch.setattr(promoter, "OBSERVE_MIN_INTERVAL_S", 0.0)
+    addr = "127.0.0.1:7975"
+
+    async def stack(device):
+        conf = ServerConfig(
+            grpc_address=addr, behaviors=BehaviorConfig(global_sync_wait=600.0),
+            device_batch_limit=1024, sketch_sync_wait=600.0,
+        )
+        inst = Instance(conf, TorchBackend(
+            StoreConfig(rows=16, slots=16), buckets=(64, 256, 1024),
+            sketch=SketchConfig(2, 1 << 12, 4), device=device,
+        ))
+        inst.start()
+        await inst.set_peers([types.PeerInfo(address=addr, is_owner=True)])
+        inst.shed.now_fn = lambda: now[0]
+        return inst
+
+    async def run():
+        gpu, cpu = await stack(None), await stack("cpu")
+        assert gpu.backend.device.type == "cuda"
+        rng = np.random.default_rng(6)
+        pool = rng.integers(0, 2**64, 3000, dtype=np.uint64)
+        before, decides = writeback_add.launches, gpu.backend.stats()["batches"]
+        for step in range(12):
+            now[0] += int(rng.choice([1, 50, 5000]))
+            n = int(rng.integers(1, 1000))
+            f = dict(
+                key_hash=pool[np.minimum(rng.zipf(1.1, n) - 1, pool.shape[0] - 1)],
+                hits=rng.choice([0, 1, 2], n).astype(np.int64),
+                limit=rng.choice([3, 100], n).astype(np.int64),
+                duration=rng.choice([1000, 60_000], n).astype(np.int64),
+                algo=rng.integers(0, 4, n).astype(np.int32),
+            )
+            a = await gpu.batcher.decide_arrays(dict(f))
+            b = await cpu.batcher.decide_arrays(dict(f))
+            for x, y in zip(a, b):
+                np.testing.assert_array_equal(x, y, err_msg=f"step {step}")
+            reqs = [types.RateLimitReq(name="s", unique_key=f"k{i % 40}", hits=1,
+                                       limit=2, duration=60_000) for i in range(30)]
+            ra = await gpu.get_rate_limits(reqs)
+            rb = await cpu.get_rate_limits(reqs)
+            assert [(r.status, r.remaining, r.reset_time) for r in ra] == [
+                (r.status, r.remaining, r.reset_time) for r in rb]
+        # one launch per device batch (shed-cache answers launch nothing)
+        decides = gpu.backend.stats()["batches"] - decides
+        assert decides >= 12 and writeback_add.launches == before + decides
+        for inst in (gpu, cpu):
+            await inst.promoter.flush_once()
+        assert gpu.promoter.stats() == cpu.promoter.stats()
+        assert gpu.backend.stats() == cpu.backend.stats()
+        assert gpu.backend.stats()["dropped"] > 0
+        assert dict(gpu.shed._entries) == dict(cpu.shed._entries)
+        assert torch.equal(gpu.backend.engine.store.data.cpu(), cpu.backend.engine.store.data)
+        assert torch.equal(gpu.backend.engine.sketch.data.cpu(), cpu.backend.engine.sketch.data)
+        await gpu.stop()
+        await cpu.stop()
+
+    asyncio.run(run())
+
+
+def test_decide_wait_does_not_wait_for_later_work():
+    """decide_wait returns once its own batch's copy is done, while work
+    queued after that batch still runs on the stream."""
+    _need_card()
+    eng = TorchEngine(StoreConfig(rows=16, slots=64), buckets=(256,))
+    rng = np.random.default_rng(8)
+    n = 200
+    kh = rng.integers(0, 2**64, n, dtype=np.uint64)
+    ones = np.ones(n, np.int64)
+    h = eng.decide_submit(kh, ones, ones * 5, ones * 60_000, np.zeros(n, np.int32),
+                          np.zeros(n, bool), 1_700_000_000_000)
+    torch.cuda._sleep(2_000_000_000)  # ~1 s of later work on the same stream
+    status, *_ = eng.decide_wait(h)
+    assert not torch.cuda.current_stream().query(), "decide_wait waited for later work"
+    assert (status == 0).all()
+    torch.cuda.synchronize()
+
+
+def test_device_topk_on_card_matches_cpu():
+    """DeviceTopK on the card against the CPU: the same table after each
+    fold and decay (ties, hashes >= 2^63, zero weights, B < K), and its
+    read-back waits for the table's own stream only, not for the decide
+    batches queued on the current stream."""
+    _need_card()
+    from gubernator_tpu_torch.serve.promoter import OBSERVE_TOP, DeviceTopK
+
+    gpu, cpu = DeviceTopK(64), DeviceTopK(64, device="cpu")
+    assert gpu._kh.device.type == "cuda"
+    rng = np.random.default_rng(10)
+    pool = rng.integers(1, 2**64, 300, dtype=np.uint64)
+    for step in range(12):
+        n = int(rng.integers(1, OBSERVE_TOP + 1))
+        kh = np.unique(pool[rng.integers(0, pool.shape[0], n)])
+        w = rng.choice([0, 1, 1, 3, 9], kh.shape[0]).astype(np.int64)
+        pay = {int(k): (int(k % 7), 1000) for k in kh}
+        for t in (gpu, cpu):
+            t.observe_arrays(kh, w, pay)
+        if step % 4 == 3:
+            for t in (gpu, cpu):
+                t.decay()
+        assert gpu.top_with_payload(64) == cpu.top_with_payload(64), step
+        assert torch.equal(gpu._kh.cpu(), cpu._kh) and torch.equal(gpu._cnt.cpu(), cpu._cnt)
+    torch.cuda._sleep(2_000_000_000)  # ~1 s of decide-stream work
+    gpu.observe_arrays(pool[:4], np.ones(4, np.int64), {})
+    gpu.top_with_payload(8)
+    assert not torch.cuda.current_stream().query(), "the top-K read waited for the stream"
+    torch.cuda.synchronize()

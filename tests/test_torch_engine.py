@@ -147,6 +147,11 @@ def test_import_loads_no_jax_and_nothing_of_the_jax_package():
         "from gubernator_tpu_torch.core import (\n"
         "    algorithms, engine, kernels, sketches, store, writeback)\n"
         "from gubernator_tpu_torch.parallel.sharded import TorchEngine\n"
+        "from gubernator_tpu_torch.serve import (\n"
+        "    aio, backends, batcher, breaker, config, faults, global_mgr, instance,\n"
+        "    metrics, peers, prep, promoter, shedcache, stages, tracing)\n"
+        "backends.make_backend(config.config_from_env({'GUBER_STORE_MIB': '8'}),"
+        " device='cpu')\n"
         "e = TorchEngine(store.StoreConfig(rows=1, slots=16), buckets=(64,),"
         " device='cpu')\n"
         "e.get_rate_limits([gubernator_tpu_torch.RateLimitReq("
