@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Drives the port (gubernator_tpu_torch) through the entry points a user
-calls, at two of the repo's deployments:
+calls (the engine, the serving core, the daemon's doors and a cluster of
+nodes forwarding to each other), at two of the repo's deployments:
 
 - exact tier, "Zipfian 10M keys, 1 GiB store" (GUBER_SKETCH=0): a slot
   store of int32[2^21, 128] (GUBER_STORE_MIB=1024), zipf(a=1.2) ids over
@@ -49,10 +50,41 @@ Phases, one JSON line each:
              checked leg: 24 request-object groups, a sketch-served tail
              key walk and one promoter tick, identical to a CPU Instance
              started from the card's state;
-7. kernels   the contract line over every kernel of the path.
+7. doors     `python -m gubernator_tpu_torch.cli.daemon` as a subprocess
+             with the serving phase's env on free ports: the boot log's
+             store tiers (805,306,368 bytes) and HealthCheck, a limit-2
+             walk through gRPC (the port's V1Client) and through the HTTP
+             JSON gateway, a timed window of >= 10 s of 16 AsyncV1Client
+             callers sending GetRateLimits of 1,000 zipf keys (decisions/s,
+             RPC p50/p99, mean device batch from /metrics, stage means
+             from /v1/debug/stages, the daemon's kernel launches, decides
+             and install chunks over the window from /v1/debug/stats),
+             /metrics' histogram and store gauges, 2 s
+             of the same traffic under the daemon's /v1/debug/profile
+             (torch.profiler: the device's idle share), then SIGTERM:
+             the drain's steps and exit 0;
+8. cluster   a 3-node port LocalCluster in this process, each node the
+             same deployment on the card, on ports drawn so that each
+             node's ring arc owns 20-50% of the keys: a checked leg of
+             16 requests through node 0's gRPC door (all four algorithms, BATCHING,
+             NO_BATCHING and GLOBAL keys, most owned by other nodes), one
+             at a time under a pinned clock with the GLOBAL rounds run by
+             explicit calls, identical, owner metadata included, to a
+             3-node CPU LocalCluster of the port on the same addresses,
+             and every node answering a token GLOBAL key as its owner
+             does; then a timed window of forwarded RPCs through node 0,
+             its 16 callers in a client process of their own (this same
+             script with --rpc-window), off the nodes' event loop;
+9. kernels   the contract line over every kernel of the path.
 
-The writeback kernel's launch count is set to 0 before each path and read
-after it; each must equal that path's decides plus window-install chunks.
+The writeback kernel's launch count is set to 0 before each in-process
+path and read after it; each must equal that path's decides plus
+window-install (and, in the cluster, gossip-charge) chunks. The daemon's
+count lives in its own process: it is read from /v1/debug/stats just
+before and just after the doors window, and the difference must equal
+the window's decides plus install and gossip chunks, read the same way.
+Every window requires every answer to be a decision: one per-item error
+(a failed forward, an open breaker) fails the run.
 Prints the card's name and power limit (nvidia-smi) on a line of its own
 and, last, {"ok": true, "device": {...}}. Exits non-zero, printing no
 result, if there is no CUDA device, if the port is not importable, or if
@@ -727,17 +759,9 @@ async def _serving(card, writeback, engine_rate):
               prep_at_arrival=inst.batcher.prep_at_arrival,
               deep_batch=inst.batcher.deep_batch))
 
-    # every window install is one writeback launch per ladder-top chunk:
-    # count the chunks the promoter's installs take
-    chunks = [0]
-    top = max(eng.buckets)
-    install = eng.install_windows
-
-    def counted_install(key_hash, *args, **kw):
-        chunks[0] += -(-int(np.asarray(key_hash).shape[0]) // top)
-        return install(key_hash, *args, **kw)
-
-    eng.install_windows = counted_install
+    # every window install (and gossip charge) is one writeback launch per
+    # ladder-top chunk; the engine counts the chunks
+    chunks0 = eng.install_chunks + eng.gossip_chunks
     writeback.writeback_add.launches = 0  # count this path only
     base = backend.stats()
 
@@ -802,17 +826,18 @@ async def _serving(card, writeback, engine_rate):
     decides = backend.stats()["batches"] - base["batches"]
     launches = writeback.writeback_add.launches
     await inst.stop()
-    if launches != decides + chunks[0] or launches == 0:
+    chunks = eng.install_chunks + eng.gossip_chunks - chunks0
+    if launches != decides + chunks or launches == 0:
         fail(f"serving path: writeback kernel launched {launches} times for "
-             f"{decides} decides + {chunks[0]} install chunks")
+             f"{decides} decides + {chunks} install chunks")
     emit(dict(phase="main", path="serving", card=card, **geometry, warmup_s=warm_s,
               batch=DEPTH, group_rows=GROUP, **window,
               prefill_seconds=prefill["seconds"], checked=checked,
-              decides=decides, install_chunks=chunks[0], kernel_launches=launches,
+              decides=decides, install_chunks=chunks, kernel_launches=launches,
               max_memory_allocated=torch.cuda.max_memory_allocated()))
     del eng, backend, inst
     torch.cuda.empty_cache()
-    return dict(launches=launches, decides=decides, install_chunks=chunks[0])
+    return dict(launches=launches, decides=decides, install_chunks=chunks)
 
 
 def batch_histogram() -> tuple:
@@ -1073,6 +1098,564 @@ async def serving_checked_leg(inst, conf, backend) -> dict:
     return out
 
 
+# -- the doors phase: one daemon booted the way users boot it -------------
+
+DOORS_CALLERS = 16  # concurrent AsyncV1Client callers in the doors window
+RPC_ITEMS = 1000  # items a GetRateLimits carries (reference maxBatchSize)
+RPC_POOL = 64  # prebuilt requests the callers cycle through
+BOOT_S = 600  # the daemon's boot (warmup of every rung) must end within
+
+
+def free_ports(n: int) -> list:
+    """n distinct ephemeral localhost ports (bind-then-release)."""
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def http_json(url: str, body=None, timeout: float = 30.0):
+    """(status, decoded JSON) of a GET, or of a POST of `body`."""
+    import urllib.error
+    import urllib.request
+
+    data = json.dumps(body).encode() if body is not None else None
+    req = urllib.request.Request(url, data, {"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def http_text(url: str, timeout: float = 30.0) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.read().decode()
+
+
+def metric_value(text: str, name: str) -> float:
+    """The value of one unlabelled sample of a Prometheus exposition."""
+    for ln in text.splitlines():
+        if ln.startswith(name + " "):
+            return float(ln.split()[1])
+    fail(f"/metrics has no sample {name}")
+
+
+def zipf_rpcs(rng, n_rpcs: int, name: str, behavior: int = 0) -> list:
+    """Prebuilt GetRateLimitsReq of RPC_ITEMS zipf(1.2) keys over 100M
+    each: token bucket, hits 1, limit 1000, 600 s."""
+    from gubernator_tpu_torch.api.proto.gen import gubernator_pb2
+
+    out = []
+    for _ in range(n_rpcs):
+        ids = rng.zipf(ZIPF_A, RPC_ITEMS) % KEY_SPACE_100M
+        out.append(gubernator_pb2.GetRateLimitsReq(requests=[
+            gubernator_pb2.RateLimitReq(
+                name=name, unique_key=str(int(i)), hits=HITS, limit=LIMIT,
+                duration=DURATION_100M, behavior=behavior)
+            for i in ids.tolist()
+        ]))
+    return out
+
+
+async def rpc_window(target: str, rpcs: list, seconds: float, callers: int) -> dict:
+    """`callers` AsyncV1Client callers, each sending the prebuilt requests
+    in turn, one awaited at a time, for `seconds`: items answered per
+    second, the RPC latency on this process's clock, and how many times
+    each request was sent. Every response is checked (count, values in
+    range, no per-item error). Raises RuntimeError on a malformed answer
+    or on the first error answer."""
+    import asyncio
+
+    from gubernator_tpu_torch.client import AsyncV1Client
+
+    clients = [AsyncV1Client(target) for _ in range(callers)]
+    lat, done, sent = [], [0], [0] * len(rpcs)
+    stop_at = time.monotonic() + seconds
+
+    async def caller(c, w: int):
+        i = w * 7
+        while time.monotonic() < stop_at:
+            k = i % len(rpcs)
+            req = rpcs[k]
+            i += 1
+            t0 = time.perf_counter()
+            resp = await c.stub.GetRateLimits(req, timeout=60)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            err = next((r.error for r in resp.responses if r.error), "")
+            if err:
+                n = sum(1 for r in resp.responses if r.error)
+                raise RuntimeError(f"rpc window: {n} of {len(resp.responses)} answers "
+                                   f"from {target} are errors, the first: {err!r}")
+            bad = next((r for r in resp.responses if (
+                r.remaining < 0 or r.remaining > LIMIT or r.limit != LIMIT)), None)
+            if len(resp.responses) != len(req.requests) or bad is not None:
+                raise RuntimeError(f"rpc window: {len(resp.responses)} answers from "
+                                   f"{target}, {bad}")
+            sent[k] += 1
+            done[0] += len(resp.responses)
+
+    try:
+        t0 = time.monotonic()
+        await asyncio.gather(*[caller(c, w) for w, c in enumerate(clients)])
+        elapsed = time.monotonic() - t0
+    finally:
+        for c in clients:
+            await c.close()
+    return dict(decisions_per_s=done[0] / elapsed, items=done[0], errors=0,
+                rpcs=len(lat), sent=sent, seconds=elapsed, callers=callers,
+                items_per_rpc=RPC_ITEMS, rpc_ms_p50=float(np.percentile(lat, 50)),
+                rpc_ms_p99=float(np.percentile(lat, 99)))
+
+
+def rpc_window_main(argv: list) -> int:
+    """`chip_smoke.py --rpc-window TARGET SECONDS SEED NAME`: rpc_window of
+    DOORS_CALLERS callers over zipf_rpcs(SEED, NAME) in this process; one
+    JSON line. Needs no card."""
+    import asyncio
+
+    target, seconds, seed, name = argv
+    rpcs = zipf_rpcs(np.random.default_rng(int(seed)), RPC_POOL, name)
+    out = asyncio.run(rpc_window(target, rpcs, float(seconds), DOORS_CALLERS))
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def client_window(target: str, seed: int, name: str, seconds: float) -> dict:
+    """rpc_window in a client process of its own (this script with
+    --rpc-window), so that the callers' encode and decode leave this
+    process's interpreter and event loop."""
+    import os
+
+    here = os.path.abspath(__file__)
+    r = subprocess.run([sys.executable, here, "--rpc-window", target, str(seconds),
+                        str(seed), name], cwd=os.path.dirname(here),
+                       capture_output=True, text=True, timeout=seconds + 300)
+    if r.returncode != 0:
+        sys.stderr.write(r.stderr[-4000:])
+        fail(f"the client process of the window against {target} exited "
+             f"{r.returncode}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def quiet_stats(base: str) -> dict:
+    """/v1/debug/stats once two reads 0.3 s apart agree on the kernel
+    launches, the decides and the engine's chunks (a promoter tick or a
+    batch in flight between the launch and its count would skew one
+    read)."""
+    def key(st):
+        return (st["kernel_launches"]["writeback_add"], st["backend"]["batches"],
+                st["engine_chunks"]["install_chunks"], st["engine_chunks"]["gossip_chunks"])
+
+    _, prev = http_json(base + "/v1/debug/stats")
+    for _ in range(50):
+        time.sleep(0.3)
+        _, cur = http_json(base + "/v1/debug/stats")
+        if key(cur) == key(prev):
+            return cur
+        prev = cur
+    fail(f"doors: /v1/debug/stats did not settle: {key(prev)}")
+
+
+def doors_path(card: str) -> dict:
+    """`python -m gubernator_tpu_torch.cli.daemon` as a subprocess with the
+    serving phase's zipf100m env: boot checks, a limit-2 walk through gRPC
+    and through the HTTP gateway, a timed window of RPCs, /metrics, then
+    SIGTERM and its drain."""
+    import asyncio
+    import os
+    import signal
+    import threading
+
+    from gubernator_tpu_torch.api.types import RateLimitReq, Status
+    from gubernator_tpu_torch.client import V1Client
+
+    g, h = free_ports(2)
+    target, base = f"127.0.0.1:{g}", f"http://127.0.0.1:{h}"
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, **SERVING_ENV)
+    env.update(GUBER_GRPC_ADDRESS=target, GUBER_HTTP_ADDRESS=f"127.0.0.1:{h}",
+               PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.monotonic()
+    proc = subprocess.Popen([sys.executable, "-m", "gubernator_tpu_torch.cli.daemon"],
+                            cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    log = []
+    reader = threading.Thread(target=lambda: log.extend(proc.stdout), daemon=True)
+    reader.start()
+
+    def died(what):
+        proc.kill()
+        reader.join(5)
+        sys.stderr.write("".join(log[-60:]))
+        fail(f"doors: {what}")
+
+    try:
+        # the HTTP door opens last, after the warmup and the gRPC door
+        while not any("HTTP listening" in ln for ln in log):
+            if proc.poll() is not None:
+                died(f"the daemon exited with {proc.returncode} during boot")
+            if time.monotonic() - t0 > BOOT_S:
+                died("the daemon did not open its doors in time")
+            time.sleep(0.2)
+        boot_s = time.monotonic() - t0
+        client = V1Client(target)
+        health = client.health_check(timeout=30)
+        tiers = next((ln for ln in log if "store tiers:" in ln), "")
+        import re
+
+        m = re.search(r"exact (\d+) slots x (\d+) ways = (\d+) entries .*"
+                      r"sketch (\d+)x(\d+) int(\d+)", tiers)
+        if not m:
+            died(f"no store-tiers line in the boot log: {tiers!r}")
+        slots, ways, entries, rows, width, bits = (int(x) for x in m.groups())
+        on_card = entries * 32 + rows * width * bits // 8
+        if on_card != SERVING_BYTES or health.status != "healthy":
+            died(f"boot: {on_card} bytes ({tiers.strip()}), health {health}")
+        emit(dict(phase="boot", path="doors", card=card, boot_s=boot_s, bytes_on_card=on_card,
+                  tiers=tiers.strip(), health=health.status, peer_count=health.peer_count))
+
+        # the walks: a limit-2 key, 1 -> 0 -> OVER_LIMIT with one reset
+        walk = [client.get_rate_limits([RateLimitReq(
+            name="doors", unique_key="grpc_walk", hits=1, limit=2, duration=60_000)],
+            timeout=30)[0] for _ in range(3)]
+        body = {"requests": [{"name": "doors", "uniqueKey": "http_walk", "hits": 1,
+                              "limit": 2, "duration": 60000}]}
+        hwalk = [http_json(base + "/v1/GetRateLimits", body) for _ in range(3)]
+        ok = ([r.remaining for r in walk] == [1, 0, 0]
+              and [r.status for r in walk] == [Status.UNDER_LIMIT] * 2 + [Status.OVER_LIMIT]
+              and len({r.reset_time for r in walk}) == 1
+              and [s for s, _ in hwalk] == [200] * 3
+              and [b["responses"][0]["remaining"] for _, b in hwalk] == ["1", "0", "0"]
+              and [b["responses"][0]["status"] for _, b in hwalk]
+              == ["UNDER_LIMIT", "UNDER_LIMIT", "OVER_LIMIT"]
+              and len({b["responses"][0]["resetTime"] for _, b in hwalk}) == 1)
+        emit(dict(phase="walk", path="doors", ok=ok,
+                  grpc=[[r.remaining, int(r.status), r.reset_time] for r in walk],
+                  http=[b["responses"][0] for _, b in hwalk]))
+        if not ok:
+            died("the gRPC or HTTP walk did not go 1 -> 0 -> OVER_LIMIT with one reset")
+        client.close()
+
+        # the timed window
+        rpcs = zipf_rpcs(np.random.default_rng(5), RPC_POOL, "zipf100m")
+        s0 = quiet_stats(base)
+        m0 = http_text(base + "/metrics")
+        http_json(base + "/v1/debug/stages?reset=1")
+        window = asyncio.run(rpc_window(target, rpcs, WINDOW_S, DOORS_CALLERS))
+        m1 = http_text(base + "/metrics")
+        _, stages = http_json(base + "/v1/debug/stages")
+        s1 = quiet_stats(base)
+        rows = metric_value(m1, "device_batch_size_sum") - metric_value(m0, "device_batch_size_sum")
+        nb = metric_value(m1, "device_batch_size_count") - metric_value(m0, "device_batch_size_count")
+        for name in ("device_batch_size_bucket", "store_dropped_creates_total",
+                     "store_evictions_total", "shed_entries", "batcher_queue_depth"):
+            if name not in m1:
+                died(f"/metrics lacks {name}")
+        # the daemon's launches over the window, against its decides and
+        # the promoter's install (and any gossip) chunks over the same span
+        launches = (s1["kernel_launches"]["writeback_add"]
+                    - s0["kernel_launches"]["writeback_add"])
+        decides = s1["backend"]["batches"] - s0["backend"]["batches"]
+        chunks = sum(s1["engine_chunks"][k] - s0["engine_chunks"][k]
+                     for k in ("install_chunks", "gossip_chunks"))
+        if nb <= 0 or decides <= 0 or launches != decides + chunks:
+            died(f"the window: writeback kernel launched {launches} times for {decides} "
+                 f"decides + {chunks} install and gossip chunks ({nb} device batches "
+                 f"in /metrics)")
+        window.update(device_batches=nb, mean_device_batch=rows / nb,
+                      stages=stages["stages"],
+                      shed=stages.get("shed_cache"),
+                      kernel_launches=launches, decides=decides, chunks=chunks)
+        emit(dict(phase="window", path="doors", card=card, **window))
+
+        # a profiled stretch of the same traffic: the device's idle share
+        window["profile"] = profiled_stretch(base, target, rpcs)
+        emit(dict(phase="profile", path="doors", card=card, **window["profile"]))
+
+        # SIGTERM: the drain lists its steps and the daemon exits 0
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        reader.join(10)
+        drained = next((ln for ln in log if "drained in" in ln), "")
+        steps = ("grpc", "http", "global_flush", "batcher")
+        if rc != 0 or not all(f"'{s}'" in drained for s in steps):
+            died(f"SIGTERM: exit {rc}, drain line {drained.strip()!r}")
+        emit(dict(phase="drain", path="doors", exit_code=rc, drain=drained.strip()))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+    return dict(window, boot_s=boot_s, launches=launches)
+
+
+def profiled_stretch(base: str, target: str, rpcs: list, ms: int = 2000) -> dict:
+    """The daemon's /v1/debug/profile (torch.profiler) over `ms` of the
+    window's traffic: device busy time from the kernels, copies and
+    memsets of the Chrome trace it writes, and the idle share."""
+    import asyncio
+    import threading
+
+    out = {}
+    t = threading.Thread(target=lambda: out.update(
+        http_json(f"{base}/v1/debug/profile?ms={ms}&name=doors", timeout=120)[1]))
+    t.start()
+    time.sleep(0.2)
+    traffic = asyncio.run(rpc_window(target, rpcs, ms / 1000 + 0.5, DOORS_CALLERS))
+    t.join()
+    if "trace_dir" not in out:
+        fail(f"doors: /v1/debug/profile answered {out}")
+    with open(f"{out['trace_dir']}/trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    dev = [e for e in events if e.get("ph") == "X"
+           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    busy = sum(e.get("dur", 0) for e in dev)
+    if not dev:
+        fail("doors: the profile recorded no device events")
+    return dict(captured_ms=out["captured_ms"], device_busy_us=busy,
+                device_events=len(dev), device_idle_share=1 - busy / (out["captured_ms"] * 1e3),
+                decisions_per_s_profiled=traffic["decisions_per_s"])
+
+
+# -- the cluster phase: forwarding on the card -------------------------------
+
+CLUSTER_NODES = 3
+CLUSTER_CHECKED_RPCS = 16
+CLUSTER_KEYS = 4000  # distinct key ids the checked requests draw from
+
+
+def _cluster_checked_rpcs(types, rng) -> list:
+    """CLUSTER_CHECKED_RPCS request lists over CLUSTER_KEYS ids, each key
+    at most once in a request (forwarded groups from one request reach
+    their owners concurrently, so a key repeated inside one request would
+    decide in an order the run picks); per key a fixed algorithm (all
+    four), limit, duration and behavior (BATCHING, NO_BATCHING or
+    GLOBAL: a key's GLOBAL replicas follow its owner only while every hit
+    of it is GLOBAL); hits-0 peeks throughout."""
+    params = [(k % 4, (2, 10, 1000)[k % 3], (1000, 60_000, 600_000)[k % 5 % 3],
+               (0, 0, 1, 2)[k // 4 % 4]) for k in range(CLUSTER_KEYS)]
+    w = 1.0 / np.arange(1, CLUSTER_KEYS + 1) ** 1.1
+    out = []
+    for _ in range(CLUSTER_CHECKED_RPCS):
+        n = int(rng.integers(200, RPC_ITEMS + 1))
+        ks = rng.choice(CLUSTER_KEYS, n, replace=False, p=w / w.sum())
+        hits = rng.choice([0, 1, 1, 1, 2, 5], n)
+        out.append([
+            types.RateLimitReq(
+                name="cluster", unique_key=f"user{k}", hits=int(h), limit=params[k][1],
+                duration=params[k][2], algorithm=types.Algorithm(params[k][0]),
+                behavior=types.Behavior(params[k][3]))
+            for k, h in zip(ks.tolist(), hits.tolist())
+        ])
+    return out
+
+
+def _settle_globals(cluster) -> None:
+    """Two explicit GLOBAL rounds on every node (the loops are parked):
+    non-owner hits reach their owners, then the owners broadcast."""
+    for _ in range(2):
+        for s in cluster.servers:
+            cluster.run(s.instance.global_mgr.drain(), timeout=120)
+
+
+def _cluster_leg(cluster, types, reqs_list, pinned) -> tuple:
+    """The checked requests through node 0's gRPC door, one at a time
+    under the pinned clock, GLOBAL settled after each; then one hits-0
+    GLOBAL peek of every GLOBAL key at every node. Returns (the answers
+    as tuples, the peeks per node)."""
+    from gubernator_tpu_torch.client import V1Client
+
+    rng = np.random.default_rng(19)
+    answers = []
+    with V1Client(cluster.peer_at(0)) as c:
+        for reqs in reqs_list:
+            pinned[0] += int(rng.choice([0, 1, 7, 300, 61_000]))
+            resps = c.get_rate_limits(reqs, timeout=120)
+            answers.append([(int(r.status), r.limit, r.remaining, r.reset_time, r.error,
+                             tuple(sorted(r.metadata.items()))) for r in resps])
+            _settle_globals(cluster)
+    gkeys = sorted({(r.unique_key, r.algorithm, r.limit, r.duration)
+                    for reqs in reqs_list for r in reqs
+                    if r.behavior == types.Behavior.GLOBAL})[:RPC_ITEMS]
+    peek = [types.RateLimitReq(name="cluster", unique_key=k, hits=0, limit=lim,
+                               duration=dur, algorithm=a, behavior=types.Behavior.GLOBAL)
+            for k, a, lim, dur in gkeys]
+    peeks = []
+    for i in range(CLUSTER_NODES):
+        with V1Client(cluster.peer_at(i)) as c:
+            peeks.append([(int(r.status), r.remaining, r.error)
+                          for r in c.get_rate_limits(peek, timeout=120)])
+    return answers, peeks, peek
+
+
+def cluster_path(card: str, writeback) -> dict:
+    """A 3-node port LocalCluster in this process, each node the zipf100m
+    deployment on the card: a checked leg through node 0's door (every
+    item identical to a 3-node CPU LocalCluster's on the same addresses;
+    GLOBAL converged on every node), then a timed window of RPCs."""
+    import gubernator_tpu_torch.api.types as types
+    from gubernator_tpu_torch.cluster import LocalCluster
+    from gubernator_tpu_torch.core.engine import buckets_for_limit
+    from gubernator_tpu_torch.core.hashing import ring_hash
+    from gubernator_tpu_torch.serve.backends import TorchBackend
+    from gubernator_tpu_torch.serve.config import config_from_env
+    from gubernator_tpu_torch.serve.stages import STAGES
+
+    addrs = balanced_addresses(ring_hash, CLUSTER_NODES)
+    # the three nodes share this process's interpreter and one event loop,
+    # so a forward waits behind every node's host work, not its owner's
+    # alone: the peer and gossip deadlines rise from the reference's
+    # 500 ms, or the harness itself would trip the breakers. The GLOBAL
+    # loops park (their 600 s window outlasts the phase): the checked leg
+    # runs their rounds by explicit calls, so both clusters batch alike.
+    env = dict(SERVING_ENV, GUBER_PEER_TIMEOUT_MS="10000", GUBER_GLOBAL_TIMEOUT_MS="10000",
+               GUBER_GLOBAL_SYNC_WAIT_MS="600000")
+    gpu = LocalCluster(addrs, env=env)
+    t0 = time.monotonic()
+    gpu.start(timeout=BOOT_S)
+    boot_s = time.monotonic() - t0
+    engines = [s.backend.engine for s in gpu.servers]
+    on_card = sum(e.store.data.numel() * 4 + e.sketch.data.numel() * 4 for e in engines)
+    if on_card != CLUSTER_NODES * SERVING_BYTES or any(e.device.type != "cuda" for e in engines):
+        fail(f"cluster: {on_card} bytes on the card for {CLUSTER_NODES} nodes")
+    for s in gpu.servers:  # the promoters' ticks run by no one here
+        gpu.run(s.instance.promoter.stop())
+
+    # every window install and every gossip-charge chunk is one launch
+    def chunk_count():
+        return sum(e.install_chunks + e.gossip_chunks for e in engines)
+
+    chunks0 = chunk_count()
+    base = [s.backend.stats()["batches"] for s in gpu.servers]
+    writeback.writeback_add.launches = 0  # count this path only
+
+    reqs_list = _cluster_checked_rpcs(types, np.random.default_rng(23))
+    items = sum(len(r) for r in reqs_list)
+    forwarded = sum(addrs[_owner(ring_hash, addrs, r.hash_key())] != addrs[0]
+                    for reqs in reqs_list for r in reqs)
+    real_now = types.millisecond_now
+    pinned = [real_now() + 1]
+    types.millisecond_now = lambda: pinned[0]
+    try:
+        for s in gpu.servers:
+            s.instance.shed.now_fn = types.millisecond_now
+        p0 = pinned[0]
+        got, got_peeks, peek = _cluster_leg(gpu, types, reqs_list, pinned)
+    finally:
+        types.millisecond_now = real_now
+
+    # the timed window through node 0 (real clock, fresh keys), its
+    # callers in a client process, off the nodes' loop and interpreter
+    STAGES.reset()
+    window = client_window(addrs[0], 6, "cluster_zipf", WINDOW_S)
+    window["stages"] = STAGES.snapshot()["stages"]  # the three nodes' together
+    # the share of the items sent that node 0 forwarded: each prebuilt
+    # request's forwarded items, weighted by how often it was sent
+    rpcs = zipf_rpcs(np.random.default_rng(6), RPC_POOL, "cluster_zipf")
+    fwd = [sum(_owner(ring_hash, addrs, f"cluster_zipf_{r.unique_key}") != 0
+               for r in q.requests) for q in rpcs]
+    fwd_share = sum(n * f for n, f in zip(window["sent"], fwd)) / window["items"]
+    decides = sum(s.backend.stats()["batches"] - b for s, b in zip(gpu.servers, base))
+    chunks = chunk_count() - chunks0
+    launches = writeback.writeback_add.launches
+    epochs = [e.clock.epoch for e in engines]
+    per_node = [s.backend.stats() for s in gpu.servers]
+    gpu.stop()
+    del engines
+    torch.cuda.empty_cache()
+    if launches != decides + chunks or launches == 0:
+        fail(f"cluster path: writeback kernel launched {launches} times for {decides} "
+             f"decides + {chunks} install and gossip chunks")
+
+    # the same leg on a CPU cluster of the port, on the same addresses
+    conf = config_from_env(dict(env))
+    store, skc = conf.store_config(), conf.sketch_config()
+    ladder = buckets_for_limit(conf.device_batch_limit)
+
+    def cpu_backend():
+        b = TorchBackend(store, buckets=ladder, sketch=skc, device="cpu")
+        b.warmup = lambda: None  # nothing to load; the epochs are copied below
+        return b
+
+    cpu = LocalCluster(addrs, env=env, backend_factory=cpu_backend)
+    cpu.start(timeout=BOOT_S)
+    try:
+        for s, ep in zip(cpu.servers, epochs):
+            s.backend.engine.clock.epoch = ep
+            cpu.run(s.instance.promoter.stop())
+        pinned[0] = p0
+        types.millisecond_now = lambda: pinned[0]
+        for s in cpu.servers:
+            s.instance.shed.now_fn = types.millisecond_now
+        want, want_peeks, _ = _cluster_leg(cpu, types, reqs_list, pinned)
+    finally:
+        types.millisecond_now = real_now
+        cpu.stop()
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            j = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+            fail(f"cluster checked rpc {i} item {j}: card {a[j]}, cpu {b[j]}")
+    if got_peeks != want_peeks:
+        fail("cluster: the GLOBAL peeks differ from the CPU cluster's")
+    # a replica is a token window (limit, remaining, reset): a node that
+    # never served a leaky, sliding or GCRA key reads its replica as a
+    # fresh window, in the JAX package too, so the owner's remaining is
+    # required of every node for the token keys, and counted for the rest
+    owners = [_owner(ring_hash, addrs, r.hash_key()) for r in peek]
+    differ = {0: 0, 1: 0}
+    for k, (r, o) in enumerate(zip(peek, owners)):
+        token = int(r.algorithm == types.Algorithm.TOKEN_BUCKET)
+        differ[token] += sum(got_peeks[i][k] != got_peeks[o][k] for i in range(CLUSTER_NODES))
+    if differ[1]:
+        fail(f"cluster: after one GLOBAL sync {differ[1]} token answers differ from the owner's")
+    errors = sum(1 for a in got for x in a if x[4])
+    with_owner = sum(1 for a in got for x in a if any(k == "owner" for k, _ in x[5]))
+    if errors or with_owner == 0:
+        fail(f"cluster checked leg: {errors} errors, {with_owner} answers naming an owner")
+    checked = dict(rpcs=len(reqs_list), items=items, forwarded_items=forwarded,
+                   owner_tagged=with_owner, global_keys=len(peek),
+                   global_token_keys=sum(r.algorithm == 0 for r in peek),
+                   global_non_token_answers_unlike_owner=differ[0], cpu_identical=True)
+    emit(dict(phase="check", path="cluster", **checked))
+    window.update(forwarded_share=fwd_share)
+    emit(dict(phase="window", path="cluster", card=card, **window))
+    out = dict(nodes=CLUSTER_NODES, addresses=addrs, boot_s=boot_s, bytes_on_card=on_card,
+               decides=decides, chunks=chunks, kernel_launches=launches,
+               per_node_stats=per_node)
+    emit(dict(phase="main", path="cluster", card=card, **out))
+    return dict(launches=launches, decides=decides, chunks=chunks, window=window)
+
+
+def balanced_addresses(ring_hash, n: int, lo: float = 0.2, hi: float = 0.5) -> list:
+    """n free localhost addresses whose ring arcs each own between `lo`
+    and `hi` of the key space. The ring has one crc32 point per address,
+    so the ports alone set each node's share: a draw where node 0 owns 2%
+    would forward nearly every item and test the owner side of node 0
+    hardly at all."""
+    for _ in range(500):
+        addrs = [f"127.0.0.1:{p}" for p in free_ports(n)]
+        pts = sorted(ring_hash(a) for a in addrs)
+        arcs = [((p - q) % (1 << 32)) / (1 << 32) for p, q in zip(pts, pts[-1:] + pts[:-1])]
+        if all(lo <= a <= hi for a in arcs):
+            return addrs
+    fail(f"no draw of {n} free ports gave ring arcs between {lo} and {hi}")
+
+
+def _owner(ring_hash, addrs: list, key: str) -> int:
+    """Index of the ring owner of `key` (reference hash.go successor)."""
+    points = sorted((ring_hash(a), i) for i, a in enumerate(addrs))
+    h = ring_hash(key)
+    return next((i for p, i in points if p >= h), points[0][1])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1134,19 +1717,22 @@ def main() -> int:
     exact = exact_path(card, ladder, writeback)
     two = two_tier_path(card, ladder, writeback)
     serving = serving_path(card, writeback, two["decisions_per_s"])
+    doors = doors_path(card)
+    cluster = cluster_path(card, writeback)
 
     main_case = cases["two_tier"]
     emit({"kernels": [dict(
         name="writeback_add", route="cuda",
         source="gubernator_tpu_torch/csrc/writeback.cu",
         replaces="gubernator_tpu/core/pallas_sweep.py:97",
-        launches=serving["launches"],
+        launches=cluster["launches"],
         max_abs_err=max(c["max_abs_err"] for c in cases.values()),
         ms=main_case["ms"], plain_ms=main_case["plain_ms"],
         bound_ms=main_case["bound_ms"], bound_by="bytes",
         library_ms=main_case["library_ms"],
         launches_by_path={"exact": exact["launches"], "two_tier": two["launches"],
-                          "serving": serving["launches"]},
+                          "serving": serving["launches"], "doors": doors["launches"],
+                          "cluster": cluster["launches"]},
     )]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
@@ -1154,4 +1740,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rpc-window"]:
+        sys.exit(rpc_window_main(sys.argv[2:]))
     sys.exit(main())

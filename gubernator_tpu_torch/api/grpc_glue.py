@@ -1,0 +1,100 @@
+"""Hand-written gRPC service glue (the port's copy of
+gubernator_tpu/api/grpc_glue.py).
+
+grpc_tools (the protoc gRPC python plugin) is not available in this image,
+so the servicer registration and client stubs for the two services
+(V1, PeersV1 — reference proto/gubernator.proto:27-45, proto/peers.proto:28-34)
+are written out by hand against the generated message classes. Works with
+both sync and asyncio grpc channels/servers.
+"""
+
+from __future__ import annotations
+
+import grpc
+
+from gubernator_tpu_torch.api.proto.gen import gubernator_pb2, peers_pb2
+
+V1_SERVICE = "pb.gubernator.V1"
+PEERS_SERVICE = "pb.gubernator.PeersV1"
+
+
+def add_v1_servicer(server: grpc.Server, servicer) -> None:
+    """servicer must expose GetRateLimits(req, ctx) and HealthCheck(req, ctx)
+    (sync or async depending on the server flavor)."""
+    handlers = {
+        "GetRateLimits": grpc.unary_unary_rpc_method_handler(
+            servicer.GetRateLimits,
+            request_deserializer=gubernator_pb2.GetRateLimitsReq.FromString,
+            response_serializer=gubernator_pb2.GetRateLimitsResp.SerializeToString,
+        ),
+        "HealthCheck": grpc.unary_unary_rpc_method_handler(
+            servicer.HealthCheck,
+            request_deserializer=gubernator_pb2.HealthCheckReq.FromString,
+            response_serializer=gubernator_pb2.HealthCheckResp.SerializeToString,
+        ),
+    }
+    server.add_generic_rpc_handlers(
+        (grpc.method_handlers_generic_handler(V1_SERVICE, handlers),)
+    )
+
+
+def add_peers_servicer(server: grpc.Server, servicer) -> None:
+    """servicer must expose GetPeerRateLimits(req, ctx),
+    UpdatePeerGlobals(req, ctx) and ReplicateBuckets(req, ctx)."""
+    handlers = {
+        "GetPeerRateLimits": grpc.unary_unary_rpc_method_handler(
+            servicer.GetPeerRateLimits,
+            request_deserializer=peers_pb2.GetPeerRateLimitsReq.FromString,
+            response_serializer=peers_pb2.GetPeerRateLimitsResp.SerializeToString,
+        ),
+        "UpdatePeerGlobals": grpc.unary_unary_rpc_method_handler(
+            servicer.UpdatePeerGlobals,
+            request_deserializer=peers_pb2.UpdatePeerGlobalsReq.FromString,
+            response_serializer=peers_pb2.UpdatePeerGlobalsResp.SerializeToString,
+        ),
+        "ReplicateBuckets": grpc.unary_unary_rpc_method_handler(
+            servicer.ReplicateBuckets,
+            request_deserializer=peers_pb2.ReplicateBucketsReq.FromString,
+            response_serializer=peers_pb2.ReplicateBucketsResp.SerializeToString,
+        ),
+    }
+    server.add_generic_rpc_handlers(
+        (grpc.method_handlers_generic_handler(PEERS_SERVICE, handlers),)
+    )
+
+
+class V1Stub:
+    """Client stub for the public service."""
+
+    def __init__(self, channel):
+        self.GetRateLimits = channel.unary_unary(
+            f"/{V1_SERVICE}/GetRateLimits",
+            request_serializer=gubernator_pb2.GetRateLimitsReq.SerializeToString,
+            response_deserializer=gubernator_pb2.GetRateLimitsResp.FromString,
+        )
+        self.HealthCheck = channel.unary_unary(
+            f"/{V1_SERVICE}/HealthCheck",
+            request_serializer=gubernator_pb2.HealthCheckReq.SerializeToString,
+            response_deserializer=gubernator_pb2.HealthCheckResp.FromString,
+        )
+
+
+class PeersV1Stub:
+    """Client stub for the peer-to-peer service."""
+
+    def __init__(self, channel):
+        self.GetPeerRateLimits = channel.unary_unary(
+            f"/{PEERS_SERVICE}/GetPeerRateLimits",
+            request_serializer=peers_pb2.GetPeerRateLimitsReq.SerializeToString,
+            response_deserializer=peers_pb2.GetPeerRateLimitsResp.FromString,
+        )
+        self.UpdatePeerGlobals = channel.unary_unary(
+            f"/{PEERS_SERVICE}/UpdatePeerGlobals",
+            request_serializer=peers_pb2.UpdatePeerGlobalsReq.SerializeToString,
+            response_deserializer=peers_pb2.UpdatePeerGlobalsResp.FromString,
+        )
+        self.ReplicateBuckets = channel.unary_unary(
+            f"/{PEERS_SERVICE}/ReplicateBuckets",
+            request_serializer=peers_pb2.ReplicateBucketsReq.SerializeToString,
+            response_deserializer=peers_pb2.ReplicateBucketsResp.FromString,
+        )

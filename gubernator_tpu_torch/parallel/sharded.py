@@ -103,6 +103,11 @@ class TorchEngine:
         self.device = resolve_device(device)
         self.clock = EpochClock()
         self.stats = EngineStats()
+        # the writebacks no decide batch counts: each window-install chunk
+        # and each gossip-charge chunk is one writeback launch, so on a GPU
+        # the launches are stats.batches + install_chunks + gossip_chunks
+        self.install_chunks = 0
+        self.gossip_chunks = 0
         # bumped by every reset(): the store-wipe epoch the over-limit
         # shed cache checks (serve/shedcache.py)
         self.reset_generation = 0
@@ -498,6 +503,7 @@ class TorchEngine:
             is_over = np.asarray(is_over, bool)
         for s in range(0, n, top):
             e = min(s + top, n)
+            self.install_chunks += 1
             head = (
                 (kh[s:e], np.uint64),
                 (_sat_i32(limit[s:e]), np.int32),
@@ -584,6 +590,7 @@ class TorchEngine:
         cols = ([], [], [], [])
         for s in range(0, n, top):
             e = min(s + top, n)
+            self.gossip_chunks += 1
             h = self.decide_submit(
                 key_hash[s:e], hits[s:e], limit[s:e], duration[s:e],
                 algo[s:e], np.zeros(e - s, bool), now, observe=False,
@@ -692,3 +699,4 @@ class TorchEngine:
             torch.cuda.synchronize(self.device)
         self.reset()
         self.stats = EngineStats()
+        self.install_chunks = self.gossip_chunks = 0

@@ -21,6 +21,9 @@ import os
 from dataclasses import dataclass, field
 from typing import List, Optional
 
+from gubernator_tpu_torch.endpoints import reject_ipv6_endpoint
+from gubernator_tpu_torch.serve.logging_setup import parse_level
+
 MAX_BATCH_SIZE = 1000  # hard request-list cap (reference gubernator.go:34)
 
 
@@ -726,41 +729,6 @@ class ServerConfig:
                 "GUBER_ETCD_TLS_CERT/KEY also require GUBER_ETCD_TLS_CA"
             )
         parse_level(self.log_level)  # raises ValueError with a clean message
-
-
-def reject_ipv6_endpoint(spec: str, what: str) -> str:
-    """Refuse an IPv6-ish endpoint at parse time: endpoints split
-    host:port on the LAST colon and would misparse one silently
-    (gubernator_tpu/endpoints.py)."""
-    if "[" in spec or "]" in spec or spec.count(":") > 1:
-        raise ValueError(
-            f"{what} {spec!r} looks like an IPv6 literal; endpoints "
-            f"must be 'host:port' with an IPv4 address or hostname "
-            f"(the wire protocol splits on the last ':')"
-        )
-    return spec
-
-
-#: logrus level names (reference logging/logging.go) -> stdlib levels
-_LEVELS = {
-    "panic": logging.CRITICAL,
-    "fatal": logging.CRITICAL,
-    "error": logging.ERROR,
-    "warning": logging.WARNING,
-    "warn": logging.WARNING,
-    "info": logging.INFO,
-    "debug": logging.DEBUG,
-    "trace": logging.DEBUG,
-}
-
-
-def parse_level(name: str) -> int:
-    """Parse a log level name; raises ValueError on an unknown one
-    (gubernator_tpu/serve/logging_setup.py)."""
-    try:
-        return _LEVELS[name.strip().lower()]
-    except KeyError:
-        raise ValueError(f"unknown log level {name!r}") from None
 
 
 def _get(env, key: str, default: str = "") -> str:

@@ -1,10 +1,11 @@
 """GLOBAL behavior gossip: async hit forwarding + owner status broadcasts.
 
 The port's copy of gubernator_tpu/serve/global_mgr.py with its imports
-rewritten. Until the doors' slice ports forwarding, a node's ring holds
-only itself: GLOBAL items decide on the owner (this node), self-destined
-hit flushes apply locally, and broadcasts reach no peer. File references
-below are the reference package's.
+rewritten. Hit flushes and status broadcasts reach the other ring members
+over PeersV1 (serve/peers.PeerClient); self-destined hits apply locally.
+The port has no mesh, so no peer is mesh_local and the mesh-local
+install path stays idle. File references below are the reference
+package's.
 
 The host-level twin of the reference's globalManager (reference
 global.go:29-232), on asyncio instead of goroutines:

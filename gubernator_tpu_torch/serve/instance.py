@@ -1,33 +1,39 @@
-"""The serving instance: validation, routing, the shed screen and the
-local decide (the port of gubernator_tpu/serve/instance.py).
+"""The serving instance: validation, owner routing, the shed screen and
+peer fan-out (the port of gubernator_tpu/serve/instance.py).
 
 The engine-room of one server process, mirroring the reference
 Instance's contract (reference gubernator.go:41-322) with an asyncio +
 batched-device execution model:
 
-- get_rate_limits validates each entry, routes it on the ring, screens
-  the over-limit shed cache (serve/shedcache.py: frozen token-bucket
-  refusals answer host-side, before the batcher), and coalesces the rest
-  into device batches through the DeviceBatcher; owned GLOBAL keys queue
-  their status broadcast (GlobalManager). Responses reassemble in
-  request order (gubernator.go:75-169).
+- get_rate_limits validates each entry, decides key ownership on the
+  ring, screens the over-limit shed cache (serve/shedcache.py: frozen
+  token-bucket refusals answer host-side, before the batcher or any
+  forward RPC), and splits the residue three ways: locally-owned
+  requests coalesce into device batches; GLOBAL non-owned requests
+  answer from local replicas (with hits queued to the gossip manager);
+  other non-owned requests forward to their owner peer (micro-batched
+  per peer unless NO_BATCHING). Responses reassemble in request order
+  (gubernator.go:75-169).
+- get_peer_rate_limits serves owner-side batches for other peers
+  (gubernator.go:210-227).
 - update_peer_globals installs owner-broadcast GLOBAL replicas
   (gubernator.go:199-207), and apply_global_hits_local charges GLOBAL
   hits flushed to this node.
-- set_peers rebuilds the picker and recomputes health
-  (gubernator.go:254-292); health_check merges in breaker state.
+- set_peers rebuilds the picker on membership change, reusing existing
+  connections, and recomputes health (gubernator.go:254-292);
+  health_check merges in breaker state.
 
-Not ported yet, and refused loudly rather than ignored: forwarding to
-other nodes (set_peers takes only a ring whose one member is this node;
-the PeersV1 door, the owner side of GetPeerRateLimits and degraded mode
-come with the doors' slice), bucket replication, ring rescale and
-checkpoint/restore (a config that turns one on raises at construction),
-and quota chains (a chained item gets a per-item error).
+Not ported yet, and refused loudly rather than ignored: bucket
+replication, ring rescale and checkpoint/restore (a config that turns
+one on raises at construction; with them go the successor takeover and
+the owner-side replication hooks), and quota chains (a chained item
+gets a per-item error, at the door and at the owner).
 Comments name the reference's modules and files.
 """
 
 from __future__ import annotations
 
+import asyncio
 import logging
 import time
 from typing import List, Optional, Sequence, Tuple
@@ -41,16 +47,13 @@ from gubernator_tpu_torch.api.types import (
 )
 from gubernator_tpu_torch.core.hashing import slot_hash_batch
 from gubernator_tpu_torch.core.sketches import TrafficStats
-from gubernator_tpu_torch.serve import tracing
+from gubernator_tpu_torch.serve import metrics, tracing
 from gubernator_tpu_torch.serve.batcher import DeviceBatcher
 from gubernator_tpu_torch.serve.breaker import OPEN as BREAKER_OPEN
 from gubernator_tpu_torch.serve.config import MAX_BATCH_SIZE, ServerConfig
+from gubernator_tpu_torch.serve.faults import FAULTS
 from gubernator_tpu_torch.serve.global_mgr import GlobalManager
-from gubernator_tpu_torch.serve.peers import (
-    FORWARDING_NOT_PORTED,
-    ConsistentHashPicker,
-    PeerClient,
-)
+from gubernator_tpu_torch.serve.peers import ConsistentHashPicker, PeerClient
 from gubernator_tpu_torch.serve.stages import STAGES
 
 log = logging.getLogger("gubernator_tpu_torch.instance")
@@ -177,12 +180,13 @@ class Instance:
             )
 
         out: List[Optional[RateLimitResp]] = [None] * len(reqs)
-        local: List[Tuple[int, RateLimitReq]] = []
+        local: List[Tuple[int, RateLimitReq, bool]] = []  # idx, req, gnp
+        forwards: List[Tuple[int, RateLimitReq, PeerClient]] = []
         t_route0 = time.monotonic()
 
         # validation pass first so the whole batch's fingerprints hash
         # in one call — the routing pass below consults the over-limit
-        # shed cache with them, and the response hook uses them to
+        # shed cache with them, and the response hooks use them to
         # populate it (fps: out-index -> fingerprint)
         valid: List[Tuple[int, RateLimitReq, str]] = []
         for i, r in enumerate(reqs):
@@ -209,14 +213,11 @@ class Instance:
             shed.refresh_generation()
         fps = {}
 
-        # the ring holds this node alone (set_peers), so every routed key
-        # is owned here: the reference's non-owner branches (GLOBAL
-        # replica answers, forwards to the owner) come with forwarding
         for j, (i, r, key) in enumerate(valid):
             h = int(hashes[j])
             fps[i] = h
             try:
-                self.get_peer(key)
+                peer = self.get_peer(key)
             except Exception as e:
                 out[i] = RateLimitResp(
                     error=(
@@ -226,19 +227,37 @@ class Instance:
                 )
                 continue
             # over-limit shed screen (serve/shedcache.py): a cached
-            # frozen refusal answers here, with no batcher trip. An
-            # owned GLOBAL key still queues its status broadcast, as the
-            # device path would (the broadcast loop's peeks carry hits=0
-            # and therefore always bypass the shed).
+            # frozen refusal answers here — no batcher, no forward RPC.
+            # GLOBAL side effects are preserved exactly as the
+            # non-shed path would produce them: non-owners still
+            # aggregate the hit toward the owner, owners still queue
+            # the status broadcast (the broadcast loop's peeks carry
+            # hits=0 and therefore always bypass the shed).
             verdict = (
                 shed.lookup_resp(h, r) if shed is not None else None
             )
-            if verdict is not None:
-                if r.behavior == Behavior.GLOBAL:
-                    self.global_mgr.queue_update(r)
-                out[i] = verdict
-                continue
-            local.append((i, r))
+            if peer.is_owner:
+                if verdict is not None:
+                    if r.behavior == Behavior.GLOBAL:
+                        self.global_mgr.queue_update(r)
+                    out[i] = verdict
+                    continue
+                local.append((i, r, False))
+            elif r.behavior == Behavior.GLOBAL:
+                # replica answer + async hit forward (gubernator.go:133-140)
+                self.global_mgr.queue_hit(r)
+                if verdict is not None:
+                    out[i] = verdict
+                    continue
+                local.append((i, r, True))
+            else:
+                if verdict is not None:
+                    # parity with forward(): forwarded answers carry
+                    # the owner tag, shed or not
+                    verdict.metadata["owner"] = peer.host
+                    out[i] = verdict
+                    continue
+                forwards.append((i, r, peer))
 
         if valid:
             self.traffic.observe([k for _, _, k in valid], hashes)
@@ -247,27 +266,143 @@ class Instance:
         # queue/device stages
         STAGES.add("instance_route", time.monotonic() - t_route0)
 
-        if local:
-            local_reqs = [r for _, r in local]
+        async def forward(i, r, peer):
+            key = r.hash_key()
+            tr = tracing.active()
+            t_fwd = time.monotonic() if tr is not None else 0.0
             try:
-                resps = await self.decide_local(
-                    local_reqs, [False] * len(local), frame=stage_frame
+                resp = await peer.get_peer_rate_limit(r)
+                if tr is not None:
+                    tr.add_span(
+                        "peer_forward", start=t_fwd,
+                        peer=peer.host, items=1,
+                    )
+                resp.metadata["owner"] = peer.host
+                if shed is not None:
+                    shed.observe_resps([fps[i]], [r], [resp])
+            except Exception as e:
+                degraded = await self._degraded_fallback([(i, r)], peer, e)
+                if degraded is not None:
+                    out[i] = degraded[0]
+                    return
+                resp = RateLimitResp(
+                    error=(
+                        f"while fetching rate limit '{key}' from peer - '{e}'"
+                    )
                 )
-                for (i, _), resp in zip(local, resps):
+            out[i] = resp
+
+        async def forward_group(peer, items):
+            # owner batching (r7): the whole per-owner group rides ONE
+            # queue entry + ONE future through the peer's micro-batch
+            # flusher. Failures keep per-item error parity with forward().
+            tr = tracing.active()
+            t_fwd = time.monotonic() if tr is not None else 0.0
+            try:
+                resps = await peer.get_peer_rate_limits_grouped(
+                    [r for _, r in items]
+                )
+                if tr is not None:
+                    tr.add_span(
+                        "peer_forward", start=t_fwd,
+                        peer=peer.host, items=len(items),
+                    )
+                for (i, r), resp in zip(items, resps):
+                    resp.metadata["owner"] = peer.host
                     out[i] = resp
                 if shed is not None:
                     shed.observe_resps(
-                        [fps[i] for i, _ in local], local_reqs, resps
+                        [fps[i] for i, _ in items],
+                        [r for _, r in items],
+                        resps,
                     )
             except Exception as e:
-                for i, r in local:
+                degraded = await self._degraded_fallback(items, peer, e)
+                if degraded is not None:
+                    for (i, _), resp in zip(items, degraded):
+                        out[i] = resp
+                    return
+                for i, r in items:
+                    out[i] = RateLimitResp(
+                        error=(
+                            f"while fetching rate limit "
+                            f"'{r.hash_key()}' from peer - '{e}'"
+                        )
+                    )
+
+        # group BATCHING forwards per owner; NO_BATCHING keeps its
+        # direct-unary contract (reference peers.go:73-90)
+        grouped: dict = {}
+        singles = []
+        for i, r, peer in forwards:
+            if r.behavior == Behavior.NO_BATCHING:
+                singles.append((i, r, peer))
+            else:
+                grouped.setdefault(peer, []).append((i, r))
+
+        # schedule forwards immediately so their RPCs overlap the local
+        # device batch instead of queueing behind it
+        tasks = [
+            asyncio.ensure_future(forward(i, r, p)) for i, r, p in singles
+        ]
+        tasks += [
+            asyncio.ensure_future(forward_group(p, items))
+            for p, items in grouped.items()
+        ]
+
+        if local:
+            local_reqs = [r for _, r, _ in local]
+            gnp = [g for _, _, g in local]
+            try:
+                resps = await self.decide_local(
+                    local_reqs, gnp, frame=stage_frame
+                )
+                for (i, _, _), resp in zip(local, resps):
+                    out[i] = resp
+                if shed is not None:
+                    shed.observe_resps(
+                        [fps[i] for i, _, _ in local], local_reqs, resps
+                    )
+            except Exception as e:
+                for i, r, _ in local:
                     out[i] = RateLimitResp(
                         error=(
                             f"while applying rate limit for "
                             f"'{r.hash_key()}' - '{e}'"
                         )
                     )
+        if tasks:
+            await asyncio.gather(*tasks)
         return [r if r is not None else RateLimitResp() for r in out]
+
+    async def _degraded_fallback(self, items, peer, exc):
+        """Degraded mode (GUBER_DEGRADED_LOCAL=1): a forward that failed
+        with its owner unreachable is answered from the LOCAL store,
+        stamped metadata["degraded"]="true" — availability over global
+        accuracy, the reference's documented eventual-consistency
+        stance, opt-in. `items`: [(out_index, req)]. Returns the
+        responses or None (mode off / local decide itself failed →
+        caller surfaces the original per-item error)."""
+        if not getattr(self.conf, "degraded_local", False):
+            return None
+        try:
+            resps = await self.decide_local(
+                [r for _, r in items], [False] * len(items)
+            )
+        except Exception:
+            return None
+        for resp in resps:
+            resp.metadata["degraded"] = "true"
+            resp.metadata["owner"] = peer.host
+        log.warning(
+            "degraded mode: answered %d item(s) locally, owner '%s' "
+            "unreachable (%s)", len(items), peer.host, exc,
+        )
+        try:
+            metrics.DEGRADED_RESPONSES.inc(len(items))
+        except Exception:  # pragma: no cover - defensive
+            pass
+        return resps
 
     async def decide_local(
         self,
@@ -300,6 +435,78 @@ class Instance:
         await self.batcher.run_serialized(fn, list(reqs))
         for r in reqs:
             self.global_mgr.queue_update(r)
+
+    # -- peer-facing API ----------------------------------------------------
+
+    async def get_peer_rate_limits(
+        self, reqs: Sequence[RateLimitReq]
+    ) -> List[RateLimitResp]:
+        if len(reqs) > MAX_BATCH_SIZE:
+            raise BatchTooLargeError(
+                f"'PeerRequest.rate_limits' list too large; max size is "
+                f"'{MAX_BATCH_SIZE}'"
+            )
+        try:
+            if FAULTS.enabled:
+                # owner-side injection point: a chaos spec can make THIS
+                # node a slow/failing owner for its peers' forwards
+                await FAULTS.inject("peer_serve")
+            if not any(r.chain for r in reqs):
+                return await self._peer_serve_plain(reqs)
+            # a chained item forwarded by a peer that serves chains gets
+            # the same per-item error as at this node's own door
+            plain = [(i, r) for i, r in enumerate(reqs) if not r.chain]
+            out = [RateLimitResp(error=CHAINS_NOT_PORTED) for _ in reqs]
+            if plain:
+                presps = await self._peer_serve_plain([r for _, r in plain])
+                for (i, _), resp in zip(plain, presps):
+                    out[i] = resp
+            return out
+        except Exception as e:
+            return [RateLimitResp(error=str(e)) for _ in reqs]
+
+    async def _peer_serve_plain(
+        self, reqs: Sequence[RateLimitReq]
+    ) -> List[RateLimitResp]:
+        """The owner-side decide for forwarded batches: shed screen +
+        device decide."""
+        try:
+            shed = self.shed
+            if shed is None:
+                return await self.decide_local(reqs, [False] * len(reqs))
+            # owner-side shed screen: forwarded items for a frozen
+            # over-limit key are answered without a device trip; the
+            # residue decides normally and its responses populate the
+            # cache. Forwarded GLOBAL hits keep their broadcast side
+            # effect (decide_local would have queued the update).
+            shed.refresh_generation()
+            hashes = slot_hash_batch([r.hash_key() for r in reqs])
+            out: List[Optional[RateLimitResp]] = [None] * len(reqs)
+            residue: List[Tuple[int, RateLimitReq]] = []
+            res_fps: List[int] = []
+            for i, r in enumerate(reqs):
+                verdict = shed.lookup_resp(int(hashes[i]), r)
+                if verdict is not None:
+                    if r.behavior == Behavior.GLOBAL:
+                        self.global_mgr.queue_update(r)
+                    out[i] = verdict
+                else:
+                    residue.append((i, r))
+                    res_fps.append(int(hashes[i]))
+            if residue:
+                resps = await self.decide_local(
+                    [r for _, r in residue], [False] * len(residue)
+                )
+                shed.observe_resps(
+                    res_fps, [r for _, r in residue], resps
+                )
+                for (i, _), resp in zip(residue, resps):
+                    out[i] = resp
+            return [
+                o if o is not None else RateLimitResp() for o in out
+            ]
+        except Exception as e:
+            return [RateLimitResp(error=str(e)) for _ in reqs]
 
     # -- GLOBAL replica installs -------------------------------------------
 
@@ -354,12 +561,6 @@ class Instance:
     # -- membership (gubernator.go:254-310) ---------------------------------
 
     async def set_peers(self, peers: Sequence[PeerInfo]) -> None:
-        others = [p.address for p in peers if not p.is_owner]
-        if others:
-            raise NotImplementedError(
-                f"peers {others}: {FORWARDING_NOT_PORTED}; a ring of "
-                f"this node alone is served"
-            )
         picker = self.picker.new()
         errs = []
         for info in peers:

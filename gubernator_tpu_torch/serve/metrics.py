@@ -1,7 +1,11 @@
 """Prometheus metrics, name-compatible with the reference's collectors.
 
 The port's copy of gubernator_tpu/serve/metrics.py with its imports
-rewritten; the file references below are the reference package's.
+rewritten, less the metrics of what the port does not carry yet (the
+edge bridge and GEB door with its shm lane and frame gauges, bucket
+replication, ring rescale, checkpoint/restore): a counter that can only
+read 0 would tell an operator the feature is on. The file references
+below are the reference package's.
 
 - grpc_request_counts{status,method} and
   grpc_request_duration_milliseconds{method} (reference prometheus.go:50-63)
@@ -80,47 +84,6 @@ STORE_EVICTIONS = Counter(
     "Store entries overwritten by the earliest-expiry eviction policy "
     "(over-admission signal at capacity; reference cache/lru.go:164-176 "
     "exposes the analogous cache_size-vs-max pressure)",
-    registry=REGISTRY,
-)
-EDGE_FAST_ITEMS = Counter(
-    "edge_fast_items_total",
-    "Rate-limit items served through the pre-hashed (GEB6) edge fast "
-    "path on this node — in a cluster, nonzero on every node proves the "
-    "edge ships per-owner frames instead of funnelling through one node",
-    registry=REGISTRY,
-)
-EDGE_FOLDED_ITEMS = Counter(
-    "edge_folded_items_total",
-    "String-frame items served through the bridge's string->array fold "
-    "(all-plain all-owned frames skip request/response objects and "
-    "instance routing) — the slow path's share of fast-path treatment",
-    registry=REGISTRY,
-)
-EDGE_STALE_RINGS = Counter(
-    "edge_stale_ring_total",
-    "GEB6 frames rejected because the edge routed with a different "
-    "membership view than this node (the edge refreshes and retries)",
-    registry=REGISTRY,
-)
-GEB_SHM_SESSIONS = Counter(
-    "geb_shm_sessions_total",
-    "Shared-memory GEB lanes negotiated on this node's bridge (r18, "
-    "serve/shm.py GEBM/GEBN over the unix control socket); compare "
-    "with geb_shm_teardowns_total to see lanes torn down early",
-    registry=REGISTRY,
-)
-GEB_SHM_FRAMES = Counter(
-    "geb_shm_frames_total",
-    "Request frames served through shared-memory rings instead of a "
-    "socket (r18) — the co-located fast lane's share of bridge traffic",
-    registry=REGISTRY,
-)
-GEB_SHM_TEARDOWNS = Counter(
-    "geb_shm_teardowns_total",
-    "Shared-memory lanes torn down for cause (hostile/torn ring "
-    "state, a client that stopped draining, serve failures) rather "
-    "than a clean close — nonzero under normal operation means a "
-    "misbehaving co-located peer",
     registry=REGISTRY,
 )
 DISTINCT_KEYS = Gauge(
@@ -224,134 +187,6 @@ GLOBAL_BACKLOG_DROPPED = Counter(
     ["queue"],
     registry=REGISTRY,
 )
-REPLICATION_SNAPSHOTS_SENT = Counter(
-    "replication_snapshots_sent_total",
-    "Owned-bucket snapshots shipped to ring successors (and reconcile "
-    "handbacks to returned owners) over ReplicateBuckets "
-    "(GUBER_REPLICATION=1, serve/replication.py)",
-    registry=REGISTRY,
-)
-REPLICATION_STANDBY_ENTRIES = Gauge(
-    "replication_standby_entries",
-    "Live snapshots in the receiver-side standby table (bounded by "
-    "GUBER_REPLICATION_STANDBY_KEYS; consulted only on takeover)",
-    registry=REGISTRY,
-)
-REPLICATED_TAKEOVERS = Counter(
-    "replicated_takeovers_total",
-    "First-touch decisions seeded from a standby snapshot after a "
-    "takeover (owner dead or removed) instead of starting a fresh "
-    'window; the seeded responses carry metadata["replicated"]="true"',
-    registry=REGISTRY,
-)
-REPLICATION_RECONCILES = Counter(
-    "replication_reconciles_total",
-    "Snapshots installed directly into the LOCAL store because this "
-    "node owns their keys (reconcile handback from the interim "
-    "successor after an owner returns)",
-    registry=REGISTRY,
-)
-REPLICATION_LAG = Gauge(
-    "replication_lag_seconds",
-    "Age of the last snapshot applied at takeover/reconcile time "
-    "(receiver clock minus the owner's snapshot_ms stamp; bounded by "
-    "one GUBER_REPLICATION_SYNC_WAIT_MS window + RTT when healthy)",
-    registry=REGISTRY,
-)
-REPLICATION_DROPPED = Counter(
-    "replication_dropped_total",
-    "Replication entries dropped at a bound: dirty-backlog keys past "
-    "GUBER_REPLICATION_BACKLOG, standby evictions past "
-    "GUBER_REPLICATION_STANDBY_KEYS",
-    ["what"],
-    registry=REGISTRY,
-)
-RESCALE_KEYS_MOVED = Counter(
-    "rescale_keys_moved_total",
-    "Live token windows handed to their NEW ring owner on a membership "
-    "change, a planned drain, or a double-serve reconcile tick "
-    "(GUBER_RESCALE=1, serve/rescale.py; delivered over "
-    "ReplicateBuckets with last-write-wins installs, so retries and "
-    "duplicates re-count here but no-op on the receiver)",
-    registry=REGISTRY,
-)
-RESCALE_HANDOFF_LAG = Gauge(
-    "rescale_handoff_lag_seconds",
-    "Sender side: wall time from a ring change to its moved windows "
-    "being delivered to their new owners (target: under two "
-    "GUBER_REPLICATION_SYNC_WAIT_MS flush windows). Receivers "
-    "re-stamp it with the age of the snapshots they install",
-    registry=REGISTRY,
-)
-RESCALE_DOUBLE_SERVE = Counter(
-    "rescale_double_serve_answers_total",
-    "Peer-forwarded requests this node answered for keys it no longer "
-    "owns, inside an open GUBER_RESCALE_DOUBLE_SERVE_MS window after a "
-    "ring change (the old owner's warm store answers while the new "
-    "owner installs; the end-of-window flush reconciles, LWW)",
-    registry=REGISTRY,
-)
-RESCALE_DROPPED = Counter(
-    "rescale_dropped_total",
-    "Rescale entries dropped at a bound: tracked owned keys evicted "
-    "past GUBER_RESCALE_TRACK_KEYS (freshest kept), pending handoff "
-    "snapshots evicted past the same bound on the receiver",
-    ["what"],
-    registry=REGISTRY,
-)
-RESCALE_TRACKED_ENTRIES = Gauge(
-    "rescale_tracked_entries",
-    "Owned token windows tracked for planned handoff + pending "
-    "received snapshots awaiting this node's ring flip (bounded by "
-    "GUBER_RESCALE_TRACK_KEYS each; set lazily at /metrics scrape)",
-    registry=REGISTRY,
-)
-CHECKPOINT_AGE = Gauge(
-    "checkpoint_age_seconds",
-    "Age of the newest durable checkpoint on disk (now minus the last "
-    "successful flush's snapshot stamp; set lazily at /metrics scrape). "
-    "Grows without bound while writes fail or hang — alert when it "
-    "passes GUBER_CHECKPOINT_MAX_AGE_MS, because a restart past that "
-    "bound boots cold by design",
-    registry=REGISTRY,
-)
-RESTORE_LAG = Gauge(
-    "restore_lag_seconds",
-    "Staleness of the state this process restored at boot (restore "
-    "wall clock minus the checkpoint's owner-clock snapshot stamp, or "
-    "the import batch's stamp for a blue-green bulk load). Bounded by "
-    "GUBER_CHECKPOINT_MAX_AGE_MS for disk restores — stale checkpoints "
-    "are refused and the node boots cold instead",
-    registry=REGISTRY,
-)
-RESTORED_WINDOWS = Counter(
-    "restored_windows_total",
-    "Bucket windows installed from durable state: boot-time warm "
-    "restore from GUBER_CHECKPOINT_DIR plus blue-green import installs "
-    "received over ReplicateBuckets (LWW, so double-delivery counts "
-    "once per accepted install, never double-admits)",
-    registry=REGISTRY,
-)
-CHECKPOINT_FAILURES = Counter(
-    "checkpoint_failures_total",
-    "Checkpoint subsystem failures by kind: 'write' (a flush could not "
-    "land its chunks/manifest), 'read' (unreadable file at restore), "
-    "'corrupt' (CRC/parse mismatch — torn or truncated file), 'stale' "
-    "(manifest older than GUBER_CHECKPOINT_MAX_AGE_MS), 'version' (a "
-    "FUTURE format version refused), 'export' (a blue-green export "
-    "send failed). Every kind boots/continues cold and loudly — never "
-    "a crash, never a wedge",
-    ["what"],
-    registry=REGISTRY,
-)
-CHECKPOINT_TRACKED_ENTRIES = Gauge(
-    "checkpoint_tracked_entries",
-    "Owned token windows tracked for the next checkpoint flush + "
-    "pending import snapshots awaiting re-route to their ring owner "
-    "(bounded by GUBER_CHECKPOINT_TRACK_KEYS each; set lazily at "
-    "/metrics scrape)",
-    registry=REGISTRY,
-)
 SKETCH_PROMOTIONS = Counter(
     "sketch_promotions_total",
     "Hot sketch-tier keys migrated into exact-tier buckets by the "
@@ -403,27 +238,6 @@ PREP_BACKLOG = Gauge(
     "Arrival-prep tasks queued behind the prep pool's workers "
     "(GUBER_PREP_THREADS); sustained backlog means prep no longer "
     "hides inside the batcher queue wait (serve/batcher.py, r9)",
-    registry=REGISTRY,
-)
-FRAME_INFLIGHT = Gauge(
-    "frame_inflight",
-    "GEB frames accepted but not yet answered on this door (bounded "
-    "by credit window x connections); door = edge (bridge socket/TCP) "
-    "| geb (GUBER_GEB_PORT client door)",
-    ["door"],
-    registry=REGISTRY,
-)
-FRAME_CONNECTIONS = Gauge(
-    "frame_connections",
-    "Live connections on a GEB frame door (same door label set as "
-    "frame_inflight)",
-    ["door"],
-    registry=REGISTRY,
-)
-REPLICATION_BACKLOG_ENTRIES = Gauge(
-    "replication_backlog_entries",
-    "Dirty owned keys + takeover-tracked keys awaiting the next "
-    "replication flush (bounded by GUBER_REPLICATION_BACKLOG)",
     registry=REGISTRY,
 )
 GLOBAL_BACKLOG_ENTRIES = Gauge(

@@ -252,3 +252,52 @@ def test_device_topk_on_card_matches_cpu():
     gpu.top_with_payload(8)
     assert not torch.cuda.current_stream().query(), "the top-K read waited for the stream"
     torch.cuda.synchronize()
+
+
+def test_server_on_card_walks_a_key_through_grpc():
+    """A one-node port Server (the doors) on the card: a limit-2 key
+    walks 1 -> 0 -> OVER_LIMIT with one reset_time through gRPC, every
+    answer decided by batches that launched the writeback kernel, and the
+    launches equal to the decides plus the engine's chunks."""
+    _need_card()
+    import asyncio
+    import socket
+
+    from gubernator_tpu_torch.api.types import RateLimitReq, Status
+    from gubernator_tpu_torch.client import AsyncV1Client
+    from gubernator_tpu_torch.serve.config import config_from_env
+    from gubernator_tpu_torch.serve.server import Server
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        addr = f"127.0.0.1:{s.getsockname()[1]}"
+    conf = config_from_env({"GUBER_GRPC_ADDRESS": addr, "GUBER_STORE_MIB": "64",
+                            "GUBER_DEVICE_BATCH_LIMIT": "1024"})
+
+    async def run():
+        server = Server(conf)
+        await server.start()
+        client = AsyncV1Client(addr)
+        try:
+            assert server.backend.device.type == "cuda"
+            assert (await client.health_check(timeout=10)).status == "healthy"
+            eng = server.backend.engine
+            before = writeback_add.launches
+            counted = eng.stats.batches + eng.install_chunks + eng.gossip_chunks
+            req = RateLimitReq(name="card", unique_key="walk", hits=1, limit=2,
+                               duration=60_000)
+            walk = [(await client.get_rate_limits([req], timeout=10))[0] for _ in range(3)]
+            assert [r.remaining for r in walk] == [1, 0, 0]
+            assert [r.status for r in walk] == [Status.UNDER_LIMIT, Status.UNDER_LIMIT,
+                                                Status.OVER_LIMIT]
+            assert len({r.reset_time for r in walk}) == 1 and not any(r.error for r in walk)
+            if server.instance.promoter is not None:  # no tick between the reads
+                await server.instance.promoter.stop()
+            launched = writeback_add.launches - before
+            counted = eng.stats.batches + eng.install_chunks + eng.gossip_chunks - counted
+            assert launched >= 3 and launched == counted
+        finally:
+            await client.close()
+            await server.stop()
+
+    asyncio.run(run())

@@ -148,8 +148,13 @@ def test_import_loads_no_jax_and_nothing_of_the_jax_package():
         "    algorithms, engine, kernels, sketches, store, writeback)\n"
         "from gubernator_tpu_torch.parallel.sharded import TorchEngine\n"
         "from gubernator_tpu_torch.serve import (\n"
-        "    aio, backends, batcher, breaker, config, faults, global_mgr, instance,\n"
-        "    metrics, peers, prep, promoter, shedcache, stages, tracing)\n"
+        "    aio, backends, batcher, breaker, config, discovery, faults, global_mgr,\n"
+        "    instance, logging_setup, metrics, peers, prep, promoter, server,\n"
+        "    shedcache, stages, tracing)\n"
+        "from gubernator_tpu_torch import client, cluster, endpoints\n"
+        "from gubernator_tpu_torch.api import convert, grpc_glue\n"
+        "from gubernator_tpu_torch.api.proto.gen import gubernator_pb2, peers_pb2\n"
+        "from gubernator_tpu_torch.cli import cluster_main, daemon\n"
         "backends.make_backend(config.config_from_env({'GUBER_STORE_MIB': '8'}),"
         " device='cpu')\n"
         "e = TorchEngine(store.StoreConfig(rows=1, slots=16), buckets=(64,),"

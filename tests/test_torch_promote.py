@@ -214,6 +214,27 @@ def test_install_windows_both_forms_match_jax():
     assert t.snapshot_read(kh[5:6], now + 1) == j.snapshot_read(kh[5:6], now + 1)
 
 
+def test_engine_counts_the_writebacks_no_decide_batch_counts():
+    """Each window-install chunk and each gossip-charge chunk is one
+    writeback launch outside EngineStats.batches: the engine counts them
+    (install_chunks, gossip_chunks) so that a GPU run can require
+    launches == batches + install_chunks + gossip_chunks; warmup zeroes
+    them with the stats."""
+    t = TorchEngine(tstore.StoreConfig(rows=2, slots=16), buckets=(64,), device="cpu")
+    kh = np.arange(1, 151, dtype=np.uint64) << np.uint64(32)  # 150 keys: 3 chunks
+    ones = np.ones(150, np.int64)
+    t.install_windows(kh, ones * 5, ones * 5, ones * (T0 + 60_000), np.zeros(150, bool), T0)
+    assert (t.install_chunks, t.gossip_chunks, t.stats.batches) == (3, 0, 0)
+    t.apply_global_hits(kh[:65], ones[:65], ones[:65] * 5, ones[:65] * 60_000, T0)
+    assert (t.install_chunks, t.gossip_chunks, t.stats.batches) == (3, 2, 0)
+    # a decide counts as one EngineStats batch, not a chunk
+    t.decide_arrays(kh[:3], ones[:3], ones[:3] * 5, ones[:3] * 60_000,
+                    np.zeros(3, np.int32), np.zeros(3, bool), T0)
+    assert (t.install_chunks, t.gossip_chunks, t.stats.batches) == (3, 2, 1)
+    t.warmup(T0)
+    assert (t.install_chunks, t.gossip_chunks, t.stats.batches) == (0, 0, 0)
+
+
 @pytest.mark.parametrize("derivation", ["v2", "r13"])
 def test_promote_from_sketch_matches_jax(derivation):
     t, j, pool, now = _loaded_pair(derivation, seed=4)

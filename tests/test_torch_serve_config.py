@@ -11,7 +11,8 @@ the JAX package's, on the CPU.
   device it is given, and refuses the backends not ported yet; an
   Instance refuses replication, rescale and checkpointing from the env;
 - the port's metrics registry has the JAX registry's metric names, types,
-  label sets and help texts, and renders the same exposition headers.
+  label sets and help texts, less those of features not ported yet, and
+  renders the same exposition headers.
 """
 
 import dataclasses
@@ -185,12 +186,23 @@ def _collectors(registry):
     }
 
 
+#: metric families of what the port does not carry yet (the edge bridge,
+#: the GEB door with its shm lane and frame gauges, replication, rescale,
+#: checkpoint/restore): the port's registry leaves them out
+UNPORTED_METRICS = (
+    "edge_", "geb_", "frame_", "replication_", "replicated_", "rescale_",
+    "checkpoint_", "restore_", "restored_",
+)
+
+
 def test_metrics_registry_matches_jax():
     t = _collectors(tmetrics.REGISTRY)
     j = _collectors(jmetrics.REGISTRY)
-    assert t == j
-    assert len(t) > 50
+    assert not {c for c in t if c[1].startswith(UNPORTED_METRICS)}
+    assert t == {c for c in j if not c[1].startswith(UNPORTED_METRICS)}
+    assert len(t) > 30
     headers = lambda text: sorted(  # noqa: E731
-        ln for ln in text.decode().splitlines() if ln.startswith("# ")
+        ln for ln in text.decode().splitlines()
+        if ln.startswith("# ") and not ln.split()[2].startswith(UNPORTED_METRICS)
     )
     assert headers(tmetrics.render()) == headers(jmetrics.render())

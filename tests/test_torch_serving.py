@@ -335,8 +335,10 @@ def test_apply_global_hits_keeps_a_concurrent_fetchs_stats():
 
 
 def test_refusals_of_what_is_not_ported(clock):
-    """Forwarding peers, replication, rescale and checkpointing raise with
-    the reason instead of being ignored."""
+    """Replication, rescale and checkpointing raise with the reason
+    instead of being ignored; a ring with other members is served (the
+    forwarding half came with the doors), and a chained item gets a
+    per-item error."""
     backend = TorchBackend(StoreConfig(rows=1, slots=16), buckets=LADDER, device="cpu")
     for kw in (dict(replication=True), dict(rescale=True),
                dict(checkpoint_dir="/nonexistent/ckpt")):
@@ -347,11 +349,11 @@ def test_refusals_of_what_is_not_ported(clock):
         inst = Instance(ServerConfig(grpc_address=ADDR, sketch=False), backend)
         inst.start()
         try:
-            with pytest.raises(NotImplementedError, match="doors"):
-                await inst.set_peers([
-                    t_types.PeerInfo(address=ADDR, is_owner=True),
-                    t_types.PeerInfo(address="127.0.0.1:7976"),
-                ])
+            await inst.set_peers([
+                t_types.PeerInfo(address=ADDR, is_owner=True),
+                t_types.PeerInfo(address="127.0.0.1:7976"),
+            ])
+            assert inst.health_check().peer_count == 2
             await inst.set_peers([t_types.PeerInfo(address=ADDR, is_owner=True)])
             assert inst.health_check().status == "healthy"
             assert inst.health_check().peer_count == 1
