@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Drives the port (gubernator_tpu_torch) through the entry points a user
-calls (the engine, the serving core, the daemon's doors and a cluster of
-nodes forwarding to each other), at two of the repo's deployments:
+calls (the engine, the serving core, the daemon's doors, a cluster of
+nodes forwarding to each other, and the GEB frame doors with the
+compiled edge in front), at two of the repo's deployments:
 
 - exact tier, "Zipfian 10M keys, 1 GiB store" (GUBER_SKETCH=0): a slot
   store of int32[2^21, 128] (GUBER_STORE_MIB=1024), zipf(a=1.2) ids over
@@ -21,15 +22,23 @@ nodes forwarding to each other), at two of the repo's deployments:
 All use device batches of 32,768 (the ladder buckets_for_limit(32768)).
 Phases, one JSON line each:
 
-1. build     compile csrc/writeback.cu with nvcc (seconds);
-2. kernel    the writeback kernel against its plain version, bit for bit,
+1. build     compile csrc/writeback.cu with nvcc (seconds), and beside it
+             the compiled edge (native/edge/) with g++;
+2. kernel    the copy-floor kernel (x += 1, the port of scripts/bench_hbm.py's
+             identity sweep) against x.add_(1), bit for bit, and timed at
+             16 MiB (in the 50 MB L2), 512 MiB and 1 GiB (the two stores):
+             the bytes/s a pass over the store reaches; then
+             the writeback kernel against its plain version, bit for bit,
              at the exact path's shape (2^21 buckets, G of a zipf batch),
              the sweep's own regime (4096 buckets, B=32768) and the
              two-tier path's shape (2^20 buckets, G of a zipf100m batch):
              ms / plain_ms / library_ms are device time per call of a run
              of back-to-back calls (CUDA events around the run, over the
              count), cycling through 8 batches whose rows exceed the L2
-             cache; bound_ms is bytes over the H100's 3.35 TB/s;
+             cache; bound_ms is bytes over the H100's 3.35 TB/s, and
+             share_of_floor the same bytes over the measured floor at the
+             store's size: the fastest of add_one, its plain version and
+             x.add_(1) there (floor_by names which);
 3. walk      get_rate_limits: a limit-2 key goes 1 -> 0 -> OVER_LIMIT;
 4. main      exact tier: 3 batches held against the same port on the CPU
              (identical outputs and store bytes), 50 timed, then a profile;
@@ -74,11 +83,37 @@ Phases, one JSON line each:
              and every node answering a token GLOBAL key as its owner
              does; then a timed window of forwarded RPCs through node 0,
              its 16 callers in a client process of their own (this same
-             script with --rpc-window), off the nodes' event loop;
-9. kernels   the contract line over every kernel of the path.
+             script with --rpc-window), off the nodes' event loop; the
+             checked leg also sends fast frames through a ring-routing
+             GebClient on node 0's GEB door (each node has one), each
+             key's frame to its owner's door, identical to the CPU's;
+9. geb       the daemon again, now with GUBER_GEB_PORT, GUBER_EDGE_SOCKET
+             and GUBER_EDGE_TCP, and the port's guber-edge in front of the
+             unix socket: hello flags of each door (fast on the GEB door
+             and /v1/geb, none to the edge, shm on the unix socket), a
+             limit-2 walk through a fast frame, a string frame, POST
+             /v1/geb, the shm lane, the edge's HTTP JSON and its gRPC,
+             one key counted by the fast door and the edge in turn; five
+             windows of >= 10 s, their callers in a client process (this
+             script with --geb-window): geb_1000 (16 connections, fast
+             frames of 1,000), geb_deep (fast frames of 4,096, 8 in flight
+             a connection), shm_deep (the same over the shm lane; string
+             frames there, since the edge bridge offers no fast frames),
+             unix_deep (those string frames over the same unix socket
+             with no lane: what the lane's reader thread costs or saves),
+             edge_http (16 callers posting JSON of 1,000 to the edge);
+             each with its mean device batch, stage means, shed share,
+             device span from CUDA events around each decide, and its
+             launches balanced against decides and chunks; SIGTERM and
+             its drain (edge and geb first); then a checked leg of 24
+             frames (fast, string, legacy, traced, a chained item) into an
+             in-process node of the same config on the card and on the
+             CPU under one pinned clock, answers byte-identical;
+10. kernels  the contract line over every kernel of the path.
 
 The writeback kernel's launch count is set to 0 before each in-process
-path and read after it; each must equal that path's decides plus
+path and read after it (the copy floor's is set to 0 before the first
+path and read after the last: it runs on none, so it must stay 0); each must equal that path's decides plus
 window-install (and, in the cluster, gossip-charge) chunks. The daemon's
 count lives in its own process: it is read from /v1/debug/stats just
 before and just after the doors window, and the difference must equal
@@ -95,8 +130,10 @@ from __future__ import annotations
 
 import json
 import statistics
+import struct
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -310,6 +347,59 @@ def kernel_case(name: str, buckets: int, bkts: list, seed: int, cyc: float) -> d
     )
     del data, work, sets, fns
     torch.cuda.empty_cache()
+    return out
+
+
+#: the copy floor's shapes: scripts/bench_hbm.py's store (16 MiB, which
+#: sits in the H100's 50 MB L2), and each store the writeback runs on
+FLOOR_SHAPES = {
+    "16m": ("16 MiB: scripts/bench_hbm.py's int32[32768, 128], in the 50 MB L2", 32768),
+    "512m": ("512 MiB: the two-tier store, int32[2^20, 128]", 1 << 20),
+    "1g": ("1 GiB: the exact store, int32[2^21, 128]", 1 << 21),
+}
+
+
+def copy_floor_cases(cyc: float) -> dict:
+    """The copy-floor kernel (x += 1 over int32[rows, 128], in place)
+    against its plain version, bit for bit, then ms / plain_ms /
+    library_ms per call of a run of back-to-back calls at each shape:
+    the bytes/s a pass over the store reaches on this card."""
+    from gubernator_tpu_torch.core.writeback import add_one, add_one_plain
+
+    out = {}
+    for key, (name, rows) in FLOOR_SHAPES.items():
+        gen = torch.Generator(device="cuda").manual_seed(rows)
+        x = torch.randint(-(2**31), 2**31 - 1, (rows, 128), dtype=torch.int32,
+                          device="cuda", generator=gen)
+        want = add_one_plain(x.clone())
+        got = add_one(x.clone())
+        torch.cuda.synchronize()
+        max_abs_err = int((got.long() - want.long()).abs().max().item())
+        if not torch.equal(got, want):
+            fail(f"copy floor {key}: add_one disagrees with add_one_plain")
+        del got, want
+        fns = dict(ms=[lambda: add_one(x)], plain_ms=[lambda: add_one_plain(x)],
+                   library_ms=[lambda: x.add_(1)])
+        spin_up()
+        samples = {k: [] for k in fns}
+        for order in (list(fns), list(fns)[::-1], list(fns), list(fns)[::-1]):
+            for k in order:
+                samples[k].append(run_ms(fns[k], cyc))
+        times = {k: statistics.median(v) for k, v in samples.items()}
+        nbytes = 2 * x.numel() * 4  # every int32 read once and written once
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        # the floor is the fastest measured pass, whichever code made it
+        fastest = min(times, key=times.get)
+        out[key] = dict(shape=name, rows=rows, bytes=nbytes, max_abs_err=max_abs_err,
+                        **times, ms_samples=samples["ms"], bound_ms=bound_ms,
+                        bound_by="bytes", share_of_bound=bound_ms / times["ms"],
+                        bytes_per_s=nbytes / (times["ms"] / 1e3),
+                        plain_bytes_per_s=nbytes / (times["plain_ms"] / 1e3),
+                        floor_bytes_per_s=nbytes / (times[fastest] / 1e3),
+                        floor_by=dict(ms="add_one", plain_ms="add_one_plain",
+                                      library_ms="x.add_(1)")[fastest])
+        del x, fns
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1229,21 +1319,25 @@ def rpc_window_main(argv: list) -> int:
     return 0
 
 
-def client_window(target: str, seed: int, name: str, seconds: float) -> dict:
-    """rpc_window in a client process of its own (this script with
-    --rpc-window), so that the callers' encode and decode leave this
-    process's interpreter and event loop."""
+def client_process(args: list, seconds: float, what: str) -> dict:
+    """This script with `args` (--rpc-window or --geb-window) in a client
+    process of its own, so that the callers' encode and decode leave this
+    process's interpreter and event loop; its one JSON line."""
     import os
 
     here = os.path.abspath(__file__)
-    r = subprocess.run([sys.executable, here, "--rpc-window", target, str(seconds),
-                        str(seed), name], cwd=os.path.dirname(here),
+    r = subprocess.run([sys.executable, here, *args], cwd=os.path.dirname(here),
                        capture_output=True, text=True, timeout=seconds + 300)
     if r.returncode != 0:
         sys.stderr.write(r.stderr[-4000:])
-        fail(f"the client process of the window against {target} exited "
-             f"{r.returncode}")
+        fail(f"the client process of {what} exited {r.returncode}")
     return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def client_window(target: str, seed: int, name: str, seconds: float) -> dict:
+    """rpc_window in a client process of its own (--rpc-window)."""
+    return client_process(["--rpc-window", target, str(seconds), str(seed), name],
+                          seconds, f"the window against {target}")
 
 
 def quiet_stats(base: str) -> dict:
@@ -1466,12 +1560,31 @@ def _settle_globals(cluster) -> None:
             cluster.run(s.instance.global_mgr.drain(), timeout=120)
 
 
-def _cluster_leg(cluster, types, reqs_list, pinned) -> tuple:
+def _ring_routed_reqs(types, rng) -> list:
+    """CLUSTER_CHECKED_RPCS // 2 request lists of BATCHING items over
+    CLUSTER_KEYS ids of their own, each key at most once in a list, all
+    four algorithms, hits-0 peeks among them: the fast frames' traffic."""
+    out = []
+    for _ in range(CLUSTER_CHECKED_RPCS // 2):
+        n = int(rng.integers(200, RPC_ITEMS + 1))
+        ks = rng.choice(CLUSTER_KEYS, n, replace=False)
+        out.append([types.RateLimitReq(
+            name="cluster", unique_key=f"ring{k}", hits=int(h), limit=(2, 10, 1000)[k % 3],
+            duration=(1000, 60_000, 600_000)[k % 5 % 3], algorithm=types.Algorithm(k % 4))
+            for k, h in zip(ks.tolist(), rng.choice([0, 1, 1, 2, 5], n).tolist())])
+    return out
+
+
+def _cluster_leg(cluster, types, reqs_list, pinned, geb_port: int) -> tuple:
     """The checked requests through node 0's gRPC door, one at a time
     under the pinned clock, GLOBAL settled after each; then one hits-0
-    GLOBAL peek of every GLOBAL key at every node. Returns (the answers
-    as tuples, the peeks per node)."""
+    GLOBAL peek of every GLOBAL key at every node; then the ring-routed
+    leg: a GebClient with ring_route on node 0's GEB door sends each
+    request's fast frames to each key's owner door. Returns (the answers
+    as tuples, the peeks per node, the peek requests, the ring-routed
+    answers)."""
     from gubernator_tpu_torch.client import V1Client
+    from gubernator_tpu_torch.client_geb import GebClient
 
     rng = np.random.default_rng(19)
     answers = []
@@ -1493,7 +1606,17 @@ def _cluster_leg(cluster, types, reqs_list, pinned) -> tuple:
         with V1Client(cluster.peer_at(i)) as c:
             peeks.append([(int(r.status), r.remaining, r.error)
                           for r in c.get_rate_limits(peek, timeout=120)])
-    return answers, peeks, peek
+    ring = []
+    with GebClient(f"127.0.0.1:{geb_port}", mode="fast", ring_route=True, shm="off",
+                   timeout=120) as gc:
+        for reqs in _ring_routed_reqs(types, np.random.default_rng(29)):
+            pinned[0] += int(rng.choice([0, 1, 7, 300, 61_000]))
+            ring.append([(int(r.status), r.limit, r.remaining, r.reset_time, r.error)
+                         for r in gc.get_rate_limits(reqs, timeout=120)])
+        st = gc.stats()
+    if not st["ring_routed"] or st["downgrades"] or not st["use_fast"]:
+        fail(f"cluster: the GEB client did not route fast frames by the ring: {st}")
+    return answers, peeks, peek, ring
 
 
 def cluster_path(card: str, writeback) -> dict:
@@ -1510,6 +1633,7 @@ def cluster_path(card: str, writeback) -> dict:
     from gubernator_tpu_torch.serve.stages import STAGES
 
     addrs = balanced_addresses(ring_hash, CLUSTER_NODES)
+    gports = free_ports(CLUSTER_NODES)  # each node's GEB door
     # the three nodes share this process's interpreter and one event loop,
     # so a forward waits behind every node's host work, not its owner's
     # alone: the peer and gossip deadlines rise from the reference's
@@ -1518,7 +1642,7 @@ def cluster_path(card: str, writeback) -> dict:
     # runs their rounds by explicit calls, so both clusters batch alike.
     env = dict(SERVING_ENV, GUBER_PEER_TIMEOUT_MS="10000", GUBER_GLOBAL_TIMEOUT_MS="10000",
                GUBER_GLOBAL_SYNC_WAIT_MS="600000")
-    gpu = LocalCluster(addrs, env=env)
+    gpu = LocalCluster(addrs, env=env, geb_ports=gports)
     t0 = time.monotonic()
     gpu.start(timeout=BOOT_S)
     boot_s = time.monotonic() - t0
@@ -1548,7 +1672,8 @@ def cluster_path(card: str, writeback) -> dict:
         for s in gpu.servers:
             s.instance.shed.now_fn = types.millisecond_now
         p0 = pinned[0]
-        got, got_peeks, peek = _cluster_leg(gpu, types, reqs_list, pinned)
+        got, got_peeks, peek, got_ring = _cluster_leg(gpu, types, reqs_list, pinned,
+                                                      gports[0])
     finally:
         types.millisecond_now = real_now
 
@@ -1585,7 +1710,7 @@ def cluster_path(card: str, writeback) -> dict:
         b.warmup = lambda: None  # nothing to load; the epochs are copied below
         return b
 
-    cpu = LocalCluster(addrs, env=env, backend_factory=cpu_backend)
+    cpu = LocalCluster(addrs, env=env, backend_factory=cpu_backend, geb_ports=gports)
     cpu.start(timeout=BOOT_S)
     try:
         for s, ep in zip(cpu.servers, epochs):
@@ -1595,7 +1720,8 @@ def cluster_path(card: str, writeback) -> dict:
         types.millisecond_now = lambda: pinned[0]
         for s in cpu.servers:
             s.instance.shed.now_fn = types.millisecond_now
-        want, want_peeks, _ = _cluster_leg(cpu, types, reqs_list, pinned)
+        want, want_peeks, _, want_ring = _cluster_leg(cpu, types, reqs_list, pinned,
+                                                      gports[0])
     finally:
         types.millisecond_now = real_now
         cpu.stop()
@@ -1605,6 +1731,12 @@ def cluster_path(card: str, writeback) -> dict:
             fail(f"cluster checked rpc {i} item {j}: card {a[j]}, cpu {b[j]}")
     if got_peeks != want_peeks:
         fail("cluster: the GLOBAL peeks differ from the CPU cluster's")
+    for i, (a, b) in enumerate(zip(got_ring, want_ring)):
+        if a != b:
+            j = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+            fail(f"cluster ring-routed request {i} item {j}: card {a[j]}, cpu {b[j]}")
+    if any(x[4] for a in got_ring for x in a):
+        fail("cluster: a ring-routed answer is an error")
     # a replica is a token window (limit, remaining, reset): a node that
     # never served a leaky, sliding or GCRA key reads its replica as a
     # fresh window, in the JAX package too, so the owner's remaining is
@@ -1623,7 +1755,9 @@ def cluster_path(card: str, writeback) -> dict:
     checked = dict(rpcs=len(reqs_list), items=items, forwarded_items=forwarded,
                    owner_tagged=with_owner, global_keys=len(peek),
                    global_token_keys=sum(r.algorithm == 0 for r in peek),
-                   global_non_token_answers_unlike_owner=differ[0], cpu_identical=True)
+                   global_non_token_answers_unlike_owner=differ[0], cpu_identical=True,
+                   ring_routed_requests=len(got_ring),
+                   ring_routed_items=sum(len(a) for a in got_ring))
     emit(dict(phase="check", path="cluster", **checked))
     window.update(forwarded_share=fwd_share)
     emit(dict(phase="window", path="cluster", card=card, **window))
@@ -1632,6 +1766,612 @@ def cluster_path(card: str, writeback) -> dict:
                per_node_stats=per_node)
     emit(dict(phase="main", path="cluster", card=card, **out))
     return dict(launches=launches, decides=decides, chunks=chunks, window=window)
+
+
+# -- the geb phase: the GEB frame doors and the compiled edge ----------------
+
+GEB_CALLERS = 16  # connections (HTTP callers for edge_http) in a geb window
+GEB_ITEMS = 1000  # items a frame (or a JSON request) carries in geb_1000, edge_http
+GEB_DEEP_ITEMS = 4096  # items a frame carries in geb_deep and shm_deep
+GEB_DEEP_INFLIGHT = 8  # frames in flight per connection in the deep windows
+GEB_POOL = 24  # prebuilt frames (or JSON bodies) the callers cycle through
+GEB_CHECKED_FRAMES = 24
+GEB_WINDOWS = ("geb_1000", "geb_deep", "shm_deep", "unix_deep", "edge_http")
+
+def _zipf_reqs(types, rng, n: int, name: str) -> list:
+    """n request objects of zipf(1.2) ids over 100M: token, hits 1, limit
+    1000, 600 s (the doors window's traffic)."""
+    ids = rng.zipf(ZIPF_A, n) % KEY_SPACE_100M
+    return [types.RateLimitReq(name=name, unique_key=str(int(i)), hits=HITS, limit=LIMIT,
+                               duration=DURATION_100M) for i in ids.tolist()]
+
+
+async def _geb_open(endpoint: str):
+    """(reader, writer, hello) of a fresh GEB connection to `endpoint`
+    (host:port, or a unix socket's path), the hello read by client_geb."""
+    import asyncio
+
+    from gubernator_tpu_torch import client_geb as cg
+
+    kind, addr = cg.parse_endpoint(endpoint, "GEB endpoint")
+    if kind == "unix":
+        reader, writer = await asyncio.open_unix_connection(addr)
+    else:
+        reader, writer = await asyncio.open_connection(*addr)
+    return reader, writer, await cg.read_hello(reader)
+
+
+async def _geb_hello(endpoint: str):
+    """The hello a fresh connection to `endpoint` reads."""
+    _reader, writer, hello = await _geb_open(endpoint)
+    writer.close()
+    return hello
+
+
+def _answer_dtype(magic: int, what: str):
+    """The record dtype of a windowed answer frame, the bridge's own:
+    the load loop views answers with numpy, no object per item, so the
+    client process does not bound the window."""
+    from gubernator_tpu_torch import client_geb as cg
+    from gubernator_tpu_torch.serve import edge_bridge as eb
+
+    if magic == cg.MAGIC_WFAST_RESP:
+        return eb._fast_dtypes()[1]
+    if magic == cg.MAGIC_WRESP:  # all-decision string records: elen = olen = 0
+        return eb._string_resp_dtype()
+    raise RuntimeError(f"{what}: an answer with magic {magic:#x}")
+
+
+def _check_answers(magic: int, n: int, body: bytes, what: str) -> None:
+    """A windowed answer frame's records: a decision each, no error, the
+    window's limit, remaining in range. Raises RuntimeError otherwise."""
+    rec = np.frombuffer(body, _answer_dtype(magic, what), count=n)
+    if "elen" in rec.dtype.names and (rec["elen"].any() or rec["olen"].any()):
+        raise RuntimeError(f"{what}: an error answer")
+    if ((rec["status"] > 1).any() or (rec["limit"] != LIMIT).any()
+            or (rec["remaining"] < 0).any() or (rec["remaining"] > LIMIT).any()):
+        raise RuntimeError(f"{what}: a malformed answer")
+
+
+async def _frame_conn(kind: str, target: str, frames: list, stop_at: float,
+                      inflight: int, out: dict) -> None:
+    """One GEB connection (for shm_deep with the shm lane mapped, as
+    client_geb maps it) keeping up to `inflight` frames out: each a
+    prebuilt frame with a fresh id, answers matched by id, checked and
+    counted."""
+    import asyncio
+
+    from gubernator_tpu_torch import client_geb as cg
+
+    reader, writer, _hello = await _geb_open(target)
+    loop = asyncio.get_running_loop()
+    pending: dict = {}
+
+    def settle(fid, result):
+        fut = pending.pop(fid, None)
+        if fut is not None and not fut.done():
+            fut.set_result(result)
+
+    def fail_all(exc):
+        for fut in pending.values():
+            if not fut.done():
+                fut.set_exception(exc)
+        pending.clear()
+
+    lane, reader_task = None, None
+    if kind == "shm_deep":
+        def on_frame(data):
+            magic, n = struct.unpack_from("<II", data, 0)
+            if magic == cg.MAGIC_STALE:
+                fail_all(RuntimeError(f"shm_deep: a GEBR refusal (id {n:#x})"))
+                return
+            settle(struct.unpack_from("<I", data, 8)[0], (magic, n, data[12:]))
+
+        lane = await cg.negotiate_shm(
+            reader, writer, on_frame,
+            lambda exc: fail_all(RuntimeError(f"shm_deep: the lane tore: {exc}")))
+        if lane is None:
+            raise RuntimeError("shm_deep: the bridge refused the lane")
+        if max(len(f) for f in frames) + 4 > lane.frame_bound:
+            raise RuntimeError("shm_deep: a frame outgrows the lane")
+    else:
+        async def read_loop():
+            try:
+                while True:
+                    magic, n = struct.unpack("<II", await reader.readexactly(8))
+                    if magic == cg.MAGIC_STALE:
+                        raise RuntimeError(f"{kind}: a GEBR refusal (id {n:#x})")
+                    (fid,) = struct.unpack("<I", await reader.readexactly(4))
+                    size = _answer_dtype(magic, kind).itemsize * n
+                    settle(fid, (magic, n, await reader.readexactly(size)))
+            except Exception as e:
+                fail_all(e if isinstance(e, RuntimeError)
+                         else RuntimeError(f"{kind}: the connection ended: {e!r}"))
+
+        reader_task = asyncio.ensure_future(read_loop())
+    ids = [0]
+
+    async def slot(w: int):
+        i = w
+        while time.monotonic() < stop_at:
+            frame = frames[i % len(frames)]
+            i += inflight
+            ids[0] += 1
+            fid = ids[0]
+            buf = frame[:8] + struct.pack("<I", fid) + frame[12:]
+            fut = loop.create_future()
+            pending[fid] = fut
+            t0 = time.perf_counter()
+            if lane is not None:
+                while not lane.try_send(buf):  # ring full: wait for the server
+                    out["ring_full"] += 1
+                    await asyncio.sleep(0.0005)
+            else:
+                writer.write(buf)
+                await writer.drain()
+            magic, n, body = await fut
+            out["lat"].append((time.perf_counter() - t0) * 1e3)
+            _check_answers(magic, n, body, kind)
+            out["items"] += n
+            out["frames"] += 1
+
+    try:
+        await asyncio.gather(*[slot(w) for w in range(inflight)])
+    finally:
+        if lane is not None:
+            lane.close()
+        if reader_task is not None:
+            reader_task.cancel()
+        writer.close()
+
+
+async def _http_caller(sess, url: str, bodies: list, w: int, stop_at: float, out: dict):
+    """One edge_http caller: JSON GetRateLimits of GEB_ITEMS items, one
+    awaited at a time; every answer checked."""
+    i = w * 5
+    while time.monotonic() < stop_at:
+        body = bodies[i % len(bodies)]
+        i += 1
+        t0 = time.perf_counter()
+        async with sess.post(url, data=body,
+                             headers={"Content-Type": "application/json"}) as r:
+            raw = await r.read()
+            if r.status != 200:
+                raise RuntimeError(f"edge_http: HTTP {r.status}: {raw[:200]!r}")
+        out["lat"].append((time.perf_counter() - t0) * 1e3)
+        rs = json.loads(raw)["responses"]
+        if len(rs) != GEB_ITEMS or any(x["error"] for x in rs):
+            raise RuntimeError(f"edge_http: {len(rs)} answers, or an error answer")
+        if any(x["limit"] != str(LIMIT) or not 0 <= int(x["remaining"]) <= LIMIT for x in rs):
+            raise RuntimeError("edge_http: a malformed answer")
+        out["items"] += len(rs)
+        out["frames"] += 1
+
+
+def geb_window_main(argv: list) -> int:
+    """`chip_smoke.py --geb-window KIND TARGET SECONDS SEED`: one geb
+    window's callers in this process, against TARGET (host:port, or the
+    edge bridge's unix socket for shm_deep and unix_deep, or the edge's
+    HTTP port for edge_http); one JSON line. Needs no card."""
+    import asyncio
+
+    import gubernator_tpu_torch.api.types as types
+    from gubernator_tpu_torch import client_geb as cg
+
+    kind, target, seconds, seed = argv
+    seconds = float(seconds)
+    rng = np.random.default_rng(int(seed))
+    out = dict(lat=[], items=0, frames=0, ring_full=0)
+    if kind == "edge_http":
+        bodies = [json.dumps({"requests": [
+            {"name": "edge_zipf", "uniqueKey": r.unique_key, "hits": HITS, "limit": LIMIT,
+             "duration": DURATION_100M} for r in _zipf_reqs(types, rng, GEB_ITEMS, "x")]}
+        ).encode() for _ in range(GEB_POOL)]
+
+        async def run():
+            import aiohttp
+
+            stop_at = time.monotonic() + seconds
+            async with aiohttp.ClientSession() as sess:
+                await asyncio.gather(*[
+                    _http_caller(sess, f"http://{target}/v1/GetRateLimits", bodies, w,
+                                 stop_at, out) for w in range(GEB_CALLERS)])
+        framing, inflight, items = "json", 1, GEB_ITEMS
+    else:
+        inflight, items = ((1, GEB_ITEMS) if kind == "geb_1000"
+                           else (GEB_DEEP_INFLIGHT, GEB_DEEP_ITEMS))
+
+        h = asyncio.run(_geb_hello(target))
+        if inflight > h.window:
+            raise SystemExit(f"{kind}: {inflight} frames in flight exceed the window {h.window}")
+        if kind == "shm_deep" and not h.shm:
+            raise SystemExit("shm_deep: the unix socket's hello offers no shm lane")
+        if kind in ("geb_1000", "geb_deep") and not h.fast:
+            raise SystemExit(f"{kind}: the GEB door's hello offers no fast frames")
+        frames = [cg.build_frame(_zipf_reqs(types, rng, items, "geb_zipf"), fast=h.fast,
+                                 windowed=True, frame_id=0, ring_hash=h.ring_hash)[0]
+                  for _ in range(GEB_POOL)]
+        framing = "fast GEB7" if h.fast else "string GEB2"
+
+        async def run():
+            stop_at = time.monotonic() + seconds
+            await asyncio.gather(*[_frame_conn(kind, target, frames, stop_at, inflight, out)
+                                   for _ in range(GEB_CALLERS)])
+    t0 = time.monotonic()
+    asyncio.run(run())
+    elapsed = time.monotonic() - t0
+    lat = out.pop("lat")
+    print(json.dumps(dict(
+        kind=kind, framing=framing, decisions_per_s=out["items"] / elapsed, seconds=elapsed,
+        callers=GEB_CALLERS, inflight_per_conn=inflight, items_per_frame=items, errors=0,
+        frame_ms_p50=float(np.percentile(lat, 50)), frame_ms_p99=float(np.percentile(lat, 99)),
+        **out)), flush=True)
+    return 0
+
+
+def _walk_ok(rows) -> bool:
+    """(status, remaining, reset_time) of a limit-2 key's three hits:
+    1 -> 0 -> OVER_LIMIT with one reset_time."""
+    return ([r[1] for r in rows] == [1, 0, 0] and [r[0] for r in rows] == [0, 0, 1]
+            and len({r[2] for r in rows}) == 1)
+
+
+def geb_path(card: str, edge_build_result: dict) -> dict:
+    """The port's daemon with the frame doors (GEB door, /v1/geb, the edge
+    bridge on a unix socket and on TCP, the shm lane) and the port's
+    compiled edge in front of it: hello checks, walks through every door,
+    one count shared by the edge and the fast door, the GEB_WINDOWS with
+    their callers in a client process, and SIGTERM."""
+    import asyncio
+    import os
+    import signal
+    import socket
+    import tempfile
+    import urllib.request
+
+    from gubernator_tpu_torch import client_geb as cg
+    from gubernator_tpu_torch.api.types import RateLimitReq
+    from gubernator_tpu_torch.client import V1Client
+
+    edge_bin = edge_build_result.get("path")
+    if edge_bin is None:
+        fail(f"geb: the edge did not build: {edge_build_result.get('error')}")
+    emit(dict(phase="build", path="geb", edge=os.path.basename(str(edge_bin)),
+              seconds=edge_build_result["seconds"]))
+    g, h, geb, etcp, eh, eg = free_ports(6)
+    sock = os.path.join(tempfile.mkdtemp(prefix="guber-geb-"), "edge.sock")
+    target, base = f"127.0.0.1:{g}", f"http://127.0.0.1:{h}"
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, **SERVING_ENV)
+    env.update(GUBER_GRPC_ADDRESS=target, GUBER_HTTP_ADDRESS=f"127.0.0.1:{h}",
+               GUBER_GEB_PORT=str(geb), GUBER_EDGE_SOCKET=sock,
+               GUBER_EDGE_TCP=f"127.0.0.1:{etcp}",
+               PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.monotonic()
+    proc = subprocess.Popen([sys.executable, "-m", "gubernator_tpu_torch.cli.daemon"],
+                            cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    log: list = []
+    reader = threading.Thread(target=lambda: log.extend(proc.stdout), daemon=True)
+    reader.start()
+    edge = None
+
+    def died(what):
+        for p in (edge, proc):
+            if p is not None and p.poll() is None:
+                p.kill()
+        reader.join(5)
+        sys.stderr.write("".join(log[-60:]))
+        fail(f"geb: {what}")
+
+    try:
+        # the edge bridge opens last, after the warmup and every other door
+        while not any("edge bridge listening on tcp" in ln for ln in log):
+            if proc.poll() is not None:
+                died(f"the daemon exited with {proc.returncode} during boot")
+            if time.monotonic() - t0 > BOOT_S:
+                died("the daemon did not open its doors in time")
+            time.sleep(0.2)
+        boot_s = time.monotonic() - t0
+        edge = subprocess.Popen([str(edge_bin), "--listen", str(eh), "--grpc-listen", str(eg),
+                                 "--backend", sock], stdout=subprocess.DEVNULL,
+                                stderr=subprocess.DEVNULL)
+        for port in (eh, eg):
+            for _ in range(200):
+                try:
+                    socket.create_connection(("127.0.0.1", port), timeout=1).close()
+                    break
+                except OSError:
+                    if edge.poll() is not None:
+                        died(f"the edge exited with {edge.returncode}")
+                    time.sleep(0.1)
+            else:
+                died(f"the edge never listened on {port}")
+
+        # hello checks
+        with urllib.request.urlopen(base + "/v1/geb", timeout=30) as r:
+            http_hello = cg.parse_hello_bytes(r.read())
+        flags = dict(geb=asyncio.run(_geb_hello(f"127.0.0.1:{geb}")).flags,
+                     http=http_hello.flags, edge_unix=asyncio.run(_geb_hello(sock)).flags,
+                     edge_tcp=asyncio.run(_geb_hello(f"127.0.0.1:{etcp}")).flags)
+        base_bits = cg.HELLO_WINDOWED | cg.HELLO_TRACE
+        want = dict(geb=base_bits | cg.HELLO_FAST, http=base_bits | cg.HELLO_FAST,
+                    edge_unix=base_bits | cg.HELLO_SHM, edge_tcp=base_bits)
+        hello_ok = all((flags[k] & 0xFFFF) == want[k] for k in want)
+        emit(dict(phase="hello", path="geb", ok=hello_ok, boot_s=boot_s,
+                  flags={k: hex(v) for k, v in flags.items()},
+                  window=flags["geb"] >> 16))
+        if not hello_ok:
+            died(f"hello flags {flags}, want (low 16 bits) {want}")
+
+        # the walks: a limit-2 key through every door
+        def req(key, hits=1, limit=2):
+            return RateLimitReq(name="geb", unique_key=key, hits=hits, limit=limit,
+                                duration=60_000)
+
+        def rows(rs):
+            return [(int(r.status), r.remaining, r.reset_time) for r in rs]
+
+        walks, transports = {}, {}
+        for name, endpoint, mode, shm in (("fast", f"127.0.0.1:{geb}", "fast", "off"),
+                                          ("string", f"127.0.0.1:{geb}", "string", "off"),
+                                          ("shm", f"unix:{sock}", "auto", "require")):
+            with cg.GebClient(endpoint, mode=mode, shm=shm, timeout=60) as c:
+                walks[name] = [rows(c.get_rate_limits([req(f"walk_{name}")]))[0]
+                               for _ in range(3)]
+                transports[name] = c.stats()
+
+        async def http_walk():
+            c = cg.AsyncHttpGebClient(base)
+            try:
+                return [rows(await c.get_rate_limits([req("walk_http")]))[0] for _ in range(3)]
+            finally:
+                await c.close()
+
+        walks["http_geb"] = asyncio.run(http_walk())
+        body = {"requests": [{"name": "geb", "uniqueKey": "walk_edge_json", "hits": 1,
+                              "limit": 2, "duration": 60000}]}
+        walks["edge_json"] = []
+        for _ in range(3):
+            st, b = http_json(f"http://127.0.0.1:{eh}/v1/GetRateLimits", body)
+            x = b["responses"][0] if st == 200 else {}
+            walks["edge_json"].append(({"UNDER_LIMIT": 0, "OVER_LIMIT": 1}.get(x.get("status")),
+                                       int(x.get("remaining", -1)), x.get("resetTime")))
+        with V1Client(f"127.0.0.1:{eg}") as c:
+            walks["edge_grpc"] = [rows(c.get_rate_limits([req("walk_edge_grpc")], timeout=60))[0]
+                                  for _ in range(3)]
+        # one key, hits through the fast door and the edge in turn: one count
+        shared = []
+        with cg.GebClient(f"127.0.0.1:{geb}", mode="fast", shm="off", timeout=60) as c:
+            for i in range(6):
+                if i % 2:
+                    st, b = http_json(f"http://127.0.0.1:{eh}/v1/GetRateLimits", {"requests": [
+                        {"name": "geb", "uniqueKey": "shared", "hits": 1, "limit": 10,
+                         "duration": 60000}]})
+                    shared.append(int(b["responses"][0]["remaining"]))
+                else:
+                    shared.append(c.get_rate_limits([req("shared", limit=10)])[0].remaining)
+        walk_ok = (all(_walk_ok(w) for w in walks.values())
+                   and transports["fast"]["use_fast"] and not transports["string"]["use_fast"]
+                   and transports["shm"]["transport"] == "shm"
+                   and transports["shm"]["frames_shm"] == 3
+                   and shared == [9, 8, 7, 6, 5, 4])
+        emit(dict(phase="walk", path="geb", ok=walk_ok, walks=walks, shared_count=shared,
+                  transports={k: {x: v[x] for x in ("transport", "use_fast", "frames_shm")}
+                              for k, v in transports.items()}))
+        if not walk_ok:
+            died("a walk did not go 1 -> 0 -> OVER_LIMIT with one reset, or the edge and "
+                 "the fast door counted one key apart")
+
+        # the windows, each with its callers in a client process
+        windows, launches = {}, 0
+        targets = dict(geb_1000=f"127.0.0.1:{geb}", geb_deep=f"127.0.0.1:{geb}",
+                       shm_deep=sock, unix_deep=sock, edge_http=f"127.0.0.1:{eh}")
+        for seed, kind in enumerate(GEB_WINDOWS, start=40):
+            s0 = quiet_stats(base)
+            m0 = http_text(base + "/metrics")
+            http_json(base + "/v1/debug/stages?reset=1")
+            w = client_process(["--geb-window", kind, targets[kind], str(WINDOW_S), str(seed)],
+                               WINDOW_S, f"the {kind} window")
+            m1 = http_text(base + "/metrics")
+            _, stages = http_json(base + "/v1/debug/stages")
+            s1 = quiet_stats(base)
+            rows_ = (metric_value(m1, "device_batch_size_sum")
+                     - metric_value(m0, "device_batch_size_sum"))
+            nb = (metric_value(m1, "device_batch_size_count")
+                  - metric_value(m0, "device_batch_size_count"))
+            wl = (s1["kernel_launches"]["writeback_add"]
+                  - s0["kernel_launches"]["writeback_add"])
+            decides = s1["backend"]["batches"] - s0["backend"]["batches"]
+            chunks = sum(s1["engine_chunks"][k] - s0["engine_chunks"][k]
+                         for k in ("install_chunks", "gossip_chunks"))
+            span_ms = s1["device_span_ms"] - s0["device_span_ms"]
+            counters = {k: metric_value(m1, k) - metric_value(m0, k) for k in (
+                "edge_fast_items_total", "edge_folded_items_total", "geb_shm_frames_total")}
+            if nb <= 0 or decides <= 0 or wl != decides + chunks:
+                died(f"{kind}: writeback kernel launched {wl} times for {decides} decides + "
+                     f"{chunks} install and gossip chunks ({nb} device batches in /metrics)")
+            if kind == "shm_deep" and counters["geb_shm_frames_total"] <= 0:
+                died("shm_deep: geb_shm_frames_total did not rise")
+            if kind == "edge_http" and (counters["edge_folded_items_total"] <= 0
+                                        or counters["edge_fast_items_total"] != 0):
+                died(f"edge_http: edge counters moved {counters}")
+            st = stages["stages"]
+            shed = stages.get("shed_cache") or {}
+            w.update(device_batches=nb, mean_device_batch=rows_ / nb, kernel_launches=wl,
+                     decides=decides, chunks=chunks, counters=counters,
+                     merge_ms=st.get("merge", {}).get("mean_ms"),
+                     dispatch_ms=st.get("dispatch", {}).get("mean_ms"),
+                     shed_hits=shed.get("hits"), shed_share=(shed.get("hits", 0) / w["items"]),
+                     device_span_ms=span_ms,
+                     # the span counts the host's launch gaps inside each
+                     # decide as busy: idle is at least this, not this
+                     device_span_share=span_ms / (w["seconds"] * 1e3),
+                     device_idle_lower_bound=1 - span_ms / (w["seconds"] * 1e3),
+                     stages=st, stage_coverage=stages.get("coverage"))
+            emit(dict(phase="window", path="geb", card=card, **w))
+            windows[kind] = w
+            launches += wl
+
+        # SIGTERM: the frame doors drain first, then the rest
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        reader.join(10)
+        drained = next((ln for ln in log if "drained in" in ln), "")
+        steps = ("edge", "geb", "grpc", "http", "global_flush", "batcher")
+        if rc != 0 or not all(f"'{s}'" in drained for s in steps):
+            died(f"SIGTERM: exit {rc}, drain line {drained.strip()!r}")
+        emit(dict(phase="drain", path="geb", exit_code=rc, drain=drained.strip()))
+    finally:
+        for p in (edge, proc):
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.wait(30)
+    return dict(windows=windows, launches=launches, boot_s=boot_s)
+
+
+def _geb_checked_frames(types, rng, ring: int) -> list:
+    """GEB_CHECKED_FRAMES request frames over 300 keys (duplicates inside a
+    frame), all four algorithms, hits-0 peeks: windowed fast and string
+    frames in turn, one legacy string frame, one traced frame and one
+    chain frame with a chained item among plain ones."""
+    from gubernator_tpu_torch import client_geb as cg
+    from gubernator_tpu_torch.serve.tracing import TraceContext
+
+    frames = []
+    for i in range(GEB_CHECKED_FRAMES):
+        n = int(rng.integers(50, 1000))
+        ks = rng.integers(0, 300, n)
+        reqs = [types.RateLimitReq(
+            name="geb_checked", unique_key=f"k{k}", hits=int(h), limit=(2, 10, 1000)[k % 3],
+            duration=(1000, 60_000, 600_000)[k % 5 % 3], algorithm=types.Algorithm(k % 4))
+            for k, h in zip(ks.tolist(), rng.choice([0, 1, 1, 2, 5], n).tolist())]
+        fast, windowed, ctx = i % 2 == 0, True, None
+        if i == 7:
+            fast, windowed = False, False  # legacy GEB1
+        elif i == 9:
+            ctx = TraceContext(0xABC, 0xDEF, True)  # GEBT
+        elif i == 11:
+            fast = False
+            reqs[0] = types.RateLimitReq(
+                name="geb_checked", unique_key="leaf", hits=1, limit=5, duration=60_000,
+                chain=[types.ChainLevel(unique_key="head", limit=9, duration=60_000)])
+        frames.append(cg.build_frame(reqs, fast=fast, windowed=windowed, frame_id=100 + i,
+                                     ring_hash=ring, trace_ctx=ctx)[0])
+    return frames
+
+
+async def _send_frames(endpoint: str, frames: list) -> list:
+    """Each frame on one GEB connection, one at a time; the answers'
+    bytes, each read by its framing."""
+    from gubernator_tpu_torch import client_geb as cg
+
+    reader, writer, _hello = await _geb_open(endpoint)
+    read = reader.readexactly
+    try:
+        out = []
+        for f in frames:
+            writer.write(f)
+            await writer.drain()
+            hdr = await read(8)
+            magic, n = struct.unpack("<II", hdr)
+            if magic in (cg.MAGIC_WRESP, cg.MAGIC_WFAST_RESP):
+                hdr += await read(4)
+            if magic in (cg.MAGIC_FAST_RESP, cg.MAGIC_WFAST_RESP):
+                out.append(hdr + await read(25 * n))
+                continue
+            body = b""
+            for _ in range(n):  # 25 fixed bytes, then error and owner strings
+                body += await read(25)
+                for _field in range(2):
+                    ln = await read(2)
+                    body += ln + await read(struct.unpack("<H", ln)[0])
+            out.append(hdr + body)
+        return out
+    finally:
+        writer.close()
+
+
+def geb_checked_leg(card: str, writeback) -> dict:
+    """GEB_CHECKED_FRAMES frames through the GEB door of an in-process node
+    of the deployment on the card (a daemon's clock cannot be pinned, so
+    the node runs here, built as the daemon builds it) and of the same
+    node on the CPU, under one pinned clock: the answers' bytes must be
+    identical."""
+    import asyncio
+
+    import gubernator_tpu_torch.api.types as types
+    from gubernator_tpu_torch import client_geb as cg
+    from gubernator_tpu_torch.cluster import LocalCluster
+    from gubernator_tpu_torch.core.engine import buckets_for_limit
+    from gubernator_tpu_torch.serve.backends import TorchBackend
+    from gubernator_tpu_torch.serve.config import config_from_env
+
+    g, geb = free_ports(2)
+    addr = f"127.0.0.1:{g}"
+    env = dict(SERVING_ENV, GUBER_GLOBAL_SYNC_WAIT_MS="600000")
+    conf = config_from_env(dict(env))
+    store, skc = conf.store_config(), conf.sketch_config()
+    ladder = buckets_for_limit(conf.device_batch_limit)
+
+    def cpu_backend():
+        b = TorchBackend(store, buckets=ladder, sketch=skc, device="cpu")
+        b.warmup = lambda: None  # nothing to load; the epoch is copied below
+        return b
+
+    real_now = types.millisecond_now
+    answers, epoch, frames = {}, None, None
+    for name, factory in (("card", None), ("cpu", cpu_backend)):
+        c = LocalCluster([addr], env=env, backend_factory=factory, geb_ports=[geb])
+        c.start(timeout=BOOT_S)
+        try:
+            s = c.servers[0]
+            c.run(s.instance.promoter.stop())  # its ticks run by no one here
+            eng = s.backend.engine
+            if name == "card":
+                if eng.device.type != "cuda":
+                    fail("geb checked leg: the card node is not on the card")
+                writeback.writeback_add.launches = 0  # count this leg only
+                chunks0, b0 = eng.install_chunks + eng.gossip_chunks, s.backend.stats()["batches"]
+            else:
+                eng.clock.epoch = epoch
+            pinned = [real_now() + 1] if name == "card" else [answers["t0"]]
+            answers.setdefault("t0", pinned[0])
+            types.millisecond_now = lambda: pinned[0]
+            s.instance.shed.now_fn = types.millisecond_now
+            if frames is None:
+                ring = asyncio.run(_geb_hello(f"127.0.0.1:{geb}")).ring_hash
+                frames = _geb_checked_frames(types, np.random.default_rng(31), ring)
+            rng = np.random.default_rng(37)
+            got = []
+            for f in frames:
+                pinned[0] += int(rng.choice([0, 1, 7, 300, 61_000]))
+                got.extend(asyncio.run(_send_frames(f"127.0.0.1:{geb}", [f])))
+            answers[name] = got
+            if name == "card":
+                epoch = eng.clock.epoch  # set by the warmup's decides at the latest
+                launches = writeback.writeback_add.launches
+                decides = s.backend.stats()["batches"] - b0
+                chunks = eng.install_chunks + eng.gossip_chunks - chunks0
+        finally:
+            types.millisecond_now = real_now
+            c.stop()
+    torch.cuda.empty_cache()
+    if launches != decides + chunks or launches == 0:
+        fail(f"geb checked leg: writeback kernel launched {launches} times for {decides} "
+             f"decides + {chunks} chunks")
+    for i, (a, b) in enumerate(zip(answers["card"], answers["cpu"])):
+        if a != b:
+            fail(f"geb checked frame {i}: the card's answer differs from the CPU's")
+    a11 = answers["card"][11]
+    chained = cg.decode_string_body(a11[12:], struct.unpack_from("<I", a11, 4)[0])[0]
+    if "not ported" not in chained.error:
+        fail(f"geb checked leg: the chained item answered {chained}")
+    items = sum(struct.unpack_from("<I", a, 4)[0] for a in answers["card"])
+    out = dict(frames=len(frames), items=items, cpu_identical=True, launches=launches,
+               decides=decides, chunks=chunks, chained_item_error=chained.error)
+    emit(dict(phase="check", path="geb", card=card, **out))
+    return out
 
 
 def balanced_addresses(ring_hash, n: int, lo: float = 0.2, hi: float = 0.5) -> list:
@@ -1666,6 +2406,22 @@ def main() -> int:
     from gubernator_tpu_torch.core.engine import buckets_for_limit
     from gubernator_tpu_torch.core.sketches import derive_two_tier_config
     from gubernator_tpu_torch.core.store import derive_store_config
+
+    # the edge's g++ build runs beside nvcc's (one compiler each, at once)
+    from gubernator_tpu_torch.native import edge_build
+
+    edge_res: dict = {}
+
+    def build_edge():
+        t = time.monotonic()
+        try:
+            edge_res["path"] = edge_build.build()
+        except Exception as e:  # reported, and failed on, by the geb phase
+            edge_res["error"] = repr(e)
+        edge_res["seconds"] = time.monotonic() - t
+
+    edge_thread = threading.Thread(target=build_edge, daemon=True)
+    edge_thread.start()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1710,29 +2466,60 @@ def main() -> int:
                            zipf_hashes(DEPTH, seed=7 + s, key_space=KEY_SPACE_100M))
              for s in range(KERNEL_SETS)], 3, cyc),
     }
+    floor = copy_floor_cases(cyc)
+    for key, f in floor.items():
+        emit(dict(phase="kernel", kernel="add_one", path=key, card=card, **f))
+    # each writeback row's share of the measured floor at its store's size
+    for path, key in (("exact", "1g"), ("sweep", "16m"), ("two_tier", "512m")):
+        c = cases[path]
+        c["floor_bytes_per_s"] = floor[key]["floor_bytes_per_s"]
+        c["floor_by"] = floor[key]["floor_by"]
+        c["floor_bound_ms"] = c["bytes_mean"] / c["floor_bytes_per_s"] * 1e3
+        c["share_of_floor"] = c["floor_bound_ms"] / c["ms"]
     for path, c in cases.items():
         emit(dict(phase="kernel", kernel="writeback_add", path=path, card=card, **c))
 
     # 3-6. the paths, each with the launch count set to 0 before it ----------
+    writeback.add_one.launches = 0  # the copy floor: on no path, read at the end
     exact = exact_path(card, ladder, writeback)
     two = two_tier_path(card, ladder, writeback)
     serving = serving_path(card, writeback, two["decisions_per_s"])
     doors = doors_path(card)
     cluster = cluster_path(card, writeback)
+    edge_thread.join()
+    geb = geb_path(card, edge_res)
+    geb_checked = geb_checked_leg(card, writeback)
+    floor_launches = writeback.add_one.launches
+    if floor_launches:
+        fail(f"the copy floor's kernel launched {floor_launches} times on the paths")
 
-    main_case = cases["two_tier"]
+    main_case, floor_case = cases["two_tier"], floor["512m"]
     emit({"kernels": [dict(
         name="writeback_add", route="cuda",
         source="gubernator_tpu_torch/csrc/writeback.cu",
         replaces="gubernator_tpu/core/pallas_sweep.py:97",
-        launches=cluster["launches"],
+        launches=geb["launches"],
         max_abs_err=max(c["max_abs_err"] for c in cases.values()),
         ms=main_case["ms"], plain_ms=main_case["plain_ms"],
         bound_ms=main_case["bound_ms"], bound_by="bytes",
         library_ms=main_case["library_ms"],
+        share_of_floor=main_case["share_of_floor"], floor_by=main_case["floor_by"],
         launches_by_path={"exact": exact["launches"], "two_tier": two["launches"],
                           "serving": serving["launches"], "doors": doors["launches"],
-                          "cluster": cluster["launches"]},
+                          "cluster": cluster["launches"], "geb": geb["launches"],
+                          "geb_checked": geb_checked["launches"]},
+    ), dict(
+        # the copy floor runs on no serving path: it measures the pass
+        # over the store that bounds the writeback from below
+        name="add_one", route="cuda",
+        source="gubernator_tpu_torch/csrc/writeback.cu",
+        replaces="scripts/bench_hbm.py:92",
+        launches=floor_launches, on_main_path=False,
+        max_abs_err=max(f["max_abs_err"] for f in floor.values()),
+        ms=floor_case["ms"], plain_ms=floor_case["plain_ms"],
+        bound_ms=floor_case["bound_ms"], bound_by="bytes",
+        library_ms=floor_case["library_ms"],
+        shape=floor_case["shape"], bytes_per_s=floor_case["bytes_per_s"],
     )]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
@@ -1742,4 +2529,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rpc-window"]:
         sys.exit(rpc_window_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--geb-window"]:
+        sys.exit(geb_window_main(sys.argv[2:]))
     sys.exit(main())

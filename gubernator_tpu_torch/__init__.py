@@ -20,8 +20,11 @@ the same place:
 - `serve`: the serving core: `Instance`, the `DeviceBatcher` (arrival
   prep, deep batches, pipelined fetch), `TorchBackend` and
   `make_backend`, the over-limit shed cache, the sketch promoter loop,
-  the GLOBAL manager, config, metrics and tracing. The doors (gRPC,
-  HTTP, GEB) are not ported yet.
+  the GLOBAL manager, config, metrics and tracing; the doors
+  (`serve.server`: gRPC, HTTP JSON, `/metrics`; `serve.edge_bridge` and
+  `serve.shm`: the GEB frame doors and the shared-memory lane) and the
+  daemon, `cluster` and the clients (`client`, `client_geb`).
+- `native`: the compiled edge's sources (a copy) and their g++ build.
 
 The package imports `torch`, numpy and (in `serve.metrics`)
 `prometheus_client`, never `jax`, and nothing of `gubernator_tpu`. Entry points run on `cuda` unless the caller passes

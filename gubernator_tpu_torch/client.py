@@ -39,7 +39,14 @@ def _grpc_target(endpoint: str) -> str:
     """Validate a client endpoint through the shared parser: 'host:port'
     (IPv4 or hostname) split on the last colon; an IPv6 literal is
     refused loudly here instead of misparsing downstream."""
-    host, port = parse_endpoint(endpoint, "client endpoint")
+    kind, addr = parse_endpoint(endpoint, "client endpoint")
+    if kind != "tcp":
+        raise ValueError(
+            f"client endpoint {endpoint!r} is a unix path; the gRPC "
+            f"client needs 'host:port' (unix sockets are the GEB "
+            f"client's job, gubernator_tpu_torch.client_geb)"
+        )
+    host, port = addr
     return f"{host}:{port}"
 
 

@@ -39,10 +39,12 @@ class LocalCluster:
         backend_factory: Optional[Callable[[], object]] = None,
         http_addresses: Optional[Sequence[str]] = None,
         env: Optional[dict] = None,
+        geb_ports: Optional[Sequence[int]] = None,
     ):
         """`http_addresses` (parallel to `addresses`) additionally serves
         each node's HTTP JSON gateway — the default is gRPC-only like the
-        reference's harness (cluster.go).
+        reference's harness (cluster.go). `geb_ports` (parallel too)
+        serves each node's GEB door (GUBER_GEB_PORT); 0 = off per node.
 
         A backend_factory must size its ladder to the config's
         GUBER_DEVICE_BATCH_LIMIT (core.engine.buckets_for_limit)."""
@@ -50,10 +52,16 @@ class LocalCluster:
         self.http_addresses = (
             list(http_addresses) if http_addresses else [""] * len(addresses)
         )
-        if len(self.http_addresses) != len(self.addresses):
+        self.geb_ports = (
+            list(geb_ports) if geb_ports else [0] * len(addresses)
+        )
+        if len(self.http_addresses) != len(self.addresses) or len(
+            self.geb_ports
+        ) != len(self.addresses):
             # zip would silently truncate and leave nodes never started
             raise ValueError(
-                f"http_addresses ({len(self.http_addresses)}) must match "
+                f"http_addresses ({len(self.http_addresses)}) / "
+                f"geb_ports ({len(self.geb_ports)}) must match "
                 f"addresses ({len(self.addresses)})"
             )
         self._env = dict(HARNESS_ENV, **(env or {}))
@@ -101,23 +109,38 @@ class LocalCluster:
         if failure:
             raise failure[0]
 
-    def _conf(self, addr: str, http_addr: str) -> ServerConfig:
+    def _conf(self, addr: str, http_addr: str, geb_port: int = 0) -> ServerConfig:
         conf = config_from_env(dict(self._env))
         conf.grpc_address = addr
         conf.http_address = http_addr
         conf.advertise_address = addr
         # static full-mesh peers; self marked owner (cluster.go:36-46)
         conf.peers = list(self.addresses)
+        if geb_port:
+            # on one host the symmetric-port convention (every node's
+            # door on one port) cannot hold, so each node gets the full
+            # grpc -> door map and its hello advertises routable doors
+            # to a ring-routing client (GUBER_GEB_PEER_DOORS)
+            conf.geb_port = geb_port
+            conf.geb_peer_doors = ",".join(
+                f"{a}=127.0.0.1:{p}"
+                for a, p in zip(self.addresses, self.geb_ports)
+                if p
+            )
         return conf
 
     async def _start_all(self) -> None:
-        for addr, http_addr in zip(self.addresses, self.http_addresses):
+        for addr, http_addr, geb_port in zip(
+            self.addresses, self.http_addresses, self.geb_ports
+        ):
             backend = (
                 self._backend_factory()
                 if self._backend_factory is not None
                 else None
             )
-            server = Server(self._conf(addr, http_addr), backend=backend)
+            server = Server(
+                self._conf(addr, http_addr, geb_port), backend=backend
+            )
             await server.start()
             self.servers.append(server)
 

@@ -37,6 +37,14 @@ def slot_hash_batch(keys: Iterable[str]) -> np.ndarray:
     return np.array([slot_hash(k) for k in keys], dtype=np.uint64)
 
 
+def slot_hash_is_xxh64() -> bool:
+    """Whether the store's slot hash is XXH64, the hash the compiled edge
+    pre-hashes with (native/edge/edge.cc). Never, while the port has no
+    native hasher: the frame doors read this before they offer
+    pre-hashed frames to a peer that can only hash XXH64."""
+    return False
+
+
 def mix64(x: np.ndarray) -> np.ndarray:
     """splitmix64 finalizer: derives an independent hash from one hash."""
     x = x.astype(np.uint64)

@@ -9,6 +9,12 @@ tensor it runs `writeback_add_plain`, the plain PyTorch version that the
 CPU tests hold against the JAX package. There is no fallback between
 the two: a CUDA call launches the kernel or raises.
 
+`add_one(x)` is the copy floor beside it (x += 1 in place, one read and
+one write of every int32; plain version `x.add_(1)`): the port of the
+identity sweep in scripts/bench_hbm.py, which measures the least time a
+pass over the store can take. It runs on no serving path; chip_smoke.py
+times it to give the writeback's bound a measured floor.
+
 The kernel is compiled with nvcc at first use into a shared library with
 a C interface under `gubernator_tpu_torch/_build/` (keyed by a hash of
 the source and flags) and loaded with ctypes. Nothing is imported or
@@ -102,6 +108,11 @@ def _load() -> ctypes.CDLL:
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ]
             lib.guber_writeback_add.restype = ctypes.c_int
+            lib.guber_add_one.argtypes = [
+                ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                ctypes.c_void_p,
+            ]
+            lib.guber_add_one.restype = ctypes.c_int
             lib.guber_cuda_error_string.argtypes = [ctypes.c_int]
             lib.guber_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -170,3 +181,42 @@ def writeback_add(
 
 
 writeback_add.launches = 0
+
+
+def add_one_plain(x: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version: x += 1, in place."""
+    return x.add_(1)
+
+
+def add_one(x: torch.Tensor) -> torch.Tensor:
+    """x += 1 in place over a contiguous int32 tensor (int32 wrap);
+    returns x. CPU tensors take add_one_plain; CUDA tensors launch the
+    copy-floor kernel of csrc/writeback.cu on the current stream and
+    count the launch in `add_one.launches`; a refused launch raises."""
+    if x.dtype != torch.int32:
+        raise TypeError(f"add_one: x must be int32, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("add_one: x must be contiguous")
+    if x.device.type == "cpu":
+        return add_one_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"add_one: unsupported device {x.device}")
+    if x.numel() == 0:
+        return x
+    if x.data_ptr() % 16:
+        raise ValueError("add_one: x must start on a 16-byte boundary")
+    lib = _load()
+    with torch.cuda.device(x.device):
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.guber_add_one(x.data_ptr(), x.numel(), sms, stream)
+    if rc != 0:
+        raise RuntimeError(
+            "add_one: kernel launch failed: "
+            + lib.guber_cuda_error_string(rc).decode()
+        )
+    add_one.launches += 1
+    return x
+
+
+add_one.launches = 0

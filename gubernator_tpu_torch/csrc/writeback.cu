@@ -115,6 +115,31 @@ writeback_add_kernel(int32_t* __restrict__ data,
   }
 }
 
+// The copy floor: x[i] += 1 over n int32, in place.
+//
+// Replaces the identity sweep of scripts/bench_hbm.py (`kern` inside
+// `ident`, :92: out = data + 1 over the store in tiles of 128-8,192 rows),
+// a microbenchmark that measures the least time any pass over the store
+// can take. Each thread owns 16-byte vectors in a grid-stride loop, so
+// every load is a coalesced 512-byte warp access; a tail of n % 4 int32
+// (none at the store's shapes) is done one int32 at a time. Bound: bytes
+// (read and write 4n each), one add per int32. (Issuing four loads before
+// their stores measured no faster on the H100, PERF.md.)
+__global__ void __launch_bounds__(256)
+add_one_kernel(int32_t* __restrict__ x, long long n) {
+  const long long nvec = n / 4;
+  uint4* v = reinterpret_cast<uint4*>(x);
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long start = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const uint4 one = make_uint4(1u, 1u, 1u, 1u);
+  for (long long i = start; i < nvec; i += stride) {
+    v[i] = add4(v[i], one);
+  }
+  for (long long i = nvec * 4 + start; i < n; i += stride) {
+    x[i] = static_cast<int32_t>(static_cast<uint32_t>(x[i]) + 1u);
+  }
+}
+
 }  // namespace
 
 // Launches on `stream` (the caller's current CUDA stream) and returns the
@@ -131,6 +156,18 @@ extern "C" int guber_writeback_add(void* data, const void* bkt,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<int32_t*>(data), static_cast<const int32_t*>(bkt),
       static_cast<const int32_t*>(drow), g, nvec, buckets);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x[i] += 1 over n int32 in place, on `stream`; returns the launch's
+// cudaGetLastError() code. `sms` is the device's SM count: the grid is a
+// few blocks per SM, each looping over the array.
+extern "C" int guber_add_one(void* x, long long n, int sms, void* stream) {
+  if (n <= 0) return 0;
+  const long long want = (n / 4 + 255) / 256;
+  const int grid = static_cast<int>(want < 8LL * sms ? (want > 0 ? want : 1) : 8LL * sms);
+  add_one_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int32_t*>(x), n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -108,6 +108,10 @@ class TorchEngine:
         # the launches are stats.batches + install_chunks + gossip_chunks
         self.install_chunks = 0
         self.gossip_chunks = 0
+        # on a GPU, CUDA events around every counted decide (from before
+        # its upload to the end of its download) sum into device_span_ms:
+        # the card's time inside decides, read without the profiler
+        self.device_span_ms = 0.0
         # bumped by every reset(): the store-wipe epoch the over-limit
         # shed cache checks (serve/shedcache.py)
         self.reset_generation = 0
@@ -224,26 +228,31 @@ class TorchEngine:
 
     # -- array decide paths --------------------------------------------------
 
-    def _dispatch(self, req, groups, e_now, observe: bool = True) -> torch.Tensor:
+    def _dispatch(self, req, groups, e_now, observe: bool = True):
         """The one dispatch funnel of every submit path: feed the hot-key
         observer the numpy batch (unless `observe` is False), copy it to
         the device and run the exact-only or the two-tier decide there;
-        returns the packed output tensor."""
+        returns (the packed output tensor, the CUDA event recorded before
+        the upload, or None off the card)."""
         hook = self.observe_hook if observe else None
         if hook is not None:
             try:
                 hook(req)
             except Exception:  # pragma: no cover - defensive
                 pass  # observability must never fail a dispatch
+        start = None
+        if self.device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
         req_t = to_device(req, self.device)
         groups_t = to_device(groups, self.device)
         if self.sketch is not None and self.sketch_on:
             _store, _sketch, packed = decide_packed_sketch(
                 self.store, self.sketch, req_t, e_now, groups_t
             )
-            return packed
+            return packed, start
         _store, packed = decide_packed(self.store, req_t, e_now, groups_t)
-        return packed
+        return packed, start
 
     def decide_submit(
         self,
@@ -274,22 +283,23 @@ class TorchEngine:
             gnp,
             with_groups=True,
         )
-        packed = self._dispatch(req, groups, e_now, observe)
-        return self._handle(packed, order, n, req.key_hash.shape[0])
+        packed, start = self._dispatch(req, groups, e_now, observe)
+        return self._handle(packed, start, order, n, req.key_hash.shape[0])
 
-    def _handle(self, packed: torch.Tensor, order: np.ndarray, n: int, B: int):
+    def _handle(self, packed: torch.Tensor, start, order: np.ndarray, n: int, B: int):
         """decide_wait's handle for one dispatched batch: (packed host
-        tensor, its copy's event or None, order, n, B, epoch). On CUDA
-        the packed outputs start copying into pinned host memory at once
-        and the event marks that copy's end in stream order."""
+        tensor, its copy's event or None, the decide's start event or
+        None, order, n, B, epoch). On CUDA the packed outputs start
+        copying into pinned host memory at once and the event marks that
+        copy's end in stream order."""
         event = None
         if packed.device.type == "cuda":
             host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
             host.copy_(packed, non_blocking=True)
-            event = torch.cuda.Event()
+            event = torch.cuda.Event(enable_timing=True)
             event.record()
             packed = host
-        return packed, event, order, n, B, self.clock.epoch
+        return packed, event, start, order, n, B, self.clock.epoch
 
     def prep_run(self, fields: dict) -> dict:
         """Arrival-time prep of one caller group (serve/batcher.py): a
@@ -313,8 +323,8 @@ class TorchEngine:
         """Dispatch a merge_prepped batch: epoch bookkeeping + the decide
         (the submit thread's `dispatch` stage). Handle as decide_submit's."""
         e_now = self._engine_now(now)
-        packed = self._dispatch(merged["req"], merged["groups"], e_now)
-        return self._handle(packed, merged["order"], merged["n"], merged["B"])
+        packed, start = self._dispatch(merged["req"], merged["groups"], e_now)
+        return self._handle(packed, start, merged["order"], merged["n"], merged["B"])
 
     def decide_submit_presorted(
         self,
@@ -337,8 +347,8 @@ class TorchEngine:
         order_p = np.empty(B, np.int32)
         order_p[:n] = order if order is not None else np.arange(n, dtype=np.int32)
         order_p[n:] = np.arange(n, B, dtype=np.int32)
-        packed = self._dispatch(req, groups, e_now)
-        return self._handle(packed, order_p, n, B)
+        packed, start = self._dispatch(req, groups, e_now)
+        return self._handle(packed, start, order_p, n, B)
 
     def decide_wait(
         self, handle, count: bool = True
@@ -347,9 +357,11 @@ class TorchEngine:
         (status, limit, remaining, reset_time int64 unix-ms). Waits on
         this batch's own copy event only. `count=False` leaves the batch
         out of `stats`."""
-        packed, event, order, n, B, epoch = handle
+        packed, event, start, order, n, B, epoch = handle
         if event is not None:
             event.synchronize()
+            if count and start is not None:
+                self.device_span_ms += start.elapsed_time(event)
         packed = packed.numpy()
         if count:
             self.stats.add_batch(

@@ -1,8 +1,7 @@
 """Prometheus metrics, name-compatible with the reference's collectors.
 
 The port's copy of gubernator_tpu/serve/metrics.py with its imports
-rewritten, less the metrics of what the port does not carry yet (the
-edge bridge and GEB door with its shm lane and frame gauges, bucket
+rewritten, less the metrics of what the port does not carry yet (bucket
 replication, ring rescale, checkpoint/restore): a counter that can only
 read 0 would tell an operator the feature is on. The file references
 below are the reference package's.
@@ -84,6 +83,47 @@ STORE_EVICTIONS = Counter(
     "Store entries overwritten by the earliest-expiry eviction policy "
     "(over-admission signal at capacity; reference cache/lru.go:164-176 "
     "exposes the analogous cache_size-vs-max pressure)",
+    registry=REGISTRY,
+)
+EDGE_FAST_ITEMS = Counter(
+    "edge_fast_items_total",
+    "Rate-limit items served through the pre-hashed (GEB6) edge fast "
+    "path on this node — in a cluster, nonzero on every node proves the "
+    "edge ships per-owner frames instead of funnelling through one node",
+    registry=REGISTRY,
+)
+EDGE_FOLDED_ITEMS = Counter(
+    "edge_folded_items_total",
+    "String-frame items served through the bridge's string->array fold "
+    "(all-plain all-owned frames skip request/response objects and "
+    "instance routing) — the slow path's share of fast-path treatment",
+    registry=REGISTRY,
+)
+EDGE_STALE_RINGS = Counter(
+    "edge_stale_ring_total",
+    "GEB6 frames rejected because the edge routed with a different "
+    "membership view than this node (the edge refreshes and retries)",
+    registry=REGISTRY,
+)
+GEB_SHM_SESSIONS = Counter(
+    "geb_shm_sessions_total",
+    "Shared-memory GEB lanes negotiated on this node's bridge (r18, "
+    "serve/shm.py GEBM/GEBN over the unix control socket); compare "
+    "with geb_shm_teardowns_total to see lanes torn down early",
+    registry=REGISTRY,
+)
+GEB_SHM_FRAMES = Counter(
+    "geb_shm_frames_total",
+    "Request frames served through shared-memory rings instead of a "
+    "socket (r18) — the co-located fast lane's share of bridge traffic",
+    registry=REGISTRY,
+)
+GEB_SHM_TEARDOWNS = Counter(
+    "geb_shm_teardowns_total",
+    "Shared-memory lanes torn down for cause (hostile/torn ring "
+    "state, a client that stopped draining, serve failures) rather "
+    "than a clean close — nonzero under normal operation means a "
+    "misbehaving co-located peer",
     registry=REGISTRY,
 )
 DISTINCT_KEYS = Gauge(
@@ -238,6 +278,21 @@ PREP_BACKLOG = Gauge(
     "Arrival-prep tasks queued behind the prep pool's workers "
     "(GUBER_PREP_THREADS); sustained backlog means prep no longer "
     "hides inside the batcher queue wait (serve/batcher.py, r9)",
+    registry=REGISTRY,
+)
+FRAME_INFLIGHT = Gauge(
+    "frame_inflight",
+    "GEB frames accepted but not yet answered on this door (bounded "
+    "by credit window x connections); door = edge (bridge socket/TCP) "
+    "| geb (GUBER_GEB_PORT client door)",
+    ["door"],
+    registry=REGISTRY,
+)
+FRAME_CONNECTIONS = Gauge(
+    "frame_connections",
+    "Live connections on a GEB frame door (same door label set as "
+    "frame_inflight)",
+    ["door"],
     registry=REGISTRY,
 )
 GLOBAL_BACKLOG_ENTRIES = Gauge(

@@ -491,3 +491,26 @@ class ConsistentHashPicker:
         if i == len(self._keys):
             i = 0
         return self._by_point[self._keys[i]]
+
+    def self_owned_mask(self, keys: Sequence[str]):
+        """bool[len(keys)]: the key's ring successor is this server
+        itself (is_owner). The ownership screen of the edge bridge's
+        string->array fold (serve/edge_bridge.py): one hash call per key
+        and a single searchsorted against the ring; placement is get()'s
+        (bisect_left == searchsorted side='left', wrapping to 0)."""
+        import numpy as np
+
+        if not self._keys:
+            raise RuntimeError("unable to pick a peer; pool is empty")
+        pts = np.fromiter(
+            (self._hash(k) for k in keys), dtype=np.uint64, count=len(keys)
+        )
+        ring = np.asarray(self._keys, dtype=np.uint64)
+        idx = np.searchsorted(ring, pts, side="left")
+        idx[idx == len(ring)] = 0
+        own = np.fromiter(
+            (self._by_point[p].is_owner for p in self._keys),
+            dtype=bool,
+            count=len(self._keys),
+        )
+        return own[idx]

@@ -6,16 +6,18 @@ daemon's shape (reference cmd/gubernator/main.go:40-147): gRPC on one
 listener, an HTTP gateway exposing POST /v1/GetRateLimits and
 GET /v1/HealthCheck as JSON plus GET /metrics for Prometheus, static
 discovery pushing the peer list into Instance.set_peers, and graceful
-shutdown. The backend is the port's own (serve/backends.make_backend) on
-`device`: cuda unless the caller asks for another.
+shutdown. The GEB frame doors (serve/edge_bridge.py) ride beside them:
+the client-facing GEB door (GUBER_GEB_PORT), POST /v1/geb on the HTTP
+port, and the edge bridge (GUBER_EDGE_SOCKET, GUBER_EDGE_TCP) with its
+shared-memory lane. The backend is the port's own
+(serve/backends.make_backend) on `device`: cuda unless the caller asks
+for another.
 
 Not ported yet, and refused when the server is built rather than
-ignored (`refuse_not_ported`): the GEB client-protocol door and the
-native edge bridge (GUBER_GEB_PORT, GUBER_EDGE_SOCKET, GUBER_EDGE_TCP),
-etcd and Kubernetes discovery, and the multi-host mesh
-(GUBER_DIST_COORDINATOR); `make_backend` refuses the backends and the
-Instance the managers that are not ported. PeersV1.ReplicateBuckets
-answers UNIMPLEMENTED.
+ignored (`refuse_not_ported`): etcd and Kubernetes discovery, and the
+multi-host mesh (GUBER_DIST_COORDINATOR); `make_backend` refuses the
+backends and the Instance the managers that are not ported.
+PeersV1.ReplicateBuckets answers UNIMPLEMENTED.
 """
 
 from __future__ import annotations
@@ -50,9 +52,6 @@ def refuse_not_ported(conf: ServerConfig) -> None:
     asked = [
         name
         for name, on in (
-            ("GUBER_GEB_PORT (the GEB client-protocol door)", conf.geb_port),
-            ("GUBER_EDGE_SOCKET / GUBER_EDGE_TCP (the native edge bridge)",
-             conf.edge_socket or conf.edge_tcp),
             ("GUBER_ETCD_ENDPOINTS (etcd discovery)", conf.etcd_endpoints),
             ("GUBER_K8S_ENDPOINTS_SELECTOR (Kubernetes discovery)",
              conf.k8s_endpoints_selector),
@@ -226,11 +225,18 @@ def register_servicers(grpc_server, instance: Instance):
 #: where /v1/debug/profile writes its traces (under TMPDIR)
 PROFILE_DIR = os.path.join(tempfile.gettempdir(), "guber-profile")
 
+#: content type of the HTTP binary door (POST /v1/geb); a deliberate
+#: mirror of client_geb.GEB_CONTENT_TYPE (the client loads no server code)
+GEB_CONTENT_TYPE = "application/x-guber-geb"
+
 
 class Server:
     """One daemon: gRPC + HTTP, an Instance, and discovery."""
 
     _profiling = False
+    _edge = None
+    _geb = None
+    _geb_core = None
 
     def __init__(
         self, conf: ServerConfig, backend=None, device: DeviceLike = None
@@ -307,18 +313,58 @@ class Server:
         else:
             log.info("over-limit shed cache: off (GUBER_SHED_CACHE=0)")
 
+        if self.conf.geb_port:
+            from gubernator_tpu_torch.serve.edge_bridge import GebListener
+
+            self._geb = GebListener(
+                self.instance,
+                f"0.0.0.0:{self.conf.geb_port}",
+                fast_enabled=self.conf.edge_fast,
+                window=self.conf.geb_window or self.conf.edge_window,
+                string_fold=self.conf.edge_string_fold,
+                peer_bridges=_door_map(
+                    self.conf.geb_peer_doors, "GUBER_GEB_PEER_DOORS"
+                ) or None,
+            )
+            await self._geb.start()
+            log.info(
+                "GEB client protocol door on :%d (GUBER_GEB_PORT; "
+                "window %d, GUBER_GEB_WINDOW)",
+                self.conf.geb_port, self._geb.window,
+            )
         if self.conf.http_address:
             await self._start_http()
+        if self.conf.edge_socket or self.conf.edge_tcp:
+            from gubernator_tpu_torch.serve.edge_bridge import EdgeBridge
+
+            self._edge = EdgeBridge(
+                self.instance,
+                self.conf.edge_socket,
+                tcp_address=self.conf.edge_tcp,
+                peer_bridges=_door_map(
+                    self.conf.edge_peer_bridges, "GUBER_EDGE_PEER_BRIDGES"
+                ),
+                fast_enabled=self.conf.edge_fast,
+                window=self.conf.edge_window,
+                string_fold=self.conf.edge_string_fold,
+                max_payload=self.conf.edge_max_frame_mib << 20,
+                shm_enabled=self.conf.shm,
+                shm_ring_kib=self.conf.shm_ring_kib,
+                shm_poll_us=self.conf.shm_poll_us,
+            )
+            await self._edge.start()
         await self._start_discovery()
 
     async def drain(self) -> dict:
         """Graceful drain (SIGTERM path), bounded end to end by
         GUBER_DRAIN_TIMEOUT_MS: (1) deregister from discovery; (2) the
-        gRPC server and (3) the HTTP gateway stop accepting and let
-        in-flight requests finish — every request door is closed BEFORE
-        the queues flush, or the batcher's run-dry wait could chase a
-        moving target; (4) aggregated GLOBAL hits/updates flush to their
-        owners; (5) the device batcher runs dry. Each step gets the
+        edge bridge and the GEB door answer the frames in flight, then
+        refuse new ones with the GEBR drain code; (3) the gRPC server
+        and (4) the HTTP gateway stop accepting and let in-flight
+        requests finish — every request door is closed BEFORE the queues
+        flush, or the batcher's run-dry wait could chase a moving
+        target; (5) aggregated GLOBAL hits/updates flush to their
+        owners; (6) the device batcher runs dry. Each step gets the
         budget remaining; a step that times out keeps its handle so the
         caller's stop() still hard-closes it. Returns step timings."""
         t0 = time.monotonic()
@@ -346,6 +392,18 @@ class Server:
         if self._pool is not None:
             if await step("deregister", self._pool.close()):
                 self._pool = None
+        # the frame doors drain self-bounded (their poll loop carries the
+        # deadline): no wait_for, so none is cancelled mid-refusal
+        for name, door in (("edge", self._edge), ("geb", self._geb)):
+            if door is not None:
+                t = time.monotonic()
+                await door.drain(remaining())
+                timings[name] = time.monotonic() - t
+        if self.conf.http_address:
+            # a frame POSTed mid-drain gets the GEBR drain body; the core
+            # is built here if no frame came yet, so the first frame that
+            # races the drain is refused too
+            self._frame_core()._draining = True
         if self.grpc_server is not None:
             # grace makes stop() self-bounding (handlers are
             # force-cancelled when it expires) — and it must NOT run
@@ -376,6 +434,13 @@ class Server:
         return timings
 
     async def stop(self) -> None:
+        if self._edge is not None:
+            await self._edge.stop()
+            self._edge = None
+        if self._geb is not None:
+            await self._geb.stop()
+            self._geb = None
+        self._geb_core = None
         if self._pool is not None:
             await self._pool.close()
             self._pool = None
@@ -392,6 +457,10 @@ class Server:
     async def _start_http(self) -> None:
         app = web.Application()
         app.router.add_post("/v1/GetRateLimits", self._http_get_rate_limits)
+        # the binary frame door: one GEB frame per POST body; GET serves
+        # the hello (ring + flags) so a client negotiates as on a socket
+        app.router.add_post("/v1/geb", self._http_geb)
+        app.router.add_get("/v1/geb", self._http_geb_hello)
         app.router.add_get("/v1/HealthCheck", self._http_health)
         app.router.add_get("/metrics", self._http_metrics)
         app.router.add_get("/v1/debug/stats", self._http_debug_stats)
@@ -487,6 +556,88 @@ class Server:
             }
         )
 
+    def _frame_core(self):
+        """The frame core behind the HTTP binary door: the GEB door when
+        it is on (so drain state is shared), else a listenerless
+        FrameService over the same instance — either way the decode,
+        shed, batch and encode the socket doors run."""
+        if self._geb is not None:
+            return self._geb
+        if self._geb_core is None:
+            from gubernator_tpu_torch.serve.edge_bridge import FrameService
+
+            self._geb_core = FrameService(
+                self.instance,
+                fast_enabled=self.conf.edge_fast,
+                window=self.conf.geb_window or self.conf.edge_window,
+                string_fold=self.conf.edge_string_fold,
+            )
+        return self._geb_core
+
+    async def _http_geb_hello(self, request: web.Request):
+        return web.Response(
+            body=self._frame_core().hello_bytes(),
+            content_type=GEB_CONTENT_TYPE,
+        )
+
+    async def _http_geb(self, request: web.Request):
+        """Binary GEB frame door: the frame protocol with an HTTP body as
+        the transport. Content-type gated, so a JSON body posted here
+        gets a 415, never a frame decode of its bytes."""
+        if request.content_type != GEB_CONTENT_TYPE:
+            return web.json_response(
+                {
+                    "error": (
+                        f"content-type must be {GEB_CONTENT_TYPE} "
+                        f"(one binary GEB frame per request body)"
+                    )
+                },
+                status=415,
+            )
+        import struct
+
+        from gubernator_tpu_torch.serve.edge_bridge import MAX_FRAME_PAYLOAD
+
+        # legal frames outgrow aiohttp's 1 MiB client_max_size (a full
+        # 65536-item fast frame is ~2.1 MiB), so the raw stream is read
+        # under this door's own cap: the socket doors' payload bound
+        # plus header slack
+        max_body = MAX_FRAME_PAYLOAD + 64
+        if (request.content_length or 0) > max_body:
+            return web.json_response(
+                {"error": "GEB frame exceeds the payload bound"},
+                status=413,
+            )
+        chunks, got = [], 0
+        while True:
+            chunk = await request.content.read(1 << 16)
+            if not chunk:
+                break
+            got += len(chunk)
+            if got > max_body:
+                return web.json_response(
+                    {"error": "GEB frame exceeds the payload bound"},
+                    status=413,
+                )
+            chunks.append(chunk)
+        body = b"".join(chunks)
+        try:
+            resp = await self._frame_core().serve_frame_bytes(
+                body,
+                remote_ctx=tracing.parse_traceparent(
+                    request.headers.get(tracing.TRACEPARENT)
+                ),
+            )
+        except (ValueError, struct.error) as e:
+            # struct.error: a truncated varlen payload that passed the
+            # outer length checks — client garbage, still a 400
+            return web.json_response(
+                {"error": f"bad GEB frame: {e}"}, status=400
+            )
+        except BatchTooLargeError as e:
+            return web.json_response({"error": str(e)}, status=400)
+        return web.Response(body=resp, content_type=GEB_CONTENT_TYPE)
+
     async def _http_health(self, request: web.Request):
         h = self.instance.health_check()
         return web.json_response(
@@ -526,6 +677,10 @@ class Server:
         metrics.BATCHER_QUEUE_DEPTH.set(qs["depth"])
         metrics.BATCHER_QUEUE_AGE.set(qs["oldest_age_s"])
         metrics.PREP_BACKLOG.set(qs["prep_backlog"])
+        for door, svc in (("edge", self._edge), ("geb", self._geb)):
+            if svc is not None:
+                metrics.FRAME_INFLIGHT.labels(door=door).set(svc._active_frames)
+                metrics.FRAME_CONNECTIONS.labels(door=door).set(len(svc._conns))
         for queue, size in self.instance.global_mgr.backlog_sizes().items():
             metrics.GLOBAL_BACKLOG_ENTRIES.labels(queue=queue).set(size)
         rec = self.instance.tracer.recorder
@@ -558,6 +713,10 @@ class Server:
                 "install_chunks": eng.install_chunks,
                 "gossip_chunks": eng.gossip_chunks,
             }
+            # the card's time inside counted decides (CUDA events around
+            # each; 0 on the CPU): 1 - its growth over a window's wall time
+            # bounds the device's idle share from below
+            body["device_span_ms"] = eng.device_span_ms
         return web.json_response(body)
 
     async def _http_debug_stages(self, request: web.Request):
@@ -673,6 +832,22 @@ class Server:
 
     async def _on_peers(self, peers) -> None:
         await self.instance.set_peers(peers)
+
+
+def _door_map(spec: str, knob: str) -> dict:
+    """'grpc_addr=door_addr,...' (GUBER_GEB_PEER_DOORS,
+    GUBER_EDGE_PEER_BRIDGES) -> {grpc_addr: door_addr}."""
+    doors = {}
+    for pair in spec.split(","):
+        if not pair.strip():
+            continue
+        grpc_addr, sep, door = pair.strip().partition("=")
+        if not sep or not grpc_addr or not door:
+            raise ValueError(
+                f"{knob} entries must be 'grpc_addr=door_addr', got {pair!r}"
+            )
+        doors[grpc_addr] = door
+    return doors
 
 
 def _enum_val(enum_pb, v):

@@ -18,7 +18,12 @@ import torch
 from gubernator_tpu_torch.core.engine import TorchEngine
 from gubernator_tpu_torch.core.sketches import derive_sketch_config
 from gubernator_tpu_torch.core.store import StoreConfig
-from gubernator_tpu_torch.core.writeback import writeback_add, writeback_add_plain
+from gubernator_tpu_torch.core.writeback import (
+    add_one,
+    add_one_plain,
+    writeback_add,
+    writeback_add_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -58,6 +63,25 @@ def test_writeback_kernel_matches_plain(W, buckets, B):
     assert writeback_add.launches == before + 1
     assert got.data_ptr() == data.data_ptr()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [32768 * 128, 4096 * 128 + 3, 1])
+def test_copy_floor_kernel_matches_plain(n):
+    """The copy-floor kernel (x += 1) is bit-identical to x.add_(1),
+    including the int32 wrap and a tail that is no whole vector."""
+    _need_card()
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(
+        rng.integers(-(2**31), 2**31 - 1, n, dtype=np.int64).astype(np.int32)).cuda()
+    x[0] = 2**31 - 1
+    want = add_one_plain(x.clone())
+    before = add_one.launches
+    got = add_one(x)
+    torch.cuda.synchronize()
+    assert add_one.launches == before + 1
+    assert got.data_ptr() == x.data_ptr()
+    assert torch.equal(got, want)
+    assert int(got[0]) == -(2**31)
 
 
 def test_engine_on_card_matches_cpu():

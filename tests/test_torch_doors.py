@@ -56,11 +56,11 @@ from gubernator_tpu_torch.serve.backends import TorchBackend
 T0 = 1_700_000_000_000
 BUCKETS = (64, 256, 1024)  # tests/test_functional.py:34-37
 
-#: metric families of features the port does not carry yet (edge bridge,
-#: GEB door, shm lane, replication, rescale, checkpoint, mesh): the JAX
-#: package may expose them, the port must not
+#: metric families of features the port does not carry yet (replication,
+#: rescale, checkpoint, mesh): the JAX package may expose them, the port
+#: must not
 UNPORTED_METRICS = (
-    "edge_", "geb_", "frame_", "replication_", "replicated_", "rescale_",
+    "replication_", "replicated_", "rescale_",
     "checkpoint_", "restore_", "restored_",
 )
 
@@ -256,9 +256,10 @@ def _http_cases(base, addresses):
     out["forwarded_item_names_its_owner"] = [first, _http(base, "/v1/GetRateLimits", body)]
     out["health_route"] = [_http(base, "/v1/HealthCheck")]
     status, stats = _http(base, "/v1/debug/stats")
-    # the port adds its kernel launch count and the engine's install and
-    # gossip chunks (the launches no decide batch counts)
-    port_only = ("kernel_launches", "engine_chunks")
+    # the port adds its kernel launch count, the engine's install and
+    # gossip chunks (the launches no decide batch counts) and the card's
+    # time inside decides
+    port_only = ("kernel_launches", "engine_chunks", "device_span_ms")
     out["debug_stats_route"] = [(status, sorted(k for k in stats if k not in port_only),
                                  stats["distinct_keys_estimate"])]
     return out
@@ -470,8 +471,7 @@ def test_daemon_without_a_gpu_exits_nonzero_with_the_engines_message():
 
 
 @pytest.mark.parametrize("knob", [
-    "GUBER_GEB_PORT=7000", "GUBER_EDGE_SOCKET=/nonexistent/e.sock",
-    "GUBER_EDGE_TCP=127.0.0.1:7001", "GUBER_ETCD_ENDPOINTS=127.0.0.1:2379",
+    "GUBER_ETCD_ENDPOINTS=127.0.0.1:2379",
     "GUBER_K8S_ENDPOINTS_SELECTOR=app=guber", "GUBER_DIST_COORDINATOR=127.0.0.1:7002",
     "GUBER_REPLICATION=1", "GUBER_RESCALE=1", "GUBER_CHECKPOINT_DIR=/nonexistent/ckpt",
     "GUBER_BACKEND=exact",
@@ -486,3 +486,21 @@ def test_unported_doors_and_managers_are_refused_at_boot(knob):
         env.update(GUBER_BACKEND="tpu", GUBER_DIST_NUM_PROCESSES="2")
     with pytest.raises(ValueError, match="not ported"):
         Server(config_from_env(env), device="cpu")
+
+
+@pytest.mark.parametrize("knob", [
+    "GUBER_GEB_PORT=7000", "GUBER_EDGE_SOCKET=/nonexistent/e.sock",
+    "GUBER_EDGE_TCP=127.0.0.1:7001",
+])
+def test_frame_doors_are_no_longer_refused_at_boot(knob):
+    """The GEB door and the edge bridge are ported: their knobs build a
+    Server (the doors open at start(), which this does not call)."""
+    from gubernator_tpu_torch.serve.config import config_from_env
+    from gubernator_tpu_torch.serve.server import Server, refuse_not_ported
+
+    key, _, value = knob.partition("=")
+    conf = config_from_env(
+        {"GUBER_GRPC_ADDRESS": "127.0.0.1:7003", "GUBER_STORE_MIB": "8", key: value}
+    )
+    refuse_not_ported(conf)
+    Server(conf, device="cpu")

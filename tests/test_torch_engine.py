@@ -148,10 +148,11 @@ def test_import_loads_no_jax_and_nothing_of_the_jax_package():
         "    algorithms, engine, kernels, sketches, store, writeback)\n"
         "from gubernator_tpu_torch.parallel.sharded import TorchEngine\n"
         "from gubernator_tpu_torch.serve import (\n"
-        "    aio, backends, batcher, breaker, config, discovery, faults, global_mgr,\n"
-        "    instance, logging_setup, metrics, peers, prep, promoter, server,\n"
-        "    shedcache, stages, tracing)\n"
-        "from gubernator_tpu_torch import client, cluster, endpoints\n"
+        "    aio, backends, batcher, breaker, config, discovery, edge_bridge, faults,\n"
+        "    global_mgr, instance, logging_setup, metrics, peers, prep, promoter,\n"
+        "    server, shedcache, shm, stages, tracing)\n"
+        "from gubernator_tpu_torch import client, client_geb, cluster, endpoints\n"
+        "from gubernator_tpu_torch.native import edge_build\n"
         "from gubernator_tpu_torch.api import convert, grpc_glue\n"
         "from gubernator_tpu_torch.api.proto.gen import gubernator_pb2, peers_pb2\n"
         "from gubernator_tpu_torch.cli import cluster_main, daemon\n"

@@ -325,10 +325,14 @@ def _conf(**kw) -> ServerConfig:
 async def _instance_with_dead_peer(conf):
     """Instance whose keys partly route to a peer address nothing
     listens on (connect-refused surfaces at RPC time, like the
-    reference)."""
-    from _util import free_ports
+    reference). The port stays bound, without listen(), until the
+    caller closes the returned socket: a free port released at once
+    could be taken by another test's server while this one runs."""
+    import socket
 
-    dead = f"127.0.0.1:{free_ports(1)[0]}"
+    hold = socket.socket()
+    hold.bind(("127.0.0.1", 0))
+    dead = f"127.0.0.1:{hold.getsockname()[1]}"
     inst = Instance(conf, TorchBackend(StoreConfig(rows=4, slots=64), buckets=(64,),
                                        device="cpu"))
     inst.start()
@@ -341,13 +345,13 @@ async def _instance_with_dead_peer(conf):
         for i in range(256)
     ) if inst.get_peer(r.hash_key()).host == dead][:4]
     assert keys, "no key landed on the dead peer in 256 tries"
-    return inst, dead, keys
+    return inst, dead, keys, hold
 
 
 @pytest.mark.parametrize("mode", ["per_item_error", "degraded", "breaker_health"])
 def test_instance_envelope_for_an_unreachable_owner(mode):
     async def run():
-        inst, dead, keys = await _instance_with_dead_peer(
+        inst, dead, keys, hold = await _instance_with_dead_peer(
             _conf(degraded_local=(mode == "degraded")))
         try:
             if mode == "per_item_error":
@@ -370,5 +374,6 @@ def test_instance_envelope_for_an_unreachable_owner(mode):
                 assert "circuit open" in resp.error
         finally:
             await inst.stop()
+            hold.close()
 
     asyncio.run(run())

@@ -186,11 +186,10 @@ def _collectors(registry):
     }
 
 
-#: metric families of what the port does not carry yet (the edge bridge,
-#: the GEB door with its shm lane and frame gauges, replication, rescale,
-#: checkpoint/restore): the port's registry leaves them out
+#: metric families of what the port does not carry yet (replication,
+#: rescale, checkpoint/restore): the port's registry leaves them out
 UNPORTED_METRICS = (
-    "edge_", "geb_", "frame_", "replication_", "replicated_", "rescale_",
+    "replication_", "replicated_", "rescale_",
     "checkpoint_", "restore_", "restored_",
 )
 

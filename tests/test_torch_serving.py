@@ -379,6 +379,9 @@ def test_decide_wait_waits_on_its_own_batch_event(monkeypatch):
     calls = []
 
     class FakeEvent:
+        def __init__(self, enable_timing=False):
+            pass
+
         def record(self):
             calls.append("record")
 
@@ -411,10 +414,10 @@ def test_decide_wait_waits_on_its_own_batch_event(monkeypatch):
                         lambda *a: calls.append("device.synchronize"))
     monkeypatch.setattr(torch, "empty", fake_empty)
     packed = FakePacked()
-    host, event, *_ = e._handle(packed, np.arange(1, dtype=np.int32), 1, 1)
+    host, event, *_ = e._handle(packed, None, np.arange(1, dtype=np.int32), 1, 1)
     assert copies == [packed] and isinstance(event, FakeEvent)
     assert calls == ["record"]
-    e.decide_wait((host, event, np.arange(1, dtype=np.int32), 1, 1, T0))
+    e.decide_wait((host, event, None, np.arange(1, dtype=np.int32), 1, 1, T0))
     assert calls == ["record", "event.synchronize"]
 
 

@@ -8,8 +8,13 @@ and against the XLA scatter-add, on the way-disjoint recipe of
 tests/test_kernels.py::test_pallas_sweep_matches_scatter with values
 spanning all of int32 (so the adds wrap). Tolerance: zero.
 
-The CUDA kernel itself runs only on a GPU: tests/test_torch_cuda.py
-holds it against the plain version there.
+`add_one_plain`, the copy floor's plain version, is held against the
+identity sweep of scripts/bench_hbm.py (`kern` inside `ident`: out =
+data + 1 in row tiles), rebuilt here as the same pallas_call and run in
+interpret mode.
+
+The CUDA kernels themselves run only on a GPU: tests/test_torch_cuda.py
+holds them against the plain versions there.
 """
 
 import jax
@@ -22,6 +27,8 @@ from gubernator_tpu.core import kernels as jk
 from gubernator_tpu.core import pallas_sweep as ps
 from gubernator_tpu_torch.core import kernels as tk
 from gubernator_tpu_torch.core.writeback import (
+    add_one,
+    add_one_plain,
     writeback_add,
     writeback_add_plain,
 )
@@ -109,6 +116,51 @@ def test_wrapper_rejects_bad_inputs(mutate, exc):
     )
     with pytest.raises(exc):
         writeback_add(d, b, r)
+
+
+def _pallas_ident(x, tile):
+    """scripts/bench_hbm.py's identity sweep (its `ident(tile)`), in
+    interpret mode."""
+    from jax.experimental import pallas as pl
+
+    def kern(data_ref, out_ref):
+        out_ref[:] = data_ref[:] + 1
+
+    rows = x.shape[0]
+    with jax.enable_x64(False):
+        return pl.pallas_call(
+            kern,
+            out_shape=jax.ShapeDtypeStruct(x.shape, jnp.int32),
+            grid=(rows // tile,),
+            in_specs=[pl.BlockSpec((tile, 128), lambda t: (t, 0))],
+            out_specs=pl.BlockSpec((tile, 128), lambda t: (t, 0)),
+            input_output_aliases={0: 0},
+            interpret=True,
+        )(x)
+
+
+@pytest.mark.parametrize("tile", [128, 512])
+def test_copy_floor_plain_matches_pallas_identity_sweep(tile):
+    rng = np.random.default_rng(tile)
+    data = rng.integers(-(2**31), 2**31 - 1, (1024, 128), dtype=np.int64).astype(np.int32)
+    data[0, 0] = 2**31 - 1  # wraps
+    want = np.asarray(_pallas_ident(jnp.asarray(data), tile))
+    x = torch.from_numpy(data.copy())
+    before = add_one.launches
+    got = add_one(x)  # a CPU tensor: the plain version, no launch
+    assert add_one.launches == before and got.data_ptr() == x.data_ptr()
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(add_one_plain(torch.from_numpy(data.copy())).numpy(), want)
+    assert want[0, 0] == -(2**31)
+
+
+@pytest.mark.parametrize("bad, exc", [
+    (torch.zeros(8, dtype=torch.int64), TypeError),
+    (torch.zeros(8, 8, dtype=torch.int32).t(), ValueError),
+])
+def test_copy_floor_rejects_bad_inputs(bad, exc):
+    with pytest.raises(exc):
+        add_one(bad)
 
 
 def _seg_inputs(seed: int, B: int, big: bool):
