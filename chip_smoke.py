@@ -22,8 +22,15 @@ compiled edge in front), at two of the repo's deployments:
 All use device batches of 32,768 (the ladder buckets_for_limit(32768)).
 Phases, one JSON line each:
 
-1. build     compile csrc/writeback.cu with nvcc (seconds), and beside it
-             the compiled edge (native/edge/) with g++;
+1. build     compile csrc/writeback.cu with nvcc (seconds), and beside it,
+             with g++, the compiled edge (native/edge/) and the native
+             hasher and prep library (native/guberhash.cc); the run fails
+             unless the store then hashes XXH64 (using_native_hash());
+   hash      the native hasher and prep on the host: the XXH64 vectors;
+             at 32,768 zipf100m rows the native presort, prep_run and
+             merge byte-identical to the port's numpy twins; host us a
+             call, native against numpy, of hash_batch (4,096 keys), the
+             presort, prep_run (4,096 rows) and the merge of 8 runs;
 2. kernel    the copy-floor kernel (x += 1, the port of scripts/bench_hbm.py's
              identity sweep) against x.add_(1), bit for bit, and timed at
              16 MiB (in the 50 MB L2), 512 MiB and 1 GiB (the two stores):
@@ -39,6 +46,11 @@ Phases, one JSON line each:
              share_of_floor the same bytes over the measured floor at the
              store's size: the fastest of add_one, its plain version and
              x.add_(1) there (floor_by names which);
+   ablation  the writeback ablation (cli/ablate_writeback.py, the port of
+             scripts/ablate_sweep.py): its steps rows, deltas and full at
+             kRows 4, 8 and 16, each bit for bit against its plain version
+             and timed, at the script's shape (16 MiB, in the L2) and the
+             two-tier path's;
 3. walk      get_rate_limits: a limit-2 key goes 1 -> 0 -> OVER_LIMIT;
 4. main      exact tier: 3 batches held against the same port on the CPU
              (identical outputs and store bytes), 50 timed, then a profile;
@@ -90,18 +102,23 @@ Phases, one JSON line each:
 9. geb       the daemon again, now with GUBER_GEB_PORT, GUBER_EDGE_SOCKET
              and GUBER_EDGE_TCP, and the port's guber-edge in front of the
              unix socket: hello flags of each door (fast on the GEB door
-             and /v1/geb, none to the edge, shm on the unix socket), a
+             and /v1/geb and the edge bridge, all with XXH64, shm on the
+             unix socket), a
              limit-2 walk through a fast frame, a string frame, POST
              /v1/geb, the shm lane, the edge's HTTP JSON and its gRPC,
-             one key counted by the fast door and the edge in turn; five
+             one key counted by the fast door and the edge's fast frames
+             in turn; six
              windows of >= 10 s, their callers in a client process (this
              script with --geb-window): geb_1000 (16 connections, fast
              frames of 1,000), geb_deep (fast frames of 4,096, 8 in flight
-             a connection), shm_deep (the same over the shm lane; string
-             frames there, since the edge bridge offers no fast frames),
+             a connection), shm_deep (string frames of 4,096 over the shm
+             lane, folded in the server, as before the native hasher),
              unix_deep (those string frames over the same unix socket
              with no lane: what the lane's reader thread costs or saves),
-             edge_http (16 callers posting JSON of 1,000 to the edge);
+             shm_fast (fast frames of 4,096 over the lane: the lane once
+             the fold is gone), edge_http (16 callers posting JSON of
+             1,000 to the edge, which sends fast frames: edge_fast_items
+             rises by the window's items);
              each with its mean device batch, stage means, shed share,
              device span from CUDA events around each decide, and its
              launches balanced against decides and chunks; SIGTERM and
@@ -112,8 +129,9 @@ Phases, one JSON line each:
 10. kernels  the contract line over every kernel of the path.
 
 The writeback kernel's launch count is set to 0 before each in-process
-path and read after it (the copy floor's is set to 0 before the first
-path and read after the last: it runs on none, so it must stay 0); each must equal that path's decides plus
+path and read after it (the copy floor's and the ablation's are set to 0
+before the first path and read after the last: they run on none, so they
+must stay 0); each must equal that path's decides plus
 window-install (and, in the cluster, gossip-charge) chunks. The daemon's
 count lives in its own process: it is read from /v1/debug/stats just
 before and just after the doors window, and the difference must equal
@@ -128,6 +146,7 @@ any phase fails. Imports nothing of JAX or of gubernator_tpu.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import struct
@@ -158,7 +177,6 @@ PROFILED_BATCHES = 10
 PROMOTED_KEYS = 1024
 EXPIRED_PREFILL = 32  # prefill batches dead at the two-tier eviction batch
 KERNEL_SETS = 8  # batches cycled per kernel timing run
-KERNEL_CALLS = 192  # calls per timing run
 
 
 def emit(obj) -> None:
@@ -178,27 +196,6 @@ def zipf_hashes(n: int, seed: int = 42, key_space: int = KEY_SPACE) -> np.ndarra
     return hash_ids(np.random.default_rng(seed).zipf(ZIPF_A, n) % key_space)
 
 
-def spin_up(seconds: float = 0.5) -> None:
-    """Keep the card busy long enough to leave its idle clocks."""
-    x = torch.ones(1 << 24, device="cuda")
-    t0 = time.monotonic()
-    while time.monotonic() - t0 < seconds:
-        for _ in range(20):
-            x.mul_(1.0000001)
-        torch.cuda.synchronize()
-
-
-def sleep_cycles_per_ms() -> float:
-    """Clock cycles of torch.cuda._sleep per device millisecond."""
-    torch.cuda.synchronize()
-    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    s.record()
-    torch.cuda._sleep(20_000_000)
-    e.record()
-    e.synchronize()
-    return 20_000_000 / s.elapsed_time(e)
-
-
 def single_call_ms(fn, reps: int = 15) -> float:
     """Median device time of ONE call, CUDA events around it (a spin
     queued ahead keeps the host's launch gap out). For one ~4 us launch
@@ -216,39 +213,6 @@ def single_call_ms(fn, reps: int = 15) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
-
-
-def run_ms(calls: list, cycles_per_ms: float, n: int = KERNEL_CALLS) -> float:
-    """Device ms per call of `n` back-to-back calls cycling through
-    `calls`: CUDA events around the whole run, over the count. A sleep
-    queued ahead of the start event lasts longer than the host takes to
-    enqueue the run, so the run executes back to back on the card and the
-    host's launch gaps stay outside it. A run whose start event had
-    already passed when the host finished enqueueing (the sleep ran out:
-    clocks above the calibration's, or a slow host) is run again with a
-    longer sleep."""
-    for c in calls:
-        c()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(n):
-        calls[i % len(calls)]()
-    sleep_ms = 2 * (time.perf_counter() - t0) * 1e3 + 2
-    for _ in range(4):
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(int(sleep_ms * cycles_per_ms))
-        start.record()
-        for i in range(n):
-            calls[i % len(calls)]()
-        end.record()
-        covered = not start.query()
-        end.synchronize()
-        if covered:
-            return start.elapsed_time(end) / n
-        sleep_ms *= 4
-    fail("run_ms: the host never enqueued a run before the card reached it")
 
 
 def host_us(fn, n: int = 200) -> float:
@@ -293,6 +257,7 @@ def group_buckets(ladder, buckets: int, kh: np.ndarray) -> np.ndarray:
 def kernel_case(name: str, buckets: int, bkts: list, seed: int, cyc: float) -> dict:
     """The kernel against its plain version on the first of `bkts`, then
     per-call device times of runs cycling through all of them."""
+    from gubernator_tpu_torch.cli.ablate_writeback import CALLS, run_ms, spin_up
     from gubernator_tpu_torch.core.writeback import writeback_add, writeback_add_plain
 
     W = 128
@@ -336,7 +301,7 @@ def kernel_case(name: str, buckets: int, bkts: list, seed: int, cyc: float) -> d
     bound_ms = mean_bytes / HBM_BYTES_PER_S * 1e3
     out = dict(
         shape=name, buckets=buckets, G=G, touched_rows=sets[0][2],
-        bytes_mean=mean_bytes, sets=len(sets), calls_per_run=KERNEL_CALLS,
+        bytes_mean=mean_bytes, sets=len(sets), calls_per_run=CALLS,
         max_abs_err=max_abs_err, **times,
         ms_samples=samples["ms"],
         l2_warm_ms=run_ms(fns["ms"][:1], cyc),  # one batch repeated
@@ -364,6 +329,7 @@ def copy_floor_cases(cyc: float) -> dict:
     against its plain version, bit for bit, then ms / plain_ms /
     library_ms per call of a run of back-to-back calls at each shape:
     the bytes/s a pass over the store reaches on this card."""
+    from gubernator_tpu_torch.cli.ablate_writeback import run_ms, spin_up
     from gubernator_tpu_torch.core.writeback import add_one, add_one_plain
 
     out = {}
@@ -400,6 +366,105 @@ def copy_floor_cases(cyc: float) -> dict:
                                       library_ms="x.add_(1)")[fastest])
         del x, fns
         torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def numpy_twins():
+    """The engine, the merge and TorchEngine on their numpy twins: no
+    native library for the duration."""
+    import gubernator_tpu_torch.core.engine as e
+    import gubernator_tpu_torch.parallel.sharded as s
+    import gubernator_tpu_torch.serve.prep as p
+
+    saved = [(m, m._native) for m in (e, s, p)]
+    for m, _ in saved:
+        m._native = lambda: None
+    try:
+        yield
+    finally:
+        for m, f in saved:
+            m._native = f
+
+
+def call_us(fn, reps: int = 25) -> float:
+    """Median host microseconds of one call (the host's clock alone)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+    return statistics.median(times)
+
+
+def hash_phase(card: str, slots: int) -> dict:
+    """The native hasher and prep against the port's numpy twins: the
+    XXH64 vectors, byte identity at one zipf100m batch, and host us a
+    call of each, native and numpy, on this host."""
+    from gubernator_tpu_torch.core import engine as eng
+    from gubernator_tpu_torch.core import hashing
+    from gubernator_tpu_torch.core.engine import buckets_for_limit
+    from gubernator_tpu_torch.core.store import StoreConfig
+    from gubernator_tpu_torch.native import load_hashlib
+    from gubernator_tpu_torch.parallel.sharded import TorchEngine
+    from gubernator_tpu_torch.serve import prep
+
+    hn = load_hashlib()
+    vectors = [int(x) for x in hn.hash_batch_seed(["", "a", "abc"], 0)]
+    if vectors != [0xEF46DB3751D8E999, 0xD24EC4F1A98C6E5B, 0x44BC2CF5AD770999] or int(
+            hn.hash_batch_seed(["0123456789abcdef" * 2 + "0123456789"], 7)[0]
+    ) != 0x9CDB6129259B938E:
+        fail(f"hash: XXH64 vectors {vectors}")
+    rng = np.random.default_rng(21)
+    ids = rng.zipf(ZIPF_A, DEPTH) % KEY_SPACE_100M
+    kh = hash_ids(ids)
+    ones = np.ones(DEPTH, np.int64)
+    batch = dict(key_hash=kh, hits=ones, limit=ones * LIMIT, duration=ones * DURATION_100M,
+                 algo=rng.integers(0, 4, DEPTH).astype(np.int32),
+                 gnp=rng.random(DEPTH) < 0.05)
+    groups = [{k: v[i * GROUP:(i + 1) * GROUP] for k, v in batch.items()}
+              for i in range(DEPTH // GROUP)]
+    keys = [f"geb_zipf_{i}" for i in ids[:GROUP]]
+    e = TorchEngine(StoreConfig(rows=1, slots=slots), buckets=buckets_for_limit(DEPTH),
+                    device="cpu")
+
+    def same(a, b) -> bool:
+        if isinstance(a, dict):  # a native run also carries its "_addrs"
+            keys = a.keys() - {"_addrs"}
+            return keys == b.keys() - {"_addrs"} and all(same(a[k], b[k]) for k in keys)
+        if isinstance(a, tuple):  # BatchRequest / BatchGroups
+            return all(same(x, y) for x, y in zip(a, b))
+        if isinstance(a, np.ndarray):
+            return a.dtype == b.dtype and np.array_equal(a, b)
+        return a == b
+
+    runs = [eng.prep_run_single(g, slots) for g in groups]
+    native = dict(presort=hn.presort(kh, slots), prep_run=eng.prep_run_single(batch, slots),
+                  merge=prep.merge_runs(runs), merge_prepped=e.merge_prepped(runs))
+    us = dict(hash_batch=call_us(lambda: hashing.slot_hash_batch(keys)),
+              presort=call_us(lambda: eng._presort(kh, slots)),
+              prep_run=call_us(lambda: eng.prep_run_single(groups[0], slots)),
+              merge=call_us(lambda: e.merge_prepped(runs)))
+    with numpy_twins():
+        runs_np = [eng.prep_run_single(g, slots) for g in groups]
+        twin = dict(presort=eng._np_presort(kh, slots),
+                    prep_run=eng.prep_run_single(batch, slots),
+                    merge=prep.merge_runs(runs_np), merge_prepped=e.merge_prepped(runs_np))
+        us_np = dict(hash_batch=call_us(lambda: hashing._slot_hash_batch_py(keys), 5),
+                     presort=call_us(lambda: eng._presort(kh, slots)),
+                     prep_run=call_us(lambda: eng.prep_run_single(groups[0], slots)),
+                     merge=call_us(lambda: e.merge_prepped(runs_np)))
+    identical = {k: same(native[k], twin[k]) for k in native}
+    if not all(identical.values()):
+        fail(f"hash: the native prep differs from its numpy twin: {identical}")
+    out = dict(phase="hash", card=card, xxh64=hashing.using_native_hash(),
+               prep_threads=hn.prep_threads(), rows=DEPTH, slots=slots,
+               identical=identical, host_us=us, numpy_host_us=us_np,
+               numpy_over_native={k: us_np[k] / us[k] for k in us},
+               calls=dict(hash_batch=f"{GROUP} keys", presort=f"{DEPTH} rows",
+                          prep_run=f"{GROUP} rows", merge=f"{DEPTH // GROUP} runs of {GROUP}"))
+    emit(out)
     return out
 
 
@@ -899,6 +964,8 @@ async def _serving(card, writeback, engine_rate):
              f"{window['promoter']['promotions']} promotions")
 
     window["alone_ms"] = serving_stages_alone(backend, pool)
+    # the submit thread's merge a batch (the native merge)
+    window["merge_ms"] = window["stages"].get("merge", {}).get("mean_ms")
     emit(dict(phase="window", path="serving", card=card, **window))
 
     b0 = backend.stats()["batches"]
@@ -1776,7 +1843,9 @@ GEB_DEEP_ITEMS = 4096  # items a frame carries in geb_deep and shm_deep
 GEB_DEEP_INFLIGHT = 8  # frames in flight per connection in the deep windows
 GEB_POOL = 24  # prebuilt frames (or JSON bodies) the callers cycle through
 GEB_CHECKED_FRAMES = 24
-GEB_WINDOWS = ("geb_1000", "geb_deep", "shm_deep", "unix_deep", "edge_http")
+GEB_WINDOWS = ("geb_1000", "geb_deep", "shm_deep", "unix_deep", "shm_fast", "edge_http")
+SHM_WINDOWS = ("shm_deep", "shm_fast")  # the windows over the shm lane
+STRING_WINDOWS = ("shm_deep", "unix_deep")  # string frames, folded in the server
 
 def _zipf_reqs(types, rng, n: int, name: str) -> list:
     """n request objects of zipf(1.2) ids over 100M: token, hits 1, limit
@@ -1859,21 +1928,21 @@ async def _frame_conn(kind: str, target: str, frames: list, stop_at: float,
         pending.clear()
 
     lane, reader_task = None, None
-    if kind == "shm_deep":
+    if kind in SHM_WINDOWS:
         def on_frame(data):
             magic, n = struct.unpack_from("<II", data, 0)
             if magic == cg.MAGIC_STALE:
-                fail_all(RuntimeError(f"shm_deep: a GEBR refusal (id {n:#x})"))
+                fail_all(RuntimeError(f"{kind}: a GEBR refusal (id {n:#x})"))
                 return
             settle(struct.unpack_from("<I", data, 8)[0], (magic, n, data[12:]))
 
         lane = await cg.negotiate_shm(
             reader, writer, on_frame,
-            lambda exc: fail_all(RuntimeError(f"shm_deep: the lane tore: {exc}")))
+            lambda exc: fail_all(RuntimeError(f"{kind}: the lane tore: {exc}")))
         if lane is None:
-            raise RuntimeError("shm_deep: the bridge refused the lane")
+            raise RuntimeError(f"{kind}: the bridge refused the lane")
         if max(len(f) for f in frames) + 4 > lane.frame_bound:
-            raise RuntimeError("shm_deep: a frame outgrows the lane")
+            raise RuntimeError(f"{kind}: a frame outgrows the lane")
     else:
         async def read_loop():
             try:
@@ -1951,8 +2020,8 @@ async def _http_caller(sess, url: str, bodies: list, w: int, stop_at: float, out
 def geb_window_main(argv: list) -> int:
     """`chip_smoke.py --geb-window KIND TARGET SECONDS SEED`: one geb
     window's callers in this process, against TARGET (host:port, or the
-    edge bridge's unix socket for shm_deep and unix_deep, or the edge's
-    HTTP port for edge_http); one JSON line. Needs no card."""
+    edge bridge's unix socket for shm_deep, unix_deep and shm_fast, or the
+    edge's HTTP port for edge_http); one JSON line. Needs no card."""
     import asyncio
 
     import gubernator_tpu_torch.api.types as types
@@ -1984,14 +2053,15 @@ def geb_window_main(argv: list) -> int:
         h = asyncio.run(_geb_hello(target))
         if inflight > h.window:
             raise SystemExit(f"{kind}: {inflight} frames in flight exceed the window {h.window}")
-        if kind == "shm_deep" and not h.shm:
-            raise SystemExit("shm_deep: the unix socket's hello offers no shm lane")
-        if kind in ("geb_1000", "geb_deep") and not h.fast:
-            raise SystemExit(f"{kind}: the GEB door's hello offers no fast frames")
-        frames = [cg.build_frame(_zipf_reqs(types, rng, items, "geb_zipf"), fast=h.fast,
+        if kind in SHM_WINDOWS and not h.shm:
+            raise SystemExit(f"{kind}: the unix socket's hello offers no shm lane")
+        fast = kind not in STRING_WINDOWS
+        if fast and not (h.fast and h.xxh64 == cg.client_hash_is_native()):
+            raise SystemExit(f"{kind}: the hello offers no fast frames this client can hash")
+        frames = [cg.build_frame(_zipf_reqs(types, rng, items, "geb_zipf"), fast=fast,
                                  windowed=True, frame_id=0, ring_hash=h.ring_hash)[0]
                   for _ in range(GEB_POOL)]
-        framing = "fast GEB7" if h.fast else "string GEB2"
+        framing = "fast GEB7" if fast else "string GEB2"
 
         async def run():
             stop_at = time.monotonic() + seconds
@@ -2094,9 +2164,10 @@ def geb_path(card: str, edge_build_result: dict) -> dict:
         flags = dict(geb=asyncio.run(_geb_hello(f"127.0.0.1:{geb}")).flags,
                      http=http_hello.flags, edge_unix=asyncio.run(_geb_hello(sock)).flags,
                      edge_tcp=asyncio.run(_geb_hello(f"127.0.0.1:{etcp}")).flags)
-        base_bits = cg.HELLO_WINDOWED | cg.HELLO_TRACE
-        want = dict(geb=base_bits | cg.HELLO_FAST, http=base_bits | cg.HELLO_FAST,
-                    edge_unix=base_bits | cg.HELLO_SHM, edge_tcp=base_bits)
+        # every door offers fast frames hashed XXH64, the edge bridge too
+        base_bits = cg.HELLO_WINDOWED | cg.HELLO_TRACE | cg.HELLO_FAST | cg.HELLO_XXH64
+        want = dict(geb=base_bits, http=base_bits, edge_unix=base_bits | cg.HELLO_SHM,
+                    edge_tcp=base_bits)
         hello_ok = all((flags[k] & 0xFFFF) == want[k] for k in want)
         emit(dict(phase="hello", path="geb", ok=hello_ok, boot_s=boot_s,
                   flags={k: hex(v) for k, v in flags.items()},
@@ -2140,8 +2211,10 @@ def geb_path(card: str, edge_build_result: dict) -> dict:
         with V1Client(f"127.0.0.1:{eg}") as c:
             walks["edge_grpc"] = [rows(c.get_rate_limits([req("walk_edge_grpc")], timeout=60))[0]
                                   for _ in range(3)]
-        # one key, hits through the fast door and the edge in turn: one count
+        # one key, hits through the fast door and the edge's fast frames in
+        # turn: one count
         shared = []
+        m0 = http_text(base + "/metrics")
         with cg.GebClient(f"127.0.0.1:{geb}", mode="fast", shm="off", timeout=60) as c:
             for i in range(6):
                 if i % 2:
@@ -2151,22 +2224,31 @@ def geb_path(card: str, edge_build_result: dict) -> dict:
                     shared.append(int(b["responses"][0]["remaining"]))
                 else:
                     shared.append(c.get_rate_limits([req("shared", limit=10)])[0].remaining)
+        # edge_fast_items counts the fast items of every frame door: the
+        # three through the GEB door and, now, the edge's three; none folded
+        m1 = http_text(base + "/metrics")
+        shared_items = {k: metric_value(m1, k) - metric_value(m0, k)
+                        for k in ("edge_fast_items_total", "edge_folded_items_total")}
         walk_ok = (all(_walk_ok(w) for w in walks.values())
                    and transports["fast"]["use_fast"] and not transports["string"]["use_fast"]
                    and transports["shm"]["transport"] == "shm"
                    and transports["shm"]["frames_shm"] == 3
-                   and shared == [9, 8, 7, 6, 5, 4])
+                   and shared == [9, 8, 7, 6, 5, 4]
+                   and shared_items == {"edge_fast_items_total": 6,
+                                        "edge_folded_items_total": 0})
         emit(dict(phase="walk", path="geb", ok=walk_ok, walks=walks, shared_count=shared,
+                  shared_items=shared_items,
                   transports={k: {x: v[x] for x in ("transport", "use_fast", "frames_shm")}
                               for k, v in transports.items()}))
         if not walk_ok:
             died("a walk did not go 1 -> 0 -> OVER_LIMIT with one reset, or the edge and "
-                 "the fast door counted one key apart")
+                 "the fast door counted one key apart, or the edge's hits were not fast")
 
         # the windows, each with its callers in a client process
         windows, launches = {}, 0
         targets = dict(geb_1000=f"127.0.0.1:{geb}", geb_deep=f"127.0.0.1:{geb}",
-                       shm_deep=sock, unix_deep=sock, edge_http=f"127.0.0.1:{eh}")
+                       shm_deep=sock, unix_deep=sock, shm_fast=sock,
+                       edge_http=f"127.0.0.1:{eh}")
         for seed, kind in enumerate(GEB_WINDOWS, start=40):
             s0 = quiet_stats(base)
             m0 = http_text(base + "/metrics")
@@ -2191,11 +2273,12 @@ def geb_path(card: str, edge_build_result: dict) -> dict:
             if nb <= 0 or decides <= 0 or wl != decides + chunks:
                 died(f"{kind}: writeback kernel launched {wl} times for {decides} decides + "
                      f"{chunks} install and gossip chunks ({nb} device batches in /metrics)")
-            if kind == "shm_deep" and counters["geb_shm_frames_total"] <= 0:
-                died("shm_deep: geb_shm_frames_total did not rise")
-            if kind == "edge_http" and (counters["edge_folded_items_total"] <= 0
-                                        or counters["edge_fast_items_total"] != 0):
-                died(f"edge_http: edge counters moved {counters}")
+            if kind in SHM_WINDOWS and counters["geb_shm_frames_total"] <= 0:
+                died(f"{kind}: geb_shm_frames_total did not rise")
+            # the edge pre-hashes XXH64 like the store: its items ride fast frames
+            if kind == "edge_http" and (counters["edge_fast_items_total"] != w["items"]
+                                        or counters["edge_folded_items_total"] != 0):
+                died(f"edge_http: edge counters moved {counters} for {w['items']} items")
             st = stages["stages"]
             shed = stages.get("shed_cache") or {}
             w.update(device_batches=nb, mean_device_batch=rows_ / nb, kernel_launches=wl,
@@ -2396,6 +2479,30 @@ def _owner(ring_hash, addrs: list, key: str) -> int:
     return next((i for p, i in points if p >= h), points[0][1])
 
 
+def ablation_entry(step: str, ablation: dict, launches: int) -> dict:
+    """The kernels line's entry for one ablation step: its numbers at the
+    two-tier path's shape and kRows 8 (the product's chunk height), with
+    every kRows and the script's shape beside them (that shape's store
+    sits in L2: its bytes at the HBM rate and at the L2 copy rate this
+    run measured, but no bound). `launches` is the step's count over the
+    paths (0: it is on none)."""
+    main_rec = ablation["two_tier"]["steps"][f"{step}_K8"]
+    return dict(
+        name=f"writeback_ablation_{step}", route="cuda",
+        source="gubernator_tpu_torch/csrc/writeback.cu",
+        replaces="scripts/ablate_sweep.py:119", launches=launches, on_main_path=False,
+        max_abs_err=max(r["steps"][f"{step}_K{k}"]["max_abs_err"]
+                        for r in ablation.values() for k in (4, 8, 16)),
+        ms=main_rec["ms"], plain_ms=main_rec["plain_ms"], bound_ms=main_rec["bound_ms"],
+        bound_by="bytes", library_ms=main_rec["library_ms"], library=main_rec["library"],
+        shape=ablation["two_tier"]["shape"], krows=8,
+        ms_by_shape_and_krows={shape: {k: r["steps"][f"{step}_K{k}"]["ms"] for k in (4, 8, 16)}
+                               for shape, r in ablation.items()},
+        script_shape_ms={key: ablation["script"]["steps"][f"{step}_K8"][key]
+                         for key in ("ms", "hbm_bytes_ms", "l2_floor_ms")},
+    )
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2407,21 +2514,27 @@ def main() -> int:
     from gubernator_tpu_torch.core.sketches import derive_two_tier_config
     from gubernator_tpu_torch.core.store import derive_store_config
 
-    # the edge's g++ build runs beside nvcc's (one compiler each, at once)
+    # the g++ builds (the edge, the hasher) run beside nvcc's, each its own
+    # compiler, all at once
     from gubernator_tpu_torch.native import edge_build
 
     edge_res: dict = {}
+    hasher_res: dict = {}
 
-    def build_edge():
+    def build_into(res: dict, build):
         t = time.monotonic()
         try:
-            edge_res["path"] = edge_build.build()
-        except Exception as e:  # reported, and failed on, by the geb phase
-            edge_res["error"] = repr(e)
-        edge_res["seconds"] = time.monotonic() - t
+            res["path"] = build()
+        except Exception as e:  # reported, and failed on, by a later phase
+            res["error"] = repr(e)
+        res["seconds"] = time.monotonic() - t
 
-    edge_thread = threading.Thread(target=build_edge, daemon=True)
+    edge_thread = threading.Thread(target=build_into, args=(edge_res, edge_build.build),
+                                   daemon=True)
+    hasher_thread = threading.Thread(target=build_into,
+                                     args=(hasher_res, edge_build.build_hasher), daemon=True)
     edge_thread.start()
+    hasher_thread.start()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2440,14 +2553,25 @@ def main() -> int:
     log_path = lib_path.with_suffix(".log")
     emit(dict(phase="build", seconds=time.monotonic() - t0, library=lib_path.name,
               ptxas=[ln.strip() for ln in log_path.read_text().splitlines()
-                     if "registers" in ln or "spill" in ln] if log_path.exists() else []))
+                     if "registers" in ln or "spill" in ln or "entry function" in ln]
+              if log_path.exists() else []))
+    hasher_thread.join()
+    from gubernator_tpu_torch.core.hashing import using_native_hash
+
+    if "error" in hasher_res or not using_native_hash():
+        fail(f"build: the native hasher did not build or load: {hasher_res}")
+    emit(dict(phase="build", path="hasher", library=hasher_res["path"].name,
+              seconds=hasher_res["seconds"], xxh64=True))
 
     # 2. kernel vs plain at the paths' shapes ---------------------------------
     exact_cfg = derive_store_config(mib=1024)
     if (exact_cfg.rows, exact_cfg.slots) != (16, 1 << 21):
         fail(f"GUBER_STORE_MIB=1024 derived {exact_cfg}, not 2^21 x 16")
     two_cfg, _skc = derive_two_tier_config(1024)
+    hash_phase(card, two_cfg.slots)
     ladder = buckets_for_limit(DEPTH)
+    from gubernator_tpu_torch.cli.ablate_writeback import sleep_cycles_per_ms, spin_up
+
     spin_up()  # calibrate the sleep at working clocks, not idle ones
     cyc = sleep_cycles_per_ms()
     rng = np.random.default_rng(11)
@@ -2479,8 +2603,22 @@ def main() -> int:
     for path, c in cases.items():
         emit(dict(phase="kernel", kernel="writeback_add", path=path, card=card, **c))
 
+    # the writeback ablation (its kernels are checked against their plain
+    # versions inside, and fail the run on a difference)
+    from gubernator_tpu_torch.cli import ablate_writeback
+
+    t0 = time.monotonic()
+    ablation = ablate_writeback.run()
+    for shape, rec in ablation.items():
+        emit(dict(phase="ablation", shape_key=shape, card=card, **rec))
+    emit(dict(phase="ablation", summary_us=ablate_writeback.summary(ablation),
+              seconds=time.monotonic() - t0))
+
     # 3-6. the paths, each with the launch count set to 0 before it ----------
-    writeback.add_one.launches = 0  # the copy floor: on no path, read at the end
+    # the copy floor and the ablation: on no path, read at the end
+    writeback.add_one.launches = 0
+    writeback.writeback_rows.launches = writeback.writeback_deltas.launches = 0
+    writeback.writeback_full.launches = 0
     exact = exact_path(card, ladder, writeback)
     two = two_tier_path(card, ladder, writeback)
     serving = serving_path(card, writeback, two["decisions_per_s"])
@@ -2492,6 +2630,11 @@ def main() -> int:
     floor_launches = writeback.add_one.launches
     if floor_launches:
         fail(f"the copy floor's kernel launched {floor_launches} times on the paths")
+    ablation_launches = dict(rows=writeback.writeback_rows.launches,
+                             deltas=writeback.writeback_deltas.launches,
+                             full=writeback.writeback_full.launches)
+    if any(ablation_launches.values()):
+        fail(f"the ablation's kernels launched on the paths: {ablation_launches}")
 
     main_case, floor_case = cases["two_tier"], floor["512m"]
     emit({"kernels": [dict(
@@ -2520,7 +2663,8 @@ def main() -> int:
         bound_ms=floor_case["bound_ms"], bound_by="bytes",
         library_ms=floor_case["library_ms"],
         shape=floor_case["shape"], bytes_per_s=floor_case["bytes_per_s"],
-    )]})
+    )] + [ablation_entry(step, ablation, ablation_launches[step]) for step in
+          ("rows", "deltas", "full")]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

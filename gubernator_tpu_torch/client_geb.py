@@ -2,12 +2,12 @@
 protocol as a PUBLIC client surface.
 
 The port's copy of gubernator_tpu/client_geb.py with its imports
-rewritten; the file references below are the reference package's. The
-one difference: the port has no native hasher, so `client_hash_batch`
-is blake2b-8 (the port store's slot hash, core/hashing.py) and
-`client_hash_is_native()` is False. Against the port's doors, which
-advertise fast framing without HELLO_XXH64, that agreement turns fast
-framing on.
+rewritten; the file references below are the reference package's. Its
+hasher is the port's native XXH64 library (native/hashlib_native.py,
+built with g++ at first use; numpy and ctypes, no torch) when it loads,
+and blake2b-8 otherwise, as the port's store selects
+(core/hashing.py): `client_hash_is_native()` says which, and fast
+framing needs it to match the server's HELLO_XXH64 bit.
 
 r10's profiling found the doors clients could actually reach (gRPC
 protobuf, HTTP JSON) ceiling at ~110k dec/s on this class of box while
@@ -181,20 +181,40 @@ class GebConnectionError(GebError):
 
 # -- client-side slot hashing (fast framing) --------------------------------
 
+_hash_batch = None
+_hash_checked = False
+
+
+def _load_hasher() -> None:
+    global _hash_batch, _hash_checked
+    if _hash_checked:
+        return
+    _hash_checked = True
+    # ctypes + numpy only, no torch (native/hashlib_native.py)
+    from gubernator_tpu_torch.native import load_hashlib
+
+    hn = load_hashlib()
+    _hash_batch = hn.hash_batch if hn is not None else None
+
 
 def client_hash_is_native() -> bool:
-    """True when this process hashes with a native XXH64 library — must
-    match the server's HELLO_XXH64 bit for fast framing. The port has
-    none: always False."""
-    return False
+    """True when this process hashes with the native XXH64 library: must
+    match the server's HELLO_XXH64 bit for fast framing."""
+    _load_hasher()
+    return _hash_batch is not None
 
 
 def client_hash_batch(keys: Sequence[str]):
     """uint64 slot hashes, identical to the daemon's
-    core.hashing.slot_hash_batch: blake2b-8, little-endian. Kept here,
+    core.hashing.slot_hash_batch for the same implementation: native
+    XXH64 when the library loads, else blake2b-8, little-endian
+    (byte-identical to core.hashing._slot_hash_batch_py). Kept here,
     not imported, so this client loads no torch."""
     import numpy as np
 
+    _load_hasher()
+    if _hash_batch is not None:
+        return _hash_batch(list(keys))
     return np.array(
         [
             int.from_bytes(

@@ -4,9 +4,12 @@ gubernator_tpu.core.engine, numpy path).
 Pads batches to a small ladder of fixed sizes, presorts rows by (bucket,
 fingerprint) on the host and derives the duplicate-key group structure
 the decide runs its store I/O on, maps int64 unix-ms onto the store's
-int32 engine-ms envelope (EpochClock) and unpermutes the responses. All
-of it is numpy and byte-identical to the JAX package's numpy path; the
-device side takes the padded arrays as tensors (`to_device`) and runs
+int32 engine-ms envelope (EpochClock) and unpermutes the responses. The
+presorts, the marshal and the arrival prep run in the native library
+(native/guberhash.cc, built at first use; `_native()`) when it loads,
+as the JAX package's do; the numpy functions here are their plain twins,
+byte-identical to them and to the JAX package's numpy path. The device
+side takes the padded arrays as tensors (`to_device`) and runs
 `decide_packed` (exact tier) or `decide_packed_sketch` (two-tier).
 Arrival prep (`prep_run_single`, `build_presorted_request`) splits the
 presort into per-group sorted runs that serve/prep.py merges.
@@ -39,6 +42,7 @@ from gubernator_tpu_torch.core.store import (
     group_sort_key_np,
     key_hash_tensor,
 )
+from gubernator_tpu_torch.native import load_hashlib
 
 DEFAULT_BUCKETS = (64, 256, 1024, 4096)
 DEEP_BUCKETS = (16384, 32768, 131072)
@@ -131,14 +135,38 @@ def choose_bucket(buckets: Sequence[int], n: int) -> int:
     return buckets[i]
 
 
+def _native():
+    """native/hashlib_native when the library builds and loads, else None
+    (the numpy twins below serve)."""
+    return load_hashlib()
+
+
 def _np_presort(key_hash: np.ndarray, store_buckets: int) -> np.ndarray:
     return np.argsort(
         group_sort_key_np(key_hash, store_buckets), kind="stable"
     ).astype(np.int32)
 
 
+def _presort(key_hash: np.ndarray, store_buckets: int) -> np.ndarray:
+    """int32 stable argsort by (bucket, fingerprint): the native LSD
+    radix presort, or its numpy twin."""
+    hn = _native()
+    if hn is not None:
+        return hn.presort(key_hash, store_buckets)
+    return _np_presort(key_hash, store_buckets)
+
+
+def _presort_grouped(key_hash: np.ndarray, store_buckets: int):
+    """(order, group_id, leader_pos, G_real): native, or the numpy twin."""
+    hn = _native()
+    if hn is not None:
+        return hn.presort_grouped(key_hash, store_buckets)
+    return _np_presort_grouped(key_hash, store_buckets)
+
+
 def _np_presort_grouped(key_hash: np.ndarray, store_buckets: int):
-    """(order, group_id, leader_pos, G_real) of a stable presort."""
+    """(order, group_id, leader_pos, G_real) of a stable presort: the
+    numpy twin of hashlib_native.presort_grouped."""
     skey = group_sort_key_np(key_hash, store_buckets)
     order = np.argsort(skey, kind="stable").astype(np.int32)
     s = skey[order]
@@ -233,34 +261,75 @@ def pad_request_sorted(
     rows map to themselves), so `resp_orig[order] = resp_sorted`."""
     n = key_hash.shape[0]
     B = choose_bucket(buckets, n)
+    hn = _native()
+
+    if hn is not None and n and with_groups and hn.prep_threads() > 1:
+        # one native call (guber_prep_sharded, one shard): presort, groups
+        # and marshal fused, parallel over the library's prep pool; the
+        # reference gates it to multi-thread hosts too, where it beats
+        # the separate calls below. Its outputs are views into a
+        # per-thread buffer ring (hashlib_native.set_prep_generations):
+        # the request and groups are uploaded before the submit returns,
+        # and `order` is built fresh here, so no handle keeps a view.
+        order_w, _counts, _take, fields, groups_d, _B, _G = hn.prep_sharded(
+            key_hash, hits, limit, duration, algo, gnp,
+            store_buckets, 1, np.asarray([B], np.int64), 0,
+            -_I32_SAT, _I32_SAT, TIME_FLOOR, MAX_DURATION_MS,
+        )
+        req = BatchRequest(**{k: v[0] for k, v in fields.items()})
+        order = np.empty(B, np.int32)
+        order[:n] = order_w
+        order[n:] = np.arange(n, B, dtype=np.int32)
+        return req, order, BatchGroups(
+            key_hash=groups_d["key_hash"][0],
+            leader_pos=groups_d["leader_pos"][0],
+            end_pos=groups_d["end_pos"][0],
+            valid=groups_d["valid"][0],
+            group_id=groups_d["group_id"][0],
+        )
 
     if with_groups:
-        order_n, group_id_n, leader_pos_n, G_real = _np_presort_grouped(
+        order_n, group_id_n, leader_pos_n, G_real = _presort_grouped(
             key_hash, store_buckets
         )
         G = choose_bucket(group_rungs(B), max(G_real, 1))
     else:
-        order_n = _np_presort(key_hash, store_buckets)
+        order_n = _presort(key_hash, store_buckets)
 
     valid = np.zeros(B, bool)
     valid[:n] = True
+    if hn is not None and n:
+        # native one-pass gather + clip + pad of each field
+        req = BatchRequest(
+            key_hash=hn.gather_pad_u64(key_hash, order_n, B),
+            hits=hn.gather_pad_i64_clip(hits, order_n, B, -_I32_SAT, _I32_SAT),
+            limit=hn.gather_pad_i64_clip(limit, order_n, B, -_I32_SAT, _I32_SAT),
+            duration=hn.gather_pad_i64_clip(
+                duration, order_n, B, TIME_FLOOR, MAX_DURATION_MS
+            ),
+            algo=hn.gather_pad_i32(algo, order_n, B),
+            gnp=hn.gather_pad_u8(
+                np.asarray(gnp, bool).view(np.uint8), order_n, B
+            ).view(bool),
+            valid=valid,
+        )
+    else:
+        def pad_sorted(x, dtype, sat=None):
+            x = sat(x) if sat is not None else np.asarray(x, dtype)
+            out = np.empty(B, dtype)
+            out[:n] = x[order_n]
+            out[n:] = out[n - 1] if n else 0
+            return out
 
-    def pad_sorted(x, dtype, sat=None):
-        x = sat(x) if sat is not None else np.asarray(x, dtype)
-        out = np.empty(B, dtype)
-        out[:n] = x[order_n]
-        out[n:] = out[n - 1] if n else 0
-        return out
-
-    req = BatchRequest(
-        key_hash=pad_sorted(key_hash, np.uint64),
-        hits=pad_sorted(hits, np.int32, _sat_i32),
-        limit=pad_sorted(limit, np.int32, _sat_i32),
-        duration=pad_sorted(duration, np.int32, _sat_duration),
-        algo=pad_sorted(algo, np.int32),
-        gnp=pad_sorted(gnp, bool),
-        valid=valid,
-    )
+        req = BatchRequest(
+            key_hash=pad_sorted(key_hash, np.uint64),
+            hits=pad_sorted(hits, np.int32, _sat_i32),
+            limit=pad_sorted(limit, np.int32, _sat_i32),
+            duration=pad_sorted(duration, np.int32, _sat_duration),
+            algo=pad_sorted(algo, np.int32),
+            gnp=pad_sorted(gnp, bool),
+            valid=valid,
+        )
     order = np.empty(B, np.int32)
     order[:n] = order_n
     order[n:] = np.arange(n, B, dtype=np.int32)
@@ -319,7 +388,15 @@ def prep_run_single(fields: dict, store_buckets: int) -> dict:
     dtype, giving a sorted run that the flush-time merge (serve/prep.py)
     stitches into one batch. `order[j]` is the caller index of sorted row
     j; `counts` is the row count as a shape-[1] array (the reference's
-    per-shard counts on its flat policy)."""
+    per-shard counts on its flat policy). One fused native call
+    (guber_prep_run, without the GIL) when the library loads; the numpy
+    below is its byte-identical twin."""
+    hn = _native()
+    if hn is not None:
+        return hn.prep_run(
+            fields, store_buckets, 1, -_I32_SAT, _I32_SAT, TIME_FLOOR,
+            MAX_DURATION_MS,
+        )
     kh = np.ascontiguousarray(fields["key_hash"], np.uint64)
     n = kh.shape[0]
     order = _np_presort(kh, store_buckets)

@@ -4,8 +4,12 @@
    (reference hash.go:40-42).
 2. Slot hash: a 64-bit hash of the key that picks the store bucket and
    the 32-bit fingerprint tag. It is local to one process, so any
-   stable 64-bit hash serves; the port uses blake2b-8 and has no native
-   XXH64 batch hasher.
+   stable 64-bit hash serves, but one process must use ONE. The batch
+   path is native XXH64 (native/guberhash.cc, built with g++ at first
+   use, native/hashlib_native.py) when that library builds and loads,
+   and blake2b-8 otherwise; a failed build or load logs a WARNING with
+   the compiler's output. The selection is made once, lazily, as the
+   reference makes it (`_native_batch`, `_native_checked`).
 
 `mix64` here is the numpy splitmix64 finalizer; core.store carries its
 torch twin for key hashes held as int64 bit patterns.
@@ -15,7 +19,7 @@ from __future__ import annotations
 
 import hashlib
 import zlib
-from typing import Iterable
+from typing import Iterable, List
 
 import numpy as np
 
@@ -25,24 +29,66 @@ def ring_hash(key: str) -> int:
     return zlib.crc32(key.encode("utf-8")) & 0xFFFFFFFF
 
 
-def slot_hash(key: str) -> int:
-    """64-bit slot hash of one key (blake2b-8, little-endian)."""
+def _slot_hash_py(key: str) -> int:
+    """Pure-Python fallback 64-bit hash (blake2b-8, little-endian)."""
     return int.from_bytes(
         hashlib.blake2b(key.encode("utf-8"), digest_size=8).digest(), "little"
     )
 
 
-def slot_hash_batch(keys: Iterable[str]) -> np.ndarray:
-    """uint64[len(keys)] of slot hashes."""
-    return np.array([slot_hash(k) for k in keys], dtype=np.uint64)
+def _slot_hash_batch_py(keys: Iterable[str]) -> np.ndarray:
+    return np.array([_slot_hash_py(k) for k in keys], dtype=np.uint64)
+
+
+# The native batch hasher (XXH64) is loaded lazily. Native and fallback
+# produce different hash values; that is fine (slot hashes are local to
+# one process's store) as long as one process uses ONE implementation,
+# which the lazy singleton guarantees.
+_native_batch = None
+_native_checked = False
+
+
+def _load_native():
+    global _native_batch, _native_checked
+    if _native_checked:
+        return
+    _native_checked = True
+    from gubernator_tpu_torch.native import load_hashlib
+
+    hn = load_hashlib()  # logs the WARNING when it cannot build or load
+    _native_batch = hn.hash_batch if hn is not None else None
+
+
+def slot_hash_batch(keys: List[str]) -> np.ndarray:
+    """uint64[len(keys)] of slot hashes; native XXH64 when it loads."""
+    _load_native()
+    if _native_batch is not None:
+        return _native_batch(keys)
+    return _slot_hash_batch_py(keys)
+
+
+def using_native_hash() -> bool:
+    """True when slot_hash_batch resolves to the native XXH64 hasher.
+
+    A pre-hashing peer (the compiled edge, the GEB client's fast
+    framing) computes slot hashes in its own process; its keys land in
+    the right store rows only when both sides run the SAME
+    implementation. The frame doors' hello advertises this bit
+    (HELLO_XXH64, serve/edge_bridge.py)."""
+    _load_native()
+    return _native_batch is not None
 
 
 def slot_hash_is_xxh64() -> bool:
     """Whether the store's slot hash is XXH64, the hash the compiled edge
-    pre-hashes with (native/edge/edge.cc). Never, while the port has no
-    native hasher: the frame doors read this before they offer
-    pre-hashed frames to a peer that can only hash XXH64."""
-    return False
+    pre-hashes with (native/edge/edge.cc): the edge bridge offers the
+    edge pre-hashed frames only then (EdgeBridge._fast_ok)."""
+    return using_native_hash()
+
+
+def slot_hash(key: str) -> int:
+    """64-bit slot hash of one key (same implementation as the batch path)."""
+    return int(slot_hash_batch([key])[0])
 
 
 def mix64(x: np.ndarray) -> np.ndarray:

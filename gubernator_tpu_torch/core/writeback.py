@@ -15,6 +15,18 @@ identity sweep in scripts/bench_hbm.py, which measures the least time a
 pass over the store can take. It runs on no serving path; chip_smoke.py
 times it to give the writeback's bound a measured floor.
 
+The writeback ablation (the port of scripts/ablate_sweep.py's kernel)
+splits the writeback into the steps whose cost it asks about, each an
+exact function with its plain version, and runs on no serving path
+either (cli/ablate_writeback.py times them):
+
+- `writeback_rows(data, bkt)`: the store side alone, every touched row
+  loaded and stored back plus one (so a skipped or doubled row shows);
+- `writeback_deltas(out, bkt, drow)`: the delta stream alone, each run of
+  equal buckets within a chunk of `krows` rows summed into out[run end];
+- `writeback_full(data, bkt, drow, krows=4|8|16)`: the whole writeback at
+  each chunk height (the product's writeback_add runs 8).
+
 The kernel is compiled with nvcc at first use into a shared library with
 a C interface under `gubernator_tpu_torch/_build/` (keyed by a hash of
 the source and flags) and loaded with ctypes. Nothing is imported or
@@ -108,6 +120,22 @@ def _load() -> ctypes.CDLL:
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ]
             lib.guber_writeback_add.restype = ctypes.c_int
+            lib.guber_writeback_add_rows.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p,
+            ]
+            lib.guber_writeback_add_rows.restype = ctypes.c_int
+            lib.guber_ablate_rows.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ]
+            lib.guber_ablate_rows.restype = ctypes.c_int
+            lib.guber_ablate_deltas.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ]
+            lib.guber_ablate_deltas.restype = ctypes.c_int
             lib.guber_add_one.argtypes = [
                 ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                 ctypes.c_void_p,
@@ -126,26 +154,50 @@ def writeback_add_plain(
     return data.index_add_(0, bkt, drow)
 
 
-def _check(data: torch.Tensor, bkt: torch.Tensor, drow: torch.Tensor):
-    if not (data.device == bkt.device == drow.device):
+def _check(data: torch.Tensor, bkt: torch.Tensor, drow: Optional[torch.Tensor]):
+    """Device, dtype, contiguity and shapes (drow None: the rows step)."""
+    named = [("data", data), ("bkt", bkt)] + ([("drow", drow)] if drow is not None else [])
+    if len({t.device for _, t in named}) != 1:
         raise ValueError(
-            f"writeback_add: tensors on different devices "
-            f"({data.device}, {bkt.device}, {drow.device})"
+            "writeback_add: tensors on different devices "
+            f"({', '.join(str(t.device) for _, t in named)})"
         )
-    for name, t in (("data", data), ("bkt", bkt), ("drow", drow)):
+    for name, t in named:
         if t.dtype != torch.int32:
             raise TypeError(f"writeback_add: {name} must be int32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"writeback_add: {name} must be contiguous")
-    if data.dim() != 2 or drow.dim() != 2 or bkt.dim() != 1:
+    if data.dim() != 2 or bkt.dim() != 1 or (drow is not None and drow.dim() != 2):
         raise ValueError("writeback_add: data [buckets, W], bkt [G], drow [G, W]")
     W = data.shape[1]
     if W not in (8, 16, 32, 64, 128):
         raise ValueError(f"writeback_add: row width {W} is not ways*8, ways in 1..16")
-    if drow.shape != (bkt.shape[0], W):
+    if drow is not None and drow.shape != (bkt.shape[0], W):
         raise ValueError(
             f"writeback_add: drow {tuple(drow.shape)} != ({bkt.shape[0]}, {W})"
         )
+
+
+#: the chunk heights the ablation compiles (kRows of csrc/writeback.cu)
+ABLATION_ROWS = (4, 8, 16)
+
+
+def _launch(name: str, launch) -> None:
+    """Run `launch(lib, stream)` on the current stream of the current
+    device; a nonzero launch code raises."""
+    lib = _load()
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = launch(lib, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"{name}: kernel launch failed: " + lib.guber_cuda_error_string(rc).decode()
+        )
+
+
+def _device_of(name: str, t: torch.Tensor) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return t.device.type
 
 
 def writeback_add(
@@ -157,30 +209,145 @@ def writeback_add(
     csrc/writeback.cu kernel on the current stream and count the launch
     in `writeback_add.launches`; a refused launch raises."""
     _check(data, bkt, drow)
-    if data.device.type == "cpu":
+    if _device_of("writeback_add", data) == "cpu":
         return writeback_add_plain(data, bkt, drow)
-    if data.device.type != "cuda":
-        raise ValueError(f"writeback_add: unsupported device {data.device}")
     G = bkt.shape[0]
     if G == 0:
         return data
-    lib = _load()
     with torch.cuda.device(data.device):
-        stream = torch.cuda.current_stream(data.device).cuda_stream
-        rc = lib.guber_writeback_add(
-            data.data_ptr(), bkt.data_ptr(), drow.data_ptr(),
-            G, data.shape[1], data.shape[0], stream,
-        )
-    if rc != 0:
-        raise RuntimeError(
-            "writeback_add: kernel launch failed: "
-            + lib.guber_cuda_error_string(rc).decode()
-        )
+        _launch("writeback_add", lambda lib, s: lib.guber_writeback_add(
+            data.data_ptr(), bkt.data_ptr(), drow.data_ptr(), G, data.shape[1],
+            data.shape[0], s))
     writeback_add.launches += 1
     return data
 
 
 writeback_add.launches = 0
+
+
+def writeback_full(
+    data: torch.Tensor, bkt: torch.Tensor, drow: torch.Tensor, krows: int = 8
+) -> torch.Tensor:
+    """The ablation's `full` step: writeback_add's function, launched at
+    the kernel's chunk height `krows` (4, 8 or 16) through the ablation's
+    own entry; returns data. CPU tensors take writeback_add_plain; CUDA
+    tensors count the launch in `writeback_full.launches` (not in
+    writeback_add's, which counts the paths' writebacks)."""
+    _check(data, bkt, drow)
+    if krows not in ABLATION_ROWS:
+        raise ValueError(f"writeback_full: krows {krows} not in {ABLATION_ROWS}")
+    if _device_of("writeback_full", data) == "cpu":
+        return writeback_add_plain(data, bkt, drow)
+    G = bkt.shape[0]
+    if G == 0:
+        return data
+    with torch.cuda.device(data.device):
+        _launch("writeback_full", lambda lib, s: lib.guber_writeback_add_rows(
+            data.data_ptr(), bkt.data_ptr(), drow.data_ptr(), G, data.shape[1],
+            data.shape[0], krows, s))
+    writeback_full.launches += 1
+    return data
+
+
+writeback_full.launches = 0
+
+
+def run_last(bkt: torch.Tensor) -> torch.Tensor:
+    """bool[G]: whether each row is the last of its run of equal buckets
+    (each touched bucket has exactly one)."""
+    last = torch.ones_like(bkt, dtype=torch.bool)
+    if bkt.shape[0] > 1:
+        last[:-1] = bkt[1:] != bkt[:-1]
+    return last
+
+
+def writeback_rows_plain(data: torch.Tensor, bkt: torch.Tensor) -> torch.Tensor:
+    """The plain version of the ablation's `rows` step: every touched
+    store row plus one in every int32, once a bucket however often it
+    repeats, in place. (The run ends add the ones, so nothing here waits
+    on the device.)"""
+    ones = run_last(bkt).to(data.dtype).unsqueeze(1).expand(-1, data.shape[1])
+    return data.index_add_(0, bkt, ones)
+
+
+def writeback_rows(data: torch.Tensor, bkt: torch.Tensor, krows: int = 8) -> torch.Tensor:
+    """The ablation's `rows` step: for every run of equal buckets in the
+    sorted `bkt`, load the touched store row and store it back plus one
+    in every int32 (the store side of the writeback, without the delta
+    stream; the +1 makes the store observable); returns data. CPU
+    tensors take writeback_rows_plain; CUDA tensors launch the
+    csrc/writeback.cu kernel and count it in
+    `writeback_rows.launches`."""
+    _check(data, bkt, None)
+    if krows not in ABLATION_ROWS:
+        raise ValueError(f"writeback_rows: krows {krows} not in {ABLATION_ROWS}")
+    if _device_of("writeback_rows", data) == "cpu":
+        return writeback_rows_plain(data, bkt)
+    G = bkt.shape[0]
+    if G == 0:
+        return data
+    with torch.cuda.device(data.device):
+        _launch("writeback_rows", lambda lib, s: lib.guber_ablate_rows(
+            data.data_ptr(), bkt.data_ptr(), G, data.shape[1], data.shape[0], krows, s))
+    writeback_rows.launches += 1
+    return data
+
+
+writeback_rows.launches = 0
+
+
+def run_ends(bkt: torch.Tensor, krows: int) -> torch.Tensor:
+    """int64[G]: for every row, the last row of its run of equal buckets
+    cut at chunks of `krows` rows (the runs the warp's segmented sum
+    forms)."""
+    G = bkt.shape[0]
+    idx = torch.arange(G, device=bkt.device)
+    last = torch.ones(G, dtype=torch.bool, device=bkt.device)
+    if G > 1:
+        last[:-1] = (bkt[1:] != bkt[:-1]) | ((idx[1:] % krows) == 0)
+    # the nearest last row at or after each row: a reversed running min,
+    # so nothing waits on the device
+    at = torch.where(last, idx, G).flip(0)
+    return torch.cummin(at, 0).values.flip(0)
+
+
+def writeback_deltas_plain(
+    out: torch.Tensor, bkt: torch.Tensor, drow: torch.Tensor, krows: int = 8
+) -> torch.Tensor:
+    """The plain version of the ablation's `deltas` step: a segmented
+    sum, out[run end] += the run's delta rows (int32 wrap), in place."""
+    return out.index_add_(0, run_ends(bkt, krows), drow)
+
+
+def writeback_deltas(
+    out: torch.Tensor, bkt: torch.Tensor, drow: torch.Tensor, krows: int = 8
+) -> torch.Tensor:
+    """The ablation's `deltas` step: read every delta row and bucket id
+    and write each run of equal buckets within a chunk of `krows` rows,
+    summed (int32 wrap), into out[the run's last row]; other rows of
+    `out` are not written (zero them first). The store is not touched.
+    CPU tensors take writeback_deltas_plain (which adds into `out`);
+    CUDA tensors launch the csrc/writeback.cu kernel and count it in
+    `writeback_deltas.launches`."""
+    _check(out, bkt, drow)
+    if out.shape != drow.shape:
+        raise ValueError(f"writeback_deltas: out {tuple(out.shape)} != drow "
+                         f"{tuple(drow.shape)}")
+    if krows not in ABLATION_ROWS:
+        raise ValueError(f"writeback_deltas: krows {krows} not in {ABLATION_ROWS}")
+    if _device_of("writeback_deltas", out) == "cpu":
+        return writeback_deltas_plain(out, bkt, drow, krows)
+    G = bkt.shape[0]
+    if G == 0:
+        return out
+    with torch.cuda.device(out.device):
+        _launch("writeback_deltas", lambda lib, s: lib.guber_ablate_deltas(
+            out.data_ptr(), bkt.data_ptr(), drow.data_ptr(), G, drow.shape[1], krows, s))
+    writeback_deltas.launches += 1
+    return out
+
+
+writeback_deltas.launches = 0
 
 
 def add_one_plain(x: torch.Tensor) -> torch.Tensor:
@@ -197,24 +364,16 @@ def add_one(x: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"add_one: x must be int32, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("add_one: x must be contiguous")
-    if x.device.type == "cpu":
+    if _device_of("add_one", x) == "cpu":
         return add_one_plain(x)
-    if x.device.type != "cuda":
-        raise ValueError(f"add_one: unsupported device {x.device}")
     if x.numel() == 0:
         return x
     if x.data_ptr() % 16:
         raise ValueError("add_one: x must start on a 16-byte boundary")
-    lib = _load()
     with torch.cuda.device(x.device):
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.guber_add_one(x.data_ptr(), x.numel(), sms, stream)
-    if rc != 0:
-        raise RuntimeError(
-            "add_one: kernel launch failed: "
-            + lib.guber_cuda_error_string(rc).decode()
-        )
+        _launch("add_one", lambda lib, s: lib.guber_add_one(x.data_ptr(), x.numel(),
+                                                            sms, s))
     add_one.launches += 1
     return x
 

@@ -41,6 +41,10 @@
 // 2*U*W*4 bytes; it does one add per int32 it reads. At the decide's
 // shapes (G <= 32768, W = 128) that is at most ~48 MiB, so launch latency
 // dominates at the top of the ladder and memory latency below it.
+//
+// kRows is a template parameter: the product entry guber_writeback_add
+// runs it at 8; guber_writeback_add_rows runs 4, 8 or 16 for the
+// ablation below.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -48,7 +52,7 @@
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
-constexpr int kRows = 8;  // delta rows per warp
+constexpr int kProductRows = 8;  // delta rows per warp in the product
 
 __device__ __forceinline__ uint4 add4(uint4 a, uint4 b) {
   return make_uint4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
@@ -62,6 +66,7 @@ __device__ __forceinline__ void atomic_add4(uint4* dst, uint4 v) {
   if (v.w) atomicAdd(p + 3, v.w);
 }
 
+template <int kRows>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 writeback_add_kernel(int32_t* __restrict__ data,
                      const int32_t* __restrict__ bkt,
@@ -115,6 +120,90 @@ writeback_add_kernel(int32_t* __restrict__ data,
   }
 }
 
+// The writeback ablation: which step of the writeback costs the time.
+//
+// Replaces scripts/ablate_sweep.py's `kernel` (inside `make`, :43; its
+// pl.pallas_call at :119), which timed three modes of the TPU sweep: the
+// tile copy, plus the chunk DMA, plus the one-hot matmul. Those modes
+// ablate TPU mechanics that this kernel does not have, so the Hopper port
+// ablates the Hopper writeback instead, as three functions that are each
+// exactly defined and each held against a plain PyTorch version:
+//   rows    the store side alone: for every run of equal buckets, load
+//           the touched store row and store it back plus one in every
+//           int32 (the +1 makes the store observable: a row skipped,
+//           touched twice or the wrong row shows). Bytes: 2*U*W*4 + G*4.
+//   deltas  the delta stream alone: read every delta row and bucket id and
+//           reduce each run of equal buckets within a chunk of kRows rows
+//           (the warp's segmented sum above) into out[run end] (out is
+//           zero elsewhere, the caller's). The store is not touched.
+//           Bytes: G*W*4 + G*4 read, the run ends' rows written.
+//   full    writeback_add itself, at kRows in {4, 8, 16}.
+
+template <int kRows>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+ablate_rows_kernel(int32_t* __restrict__ data, const int32_t* __restrict__ bkt,
+                   int g, int nvec, int buckets) {
+  const int chunk = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  const int base = chunk * kRows;
+  if (base >= g || lane >= nvec) return;
+  const int n = min(kRows, g - base);
+  uint4* dst = reinterpret_cast<uint4*>(data);
+  int b[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) b[r] = r < n ? bkt[base + r] : -1;
+  const int next = base + n < g ? bkt[base + n] : -1;
+  bool end[kRows];
+  uint4 row[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    // a run's last row, in the whole stream: each run is touched once
+    const int after = r + 1 < n ? b[r + 1] : next;
+    end[r] = r < n && after != b[r] && b[r] >= 0 && b[r] < buckets;
+    if (end[r]) row[r] = dst[static_cast<size_t>(b[r]) * nvec + lane];
+  }
+  const uint4 one = make_uint4(1u, 1u, 1u, 1u);
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    if (end[r]) dst[static_cast<size_t>(b[r]) * nvec + lane] = add4(row[r], one);
+  }
+}
+
+template <int kRows>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+ablate_deltas_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ bkt,
+                     const int32_t* __restrict__ drow, int g, int nvec) {
+  const int chunk = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  const int base = chunk * kRows;
+  if (base >= g || lane >= nvec) return;
+  const int n = min(kRows, g - base);
+  const uint4* src = reinterpret_cast<const uint4*>(drow);
+  uint4* dst = reinterpret_cast<uint4*>(out);
+  int b[kRows];
+  uint4 v[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    if (r < n) {
+      b[r] = bkt[base + r];
+      v[r] = src[static_cast<size_t>(base + r) * nvec + lane];
+    } else {
+      b[r] = -1;
+      v[r] = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+#pragma unroll
+  for (int r = 1; r < kRows; ++r) {
+    if (b[r] == b[r - 1]) v[r] = add4(v[r], v[r - 1]);
+  }
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    if (r < n && (r == n - 1 || b[r + 1] != b[r])) {
+      dst[static_cast<size_t>(base + r) * nvec + lane] = v[r];
+    }
+  }
+}
+
 // The copy floor: x[i] += 1 over n int32, in place.
 //
 // Replaces the identity sweep of scripts/bench_hbm.py (`kern` inside
@@ -140,6 +229,46 @@ add_one_kernel(int32_t* __restrict__ x, long long n) {
   }
 }
 
+// One warp per chunk of kRows rows, kWarpsPerBlock warps a block.
+template <int kRows>
+dim3 chunk_grid(int g) {
+  const int chunks = (g + kRows - 1) / kRows;
+  return dim3((chunks + kWarpsPerBlock - 1) / kWarpsPerBlock);
+}
+
+template <int kRows>
+int launch_writeback_add(void* data, const void* bkt, const void* drow,
+                         int g, int w, int buckets, void* stream) {
+  writeback_add_kernel<kRows>
+      <<<chunk_grid<kRows>(g), kWarpsPerBlock * 32, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<int32_t*>(data), static_cast<const int32_t*>(bkt),
+          static_cast<const int32_t*>(drow), g, w / 4, buckets);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kRows>
+int launch_ablate_rows(void* data, const void* bkt, int g, int w, int buckets,
+                       void* stream) {
+  ablate_rows_kernel<kRows>
+      <<<chunk_grid<kRows>(g), kWarpsPerBlock * 32, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<int32_t*>(data), static_cast<const int32_t*>(bkt), g,
+          w / 4, buckets);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kRows>
+int launch_ablate_deltas(void* out, const void* bkt, const void* drow, int g,
+                         int w, void* stream) {
+  ablate_deltas_kernel<kRows>
+      <<<chunk_grid<kRows>(g), kWarpsPerBlock * 32, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<int32_t*>(out), static_cast<const int32_t*>(bkt),
+          static_cast<const int32_t*>(drow), g, w / 4);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Launches on `stream` (the caller's current CUDA stream) and returns the
@@ -148,15 +277,45 @@ extern "C" int guber_writeback_add(void* data, const void* bkt,
                                    const void* drow, int g, int w,
                                    int buckets, void* stream) {
   if (g <= 0) return 0;
-  const int nvec = w / 4;
-  const int chunks = (g + kRows - 1) / kRows;
-  const dim3 block(kWarpsPerBlock * 32);
-  const dim3 grid((chunks + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  writeback_add_kernel<<<grid, block, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int32_t*>(data), static_cast<const int32_t*>(bkt),
-      static_cast<const int32_t*>(drow), g, nvec, buckets);
-  return static_cast<int>(cudaGetLastError());
+  return launch_writeback_add<kProductRows>(data, bkt, drow, g, w, buckets,
+                                            stream);
+}
+
+// The ablation's entries (see above): `krows` is 4, 8 or 16; any other
+// value returns cudaErrorInvalidValue without a launch. The `full` step is
+// guber_writeback_add_rows, the writeback at each chunk height.
+extern "C" int guber_writeback_add_rows(void* data, const void* bkt,
+                                        const void* drow, int g, int w,
+                                        int buckets, int krows, void* stream) {
+  if (g <= 0) return 0;
+  switch (krows) {
+    case 4: return launch_writeback_add<4>(data, bkt, drow, g, w, buckets, stream);
+    case 8: return launch_writeback_add<8>(data, bkt, drow, g, w, buckets, stream);
+    case 16: return launch_writeback_add<16>(data, bkt, drow, g, w, buckets, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int guber_ablate_rows(void* data, const void* bkt, int g, int w,
+                                 int buckets, int krows, void* stream) {
+  if (g <= 0) return 0;
+  switch (krows) {
+    case 4: return launch_ablate_rows<4>(data, bkt, g, w, buckets, stream);
+    case 8: return launch_ablate_rows<8>(data, bkt, g, w, buckets, stream);
+    case 16: return launch_ablate_rows<16>(data, bkt, g, w, buckets, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int guber_ablate_deltas(void* out, const void* bkt, const void* drow,
+                                   int g, int w, int krows, void* stream) {
+  if (g <= 0) return 0;
+  switch (krows) {
+    case 4: return launch_ablate_deltas<4>(out, bkt, drow, g, w, stream);
+    case 8: return launch_ablate_deltas<8>(out, bkt, drow, g, w, stream);
+    case 16: return launch_ablate_deltas<16>(out, bkt, drow, g, w, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // x[i] += 1 over n int32 in place, on `stream`; returns the launch's

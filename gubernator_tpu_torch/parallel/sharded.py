@@ -3,7 +3,9 @@ of gubernator_tpu.parallel.sharded.PartitionedEngine).
 
 Host glue + the decide for a slot store resident on one device, with or
 without the count-min cold tier: presort and pad each batch on the host
-(core.engine), copy the padded arrays to the device, run the exact-tier
+(core.engine; the merge of prepped runs and the responses' unpermute
+run in the native prep library when it loads, as the reference's do,
+numpy otherwise), copy the padded arrays to the device, run the exact-tier
 or two-tier decide (which update the store and sketch tensors in place;
 JAX donates them instead), and fetch ONE packed int32 array of
 responses + stats per batch.
@@ -43,8 +45,11 @@ from gubernator_tpu_torch.api import types as api_types
 from gubernator_tpu_torch.core.engine import (
     EngineStats,
     EpochClock,
+    _native,
     _sat_i32,
     build_presorted_request,
+    choose_bucket,
+    group_rungs,
     decide_packed,
     decide_packed_sketch,
     pad_request_sorted,
@@ -54,6 +59,8 @@ from gubernator_tpu_torch.core.engine import (
     unpermute_responses,
 )
 from gubernator_tpu_torch.core.kernels import (
+    BatchGroups,
+    BatchRequest,
     sketch_min,
     unpack_outputs,
     upsert_globals,
@@ -312,6 +319,24 @@ class TorchEngine:
         from gubernator_tpu_torch.serve.prep import merge_runs
 
         n = int(sum(r["n"] for r in runs))
+        hn = _native()
+        if hn is not None and n:
+            # one GIL-free native pass: merge, pad to the rung B and build
+            # the group stream padded to its rung. Its arrays are fresh
+            # for every call (no buffer ring), so the handle may keep them
+            B = choose_bucket(self.buckets, n)
+            m = hn.merge_runs_native(runs, B, g_rungs=group_rungs(B))
+            req = BatchRequest(
+                key_hash=m["key_hash"], hits=m["hits"], limit=m["limit"],
+                duration=m["duration"], algo=m["algo"], gnp=m["gnp"],
+                valid=m["valid"],
+            )
+            groups = BatchGroups(
+                key_hash=m["group_key_hash"], leader_pos=m["leader_pos"],
+                end_pos=m["group_end"], valid=m["group_valid"],
+                group_id=m["group_id"],
+            )
+            return dict(req=req, groups=groups, order=m["order"], n=n, B=B)
         m = merge_runs(runs)
         req, groups, B = build_presorted_request(self.buckets, m["fields"], m["skey"], n)
         order_p = np.empty(B, np.int32)
@@ -370,9 +395,15 @@ class TorchEngine:
                 int(packed[4 * B + 2]),
                 int(packed[4 * B + 3]),
             )
-        status, rlimit, remaining, reset = unpermute_responses(
-            order, unpack_outputs(packed, B)[:4]
-        )
+        hn = _native()
+        if hn is not None:
+            # native one-pass unpermute of the four response columns
+            u = hn.unpermute_i32(packed[: 4 * B].reshape(4, B), order, n)
+            status, rlimit, remaining, reset = u[0], u[1], u[2], u[3]
+        else:
+            status, rlimit, remaining, reset = unpermute_responses(
+                order, unpack_outputs(packed, B)[:4]
+            )
         r = np.asarray(reset[:n], np.int64)
         reset = np.where(r == 0, 0, r + epoch)
         return status[:n], rlimit[:n], remaining[:n], reset

@@ -18,8 +18,9 @@ serialized on the batcher's one submit thread, while up to fetch_depth
 decide_wait calls run concurrently on fetch threads and may overlap later
 submits, touching only their own handle and the engine's stats.
 
-`make_backend` lives here, not in a server module, because the doors
-(gRPC, HTTP) are not ported yet and this module must not import them.
+`make_backend` lives here, not in serve/server.py as in the reference,
+so that the serving core loads without the doors' grpc and aiohttp
+imports.
 """
 
 from __future__ import annotations

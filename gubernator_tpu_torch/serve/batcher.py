@@ -1,11 +1,12 @@
 """Device micro-batcher: coalesces concurrent requests into device batches.
 
 The port's copy of gubernator_tpu/serve/batcher.py with its imports
-rewritten. Left out, to come with the backends that use them: the native
-prep library, the inline fast path and the blocking decide of host
-backends (ExactBackend), and the quota-chain lane. The knobs come from
-the caller (serve/config.py ServerConfig), never from the environment.
-The file references below are the reference package's.
+rewritten. Left out, to come with the backends that use them: the inline
+fast path and the blocking decide of host backends (ExactBackend), and
+the quota-chain lane. The knobs come from the caller (serve/config.py
+ServerConfig), never from the environment; the native prep library
+sizes its own thread pool from GUBER_PREP_THREADS, as the reference's
+does. The file references below are the reference package's.
 
 The reference fans each request out to a goroutine and serializes them on a
 cache mutex (reference gubernator.go:90-160, 237). Here the inversion that
@@ -63,6 +64,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from gubernator_tpu_torch.api.types import RateLimitReq, RateLimitResp
+from gubernator_tpu_torch.native import load_hashlib
 from gubernator_tpu_torch.serve import metrics, tracing
 from gubernator_tpu_torch.serve.aio import collect_batch
 from gubernator_tpu_torch.serve.faults import FAULTS, FaultError
@@ -141,8 +143,15 @@ class DeviceBatcher:
         self._fetch_pool = concurrent.futures.ThreadPoolExecutor(
             max_workers=self.fetch_depth, thread_name_prefix="guber-fetch"
         )
+        if self.fetch_depth > 1:
+            # size the native prep's buffer ring to the pipeline depth
+            # BEFORE any prep call (hashlib_native.set_prep_generations)
+            hn = load_hashlib()
+            if hn is not None:
+                hn.set_prep_generations(self.fetch_depth + 1)
         # ONE dedicated submit thread (not the shared to_thread pool):
-        # every store mutation is serialized on it, in submit order
+        # every store mutation is serialized on it, in submit order, and
+        # the native prep's per-thread buffers stay on one thread
         self._submit_pool = concurrent.futures.ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="guber-submit"
         )

@@ -4,15 +4,18 @@ The port's copy of gubernator_tpu/serve/edge_bridge.py with its imports
 rewritten; the file references below are the reference package's. Its
 hello differs from the reference's in two bits, and only there:
 
-- HELLO_FAST (bit 0) is offered to a client that hashes with the
-  store's own slot hash. The GEB door and POST /v1/geb offer it without
-  HELLO_XXH64, so a blake2b client (client_geb.py) pre-hashes into the
-  same rows as the string path. The edge bridge offers it only when the
-  store hashes XXH64 (core.hashing.slot_hash_is_xxh64), because the
-  compiled edge always pre-hashes XXH64 and reads bit 0 alone: a fast
-  edge frame would otherwise count a key in a second row. The edge's
-  items ride string frames instead, which the string fold below still
-  puts on the array path, hashed here.
+- HELLO_FAST (bit 0) on the edge bridge follows the slot hash. The
+  store hashes XXH64 when the port's native hasher loads
+  (native/guberhash.cc, core.hashing.slot_hash_is_xxh64), as the
+  reference's does; then every door offers HELLO_FAST with HELLO_XXH64,
+  as the reference's doors do. When it does not load, the store hashes
+  blake2b-8: the GEB door and POST /v1/geb still offer HELLO_FAST
+  (without HELLO_XXH64, which a blake2b client matches), but the edge
+  bridge withholds it (EdgeBridge._fast_ok), because the compiled edge
+  always pre-hashes XXH64 and reads bit 0 alone: a fast edge frame
+  would count a key in a second row. The edge's items then ride string
+  frames, which the string fold below puts on the array path, hashed
+  here.
 - HELLO_CHAIN (bit 3) is never offered: quota chains are not ported. A
   GEBC frame that arrives anyway decodes, and each chained item gets
   the instance's per-item "not ported" answer.
@@ -213,7 +216,8 @@ HELLO_WINDOWED = 2  # hello flags bit 1; window size = flags >> 16
 # in different rows than the string path's; the bit lets the client
 # verify agreement at hello time (client_geb.py auto mode) instead of
 # splitting buckets. Pre-r12 edges ignore unknown bits (the compiled
-# edge always hashes XXH64 and ships with the native build).
+# edge always hashes XXH64, so the port's edge bridge offers it fast
+# frames only on an XXH64 store: EdgeBridge._fast_ok).
 HELLO_XXH64 = 4
 # hello flags bit 3 (r15): this bridge accepts GEBC chain-extended
 # string frames (hierarchical quota chains). The compiled edge's JSON
@@ -306,9 +310,10 @@ _WREQ_HDR = struct.Struct("<IQ")  # frame_id | t_sent_us
 _WTRACE_EXT = struct.Struct("<16sQB")
 
 # GEB6 record: the edge pre-hashes name+"_"+key with the SAME XXH64 the
-# daemon's slot store uses (edge.cc xxh64 vs native/guberhash.cc — pinned
-# by tests), so the daemon's fast path never touches per-item Python:
-# np.frombuffer views the whole frame as a structured array.
+# daemon's slot store uses when the native hasher loads (edge.cc xxh64
+# vs native/guberhash.cc, pinned by tests; on a blake2b-8 store the edge
+# gets no fast frames), so the daemon's fast path never touches per-item
+# Python: np.frombuffer views the whole frame as a structured array.
 _FAST_REQ_DTYPE = None
 _FAST_RESP_DTYPE = None
 
@@ -758,9 +763,8 @@ class FrameService:
         if self._fast_ok():
             flags |= HELLO_FAST
             # hash-implementation bit (r12): pre-hashing clients check
-            # it against their own hasher before choosing fast framing.
-            # Unset in the port (blake2b-8 store), which the packaged
-            # client matches; the edge bridge withholds HELLO_FAST
+            # it against their own hasher before choosing fast framing;
+            # on a blake2b-8 store the edge bridge withholds HELLO_FAST
             # itself (EdgeBridge._fast_ok, module docstring)
             if slot_hash_is_xxh64():
                 flags |= HELLO_XXH64

@@ -4,8 +4,9 @@
 The ring is the reference's, copied: a crc32 point per peer, a sorted
 ring, binary-search successor with wraparound (reference hash.go:62-96),
 so a mixed cluster would agree on key ownership. The picker's successor
-and ownership-diff queries serve replication, rescale and the edge
-bridge, which are not ported yet, and are left out with them.
+and ownership-diff queries serve replication and rescale, which are not
+ported yet, and are left out with them; the edge bridge needs only
+`self_owned_mask`.
 
 PeerClient mirrors the reference's forwarding semantics (peers.go):
 BATCHING/GLOBAL requests coalesce into micro-batches flushed every

@@ -1,5 +1,5 @@
 """Host-prep pipeline: sorted-run merge combine (the port's copy of
-gubernator_tpu/serve/prep.py, numpy path only).
+gubernator_tpu/serve/prep.py).
 
 With arrival-time prep (serve/batcher.py), each caller group is
 converted, clipped and PRE-SORTED on a small prep pool when it is
@@ -10,8 +10,10 @@ k) instead of the O(n log n) full sort, built from `np.searchsorted`
 passes. The merge equals `np.argsort(concat, kind="stable")` over the
 concatenated unsorted batch (equal keys keep run order, runs arrive in
 caller order), which is what makes the merged device fields
-byte-identical to the flush-time presort path. The reference's fused
-native merge is not ported; the port loads no native library.
+byte-identical to the flush-time presort path. `merge_runs` dispatches
+to the fused native merge (guber_merge_runs in native/guberhash.cc, one
+pass without the GIL) when the library loads; the numpy merge here is
+its byte-identical twin. Imports no torch.
 """
 
 from __future__ import annotations
@@ -20,8 +22,15 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
+from gubernator_tpu_torch.native import load_hashlib
+
 #: field order of a prepped run's `fields` dict (backends._ArrayOps.ARRAY_FIELDS)
 RUN_FIELDS = ("key_hash", "hits", "limit", "duration", "algo", "gnp")
+
+
+def _native():
+    """native/hashlib_native when the library loads, else None."""
+    return load_hashlib()
 
 
 def _merge2(
@@ -108,6 +117,16 @@ def merge_runs(runs: List[dict]) -> Dict[str, np.ndarray]:
     counts = runs[0]["counts"].copy()
     for r in runs[1:]:
         counts += r["counts"]
+    hn = _native()
+    if hn is not None:
+        n = int(sum(r["n"] for r in runs))
+        m = hn.merge_runs_native(runs, n)  # flat (B == n)
+        return dict(
+            skey=m["skey"],
+            order=m["order"],
+            counts=counts,
+            fields={k: m[k] for k in RUN_FIELDS},
+        )
     skey, take = merge_sorted_runs([r["skey"] for r in runs])
     base = 0
     gorders = []

@@ -36,7 +36,9 @@ from aiohttp import web
 from gubernator_tpu_torch.api import convert
 from gubernator_tpu_torch.api.grpc_glue import add_peers_servicer, add_v1_servicer
 from gubernator_tpu_torch.api.proto.gen import gubernator_pb2, peers_pb2
+from gubernator_tpu_torch.core.hashing import using_native_hash
 from gubernator_tpu_torch.core.store import DeviceLike
+from gubernator_tpu_torch.native import load_hashlib
 from gubernator_tpu_torch.serve import metrics, tracing
 from gubernator_tpu_torch.serve.backends import make_backend
 from gubernator_tpu_torch.serve.config import ServerConfig
@@ -283,6 +285,18 @@ class Server:
         await self.grpc_server.start()
         log.info("gRPC listening on %s", self.conf.grpc_address)
         batcher = self.instance.batcher
+        hn = load_hashlib()
+        if hn is not None:
+            log.info(
+                "native prep: %d thread(s) (GUBER_PREP_THREADS), slot hash %s",
+                hn.prep_threads(),
+                "XXH64" if using_native_hash() else "blake2b-8",
+            )
+        else:
+            log.info(
+                "native prep library not built/loadable; numpy fallbacks "
+                "active, slot hash blake2b-8"
+            )
         log.info(
             "arrival prep %s (GUBER_PREP_AT_ARRIVAL), %d prep thread(s) "
             "(GUBER_PREP_THREADS), fetch depth %d (GUBER_FETCH_DEPTH)",

@@ -19,10 +19,16 @@ from gubernator_tpu_torch.core.engine import TorchEngine
 from gubernator_tpu_torch.core.sketches import derive_sketch_config
 from gubernator_tpu_torch.core.store import StoreConfig
 from gubernator_tpu_torch.core.writeback import (
+    ABLATION_ROWS,
     add_one,
     add_one_plain,
     writeback_add,
     writeback_add_plain,
+    writeback_deltas,
+    writeback_deltas_plain,
+    writeback_full,
+    writeback_rows,
+    writeback_rows_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -63,6 +69,44 @@ def test_writeback_kernel_matches_plain(W, buckets, B):
     assert writeback_add.launches == before + 1
     assert got.data_ptr() == data.data_ptr()
     assert torch.equal(got, want)
+
+
+def test_native_hasher_builds_on_the_card_host():
+    """The card's host builds and loads the native hasher and prep (g++
+    at first use): the store hashes XXH64 and the prep is native, so the
+    card tests below do not pass on the blake2b-8 fallback."""
+    _need_card()
+    from gubernator_tpu_torch.core.hashing import using_native_hash
+    from gubernator_tpu_torch.native import load_hashlib
+
+    assert load_hashlib() is not None and using_native_hash()
+
+
+@pytest.mark.parametrize("krows", ABLATION_ROWS)
+@pytest.mark.parametrize("W, buckets, B", [(128, 32768, 16384), (32, 512, 2048),
+                                          (128, 1 << 16, 301)])
+def test_ablation_kernels_match_plain(krows, W, buckets, B):
+    """The writeback ablation's three steps (rows, deltas, full) at each
+    chunk height, bit for bit against their plain versions, each launch
+    counted once in its own counter (writeback_add's is the paths')."""
+    _need_card()
+    data, bkt, drow = (torch.from_numpy(x).cuda()
+                       for x in _recipe(W + B + krows, buckets, B, W))
+    counts = (writeback_full.launches, writeback_rows.launches,
+              writeback_deltas.launches, writeback_add.launches)
+    full = writeback_full(data.clone(), bkt, drow, krows)
+    rows = writeback_rows(data.clone(), bkt, krows)
+    deltas = writeback_deltas(torch.zeros_like(drow), bkt, drow, krows)
+    torch.cuda.synchronize()
+    assert (writeback_full.launches, writeback_rows.launches, writeback_deltas.launches,
+            writeback_add.launches) == tuple(c + 1 for c in counts[:3]) + counts[3:]
+    assert torch.equal(full, writeback_add_plain(data.clone(), bkt, drow))
+    # each touched row plus one, once: a row skipped, doubled or misplaced shows
+    want_rows = data.clone()
+    want_rows[torch.unique(bkt).long()] += 1
+    assert torch.equal(rows, writeback_rows_plain(data.clone(), bkt))
+    assert torch.equal(rows, want_rows) and not torch.equal(rows, data)
+    assert torch.equal(deltas, writeback_deltas_plain(torch.zeros_like(drow), bkt, drow, krows))
 
 
 @pytest.mark.parametrize("n", [32768 * 128, 4096 * 128 + 3, 1])

@@ -33,8 +33,8 @@ import pytest
 
 import gubernator_tpu.api.types as j_types
 import gubernator_tpu.core.engine as j_engine
-import gubernator_tpu.core.hashing as j_hashing
 import gubernator_tpu_torch.api.types as t_types
+from test_torch_hash import pin_hash
 from _util import free_ports
 from gubernator_tpu.cluster import LocalCluster as JLocalCluster
 from gubernator_tpu.core.store import StoreConfig as JStoreConfig
@@ -356,8 +356,7 @@ def runs():
         mp.setattr(j_types, "millisecond_now", clock)
         mp.setattr(j_engine, "millisecond_now", clock, raising=False)
         mp.setattr(t_types, "millisecond_now", clock)
-        mp.setattr(j_hashing, "_native_checked", True)
-        mp.setattr(j_hashing, "_native_batch", None)
+        pin_hash(mp, "blake2b")  # both packages on one slot hash
         for name, cls, factory in (("torch", LocalCluster, _torch_backend),
                                    ("jax", JLocalCluster, _jax_backend)):
             clock.t = T0

@@ -11,14 +11,15 @@ edge runs in front of each and the same script drives its HTTP JSON door
 and its gRPC door (the cases of tests/test_edge.py, tests/test_edge_grpc.py
 and tests/test_edge_fast_path.py). The answers must be identical.
 
-On the port the edge's items ride string frames (the port's bridge
-withholds fast frames from the XXH64-hashing edge; serve/edge_bridge.py),
-which the string fold serves on the array path: edge_folded_items_total
-rises and edge_fast_items_total does not. The hash-agreement pin: one key
-through the edge and through the port's GEB fast client shares one count.
-
-The differential needs both packages' servers on the blake2b-8 slot hash
-(the JAX side's `core.hashing.using_native_hash()` False).
+The differential runs on both slot hashes, both packages pinned to the
+same one (tests/test_torch_hash.py). On the port's native XXH64 (its default
+where g++ builds it) the edge's eligible items ride fast frames, hashed
+by the edge: edge_fast_items_total rises. On blake2b-8 the port's bridge
+withholds fast frames from the XXH64-hashing edge (serve/edge_bridge.py),
+so the items ride string frames that the string fold serves on the array
+path: edge_folded_items_total rises and edge_fast_items_total does not.
+The hash-agreement pin, on each hash: one key through the edge and
+through the port's GEB fast client shares one count.
 """
 
 import asyncio
@@ -36,10 +37,10 @@ import pytest
 
 import gubernator_tpu.api.types as j_types
 import gubernator_tpu.core.engine as j_engine
-import gubernator_tpu.core.hashing as j_hashing
 import gubernator_tpu.serve.edge_bridge as jeb
 import gubernator_tpu_torch.api.types as t_types
 import gubernator_tpu_torch.serve.edge_bridge as teb
+from test_torch_hash import HASHES, pin_hash
 from _util import free_ports
 from gubernator_tpu.cluster import LocalCluster as JLocalCluster
 from gubernator_tpu.core.store import StoreConfig as JStoreConfig
@@ -192,6 +193,7 @@ def _drive(name, ports, clock, edge_bin):
                                     metrics.EDGE_FOLDED_ITEMS._value.get() - folded0)
             if name == "torch":
                 out["shared_count"] = _shared_count(eh, geb)
+                out["hash_parity_wide"] = _hash_parity_wide(eg, geb)
         finally:
             edge.terminate()
             edge.wait(timeout=10)
@@ -222,14 +224,36 @@ def _shared_count(edge_http, geb_port):
     return seen
 
 
-@pytest.fixture(scope="module")
-def runs(edge_bin):
-    if j_hashing.using_native_hash():
-        pytest.skip("the JAX package's native XXH64 hasher is built here; the "
-                    "differential needs both servers on the blake2b-8 slot hash")
-    results = {}
+def _hash_parity_wide(edge_grpc, geb_port):
+    """64 keys (utf-8 among them) through the edge's gRPC door (pre-hashed
+    by the edge when fast frames are offered), then each read through
+    the GEB door's string frames (hashed in the server): any hash
+    mismatch shows as a key whose hit the read does not see
+    (tests/test_edge_fast_path.py::test_hash_parity_wide)."""
+    keys = [f"wide-{i}-é{i % 7}" for i in range(64)]
+    with grpc.insecure_channel(f"127.0.0.1:{edge_grpc}") as chan:
+        r = V1Stub(chan).GetRateLimits(gubernator_pb2.GetRateLimitsReq(
+            requests=[_pb(k, limit=9) for k in keys]), timeout=20)
+    first = [x.remaining for x in r.responses]
+    with GebClient(f"127.0.0.1:{geb_port}", mode="string", timeout=20) as cl:
+        read = [x.remaining for x in cl.get_rate_limits([t_types.RateLimitReq(
+            name="ge", unique_key=k, hits=0, limit=9, duration=60_000) for k in keys])]
+    return first, read
+
+
+_RUNS: dict = {}
+
+
+@pytest.fixture(scope="module", params=HASHES)
+def runs(edge_bin, request):
+    # tests parametrised on one hash set the fixture up again: drive the
+    # two packages once a hash all the same
+    if request.param in _RUNS:
+        return _RUNS[request.param]
+    results = {"hash": request.param}
     ports = free_ports(5)
     with pytest.MonkeyPatch.context() as mp:
+        pin_hash(mp, request.param)
         clock = FakeClock()
         mp.setattr(j_types, "millisecond_now", clock)
         mp.setattr(j_engine, "millisecond_now", clock, raising=False)
@@ -237,6 +261,7 @@ def runs(edge_bin):
         for name in ("torch", "jax"):
             clock.t = T0
             results[name] = _drive(name, ports, clock, edge_bin)
+    _RUNS[request.param] = results
     return results
 
 
@@ -255,7 +280,9 @@ def test_failed_edge_build_raises(tmp_path, monkeypatch):
                                                    "/nonexistent/header.h"))
     with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
         edge_build.build()
-    assert not list(tmp_path.iterdir())  # no half-written binary left
+    # no half-written binary left (the build's lock file stays, as it does
+    # beside every output)
+    assert [p.suffix for p in tmp_path.iterdir()] == [".lock"]
 
 
 CASES = ["json_walk", "json_gateway_shapes", "json_validation", "json_malformed",
@@ -280,16 +307,34 @@ def test_edge_walks_and_errors_on_the_port(runs):
     assert t["json_health"] == "healthy" and t["grpc_health"] == "healthy"
 
 
+@pytest.mark.parametrize("runs", ["blake2b"], indirect=True)
 def test_edge_items_are_folded_never_fast_on_the_port(runs):
+    """On a blake2b-8 store the edge's XXH64 items are folded, never fast."""
     fast, folded = runs["torch"]["port_counters"]
     assert fast == 0 and folded > 0
+
+
+@pytest.mark.parametrize("runs", ["xxh64"], indirect=True)
+def test_edge_items_ride_fast_frames_on_xxh64(runs):
+    """On an XXH64 store every edge item rides a fast frame: none folded."""
+    fast, folded = runs["torch"]["port_counters"]
+    assert fast > 0 and folded == 0
 
 
 def test_edge_and_geb_fast_door_share_one_count(runs):
     assert runs["torch"]["shared_count"] == [9, 8, 7, 6, 5, 4]
 
 
-def test_edge_bridge_hello_withholds_fast_from_the_edge():
+def test_edge_hash_parity_wide(runs):
+    first, read = runs["torch"]["hash_parity_wide"]
+    assert first == [8] * 64 and read == [8] * 64
+
+
+@pytest.mark.parametrize("slot_hash", HASHES)
+def test_edge_bridge_hello_withholds_fast_from_the_edge(slot_hash, monkeypatch):
+    """Withheld on a blake2b-8 store; offered, with HELLO_XXH64, on XXH64."""
+    pin_hash(monkeypatch, slot_hash)
+
     class Inst:
         class backend:
             decide_submit_arrays = decide_submit = object()
@@ -307,4 +352,6 @@ def test_edge_bridge_hello_withholds_fast_from_the_edge():
 
     head = asyncio.run(hello(os.path.join(tempfile.mkdtemp(), "h.sock")))
     flags = int.from_bytes(head[4:8], "little")
-    assert not flags & teb.HELLO_FAST and flags & teb.HELLO_WINDOWED
+    xxh64 = slot_hash == "xxh64"
+    assert flags & teb.HELLO_WINDOWED
+    assert bool(flags & teb.HELLO_FAST) == bool(flags & teb.HELLO_XXH64) == xxh64

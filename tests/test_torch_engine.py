@@ -26,6 +26,7 @@ from gubernator_tpu_torch.core import engine as tengine
 from gubernator_tpu_torch.core import hashing as thashing
 from gubernator_tpu_torch.core.engine import TorchEngine, buckets_for_limit
 from gubernator_tpu_torch.core.store import StoreConfig, resolve_device
+from gubernator_tpu_torch.native import load_hashlib
 
 T0 = 1_700_000_000_000
 LADDER = (64, 128)
@@ -117,8 +118,14 @@ def test_host_glue_matches_jax():
             assert a.dtype == np.asarray(b).dtype
             np.testing.assert_array_equal(a, np.asarray(b))
     keys = [f"name_key:{i}" for i in range(50)]
+    # the port's slot hash is its native XXH64 (the library builds here);
+    # its blake2b-8 fallback is the JAX package's pure-Python hash
+    assert thashing.using_native_hash()
     np.testing.assert_array_equal(
-        thashing.slot_hash_batch(keys), jhashing._slot_hash_batch_py(keys)
+        thashing.slot_hash_batch(keys), load_hashlib().hash_batch(keys)
+    )
+    np.testing.assert_array_equal(
+        thashing._slot_hash_batch_py(keys), jhashing._slot_hash_batch_py(keys)
     )
     assert thashing.ring_hash("a_b") == jhashing.ring_hash("a_b")
 
@@ -152,10 +159,12 @@ def test_import_loads_no_jax_and_nothing_of_the_jax_package():
         "    global_mgr, instance, logging_setup, metrics, peers, prep, promoter,\n"
         "    server, shedcache, shm, stages, tracing)\n"
         "from gubernator_tpu_torch import client, client_geb, cluster, endpoints\n"
-        "from gubernator_tpu_torch.native import edge_build\n"
+        "from gubernator_tpu_torch.native import edge_build, hashlib_native\n"
+        "from gubernator_tpu_torch.core.hashing import using_native_hash\n"
+        "assert using_native_hash()\n"
         "from gubernator_tpu_torch.api import convert, grpc_glue\n"
         "from gubernator_tpu_torch.api.proto.gen import gubernator_pb2, peers_pb2\n"
-        "from gubernator_tpu_torch.cli import cluster_main, daemon\n"
+        "from gubernator_tpu_torch.cli import ablate_writeback, cluster_main, daemon\n"
         "backends.make_backend(config.config_from_env({'GUBER_STORE_MIB': '8'}),"
         " device='cpu')\n"
         "e = TorchEngine(store.StoreConfig(rows=1, slots=16), buckets=(64,),"

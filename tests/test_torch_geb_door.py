@@ -23,8 +23,9 @@ clock, and driven by the same script:
   does; its hello withholds HELLO_CHAIN, so the port's client refuses a
   chained batch before the wire.
 
-The fast frames need both packages to hash with blake2b-8 (the JAX side's
-pure-Python slot hash, `core.hashing.using_native_hash()` False). Cases of
+The fast frames need both packages to hash with one slot hash; both are
+pinned to blake2b-8 (tests/test_torch_hash.py), which the JAX client hashes
+with where the JAX package's native library is not built. Cases of
 tests/test_geb_client.py, tests/test_geb_differential.py and
 tests/test_bridge_robustness.py. Tolerance is zero.
 """
@@ -42,9 +43,9 @@ import pytest
 import gubernator_tpu.api.types as j_types
 import gubernator_tpu.client_geb as jclient
 import gubernator_tpu.core.engine as j_engine
-import gubernator_tpu.core.hashing as j_hashing
 import gubernator_tpu_torch.api.types as t_types
 import gubernator_tpu_torch.client_geb as tclient
+from test_torch_hash import pin_hash
 from _util import free_ports
 from gubernator_tpu.cluster import LocalCluster as JLocalCluster
 from gubernator_tpu.core.store import StoreConfig as JStoreConfig
@@ -264,12 +265,12 @@ def _drive(name, ports, clock):
 
 @pytest.fixture(scope="module")
 def runs():
-    if j_hashing.using_native_hash():
-        pytest.skip("the JAX package's native XXH64 hasher is built here; the fast-frame "
-                    "identity needs both packages on the blake2b-8 slot hash")
     results = {}
     ports = free_ports(3)
     with pytest.MonkeyPatch.context() as mp:
+        # the fast-frame identity needs both packages (and their clients)
+        # on one slot hash: blake2b-8, which the JAX client hashes with here
+        pin_hash(mp, "blake2b")
         clock = FakeClock()
         mp.setattr(j_types, "millisecond_now", clock)
         mp.setattr(j_engine, "millisecond_now", clock, raising=False)

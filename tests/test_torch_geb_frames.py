@@ -7,12 +7,12 @@ and `gubernator_tpu_torch.serve.edge_bridge`:
 - the decoders (`decode_request_frame`, `decode_chain_request_frame`),
   `encode_response_frame`, `ring_fingerprint`, `bound_payload_len` and the
   fast-record dtypes must agree exactly (tolerance zero);
-- the hello must be byte-identical except in two bits, which the port
-  sets differently on purpose and which are masked here: HELLO_FAST
-  (bit 0), which the port's edge bridge withholds because the compiled
-  edge pre-hashes XXH64 and the port's store hashes blake2b-8, and
-  HELLO_CHAIN (bit 3), which the port never sets because quota chains
-  are not ported;
+- the hello must be byte-identical, on both slot hashes (both packages
+  pinned to blake2b-8 or to the port's native XXH64, tests/test_torch_hash.py),
+  except in HELLO_CHAIN (bit 3), which the port never sets because quota
+  chains are not ported, and, on blake2b-8 only, HELLO_FAST (bit 0) on
+  the edge bridge, which withholds it there because the compiled edge
+  pre-hashes XXH64;
 - malformed frames (a seeded hostile corpus, and a hypothesis fuzz) close
   the connection in both packages, and a listener survives them.
 
@@ -36,6 +36,7 @@ import gubernator_tpu.serve.edge_bridge as jeb
 import gubernator_tpu_torch.client_geb as tclient
 import gubernator_tpu_torch.serve.edge_bridge as teb
 import gubernator_tpu_torch.serve.shm as tshm
+from test_torch_hash import HASHES, pin_hash
 from _util import free_ports
 from gubernator_tpu.api.types import RateLimitResp as JResp
 from gubernator_tpu.api.types import Status as JStatus
@@ -47,8 +48,8 @@ PKGS = {
     "torch": (teb, TResp, TStatus),
 }
 
-#: the hello bits the port sets differently on purpose (module docstring)
-PORT_HELLO_BITS = teb.HELLO_FAST | teb.HELLO_CHAIN
+#: the hello bit the port never sets (module docstring)
+PORT_HELLO_BITS = teb.HELLO_CHAIN
 
 
 def _item(name: bytes, key: bytes, hits=1, limit=5, duration=1000,
@@ -248,8 +249,13 @@ PEERS = [FakePeer("10.0.0.2:81"), FakePeer("10.0.0.1:81", is_owner=True),
          FakePeer("10.0.0.3:81")]
 
 
+@pytest.mark.parametrize("slot_hash", HASHES)
 @pytest.mark.parametrize("door", ["geb", "geb_door_map", "core", "edge_unix", "edge_tcp"])
-def test_hello_matches_jax_except_the_port_bits(door):
+def test_hello_matches_jax_except_the_port_bits(door, slot_hash, monkeypatch):
+    pin_hash(monkeypatch, slot_hash)
+    xxh64 = slot_hash == "xxh64"
+    # on blake2b-8 the port's edge bridge withholds fast from the edge
+    mask = PORT_HELLO_BITS | (teb.HELLO_FAST if not xxh64 and door.startswith("edge") else 0)
     hellos = {}
     for name, (pkg, Resp, Status) in PKGS.items():
         inst = _fake_instance(Resp, Status, PEERS)
@@ -267,25 +273,37 @@ def test_hello_matches_jax_except_the_port_bits(door):
         hellos[name] = (svc._hello(), svc._hello(shm=True))
     for t, j in zip(hellos["torch"], hellos["jax"]):
         tf, jf = struct.unpack_from("<I", t, 4)[0], struct.unpack_from("<I", j, 4)[0]
-        assert tf & ~PORT_HELLO_BITS == jf & ~PORT_HELLO_BITS
+        assert tf & ~mask == jf & ~mask
         assert t[:4] + t[8:] == j[:4] + j[8:]
         assert jf & teb.HELLO_FAST and jf & teb.HELLO_CHAIN  # the reference's
-        assert not tf & teb.HELLO_CHAIN and not tf & teb.HELLO_XXH64
-        # the hash-agreement rule: fast to the blake2b client, never to
-        # the XXH64-only compiled edge
-        assert bool(tf & teb.HELLO_FAST) == (not door.startswith("edge"))
+        assert not tf & teb.HELLO_CHAIN
+        assert bool(tf & teb.HELLO_XXH64) == bool(jf & teb.HELLO_XXH64) == xxh64
+        # the hash-agreement rule: fast to every client on XXH64; on
+        # blake2b-8 to the blake2b client, never to the XXH64-only edge
+        assert bool(tf & teb.HELLO_FAST) == (xxh64 or not door.startswith("edge"))
     hello = tclient.parse_hello_bytes(hellos["torch"][1])
     assert hello.shm and hello.trace and hello.windowed
-    assert hello.fast == (not door.startswith("edge"))
-    assert hello.xxh64 == tclient.client_hash_is_native() is False
+    assert hello.fast == (xxh64 or not door.startswith("edge"))
+    assert hello.xxh64 == tclient.client_hash_is_native() == xxh64
 
 
-def test_client_hash_is_the_store_slot_hash():
+@pytest.mark.parametrize("slot_hash", HASHES)
+def test_client_hash_is_the_store_slot_hash(slot_hash, monkeypatch):
     from gubernator_tpu_torch.core.hashing import slot_hash_batch, slot_hash_is_xxh64
 
+    pin_hash(monkeypatch, slot_hash)
     keys = [f"name_key{i}" for i in range(64)] + ["", "ünï_cødé"]
     assert (tclient.client_hash_batch(keys) == slot_hash_batch(keys)).all()
-    assert slot_hash_is_xxh64() is False
+    assert slot_hash_is_xxh64() == tclient.client_hash_is_native() == (slot_hash == "xxh64")
+
+
+def test_the_port_hashes_xxh64_by_default():
+    """Unpinned, the port's store and client select the native XXH64
+    hasher (it builds with g++ here), as the JAX package selects its own
+    when built."""
+    from gubernator_tpu_torch.core.hashing import slot_hash_is_xxh64, using_native_hash
+
+    assert using_native_hash() and slot_hash_is_xxh64() and tclient.client_hash_is_native()
 
 
 # -- the frame core over a fake instance --------------------------------------

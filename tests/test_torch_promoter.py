@@ -20,10 +20,10 @@ import pytest
 import torch
 
 import gubernator_tpu.api.types as j_types
-import gubernator_tpu.core.hashing as j_hashing
 import gubernator_tpu.serve.promoter as jp
 import gubernator_tpu_torch.api.types as t_types
 import gubernator_tpu_torch.serve.promoter as tp
+from test_torch_hash import pin_hash
 from gubernator_tpu.core.kernels import BatchRequest as JBatchRequest
 from gubernator_tpu_torch.core.kernels import BatchRequest
 
@@ -128,8 +128,7 @@ def test_sketch_promoter_flush_once_matches_jax(monkeypatch):
     c = FakeClock()
     monkeypatch.setattr(j_types, "millisecond_now", c)
     monkeypatch.setattr(t_types, "millisecond_now", c)
-    monkeypatch.setattr(j_hashing, "_native_checked", True)
-    monkeypatch.setattr(j_hashing, "_native_batch", None)
+    pin_hash(monkeypatch, "blake2b")  # both packages on one slot hash
     monkeypatch.setattr(jp, "OBSERVE_MIN_INTERVAL_S", 0.0)
     monkeypatch.setattr(tp, "OBSERVE_MIN_INTERVAL_S", 0.0)
 

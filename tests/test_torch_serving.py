@@ -13,7 +13,9 @@ a 2 x 4096 int32 sketch) so tier pressure starts at once:
   bytes, EngineStats, shed-cache stats and entries, and promoter stats at
   the end, after one promoter tick on each side;
 - GLOBAL replica installs (`update_peer_globals`) and the self-destined
-  hit flush (`apply_global_hits_local`) on both stacks.
+  hit flush (`apply_global_hits_local`) on both stacks;
+- each on both slot hashes, blake2b-8 and the port's native XXH64, both
+  packages pinned to the same one (tests/test_torch_hash.py).
 
 Inputs come from numpy seeds; tolerance is zero (integer math). Batch
 composition is kept deterministic: groups go one at a time, the GLOBAL
@@ -32,10 +34,10 @@ import torch
 
 import gubernator_tpu.api.types as j_types
 import gubernator_tpu.core.engine as j_engine
-import gubernator_tpu.core.hashing as j_hashing
 import gubernator_tpu.serve.promoter as j_promoter
 import gubernator_tpu_torch.api.types as t_types
 import gubernator_tpu_torch.serve.promoter as t_promoter
+from test_torch_hash import HASHES, pin_hash
 from gubernator_tpu.core.sketches import SketchConfig as JSketchConfig
 from gubernator_tpu.core.store import StoreConfig as JStoreConfig
 from gubernator_tpu.serve.backends import TpuBackend
@@ -62,17 +64,16 @@ class FakeClock:
         return self.t
 
 
-@pytest.fixture
-def clock(monkeypatch):
-    """One pinned clock for both packages; the JAX package on its
-    pure-Python slot hash (the port's) even where its native hasher is
-    built; the promoter's observer sampling every dispatch on both."""
+@pytest.fixture(params=HASHES)
+def clock(monkeypatch, request):
+    """One pinned clock for both packages; both packages on one slot
+    hash, blake2b-8 or the port's native XXH64 (tests/test_torch_hash.py);
+    the promoter's observer sampling every dispatch on both."""
     c = FakeClock()
     monkeypatch.setattr(j_types, "millisecond_now", c)
     monkeypatch.setattr(j_engine, "millisecond_now", c, raising=False)
     monkeypatch.setattr(t_types, "millisecond_now", c)
-    monkeypatch.setattr(j_hashing, "_native_checked", True)
-    monkeypatch.setattr(j_hashing, "_native_batch", None)
+    pin_hash(monkeypatch, request.param)
     monkeypatch.setattr(j_promoter, "OBSERVE_MIN_INTERVAL_S", 0.0)
     monkeypatch.setattr(t_promoter, "OBSERVE_MIN_INTERVAL_S", 0.0)
     return c

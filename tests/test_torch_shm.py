@@ -29,6 +29,7 @@ import gubernator_tpu.client_geb as jclient
 import gubernator_tpu.serve.shm as jshm
 import gubernator_tpu_torch.api.types as t_types
 import gubernator_tpu_torch.serve.shm as tshm
+from test_torch_hash import HASHES, pin_hash
 from _util import free_ports
 from gubernator_tpu_torch.api.types import Algorithm, RateLimitReq, RateLimitResp, Status
 from gubernator_tpu_torch.client_geb import AsyncGebClient, GebError, read_hello
@@ -381,17 +382,19 @@ class FakeClock:
         return self.t
 
 
-def test_shm_lane_vs_geb_fast_door_identity(monkeypatch, tmp_path):
+@pytest.mark.parametrize("slot_hash", HASHES)
+def test_shm_lane_vs_geb_fast_door_identity(monkeypatch, tmp_path, slot_hash):
     """Two fresh one-node port stacks, one fake-clock stream: string
     frames through the shm lane (folded, hashed in the server) and fast
     frames through the GEB door (hashed by the client) answer byte-equal —
-    the two doors hash a key into the same row."""
+    the two doors hash a key into the same row, on either slot hash."""
     from gubernator_tpu_torch.cluster import LocalCluster
     from gubernator_tpu_torch.core.store import StoreConfig
     from gubernator_tpu_torch.serve.backends import TorchBackend
 
     clock = FakeClock()
     monkeypatch.setattr(t_types, "millisecond_now", clock)
+    pin_hash(monkeypatch, slot_hash)
     path = str(tmp_path / "d.sock")
     ports = free_ports(3)
 
@@ -418,7 +421,7 @@ def test_shm_lane_vs_geb_fast_door_identity(monkeypatch, tmp_path):
     try:
         async def run():
             fast = AsyncGebClient(f"127.0.0.1:{ports[2]}", mode="fast", shm="off")
-            shm = AsyncGebClient(f"unix:{path}", shm="require")
+            shm = AsyncGebClient(f"unix:{path}", mode="string", shm="require")
             rng = np.random.default_rng(47)
             try:
                 await shm.connect()

@@ -13,6 +13,11 @@ identity sweep of scripts/bench_hbm.py (`kern` inside `ident`: out =
 data + 1 in row tiles), rebuilt here as the same pallas_call and run in
 interpret mode.
 
+The writeback ablation's plain versions (the port of
+scripts/ablate_sweep.py's kernel: `rows`, `deltas`, and `full` at each
+chunk height) are held against numpy, and `full` against the Pallas
+sweep in interpret mode.
+
 The CUDA kernels themselves run only on a GPU: tests/test_torch_cuda.py
 holds them against the plain versions there.
 """
@@ -27,10 +32,17 @@ from gubernator_tpu.core import kernels as jk
 from gubernator_tpu.core import pallas_sweep as ps
 from gubernator_tpu_torch.core import kernels as tk
 from gubernator_tpu_torch.core.writeback import (
+    ABLATION_ROWS,
     add_one,
     add_one_plain,
+    run_ends,
     writeback_add,
     writeback_add_plain,
+    writeback_deltas,
+    writeback_deltas_plain,
+    writeback_full,
+    writeback_rows,
+    writeback_rows_plain,
 )
 
 
@@ -209,3 +221,132 @@ def test_first_index_ties_match_jnp_argmax_argmin():
         tk._argmin_first(torch.from_numpy(k)).numpy(),
         np.asarray(jnp.argmin(jnp.asarray(k), axis=1)),
     )
+
+
+# -- the writeback ablation (scripts/ablate_sweep.py's kernel) ----------------
+
+
+def _ablation_inputs(seed: int, buckets: int = 512, G: int = 700, W: int = 128):
+    """The script's recipe at a small size: a random store, sorted bucket
+    ids with duplicate runs, delta rows over all of int32 (30% zero)."""
+    rng = np.random.default_rng(seed)
+    data = rng.integers(-(2**31), 2**31 - 1, (buckets, W), dtype=np.int64).astype(np.int32)
+    bkt = np.sort(rng.integers(0, buckets // 4, G)).astype(np.int32)
+    drow = rng.integers(-(2**31), 2**31 - 1, (G, W), dtype=np.int64).astype(np.int32)
+    drow[rng.random(G) < 0.3] = 0
+    return data, bkt, drow
+
+
+def _deltas_numpy(bkt, drow, krows):
+    """Each run of equal buckets within a chunk of krows rows, summed in
+    int64 and wrapped to int32, at the run's last row; zeros elsewhere."""
+    out = np.zeros(drow.shape, np.int64)
+    G = bkt.shape[0]
+    start = 0
+    for i in range(G):
+        last = i == G - 1 or bkt[i + 1] != bkt[i] or (i + 1) % krows == 0
+        if last:
+            out[i] = drow[start:i + 1].astype(np.int64).sum(axis=0)
+            start = i + 1
+    return ((out + 2**31) % 2**32 - 2**31).astype(np.int32)
+
+
+def test_ablation_rows_plain_adds_one_to_each_touched_row_once():
+    """`rows` stores each touched row back plus one, once a bucket however
+    long its run (with int32 wrap), and leaves every other row alone."""
+    data, bkt, _ = _ablation_inputs(1)
+    data[bkt[0]] = 2**31 - 1
+    assert (np.diff(bkt) == 0).any()  # some bucket repeats
+    want = data.astype(np.int64)
+    want[np.unique(bkt)] += 1
+    want = ((want + 2**31) % 2**32 - 2**31).astype(np.int32)
+    d = torch.from_numpy(data.copy())
+    before = writeback_rows.launches
+    assert writeback_rows(d, torch.from_numpy(bkt)).data_ptr() == d.data_ptr()
+    assert writeback_rows.launches == before  # a CPU tensor: the plain version
+    np.testing.assert_array_equal(d.numpy(), want)
+    np.testing.assert_array_equal(
+        writeback_rows_plain(torch.from_numpy(data.copy()), torch.from_numpy(bkt)).numpy(),
+        want)
+
+
+@pytest.mark.parametrize("krows", ABLATION_ROWS)
+def test_ablation_deltas_plain_matches_numpy(krows):
+    _, bkt, drow = _ablation_inputs(krows)
+    want = _deltas_numpy(bkt, drow, krows)
+    out = torch.zeros(drow.shape, dtype=torch.int32)
+    before = writeback_deltas.launches
+    got = writeback_deltas(out, torch.from_numpy(bkt), torch.from_numpy(drow), krows)
+    assert writeback_deltas.launches == before and got.data_ptr() == out.data_ptr()
+    np.testing.assert_array_equal(got.numpy(), want)
+    plain = writeback_deltas_plain(torch.zeros(drow.shape, dtype=torch.int32),
+                                   torch.from_numpy(bkt), torch.from_numpy(drow), krows)
+    np.testing.assert_array_equal(plain.numpy(), want)
+    # the runs really were cut at chunk edges and summed with wrap
+    ends = run_ends(torch.from_numpy(bkt), krows).numpy()
+    rows = np.arange(len(bkt))
+    assert (ends >= rows).all() and (ends // krows == rows // krows).all()
+    wide = np.zeros(drow.shape, np.int64)
+    np.add.at(wide, ends, drow.astype(np.int64))
+    assert (wide != want).any()
+
+
+@pytest.mark.parametrize("krows", ABLATION_ROWS)
+def test_ablation_full_plain_matches_pallas_sweep_interpret(krows):
+    """`full` at every chunk height is writeback_add's function, that of the
+    TPU kernel: held against gubernator_tpu.core.pallas_sweep run in
+    interpret mode (as the JAX tests run it on the CPU) and against
+    numpy's wrapped add."""
+    data, bkt, drow = _recipe(20 + krows, 256, 512)
+    want = np.asarray(ps._apply_inline(jnp.asarray(data), jnp.asarray(bkt),
+                                       jnp.asarray(drow), interpret=True))
+    d = torch.from_numpy(data.copy())
+    before = writeback_full.launches, writeback_add.launches
+    writeback_full(d, torch.from_numpy(bkt), torch.from_numpy(drow), krows)
+    assert (writeback_full.launches, writeback_add.launches) == before
+    np.testing.assert_array_equal(d.numpy(), want)
+    wide = data.astype(np.int64)
+    np.add.at(wide, bkt, drow.astype(np.int64))
+    np.testing.assert_array_equal(((wide + 2**31) % 2**32 - 2**31).astype(np.int32), want)
+
+
+@pytest.mark.parametrize("call", [
+    lambda d, b, r: writeback_full(d, b, r, krows=32),
+    lambda d, b, r: writeback_rows(d, b, krows=2),
+    lambda d, b, r: writeback_deltas(torch.zeros_like(r), b, r, krows=12),
+    lambda d, b, r: writeback_deltas(torch.zeros(3, 128, dtype=torch.int32), b, r),
+    lambda d, b, r: writeback_rows(d, b.to(torch.int64)),
+])
+def test_ablation_wrappers_reject_bad_inputs(call):
+    data, bkt, drow = (torch.from_numpy(x) for x in _ablation_inputs(2, G=40))
+    with pytest.raises((ValueError, TypeError)):
+        call(data, bkt, drow)
+
+
+def test_ablation_cli_inputs_and_bytes_on_the_cpu(capsys):
+    """cli/ablate_writeback.py draws the script's inputs (seed 5: 16,384
+    sorted ids over 32,768 buckets) and counts each step's bytes from the
+    batch's own runs; with no card it exits 1 and says why."""
+    from gubernator_tpu_torch.cli import ablate_writeback as aw
+
+    _name, data, [(bkt, drow)], in_l2 = aw.script_shape("cpu")
+    assert in_l2  # 16 MiB: the bound at this shape is left out
+    assert tuple(data.shape) == (32768, 128) and bkt.shape == (16384,)
+    assert (np.diff(bkt) >= 0).all() and drow.shape == (16384, 128)
+    assert drow.min() >= -1000 and drow.max() < 1000  # the script's delta range
+    b = torch.from_numpy(bkt)
+    G, U = bkt.shape[0], np.unique(bkt).shape[0]
+    assert aw.step_bytes("rows", b, 8) == 2 * U * 512 + G * 4
+    assert aw.step_bytes("full", b, 8) == G * 512 + G * 4 + 2 * U * 512
+    chunk_runs = np.unique(run_ends(b, 8).numpy()).shape[0]
+    assert U <= chunk_runs <= U + G // 8
+    assert aw.step_bytes("deltas", b, 8) == G * 512 + G * 4 + chunk_runs * 512
+    _name, small, sets, in_l2 = aw.two_tier_shape("cpu", sets=2, depth=2048, buckets=1 << 12)
+    assert not in_l2
+    assert tuple(small.shape) == (4096, 128) and len(sets) == 2
+    for bk, dr in sets:  # the decide's padded group stream: sorted, in range
+        assert (np.diff(bk) >= 0).all() and bk.min() >= 0 and bk.max() < 4096
+        assert dr.shape == (bk.shape[0], 128)
+    if not torch.cuda.is_available():
+        assert aw.main([]) == 1
+        assert "needs a CUDA device" in capsys.readouterr().err
