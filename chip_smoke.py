@@ -34,7 +34,8 @@ Phases, one JSON line each:
 2. kernel    the copy-floor kernel (x += 1, the port of scripts/bench_hbm.py's
              identity sweep) against x.add_(1), bit for bit, and timed at
              16 MiB (in the 50 MB L2), 512 MiB and 1 GiB (the two stores):
-             the bytes/s a pass over the store reaches; then
+             the bytes/s a pass over the store reaches, and vs_library, its
+             time over x.add_(1)'s in the same run; then
              the writeback kernel against its plain version, bit for bit,
              at the exact path's shape (2^21 buckets, G of a zipf batch),
              the sweep's own regime (4096 buckets, B=32768) and the
@@ -49,8 +50,10 @@ Phases, one JSON line each:
    ablation  the writeback ablation (cli/ablate_writeback.py, the port of
              scripts/ablate_sweep.py): its steps rows, deltas and full at
              kRows 4, 8 and 16, each bit for bit against its plain version
-             and timed, at the script's shape (16 MiB, in the L2) and the
-             two-tier path's;
+             and timed beside its one PyTorch call, at the script's shape
+             (16 MiB, in the L2) and the two-tier path's, where each step
+             at kRows 8 is also timed on one batch repeated, in the L2
+             (one_set_vs_all);
 3. walk      get_rate_limits: a limit-2 key goes 1 -> 0 -> OVER_LIMIT;
 4. main      exact tier: 3 batches held against the same port on the CPU
              (identical outputs and store bytes), 50 timed, then a profile;
@@ -359,6 +362,7 @@ def copy_floor_cases(cyc: float) -> dict:
         out[key] = dict(shape=name, rows=rows, bytes=nbytes, max_abs_err=max_abs_err,
                         **times, ms_samples=samples["ms"], bound_ms=bound_ms,
                         bound_by="bytes", share_of_bound=bound_ms / times["ms"],
+                        vs_library=times["ms"] / times["library_ms"],
                         bytes_per_s=nbytes / (times["ms"] / 1e3),
                         plain_bytes_per_s=nbytes / (times["plain_ms"] / 1e3),
                         floor_bytes_per_s=nbytes / (times[fastest] / 1e3),
@@ -2485,8 +2489,13 @@ def ablation_entry(step: str, ablation: dict, launches: int) -> dict:
     every kRows and the script's shape beside them (that shape's store
     sits in L2: its bytes at the HBM rate and at the L2 copy rate this
     run measured, but no bound). `launches` is the step's count over the
-    paths (0: it is on none)."""
+    paths (0: it is on none). `launch` says how the kernel was launched:
+    `deltas`' is a programmatic dependent launch ("pdl"), which overlaps
+    the call before it; its `ms_no_overlap` and `share_of_bound_no_overlap`
+    are the plain launch's, the ones that compare with the other steps."""
     main_rec = ablation["two_tier"]["steps"][f"{step}_K8"]
+    overlap = {key: main_rec[key] for key in ("ms_no_overlap", "share_of_bound_no_overlap")
+               if key in main_rec}
     return dict(
         name=f"writeback_ablation_{step}", route="cuda",
         source="gubernator_tpu_torch/csrc/writeback.cu",
@@ -2495,6 +2504,7 @@ def ablation_entry(step: str, ablation: dict, launches: int) -> dict:
                         for r in ablation.values() for k in (4, 8, 16)),
         ms=main_rec["ms"], plain_ms=main_rec["plain_ms"], bound_ms=main_rec["bound_ms"],
         bound_by="bytes", library_ms=main_rec["library_ms"], library=main_rec["library"],
+        share_of_bound=main_rec["share_of_bound"], launch=main_rec["launch"], **overlap,
         shape=ablation["two_tier"]["shape"], krows=8,
         ms_by_shape_and_krows={shape: {k: r["steps"][f"{step}_K{k}"]["ms"] for k in (4, 8, 16)}
                                for shape, r in ablation.items()},
@@ -2663,6 +2673,8 @@ def main() -> int:
         bound_ms=floor_case["bound_ms"], bound_by="bytes",
         library_ms=floor_case["library_ms"],
         shape=floor_case["shape"], bytes_per_s=floor_case["bytes_per_s"],
+        ms_by_shape={key: f["ms"] for key, f in floor.items()},
+        library_ms_by_shape={key: f["library_ms"] for key, f in floor.items()},
     )] + [ablation_entry(step, ablation, ablation_launches[step]) for step in
           ("rows", "deltas", "full")]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -20,13 +20,19 @@ TILE_ROWS sweep):
 - `full`: writeback_add's function (`writeback_full`).
 
 Each kernel is first held bit for bit against its plain PyTorch version
-on the same inputs, then timed: ms, plain_ms and library_ms are device
-time per call of a run of back-to-back calls cycling through the shape's
-batches (CUDA events around the run, a sleep queued ahead of it so that
+on the same inputs, then timed: ms, plain_ms and library_ms (`LIBRARY`
+names the one PyTorch call of each step) are device time per call of a
+run of back-to-back calls cycling through the shape's batches (CUDA
+events around the run, a sleep queued ahead of it so that
 the host's launch gaps stay outside it; a call that waits on the host,
 named in `waits_on_host` (found by CUDA's sync debug mode, or by a run
 the card reached before the host had queued it), is timed from a drained
-card, its waits included). Two shapes:
+card, its waits included). Every kernel launches as a plain stream
+launch except `deltas`'s, a programmatic dependent launch whose start
+overlaps the end of the call before it (`launch` in each record says
+which): its `ms_no_overlap` is the same kernel launched plainly, timed in
+the same turns, which is the time that compares with the other steps'.
+Two shapes:
 
 - `script`: the script's own, int32[32768, 128] with B = 16,384 sorted
   bucket ids (seed 5). Its 16 MiB store fits in the H100's 50 MB L2, so
@@ -38,6 +44,11 @@ card, its waits included). Two shapes:
 - `two_tier`: the two-tier path's, 2^20 buckets and the group stream of a
   zipf(1.2) batch of 32,768 over 100M keys, cycling 8 batches; bound_ms
   is the step's bytes over the H100's 3.35 TB/s of HBM.
+
+At the two-tier shape each step at kRows 8 is also timed over its first
+batch alone, repeated (`one_set_vs_all`): one batch's 8 MB stay in the
+L2, so the pair tells a step held back by cold HBM reads from one held
+back by its own design.
 
 Prints, last, one JSON object of microseconds per call, keyed
 `<shape>_<step>_K<kRows>` as the script keyed `T<rows>_<mode>`; with
@@ -72,6 +83,13 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 W = 128
 CALLS = 192  # calls per timed run
 STEPS = ("rows", "deltas", "full")
+#: the one PyTorch call that computes each step's function (library_ms)
+LIBRARY = {
+    "rows": "index_add_ of ones over the touched buckets",
+    "deltas": "index_add_ of the delta rows onto run_ends(bkt, krows), the ends "
+              "computed ahead",
+    "full": "index_add_",
+}
 
 
 def spin_up(seconds: float = 0.5) -> None:
@@ -216,6 +234,13 @@ def _segment_reduce(drow: torch.Tensor, lengths: torch.Tensor):
     return torch.segment_reduce(drow, "sum", lengths=lengths)
 
 
+def deltas_library(out: torch.Tensor, ends: torch.Tensor, drow: torch.Tensor) -> torch.Tensor:
+    """The deltas step as one PyTorch call, given `ends = run_ends(bkt,
+    krows)` (found ahead of the timed run, as the rows step finds its
+    touched buckets): out[ends[i]] += drow[i], in place."""
+    return out.index_add_(0, ends, drow)
+
+
 def measure(shape, cyc: float) -> dict:
     """Every step at every kRows on one shape: checked, then timed."""
     name, data, sets_np, in_l2 = shape
@@ -226,15 +251,16 @@ def measure(shape, cyc: float) -> dict:
     rec = dict(shape=name, buckets=int(data.shape[0]), G=int(bkt0.shape[0]),
                touched_rows=int(torch.unique_consecutive(bkt0).shape[0]), sets=len(sets),
                calls_per_run=CALLS, steps={})
-    # the library's segmented sum, where it runs on int32 (it has no int32
-    # kernel in the builds tried so far: then library_ms is null, with why)
-    lengths = [torch.unique_consecutive(run_ends(b, 8), return_counts=True)[1]
-               for b, _ in sets]
+    # a note on the library's own segmented sum, which would be the natural
+    # yardstick but has no int32 kernel in the builds tried so far
+    lengths = torch.unique_consecutive(run_ends(bkt0, 8), return_counts=True)[1]
     try:
-        _segment_reduce(drow0, lengths[0])
+        _segment_reduce(drow0, lengths)
         seg_lib = None
     except (RuntimeError, NotImplementedError) as e:
         seg_lib = f"torch.segment_reduce on int32 raised: {str(e).splitlines()[0]}"
+    # the deltas step's library call scatters onto each row's run end
+    ends = {k: [run_ends(b, k) for b, _ in sets] for k in ABLATION_ROWS}
     # the library's rows step: one index_add_ of ones over each set's
     # touched buckets (found ahead of the timed run)
     touched = [torch.unique_consecutive(b) for b, _ in sets]
@@ -258,7 +284,10 @@ def measure(shape, cyc: float) -> dict:
             elif step == "deltas":
                 got = writeback_deltas(torch.zeros_like(drow0), bkt0, drow0, k)
                 want = writeback_deltas_plain(torch.zeros_like(drow0), bkt0, drow0, k)
-                ok = torch.equal(got, want)
+                plain_launch = writeback_deltas(torch.zeros_like(drow0), bkt0, drow0, k,
+                                                overlap=False)
+                ok = torch.equal(got, want) and torch.equal(plain_launch, want)
+                del plain_launch
             else:
                 got = writeback_full(data.clone(), bkt0, drow0, k)
                 want = writeback_add_plain(data.clone(), bkt0, drow0)
@@ -276,16 +305,15 @@ def measure(shape, cyc: float) -> dict:
                                      for b, _ in sets],
                            library_ms=[lambda u=u, o=o: work.index_add_(0, u, o)
                                        for u, o in zip(touched, ones)])
-                library = "index_add_ of ones over the touched buckets"
             elif step == "deltas":
                 fns = dict(ms=[lambda b=b, d=d, o=o: writeback_deltas(o, b, d, k)
                                for (b, d), o in zip(sets, outs)],
+                           ms_no_overlap=[lambda b=b, d=d, o=o: writeback_deltas(
+                               o, b, d, k, overlap=False) for (b, d), o in zip(sets, outs)],
                            plain_ms=[lambda b=b, d=d, o=o: writeback_deltas_plain(o, b, d, k)
-                                     for (b, d), o in zip(sets, outs)])
-                if k == 8 and seg_lib is None:
-                    fns["library_ms"] = [lambda d=d, n=n: _segment_reduce(d, n)
-                                         for (_, d), n in zip(sets, lengths)]
-                library = "torch.segment_reduce (sum, int32)"
+                                     for (b, d), o in zip(sets, outs)],
+                           library_ms=[lambda e=e, d=d, o=o: deltas_library(o, e, d)
+                                       for (_, d), o, e in zip(sets, outs, ends[k])])
             else:
                 fns = dict(ms=[lambda b=b, d=d: writeback_full(work, b, d, k)
                                for b, d in sets],
@@ -293,7 +321,6 @@ def measure(shape, cyc: float) -> dict:
                                      for b, d in sets],
                            library_ms=[lambda b=b, d=d: work.index_add_(0, b, d)
                                        for b, d in sets])
-                library = "index_add_"
             waits = {key: waits_on_host(f[0]) for key, f in fns.items()}
             spin_up(0.2)
             samples = {key: [] for key in fns}
@@ -315,9 +342,11 @@ def measure(shape, cyc: float) -> dict:
             hbm_ms = nbytes / HBM_BYTES_PER_S * 1e3
             entry = dict(
                 step=step, krows=k, max_abs_err=err, bytes_mean=nbytes,
-                ms=times["ms"], plain_ms=times["plain_ms"],
-                library_ms=times.get("library_ms"),
-                library=library if "library_ms" in times else None,
+                launch="pdl" if step == "deltas" else "stream",
+                ms=times["ms"], ms_no_overlap=times.get("ms_no_overlap"),
+                plain_ms=times["plain_ms"],
+                library_ms=times["library_ms"], library=LIBRARY[step],
+                # a note: why the library's own segmented sum is not the yardstick
                 library_none_because=(seg_lib if step == "deltas" and k == 8 else None),
                 waits_on_host=[key for key, w in waits.items() if w],
                 ms_samples=samples["ms"])
@@ -329,8 +358,23 @@ def measure(shape, cyc: float) -> dict:
             else:
                 entry.update(bound_ms=hbm_ms, bound_by="bytes",
                              share_of_bound=hbm_ms / times["ms"])
+                if "ms_no_overlap" in times:
+                    entry["share_of_bound_no_overlap"] = hbm_ms / times["ms_no_overlap"]
             rec["steps"][f"{step}_K{k}"] = entry
-    del data, work, sets, outs, touched, ones
+            if k == 8 and len(sets) > 1:
+                # the first batch alone, repeated (its rows stay in the L2),
+                # in turns with the run over every batch
+                pair = {"one": [], "all": []}
+                for _ in range(2):
+                    pair["one"].append(run_ms(fns["ms"][:1], cyc))
+                    pair["all"].append(run_ms(fns["ms"], cyc))
+                    pair["all"].append(run_ms(fns["ms"], cyc))
+                    pair["one"].append(run_ms(fns["ms"][:1], cyc))
+                one, every = (statistics.median(pair[key]) for key in ("one", "all"))
+                rec.setdefault("one_set_vs_all", {})[step] = dict(
+                    krows=k, sets=len(sets), ms_one_set=one, ms_all_sets=every,
+                    all_over_one=every / one)
+    del data, work, sets, outs, touched, ones, ends
     torch.cuda.empty_cache()
     return rec
 

@@ -12,8 +12,11 @@ the two: a CUDA call launches the kernel or raises.
 `add_one(x)` is the copy floor beside it (x += 1 in place, one read and
 one write of every int32; plain version `x.add_(1)`): the port of the
 identity sweep in scripts/bench_hbm.py, which measures the least time a
-pass over the store can take. It runs on no serving path; chip_smoke.py
-times it to give the writeback's bound a measured floor.
+pass over the store can take. It is bound by bytes; its kernel is
+picked by whether the array fits in half the L2: a grid-stride loop
+within it, a one-shot grid of one vector a thread with evict-first hints
+beyond it (the source note says why). It runs on no serving path;
+chip_smoke.py times it to give the writeback's bound a measured floor.
 
 The writeback ablation (the port of scripts/ablate_sweep.py's kernel)
 splits the writeback into the steps whose cost it asks about, each an
@@ -23,14 +26,18 @@ either (cli/ablate_writeback.py times them):
 - `writeback_rows(data, bkt)`: the store side alone, every touched row
   loaded and stored back plus one (so a skipped or doubled row shows);
 - `writeback_deltas(out, bkt, drow)`: the delta stream alone, each run of
-  equal buckets within a chunk of `krows` rows summed into out[run end];
+  equal buckets within a chunk of `krows` rows summed into out[run end]
+  (its kernel: one warp a row through shared memory, evict-first hints,
+  by default launched to overlap the tail of the kernel before it, which
+  `overlap=False` turns off; bound by bytes);
 - `writeback_full(data, bkt, drow, krows=4|8|16)`: the whole writeback at
   each chunk height (the product's writeback_add runs 8).
 
 The kernel is compiled with nvcc at first use into a shared library with
 a C interface under `gubernator_tpu_torch/_build/` (keyed by a hash of
 the source and flags) and loaded with ctypes. Nothing is imported or
-built when this module is imported.
+built when this module is imported. PERF.md lists the designs the copy
+floor and the deltas step were chosen from, with their times on an H100.
 
 Preconditions, checked where cheap and documented where not (as the TPU
 kernel's `_apply_inline` documents its own): `bkt` is sorted
@@ -133,12 +140,12 @@ def _load() -> ctypes.CDLL:
             lib.guber_ablate_rows.restype = ctypes.c_int
             lib.guber_ablate_deltas.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p,
             ]
             lib.guber_ablate_deltas.restype = ctypes.c_int
             lib.guber_add_one.argtypes = [
-                ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
             ]
             lib.guber_add_one.restype = ctypes.c_int
             lib.guber_cuda_error_string.argtypes = [ctypes.c_int]
@@ -320,15 +327,19 @@ def writeback_deltas_plain(
 
 
 def writeback_deltas(
-    out: torch.Tensor, bkt: torch.Tensor, drow: torch.Tensor, krows: int = 8
+    out: torch.Tensor, bkt: torch.Tensor, drow: torch.Tensor, krows: int = 8,
+    *, overlap: bool = True,
 ) -> torch.Tensor:
     """The ablation's `deltas` step: read every delta row and bucket id
     and write each run of equal buckets within a chunk of `krows` rows,
     summed (int32 wrap), into out[the run's last row]; other rows of
     `out` are not written (zero them first). The store is not touched.
     CPU tensors take writeback_deltas_plain (which adds into `out`);
-    CUDA tensors launch the csrc/writeback.cu kernel and count it in
-    `writeback_deltas.launches`."""
+    CUDA tensors (`out` and `drow` starting on a 16-byte boundary)
+    launch the csrc/writeback.cu kernel and count it in
+    `writeback_deltas.launches`: with `overlap` as a programmatic
+    dependent launch, whose start overlaps the end of the kernel before
+    it in the stream (the result is the same either way)."""
     _check(out, bkt, drow)
     if out.shape != drow.shape:
         raise ValueError(f"writeback_deltas: out {tuple(out.shape)} != drow "
@@ -340,9 +351,12 @@ def writeback_deltas(
     G = bkt.shape[0]
     if G == 0:
         return out
+    if out.data_ptr() % 16 or drow.data_ptr() % 16:
+        raise ValueError("writeback_deltas: out and drow must start on a 16-byte boundary")
     with torch.cuda.device(out.device):
         _launch("writeback_deltas", lambda lib, s: lib.guber_ablate_deltas(
-            out.data_ptr(), bkt.data_ptr(), drow.data_ptr(), G, drow.shape[1], krows, s))
+            out.data_ptr(), bkt.data_ptr(), drow.data_ptr(), G, drow.shape[1], krows,
+            int(overlap), s))
     writeback_deltas.launches += 1
     return out
 
@@ -357,9 +371,11 @@ def add_one_plain(x: torch.Tensor) -> torch.Tensor:
 
 def add_one(x: torch.Tensor) -> torch.Tensor:
     """x += 1 in place over a contiguous int32 tensor (int32 wrap);
-    returns x. CPU tensors take add_one_plain; CUDA tensors launch the
-    copy-floor kernel of csrc/writeback.cu on the current stream and
-    count the launch in `add_one.launches`; a refused launch raises."""
+    returns x. CPU tensors take add_one_plain; CUDA tensors (starting on
+    a 16-byte boundary) launch the copy-floor kernel of csrc/writeback.cu
+    on the current stream and count the launch in `add_one.launches`; a
+    refused launch raises (the C entry refuses an array beyond half the
+    L2 whose vectors outgrow the one-shot kernel's 32-bit offsets)."""
     if x.dtype != torch.int32:
         raise TypeError(f"add_one: x must be int32, got {x.dtype}")
     if not x.is_contiguous():
@@ -371,9 +387,7 @@ def add_one(x: torch.Tensor) -> torch.Tensor:
     if x.data_ptr() % 16:
         raise ValueError("add_one: x must start on a 16-byte boundary")
     with torch.cuda.device(x.device):
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        _launch("add_one", lambda lib, s: lib.guber_add_one(x.data_ptr(), x.numel(),
-                                                            sms, s))
+        _launch("add_one", lambda lib, s: lib.guber_add_one(x.data_ptr(), x.numel(), s))
     add_one.launches += 1
     return x
 

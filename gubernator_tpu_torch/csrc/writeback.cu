@@ -134,9 +134,10 @@ writeback_add_kernel(int32_t* __restrict__ data,
 //           touched twice or the wrong row shows). Bytes: 2*U*W*4 + G*4.
 //   deltas  the delta stream alone: read every delta row and bucket id and
 //           reduce each run of equal buckets within a chunk of kRows rows
-//           (the warp's segmented sum above) into out[run end] (out is
-//           zero elsewhere, the caller's). The store is not touched.
-//           Bytes: G*W*4 + G*4 read, the run ends' rows written.
+//           (the segmented sum writeback_add does in registers) into
+//           out[run end]; other rows of out are not written. The store is
+//           not touched. Bytes: G*W*4 + G*4 read, the run ends' rows
+//           written. Its own design follows (ablate_deltas_kernel).
 //   full    writeback_add itself, at kRows in {4, 8, 16}.
 
 template <int kRows>
@@ -169,38 +170,68 @@ ablate_rows_kernel(int32_t* __restrict__ data, const int32_t* __restrict__ bkt,
   }
 }
 
+// The deltas step, designed for the H100: one warp a row, kDeltaChunks
+// chunks a block. Each lane loads its row's one 16-byte vector, evict-first
+// (the stream is read once), into shared memory with the row's bucket id;
+// after one barrier the lane of each run end sums its run from there and
+// stores it, evict-first. Unless the caller turns it off, the launch is a
+// programmatic dependent launch: the grid may be scheduled while the kernel
+// before it in the stream finishes, and waits (griddepcontrol.wait) for
+// that kernel's memory before it reads anything; once its loads are in
+// flight it lets the next grid start launching. No other kernel here
+// launches so.
+//
+// Bound: bytes (at the two-tier path's G = 8,192, W = 128: 4 MiB read,
+// ~3.8 MB written). What a variant sweep found on the H100 (PERF.md lists
+// every variant): the design this replaces, a warp a chunk with kRows
+// vectors a lane in registers (128 blocks of 8 warps, one partial wave),
+// took 6.6 us cycling 8 batches against 3.5 us on one batch repeated in
+// the L2: cold HBM, not the partial wave, made most of its gap to the rows
+// step. More and smaller warps gained 7%, the evict-first hints 13% more
+// (~5.3 us, ~45% of the bound); 1-D TMA bulk copies of each chunk through
+// a shared-memory ring lost. Back to back a kernel costs ~2 us however
+// little it does, and the dependent launch overlaps that with the call
+// before: 4.1 us, 58% of the bound, but only where the kernel before it is
+// one that the overlap can hide behind.
+constexpr int kDeltaChunks = 2;
+
+// Programmatic dependent launch: wait for the grid before this one in the
+// stream (a no-op when the launch did not ask for the overlap), and let the
+// next one start launching.
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void grid_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
 template <int kRows>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-ablate_deltas_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ bkt,
-                     const int32_t* __restrict__ drow, int g, int nvec) {
-  const int chunk = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  const int base = chunk * kRows;
-  if (base >= g || lane >= nvec) return;
-  const int n = min(kRows, g - base);
-  const uint4* src = reinterpret_cast<const uint4*>(drow);
-  uint4* dst = reinterpret_cast<uint4*>(out);
-  int b[kRows];
-  uint4 v[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    if (r < n) {
-      b[r] = bkt[base + r];
-      v[r] = src[static_cast<size_t>(base + r) * nvec + lane];
-    } else {
-      b[r] = -1;
-      v[r] = make_uint4(0u, 0u, 0u, 0u);
+__global__ void ablate_deltas_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ bkt,
+                                     const int32_t* __restrict__ drow, int g, int nvec) {
+  __shared__ uint4 rows[kDeltaChunks * kRows][32];
+  __shared__ int bs[kDeltaChunks * kRows];
+  grid_dependency_wait();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kDeltaChunks * kRows + warp;
+  const int r = warp % kRows;      // the row's place in its chunk
+  const int first = warp - r;      // the chunk's first row in the block
+  const int n = min(kRows, g - (row - r));  // the chunk's rows in range
+  if (row < g) {
+    if (lane == 0) bs[warp] = bkt[row];
+    if (lane < nvec) {
+      rows[warp][lane] = __ldcs(reinterpret_cast<const uint4*>(drow) +
+                                static_cast<size_t>(row) * nvec + lane);
     }
   }
-#pragma unroll
-  for (int r = 1; r < kRows; ++r) {
-    if (b[r] == b[r - 1]) v[r] = add4(v[r], v[r - 1]);
-  }
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    if (r < n && (r == n - 1 || b[r + 1] != b[r])) {
-      dst[static_cast<size_t>(base + r) * nvec + lane] = v[r];
-    }
+  grid_launch_dependents();
+  __syncthreads();
+  if (row >= g || lane >= nvec) return;
+  const int b = bs[warp];
+  if (r == n - 1 || bs[warp + 1] != b) {
+    uint4 acc = rows[warp][lane];
+    for (int q = warp - 1; q >= first && bs[q] == b; --q) acc = add4(acc, rows[q][lane]);
+    __stcs(reinterpret_cast<uint4*>(out) + static_cast<size_t>(row) * nvec + lane, acc);
   }
 }
 
@@ -209,13 +240,38 @@ ablate_deltas_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ bkt,
 // Replaces the identity sweep of scripts/bench_hbm.py (`kern` inside
 // `ident`, :92: out = data + 1 over the store in tiles of 128-8,192 rows),
 // a microbenchmark that measures the least time any pass over the store
-// can take. Each thread owns 16-byte vectors in a grid-stride loop, so
-// every load is a coalesced 512-byte warp access; a tail of n % 4 int32
-// (none at the store's shapes) is done one int32 at a time. Bound: bytes
-// (read and write 4n each), one add per int32. (Issuing four loads before
-// their stores measured no faster on the H100, PERF.md.)
+// can take. Bound: bytes (read and write 4n each), one add per int32.
+//
+// Design: two kernels, and the entry picks by whether the array fits in
+// half the L2.
+// - Beyond it (the stores, 512 MiB and 1 GiB): a one-shot grid, one
+//   16-byte vector a thread, 256 threads a block, 32-bit offsets, and
+//   evict-first hints (__ldcs/__stcs: each byte is touched once); the last
+//   block adds the n % 4 int32 past the last vector.
+// - Within it (16 MiB): a grid-stride loop over 8 blocks of 256 threads a
+//   SM, which nvcc unrolls four vectors deep.
+// What a variant sweep found on the H100 (PERF.md lists every variant):
+// x.add_(1) is ATen's vectorized_elementwise_kernel, one-shot: 131,072
+// blocks of 128 threads at 512 MiB, two vectors a thread, and a one-shot
+// kernel of that shape times the same. Beyond the L2 the grid-stride loop
+// was 5% slower than it and one vector a thread with the hints 0.6%
+// faster; within the L2 the loop was 10% faster than it and every one-shot
+// shape slower. More vectors a thread, 1-D TMA bulk copies through a
+// shared-memory ring, and a bulk reduce-add that leaves the add to the L2
+// were all slower beyond the L2.
 __global__ void __launch_bounds__(256)
-add_one_kernel(int32_t* __restrict__ x, long long n) {
+add_one_stream_kernel(int32_t* __restrict__ x, int nvec, int tail) {
+  uint4* v = reinterpret_cast<uint4*>(x);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < nvec) __stcs(v + i, add4(__ldcs(v + i), make_uint4(1u, 1u, 1u, 1u)));
+  if (tail && blockIdx.x == gridDim.x - 1 && threadIdx.x < tail) {
+    int32_t* t = x + static_cast<long long>(nvec) * 4 + threadIdx.x;
+    *t = static_cast<int32_t>(static_cast<uint32_t>(*t) + 1u);
+  }
+}
+
+__global__ void __launch_bounds__(256)
+add_one_resident_kernel(int32_t* __restrict__ x, long long n) {
   const long long nvec = n / 4;
   uint4* v = reinterpret_cast<uint4*>(x);
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
@@ -259,14 +315,23 @@ int launch_ablate_rows(void* data, const void* bkt, int g, int w, int buckets,
 }
 
 template <int kRows>
-int launch_ablate_deltas(void* out, const void* bkt, const void* drow, int g,
-                         int w, void* stream) {
-  ablate_deltas_kernel<kRows>
-      <<<chunk_grid<kRows>(g), kWarpsPerBlock * 32, 0,
-         static_cast<cudaStream_t>(stream)>>>(
-          static_cast<int32_t*>(out), static_cast<const int32_t*>(bkt),
-          static_cast<const int32_t*>(drow), g, w / 4);
-  return static_cast<int>(cudaGetLastError());
+int launch_ablate_deltas(void* out, const void* bkt, const void* drow, int g, int w,
+                         bool overlap, void* stream) {
+  const int chunks = (g + kRows - 1) / kRows;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((chunks + kDeltaChunks - 1) / kDeltaChunks);
+  cfg.blockDim = dim3(kDeltaChunks * kRows * 32);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute dependent[1];
+  dependent[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  dependent[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = dependent;
+  cfg.numAttrs = overlap ? 1 : 0;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, ablate_deltas_kernel<kRows>, static_cast<int32_t*>(out),
+      static_cast<const int32_t*>(bkt), static_cast<const int32_t*>(drow), g, w / 4);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(e != cudaSuccess ? e : last);
 }
 
 }  // namespace
@@ -307,26 +372,44 @@ extern "C" int guber_ablate_rows(void* data, const void* bkt, int g, int w,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// `overlap` nonzero makes the deltas launch a programmatic dependent one.
 extern "C" int guber_ablate_deltas(void* out, const void* bkt, const void* drow,
-                                   int g, int w, int krows, void* stream) {
+                                   int g, int w, int krows, int overlap,
+                                   void* stream) {
   if (g <= 0) return 0;
   switch (krows) {
-    case 4: return launch_ablate_deltas<4>(out, bkt, drow, g, w, stream);
-    case 8: return launch_ablate_deltas<8>(out, bkt, drow, g, w, stream);
-    case 16: return launch_ablate_deltas<16>(out, bkt, drow, g, w, stream);
+    case 4: return launch_ablate_deltas<4>(out, bkt, drow, g, w, overlap, stream);
+    case 8: return launch_ablate_deltas<8>(out, bkt, drow, g, w, overlap, stream);
+    case 16: return launch_ablate_deltas<16>(out, bkt, drow, g, w, overlap, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// x[i] += 1 over n int32 in place, on `stream`; returns the launch's
-// cudaGetLastError() code. `sms` is the device's SM count: the grid is a
-// few blocks per SM, each looping over the array.
-extern "C" int guber_add_one(void* x, long long n, int sms, void* stream) {
+// x[i] += 1 over n int32 in place, on `stream` (x 16-byte aligned);
+// returns the launch's cudaGetLastError() code. The kernel follows the
+// current device's L2 and SM count (see above). Beyond half the L2 the
+// one-shot kernel's offsets are 32-bit: there, 2^31 - 256 vectors or more
+// return cudaErrorInvalidValue without a launch (the wrapper raises). The
+// loop within half the L2 has 64-bit offsets and no such limit.
+extern "C" int guber_add_one(void* x, long long n, void* stream) {
   if (n <= 0) return 0;
-  const long long want = (n / 4 + 255) / 256;
-  const int grid = static_cast<int>(want < 8LL * sms ? (want > 0 ? want : 1) : 8LL * sms);
-  add_one_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int32_t*>(x), n);
+  int dev = 0, l2 = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&l2, cudaDevAttrL2CacheSize, dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int32_t* p = static_cast<int32_t*>(x);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long nvec = n / 4;
+  if (n * 4 <= l2 / 2) {
+    const long long want = (nvec + 255) / 256;
+    const int grid = static_cast<int>(want < 8LL * sms ? (want > 0 ? want : 1) : 8LL * sms);
+    add_one_resident_kernel<<<grid, 256, 0, st>>>(p, n);
+  } else {
+    if (nvec >= (1LL << 31) - 256) return static_cast<int>(cudaErrorInvalidValue);
+    add_one_stream_kernel<<<static_cast<int>((nvec + 255) / 256), 256, 0, st>>>(
+        p, static_cast<int>(nvec), static_cast<int>(n % 4));
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

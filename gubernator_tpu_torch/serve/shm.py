@@ -27,14 +27,16 @@ Layout (one file, header page + two rings):
     72    u32  c2s seq    (wake word: bumped per c2s publish)
     128   u64  c2s tail   (server-written)
     136   u32  c2s space seq (bumped per c2s consume)
-    192   u64  s2c head   264 u64 s2c tail  (mirrored, server->client)
-    200   u32  s2c seq    272 u32 s2c space seq
+    192   u64  s2c head   256 u64 s2c tail  (mirrored, server->client)
+    200   u32  s2c seq    264 u32 s2c space seq
     4096  c2s data[c2s_cap] | s2c data[s2c_cap]
 
 Each record is `u32 length | frame bytes`, wrapping. Head/tail are
 monotonic u64 byte counters (position = counter % capacity), each
 written by exactly ONE side, so no cross-process locks exist anywhere
-on the hot path. Credit-window backpressure is the ring capacity
+on the hot path. Every header word is loaded and stored whole, as one
+aligned machine word (little-endian hosts), so a peer never reads one
+half-written. Credit-window backpressure is the ring capacity
 itself: a writer that finds no room simply doesn't publish (the client
 falls back to the control socket for that frame; the server waits,
 bounded, for the client to drain).
@@ -216,6 +218,13 @@ class ShmRing:
         # released before close — see release()
         self._cbuf = (ctypes.c_char * len(mm)).from_buffer(mm)
         self._base = ctypes.addressof(self._cbuf)
+        # the header's index, seq and flag words as aligned machine
+        # words: each load and store is one instruction, so the peer
+        # never sees a half-written word (struct.pack_into zeroes the
+        # field before it writes it, and packs byte by byte). The views
+        # pin the buffer too, so close() cannot unmap under a reader.
+        self._h32 = (ctypes.c_uint32 * (HEADER_BYTES // 4)).from_buffer(mm)
+        self._h64 = (ctypes.c_uint64 * (HEADER_BYTES // 8)).from_buffer(mm)
         self.c2s_cap = self._u64(_OFF_C2S_CAP)
         self.s2c_cap = self._u64(_OFF_S2C_CAP)
 
@@ -274,28 +283,28 @@ class ShmRing:
     # -- raw accessors -------------------------------------------------------
 
     def _u32(self, off: int) -> int:
-        try:
-            return _U32.unpack_from(self._mm, off)[0]
-        except ValueError:
-            raise ShmTornError("mapping released") from None
+        h = self._h32
+        if h is None:
+            raise ShmTornError("mapping released")
+        return h[off >> 2]
 
     def _u64(self, off: int) -> int:
-        try:
-            return _U64.unpack_from(self._mm, off)[0]
-        except ValueError:
-            raise ShmTornError("mapping released") from None
+        h = self._h64
+        if h is None:
+            raise ShmTornError("mapping released")
+        return h[off >> 3]
 
     def _put_u32(self, off: int, v: int) -> None:
-        try:
-            _U32.pack_into(self._mm, off, v & 0xFFFFFFFF)
-        except ValueError:
-            raise ShmTornError("mapping released") from None
+        h = self._h32
+        if h is None:
+            raise ShmTornError("mapping released")
+        h[off >> 2] = v & 0xFFFFFFFF
 
     def _put_u64(self, off: int, v: int) -> None:
-        try:
-            _U64.pack_into(self._mm, off, v & 0xFFFFFFFFFFFFFFFF)
-        except ValueError:
-            raise ShmTornError("mapping released") from None
+        h = self._h64
+        if h is None:
+            raise ShmTornError("mapping released")
+        h[off >> 3] = v & 0xFFFFFFFFFFFFFFFF
 
     # -- flags ---------------------------------------------------------------
 
@@ -471,14 +480,14 @@ class ShmRing:
 
     def release(self) -> None:
         """Unmap (and, creator side, unlink). Idempotent. The ctypes
-        view pins the buffer, so it is dropped first; a transient
+        views pin the buffer, so they are dropped first; a transient
         BufferError (another thread mid-copy) retries briefly — worst
         case the mapping leaks for the process lifetime, never a
         crash."""
         if self._released:
             return
         self._released = True
-        self._cbuf = None
+        self._cbuf = self._h32 = self._h64 = None
         for _ in range(200):
             try:
                 self._mm.close()

@@ -22,6 +22,7 @@ from gubernator_tpu_torch.core.writeback import (
     ABLATION_ROWS,
     add_one,
     add_one_plain,
+    run_ends,
     writeback_add,
     writeback_add_plain,
     writeback_deltas,
@@ -30,6 +31,7 @@ from gubernator_tpu_torch.core.writeback import (
     writeback_rows,
     writeback_rows_plain,
 )
+from _torch_cases import DELTAS_EDGES, deltas_edge  # tests/, on the path under pytest
 
 pytestmark = pytest.mark.cuda
 
@@ -109,14 +111,57 @@ def test_ablation_kernels_match_plain(krows, W, buckets, B):
     assert torch.equal(deltas, writeback_deltas_plain(torch.zeros_like(drow), bkt, drow, krows))
 
 
-@pytest.mark.parametrize("n", [32768 * 128, 4096 * 128 + 3, 1])
+@pytest.mark.parametrize("krows", ABLATION_ROWS)
+@pytest.mark.parametrize("case", DELTAS_EDGES)
+@pytest.mark.parametrize("overlap", [True, False])
+def test_deltas_kernel_at_the_tiling_edges(case, krows, overlap):
+    """The deltas kernel where its tiling has edges, launched with and
+    without the overlap, bit for bit against its plain version, one launch
+    counted; rows that end no run stay as the caller left them."""
+    _need_card()
+    bkt, drow = (torch.from_numpy(x).cuda() for x in deltas_edge(case, krows))
+    before = writeback_deltas.launches
+    sentinel = torch.full_like(drow, 12345)
+    got = writeback_deltas(sentinel.clone(), bkt, drow, krows, overlap=overlap)
+    torch.cuda.synchronize()
+    assert writeback_deltas.launches == before + 1
+    want = writeback_deltas_plain(torch.zeros_like(drow), bkt, drow, krows)
+    ends = torch.unique(run_ends(bkt, krows))
+    written = torch.zeros(drow.shape[0], dtype=torch.bool, device="cuda")
+    written[ends] = True
+    assert torch.equal(got[written], want[written])
+    assert bool((got[~written] == 12345).all())
+
+
+def test_deltas_rejects_a_misaligned_delta_stream():
+    _need_card()
+    drow = torch.zeros(65 * 128 + 1, dtype=torch.int32, device="cuda")[1:].view(65, 128)
+    bkt = torch.zeros(65, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):
+        writeback_deltas(torch.zeros(65, 128, dtype=torch.int32, device="cuda"), bkt, drow)
+
+
+# add_one's two kernels (csrc/writeback.cu): within half the L2 a grid-stride
+# loop over 8 blocks of 256 threads a SM (1,024 int32 a block a stride);
+# beyond it one vector a thread, 1,024 int32 a block, one-shot
+@pytest.mark.parametrize("n", [32768 * 128, 4096 * 128 + 3, 1, 100, 4093, 4096,
+                               3 * 4096 + 6, "one_stride", 1 << 27, "past_half_l2"])
 def test_copy_floor_kernel_matches_plain(n):
     """The copy-floor kernel (x += 1) is bit-identical to x.add_(1),
-    including the int32 wrap and a tail that is no whole vector."""
+    including the int32 wrap, at the edges of both kernels: fewer int32
+    than a block covers, exactly one grid stride, ragged counts, n % 4 in
+    {1, 2, 3} (the tail past the last vector), 512 MiB, and an array just
+    past half the L2 (the one-shot kernel, a ragged last block, n % 4 =
+    3)."""
     _need_card()
-    rng = np.random.default_rng(n)
-    x = torch.from_numpy(
-        rng.integers(-(2**31), 2**31 - 1, n, dtype=np.int64).astype(np.int32)).cuda()
+    props = torch.cuda.get_device_properties(0)
+    if n == "one_stride":
+        n = props.multi_processor_count * 8 * 256 * 4
+    elif n == "past_half_l2":
+        n = props.L2_cache_size // 8 + 1027
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    x = torch.randint(-(2**31), 2**31 - 1, (n,), dtype=torch.int32, device="cuda",
+                      generator=gen)
     x[0] = 2**31 - 1
     want = add_one_plain(x.clone())
     before = add_one.launches
@@ -126,6 +171,29 @@ def test_copy_floor_kernel_matches_plain(n):
     assert got.data_ptr() == x.data_ptr()
     assert torch.equal(got, want)
     assert int(got[0]) == -(2**31)
+
+
+def test_copy_floor_rejects_a_misaligned_start():
+    _need_card()
+    x = torch.zeros(1025, dtype=torch.int32, device="cuda")[1:]
+    before = add_one.launches
+    with pytest.raises(ValueError):
+        add_one(x)
+    assert add_one.launches == before
+
+
+def test_copy_floor_refuses_past_its_32_bit_offsets():
+    """Beyond half the L2 the one-shot kernel's offsets are 32-bit: an
+    array of 2^31 vectors is refused by the C entry, and the wrapper
+    raises without counting a launch."""
+    _need_card()
+    x = torch.empty(2**33, dtype=torch.int32, device="cuda")  # 32 GiB, never written
+    before = add_one.launches
+    with pytest.raises(RuntimeError, match="add_one: kernel launch failed"):
+        add_one(x)
+    assert add_one.launches == before
+    del x
+    torch.cuda.empty_cache()
 
 
 def test_engine_on_card_matches_cpu():

@@ -148,6 +148,57 @@ def test_ring_full_refuses_instead_of_overwriting(tmp_path):
         server.release()
 
 
+_HAMMER = """
+import sys, time
+from gubernator_tpu_torch.serve.shm import ShmRing
+ring = ShmRing.open(sys.argv[1])
+put = ring._put_u64 if sys.argv[3] == "64" else ring._put_u32
+v, step, end = int(sys.argv[4]), int(sys.argv[5]), time.monotonic() + float(sys.argv[2])
+while time.monotonic() < end:
+    v += step
+    put(int(sys.argv[6]), v)
+ring.release()
+"""
+
+
+@pytest.mark.parametrize("bits,off,start,step", [
+    (64, tshm._OFF_C2S_TAIL, 0x0101_0101_0101, 0x0101),
+    (32, tshm._OFF_C2S_SEQ, 0x0101_0101, 0x0101),
+], ids=["u64_index", "u32_seq"])
+def test_peer_never_reads_a_half_written_word(tmp_path, bits, off, start, step):
+    """One process stores a rising header word as fast as it can while this
+    one loads it: every load is a value the writer stored, never a zeroed
+    or part-written one (struct.pack_into zeroes its field first, which let
+    a reader see a ring index at 0 and tear a healthy lane)."""
+    import os
+    import subprocess
+    import sys
+    import time
+
+    server = tshm.ShmRing.create(64, dir=str(tmp_path))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    get = server._u64 if bits == 64 else server._u32
+    try:
+        child = subprocess.Popen([sys.executable, "-c", _HAMMER, server.path, "1.0",
+                                  str(bits), str(start), str(step), str(off)], env=env)
+        deadline = time.monotonic() + 30
+        while get(off) == 0 and child.poll() is None and time.monotonic() < deadline:
+            time.sleep(0.001)
+        seen, last, bad = 0, start, []
+        while child.poll() is None:
+            v = get(off)
+            seen += 1
+            if v < last or (v - start) % step:
+                bad.append(v)
+            last = max(last, v)
+        assert child.wait() == 0
+        assert last > start + 1000 * step  # the writer really ran
+        assert seen > 1000 and not bad, f"{len(bad)} torn loads of {seen}: {bad[:5]}"
+    finally:
+        server.release()
+
+
 # -- the lane on a live port bridge --------------------------------------------
 
 

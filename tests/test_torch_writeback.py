@@ -44,6 +44,7 @@ from gubernator_tpu_torch.core.writeback import (
     writeback_rows,
     writeback_rows_plain,
 )
+from _torch_cases import DELTAS_EDGES, deltas_edge  # tests/, on the path under pytest
 
 
 def _recipe(seed: int, buckets: int, B: int, W: int = 128):
@@ -292,6 +293,48 @@ def test_ablation_deltas_plain_matches_numpy(krows):
 
 
 @pytest.mark.parametrize("krows", ABLATION_ROWS)
+@pytest.mark.parametrize("case", DELTAS_EDGES)
+def test_ablation_deltas_plain_at_the_tiling_edges(case, krows):
+    """The deltas step's function at the shapes the card tests give its
+    kernel (tests/test_torch_cuda.py): the plain version against numpy."""
+    bkt, drow = deltas_edge(case, krows)
+    got = writeback_deltas(torch.zeros(drow.shape, dtype=torch.int32),
+                           torch.from_numpy(bkt), torch.from_numpy(drow), krows)
+    np.testing.assert_array_equal(got.numpy(), _deltas_numpy(bkt, drow, krows))
+
+
+@pytest.mark.parametrize("overlap", [True, False])
+def test_ablation_deltas_cpu_takes_plain_with_either_launch(overlap):
+    """On CPU tensors `writeback_deltas` takes the plain version whether or
+    not the card launch would overlap (`overlap` only picks how the kernel
+    launches): the same sums, no launch counted."""
+    bkt, drow = deltas_edge("crossing", 8)
+    before = writeback_deltas.launches
+    got = writeback_deltas(torch.zeros(drow.shape, dtype=torch.int32),
+                           torch.from_numpy(bkt), torch.from_numpy(drow), 8, overlap=overlap)
+    assert writeback_deltas.launches == before
+    np.testing.assert_array_equal(got.numpy(), _deltas_numpy(bkt, drow, 8))
+
+
+@pytest.mark.parametrize("krows", ABLATION_ROWS)
+def test_ablation_deltas_library_call_matches_plain_and_numpy(krows):
+    """The deltas step's library yardstick (cli/ablate_writeback.py: one
+    index_add_ onto run ends computed ahead) is the step's function."""
+    from gubernator_tpu_torch.cli.ablate_writeback import deltas_library
+
+    _, bkt, drow = _ablation_inputs(30 + krows)
+    b, d = torch.from_numpy(bkt), torch.from_numpy(drow)
+    ends = run_ends(b, krows)
+    out = torch.zeros(drow.shape, dtype=torch.int32)
+    got = deltas_library(out, ends, d)
+    assert got.data_ptr() == out.data_ptr()
+    want = _deltas_numpy(bkt, drow, krows)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        writeback_deltas_plain(torch.zeros_like(d), b, d, krows).numpy(), want)
+
+
+@pytest.mark.parametrize("krows", ABLATION_ROWS)
 def test_ablation_full_plain_matches_pallas_sweep_interpret(krows):
     """`full` at every chunk height is writeback_add's function, that of the
     TPU kernel: held against gubernator_tpu.core.pallas_sweep run in
@@ -347,6 +390,10 @@ def test_ablation_cli_inputs_and_bytes_on_the_cpu(capsys):
     for bk, dr in sets:  # the decide's padded group stream: sorted, in range
         assert (np.diff(bk) >= 0).all() and bk.min() >= 0 and bk.max() < 4096
         assert dr.shape == (bk.shape[0], 128)
+    # every step names the one PyTorch call timed beside it; the deltas
+    # step's scatters onto run ends computed ahead of the timed run
+    assert set(aw.LIBRARY) == set(aw.STEPS)
+    assert "index_add_" in aw.LIBRARY["deltas"] and "run_ends" in aw.LIBRARY["deltas"]
     if not torch.cuda.is_available():
         assert aw.main([]) == 1
         assert "needs a CUDA device" in capsys.readouterr().err
