@@ -4,8 +4,9 @@
 
 Drives the port (gubernator_tpu_torch) through the entry points a user
 calls (the engine, the serving core, the daemon's doors, a cluster of
-nodes forwarding to each other, and the GEB frame doors with the
-compiled edge in front), at two of the repo's deployments:
+nodes forwarding to each other, the GEB frame doors with the compiled
+edge in front, and hierarchical quota chains), at two of the repo's
+deployments:
 
 - exact tier, "Zipfian 10M keys, 1 GiB store" (GUBER_SKETCH=0): a slot
   store of int32[2^21, 128] (GUBER_STORE_MIB=1024), zipf(a=1.2) ids over
@@ -17,7 +18,11 @@ compiled edge in front), at two of the repo's deployments:
   (805,306,368 bytes on the card in all); the exact tier is prefilled
   with 1.25x its capacity of sequential ids (640 batches), then zipf(1.2)
   ids over 100M keys, token bucket hits=1 limit=1000 duration=600 s;
-  first at the engine (TorchEngine), then through the serving core.
+  first at the engine (TorchEngine), then through the serving core;
+  quota chains run on it with the repo's mixed_tenant_zipf traffic
+  (gubernator_tpu/cli/bench_serving.py:1355): global (2^30) -> region:{t%4}
+  (2^24) -> tenant:{t} (1,200) above the leaf k:{t}:{0..2^14} (2^20),
+  t zipf(1.2) mod 64, hits 1, 60 s: 4 device rows a chained request.
 
 All use device batches of 32,768 (the ladder buckets_for_limit(32768)).
 Phases, one JSON line each:
@@ -111,7 +116,7 @@ Phases, one JSON line each:
              /v1/geb, the shm lane, the edge's HTTP JSON and its gRPC,
              one key counted by the fast door and the edge's fast frames
              in turn; six
-             windows of >= 10 s, their callers in a client process (this
+             windows of >= 5 s, their callers in a client process (this
              script with --geb-window): geb_1000 (16 connections, fast
              frames of 1,000), geb_deep (fast frames of 4,096, 8 in flight
              a connection), shm_deep (string frames of 4,096 over the shm
@@ -128,8 +133,24 @@ Phases, one JSON line each:
              its drain (edge and geb first); then a checked leg of 24
              frames (fast, string, legacy, traced, a chained item) into an
              in-process node of the same config on the card and on the
-             CPU under one pinned clock, answers byte-identical;
-10. kernels  the contract line over every kernel of the path.
+             CPU under one pinned clock, answers byte-identical, the
+             chained item decided (no error, its leaf's limit);
+10. chain    the two-tier engine: 2 decides of 8,192 chains (32,768 rows)
+             held against the CPU (responses, stats, store and sketch
+             bytes; the sketch never written), 20 timed (chains/s, device
+             rows/s, batch ms median and p99, host prep, device span
+             share, refusal share by refusing level); no partial debit:
+             in a fresh window, 32 chains whose leaves are then spent and
+             8,160 zipf chains in one batch, the store read before and
+             after (snapshot_read), every key's remaining down by exactly
+             its admitted chains' hits, refusals at the tenant and the
+             leaf; then an in-process node (the daemon's build) and a
+             10 s window of GEBC frames of 256 chains from 8 callers in a
+             client process (--geb-window chain) into its GEB door:
+             Instance -> chain lane -> TorchBackend.decide_chain, no error
+             answer, launches balanced, chains/s, host ms a flush outside
+             the engine (the expansion and collapse), device span share;
+11. kernels  the contract line over every kernel of the path.
 
 The writeback kernel's launch count is set to 0 before each in-process
 path and read after it (the copy floor's and the ablation's are set to 0
@@ -1848,6 +1869,7 @@ GEB_DEEP_INFLIGHT = 8  # frames in flight per connection in the deep windows
 GEB_POOL = 24  # prebuilt frames (or JSON bodies) the callers cycle through
 GEB_CHECKED_FRAMES = 24
 GEB_WINDOWS = ("geb_1000", "geb_deep", "shm_deep", "unix_deep", "shm_fast", "edge_http")
+GEB_WINDOW_S = 5.0  # each geb window (10 s before the chain phase took its time)
 SHM_WINDOWS = ("shm_deep", "shm_fast")  # the windows over the shm lane
 STRING_WINDOWS = ("shm_deep", "unix_deep")  # string frames, folded in the server
 
@@ -1895,15 +1917,18 @@ def _answer_dtype(magic: int, what: str):
     raise RuntimeError(f"{what}: an answer with magic {magic:#x}")
 
 
-def _check_answers(magic: int, n: int, body: bytes, what: str) -> None:
-    """A windowed answer frame's records: a decision each, no error, the
-    window's limit, remaining in range. Raises RuntimeError otherwise."""
+def _check_answers(magic: int, n: int, body: bytes, what: str, limits=(LIMIT,)):
+    """A windowed answer frame's records: a decision each, no error, one
+    of the window's limits (a chained request answers with its refusing
+    level's, else its leaf's), remaining in range; returns the records.
+    Raises RuntimeError otherwise."""
     rec = np.frombuffer(body, _answer_dtype(magic, what), count=n)
     if "elen" in rec.dtype.names and (rec["elen"].any() or rec["olen"].any()):
         raise RuntimeError(f"{what}: an error answer")
-    if ((rec["status"] > 1).any() or (rec["limit"] != LIMIT).any()
-            or (rec["remaining"] < 0).any() or (rec["remaining"] > LIMIT).any()):
+    if ((rec["status"] > 1).any() or not np.isin(rec["limit"], limits).all()
+            or (rec["remaining"] < 0).any() or (rec["remaining"] > rec["limit"]).any()):
         raise RuntimeError(f"{what}: a malformed answer")
+    return rec
 
 
 async def _frame_conn(kind: str, target: str, frames: list, stop_at: float,
@@ -1984,7 +2009,13 @@ async def _frame_conn(kind: str, target: str, frames: list, stop_at: float,
                 await writer.drain()
             magic, n, body = await fut
             out["lat"].append((time.perf_counter() - t0) * 1e3)
-            _check_answers(magic, n, body, kind)
+            if kind == "chain":
+                rec = _check_answers(magic, n, body, kind, CHAIN_LEVEL_LIMITS)
+                for level, lim in zip(CHAIN_LEVELS, CHAIN_LEVEL_LIMITS):
+                    out["refused_by_level"][level] += int(
+                        ((rec["status"] == 1) & (rec["limit"] == lim)).sum())
+            else:
+                _check_answers(magic, n, body, kind)
             out["items"] += n
             out["frames"] += 1
 
@@ -2049,35 +2080,43 @@ def geb_window_main(argv: list) -> int:
                 await asyncio.gather(*[
                     _http_caller(sess, f"http://{target}/v1/GetRateLimits", bodies, w,
                                  stop_at, out) for w in range(GEB_CALLERS)])
-        framing, inflight, items = "json", 1, GEB_ITEMS
+        framing, inflight, items, callers = "json", 1, GEB_ITEMS, GEB_CALLERS
     else:
         inflight, items = ((1, GEB_ITEMS) if kind == "geb_1000"
+                           else (1, CHAIN_GROUP) if kind == "chain"
                            else (GEB_DEEP_INFLIGHT, GEB_DEEP_ITEMS))
+        callers = CHAIN_CALLERS if kind == "chain" else GEB_CALLERS
 
         h = asyncio.run(_geb_hello(target))
         if inflight > h.window:
             raise SystemExit(f"{kind}: {inflight} frames in flight exceed the window {h.window}")
         if kind in SHM_WINDOWS and not h.shm:
             raise SystemExit(f"{kind}: the unix socket's hello offers no shm lane")
-        fast = kind not in STRING_WINDOWS
+        if kind == "chain" and not h.chain:
+            raise SystemExit("chain: the hello offers no quota-chain frames")
+        fast = kind not in STRING_WINDOWS + ("chain",)
         if fast and not (h.fast and h.xxh64 == cg.client_hash_is_native()):
             raise SystemExit(f"{kind}: the hello offers no fast frames this client can hash")
-        frames = [cg.build_frame(_zipf_reqs(types, rng, items, "geb_zipf"), fast=fast,
+        if kind == "chain":
+            out["refused_by_level"] = dict.fromkeys(CHAIN_LEVELS, 0)
+        frames = [cg.build_frame(chain_reqs(types, rng, items) if kind == "chain"
+                                 else _zipf_reqs(types, rng, items, "geb_zipf"), fast=fast,
                                  windowed=True, frame_id=0, ring_hash=h.ring_hash)[0]
                   for _ in range(GEB_POOL)]
-        framing = "fast GEB7" if fast else "string GEB2"
+        framing = ("chain GEBC" if kind == "chain" else "fast GEB7" if fast
+                   else "string GEB2")
 
         async def run():
             stop_at = time.monotonic() + seconds
             await asyncio.gather(*[_frame_conn(kind, target, frames, stop_at, inflight, out)
-                                   for _ in range(GEB_CALLERS)])
+                                   for _ in range(callers)])
     t0 = time.monotonic()
     asyncio.run(run())
     elapsed = time.monotonic() - t0
     lat = out.pop("lat")
     print(json.dumps(dict(
         kind=kind, framing=framing, decisions_per_s=out["items"] / elapsed, seconds=elapsed,
-        callers=GEB_CALLERS, inflight_per_conn=inflight, items_per_frame=items, errors=0,
+        callers=callers, inflight_per_conn=inflight, items_per_frame=items, errors=0,
         frame_ms_p50=float(np.percentile(lat, 50)), frame_ms_p99=float(np.percentile(lat, 99)),
         **out)), flush=True)
     return 0
@@ -2168,8 +2207,10 @@ def geb_path(card: str, edge_build_result: dict) -> dict:
         flags = dict(geb=asyncio.run(_geb_hello(f"127.0.0.1:{geb}")).flags,
                      http=http_hello.flags, edge_unix=asyncio.run(_geb_hello(sock)).flags,
                      edge_tcp=asyncio.run(_geb_hello(f"127.0.0.1:{etcp}")).flags)
-        # every door offers fast frames hashed XXH64, the edge bridge too
-        base_bits = cg.HELLO_WINDOWED | cg.HELLO_TRACE | cg.HELLO_FAST | cg.HELLO_XXH64
+        # every door offers fast frames hashed XXH64, the edge bridge too,
+        # and quota-chain frames (GUBER_CHAINS is on by default)
+        base_bits = (cg.HELLO_WINDOWED | cg.HELLO_TRACE | cg.HELLO_FAST | cg.HELLO_XXH64
+                     | cg.HELLO_CHAIN)
         want = dict(geb=base_bits, http=base_bits, edge_unix=base_bits | cg.HELLO_SHM,
                     edge_tcp=base_bits)
         hello_ok = all((flags[k] & 0xFFFF) == want[k] for k in want)
@@ -2257,8 +2298,8 @@ def geb_path(card: str, edge_build_result: dict) -> dict:
             s0 = quiet_stats(base)
             m0 = http_text(base + "/metrics")
             http_json(base + "/v1/debug/stages?reset=1")
-            w = client_process(["--geb-window", kind, targets[kind], str(WINDOW_S), str(seed)],
-                               WINDOW_S, f"the {kind} window")
+            w = client_process(["--geb-window", kind, targets[kind], str(GEB_WINDOW_S),
+                                str(seed)], GEB_WINDOW_S, f"the {kind} window")
             m1 = http_text(base + "/metrics")
             _, stages = http_json(base + "/v1/debug/stages")
             s1 = quiet_stats(base)
@@ -2452,13 +2493,274 @@ def geb_checked_leg(card: str, writeback) -> dict:
             fail(f"geb checked frame {i}: the card's answer differs from the CPU's")
     a11 = answers["card"][11]
     chained = cg.decode_string_body(a11[12:], struct.unpack_from("<I", a11, 4)[0])[0]
-    if "not ported" not in chained.error:
+    if chained.error or chained.limit != 5:  # decided on the chain lane, answered by its leaf
         fail(f"geb checked leg: the chained item answered {chained}")
     items = sum(struct.unpack_from("<I", a, 4)[0] for a in answers["card"])
     out = dict(frames=len(frames), items=items, cpu_identical=True, launches=launches,
-               decides=decides, chunks=chunks, chained_item_error=chained.error)
+               decides=decides, chunks=chunks,
+               chained_item=[int(chained.status), chained.limit, chained.remaining])
     emit(dict(phase="check", path="geb", card=card, **out))
     return out
+
+
+# -- the chain phase: hierarchical quota chains at the zipf100m deployment --
+
+# the mixed_tenant_zipf scenario (gubernator_tpu/cli/bench_serving.py:1355-1440)
+CHAIN_LEVELS = ("global", "region", "tenant", "leaf")
+CHAIN_LEVEL_LIMITS = (1 << 30, 1 << 24, 1200, 1 << 20)  # the leaf's last
+CHAIN_DURATION = 60_000
+CHAIN_TENANTS = 64
+CHAIN_ROWS = len(CHAIN_LEVELS)  # device rows a chained request expands to
+CHAINS_PER_DECIDE = DEPTH // CHAIN_ROWS  # 8,192 chains = 32,768 rows
+CHAIN_CHECKED = 2  # engine decides held against the CPU
+CHAIN_TIMED = 20
+CHAIN_LEAF_REFUSALS = 32  # chains of the no-partial-debit batch whose leaf is spent
+CHAIN_GROUP = 256  # chains a GEBC frame carries (the scenario's chain_group)
+CHAIN_CALLERS = 8  # the scenario's workers
+
+
+def tenant_zipf_ids(n: int, rng) -> np.ndarray:
+    """zipf(1.2) tenant ids mod 64 (gubernator_tpu/cli/keystreams.py
+    tenant_zipf_ids)."""
+    return (rng.zipf(ZIPF_A, size=n) % CHAIN_TENANTS).astype(np.int64)
+
+
+def chain_reqs(types, rng, n: int, name: str = "mtz") -> list:
+    """n chained requests of the scenario: global -> region:{t%4} ->
+    tenant:{t} above the leaf k:{t}:{0..2^14}, hits 1, 60 s."""
+    lim = CHAIN_LEVEL_LIMITS
+    return [types.RateLimitReq(
+        name=name, unique_key=f"k:{t}:{int(rng.integers(1 << 14))}", hits=1, limit=lim[3],
+        duration=CHAIN_DURATION,
+        chain=[types.ChainLevel("global", lim[0], 0), types.ChainLevel(f"region:{t % 4}", lim[1], 0),
+               types.ChainLevel(f"tenant:{t}", lim[2], 0)])
+        for t in tenant_zipf_ids(n, rng).tolist()]
+
+
+def chain_rows(tenants, leaves, name: str = "mtz", leaf_limit: int = CHAIN_LEVEL_LIMITS[3]):
+    """decide_chain_arrays' arguments for chains of the scenario's shape,
+    one per (tenant, leaf key) pair, expanded as TorchBackend.decide_chain
+    expands them: the levels shallow to deep, the leaf last, one chain id
+    a request, every row routed by the head."""
+    from gubernator_tpu_torch.core.hashing import slot_hash_batch
+
+    keys = []
+    for t, leaf in zip(tenants, leaves):
+        keys += [f"{name}_global", f"{name}_region:{t % 4}", f"{name}_tenant:{t}",
+                 f"{name}_{leaf}"]
+    n = len(keys) // CHAIN_ROWS
+    kh = slot_hash_batch(keys)
+    limit = np.tile(np.asarray(CHAIN_LEVEL_LIMITS[:3] + (leaf_limit,), np.int64), n)
+    ones = np.ones(n * CHAIN_ROWS, np.int64)
+    return (kh, ones, limit, ones * CHAIN_DURATION, np.zeros(n * CHAIN_ROWS, np.int32),
+            np.repeat(np.arange(n, dtype=np.int64), CHAIN_ROWS), np.full_like(kh, kh[0]))
+
+
+def zipf_chain_rows(rng, n: int):
+    ts = tenant_zipf_ids(n, rng).tolist()
+    return chain_rows(ts, [f"k:{t}:{int(x)}" for t, x in zip(ts, rng.integers(1 << 14, size=n))])
+
+
+def refusing_levels(status: np.ndarray) -> np.ndarray:
+    """Per chain (rows in caller order, CHAIN_ROWS a chain), the index of
+    the shallowest refusing level, or CHAIN_ROWS where all admitted."""
+    over = status.reshape(-1, CHAIN_ROWS) == 1
+    return np.where(over.any(axis=1), over.argmax(axis=1), CHAIN_ROWS)
+
+
+def level_shares(levels: np.ndarray) -> dict:
+    counts = np.bincount(levels, minlength=CHAIN_ROWS + 1)
+    return {name: int(c) / levels.shape[0] for name, c in
+            zip(CHAIN_LEVELS + ("admitted",), counts)}
+
+
+def chain_path(card: str, ladder, writeback) -> dict:
+    """Quota chains on the card at the zipf100m two-tier deployment, with
+    the mixed_tenant_zipf traffic: (a) the engine's chain decide at 8,192
+    chains = 32,768 rows a decide, held against the CPU (responses,
+    store and sketch bytes), then timed; (b) no partial debit: the store
+    read before and after a batch in which hot tenants and spent leaves
+    refuse; (c) a window of GEBC frames of 256 chains from 8 callers (a
+    client process) into the GEB door of an in-process node (Instance ->
+    chain lane -> TorchBackend.decide_chain)."""
+    from gubernator_tpu_torch.core.engine import TorchEngine
+    from gubernator_tpu_torch.core.sketches import derive_two_tier_config
+    from gubernator_tpu_torch.parallel.sharded import pad_request_chained
+
+    config, skc = derive_two_tier_config(1024)
+    eng = TorchEngine(config, buckets=ladder, sketch=skc)
+    eng.warmup(now=T0)
+    writeback.writeback_add.launches = 0  # count this path only
+    rng = np.random.default_rng(71)
+    sk0 = eng.sketch.data.clone()
+
+    # (a) checked against the CPU from the card's state, then timed
+    cpu = TorchEngine(config, buckets=ladder, device="cpu", sketch=skc)
+    cpu.load_state(eng.store.data.cpu().numpy(), eng.clock.epoch, eng.sketch.data.cpu().numpy())
+    now = T0
+    levels = []
+    for i in range(CHAIN_CHECKED):
+        now += 1
+        rows = zipf_chain_rows(rng, CHAINS_PER_DECIDE)
+        sb, cb = eng.stats.snapshot(), cpu.stats.snapshot()
+        out = eng.decide_chain_arrays(*rows, now)
+        ref = cpu.decide_chain_arrays(*rows, now)
+        same_as_cpu(eng, cpu, out, ref, f"chain check batch {i}",
+                    stats=(delta(eng.stats.snapshot(), sb), delta(cpu.stats.snapshot(), cb)))
+        levels.append(refusing_levels(out[0]))
+        emit(dict(phase="check", path="chain", batch=i, rows=int(rows[0].shape[0]),
+                  cpu_identical=True, refused=level_shares(levels[-1])))
+    del cpu
+    if not torch.equal(eng.sketch.data, sk0):
+        fail("chain: a chain decide wrote the sketch")
+    timed = [zipf_chain_rows(rng, CHAINS_PER_DECIDE) for _ in range(CHAIN_TIMED)]
+    prep_ms = []
+    for rows in timed[:5]:
+        t0 = time.perf_counter()
+        pad_request_chained(ladder, config.slots, 1, *rows[:5], rows[5], rows[6])
+        prep_ms.append((time.perf_counter() - t0) * 1e3)
+    batch_ms, span0 = [], eng.device_span_ms
+    for rows in timed:
+        now += 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.decide_chain_arrays(*rows, now)
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+        if out[0].shape != (DEPTH,) or not np.isin(out[0], (0, 1)).all():
+            fail("chain timed batch: responses out of range")
+        levels.append(refusing_levels(out[0]))
+    wall_s = sum(batch_ms) / 1e3
+    main = dict(
+        phase="main", path="chain", card=card, chains_per_decide=CHAINS_PER_DECIDE,
+        rows_per_decide=DEPTH, timed_batches=CHAIN_TIMED,
+        chains_per_s=CHAIN_TIMED * CHAINS_PER_DECIDE / wall_s, device_rows_per_s=CHAIN_TIMED * DEPTH / wall_s,
+        batch_ms_median=statistics.median(batch_ms),
+        batch_ms_p99=float(np.percentile(batch_ms, 99)),
+        host_prep_ms_median=statistics.median(prep_ms),
+        device_span_share=(eng.device_span_ms - span0) / (wall_s * 1e3),
+        refused=level_shares(np.concatenate(levels)),
+    )
+
+    # (b) no partial debit, in a fresh 60 s window (leg (a) spent every
+    # tenant): the leaves of CHAIN_LEAF_REFUSALS chains under cold tenants
+    # (56-63: each ~0.6% of zipf(1.2) mod 64) are spent first (limit 1),
+    # then one batch of those chains and zipf chains, whose hot tenants
+    # refuse; every key's remaining must fall by exactly the hits of the
+    # ADMITTED chains that name it
+    spent = chain_rows([56 + i % 8 for i in range(CHAIN_LEAF_REFUSALS)],
+                       [f"x:{i}" for i in range(CHAIN_LEAF_REFUSALS)], leaf_limit=1)
+    now += CHAIN_DURATION + 1
+    if (eng.decide_chain_arrays(*spent, now)[0] != 0).any():
+        fail("chain no-partial-debit: a spending chain under a cold tenant was refused")
+    zipf = zipf_chain_rows(rng, CHAINS_PER_DECIDE - CHAIN_LEAF_REFUSALS)
+    rows = tuple(np.concatenate([a, b]) for a, b in zip(zipf[:6], spent[:6])) + (
+        np.full(DEPTH, zipf[6][0]),)
+    rows[5][zipf[0].shape[0]:] += CHAINS_PER_DECIDE  # chain ids stay distinct
+    now += 1
+    keys, first, inv = np.unique(rows[0], return_index=True, return_inverse=True)
+    before = eng.snapshot_read(keys, now)
+    sb = eng.stats.snapshot()
+    out = eng.decide_chain_arrays(*rows, now)
+    after = eng.snapshot_read(keys, now)
+    lv = refusing_levels(out[0])
+    admitted_rows = np.repeat(lv == CHAIN_ROWS, CHAIN_ROWS)
+    debit = np.bincount(inv.reshape(-1), weights=admitted_rows * rows[1], minlength=keys.shape[0])
+    want = np.array([(b[2] if b is not None else rows[2][f]) for b, f in zip(before, first)])
+    got = np.array([a[2] if a is not None else -1 for a in after])
+    bad = np.flatnonzero(got != want - debit)
+    by_level = level_shares(lv)
+    if bad.shape[0] or delta(eng.stats.snapshot(), sb)["dropped"]:
+        fail(f"chain no-partial-debit: {bad.shape[0]} keys moved by other than their "
+             f"admitted chains' hits (first: {bad[:5].tolist()})")
+    n_tenant = int((lv == 2).sum())
+    n_leaf = int((lv == 3).sum())
+    if n_tenant == 0 or n_leaf == 0:
+        fail(f"chain no-partial-debit: refusals at the tenant {n_tenant}, leaf {n_leaf}")
+    emit(dict(phase="check", path="chain", leg="no_partial_debit", keys=int(keys.shape[0]),
+              chains=CHAINS_PER_DECIDE, refused_tenant=n_tenant, refused_leaf=n_leaf,
+              refused=by_level, exact_debits=True))
+    decides = eng.stats.snapshot()["batches"]
+    launches = writeback.writeback_add.launches
+    chunks = eng.install_chunks + eng.gossip_chunks
+    if launches != decides + chunks or launches == 0:
+        fail(f"chain engine legs: writeback kernel launched {launches} times for {decides} "
+             f"decides + {chunks} chunks")
+    del eng, sk0
+    torch.cuda.empty_cache()
+
+    # (c) serving: GEBC frames into the GEB door of an in-process node
+    serving = chain_window(card, writeback)
+    main.update(engine_launches=launches, engine_decides=decides, serving={
+        k: serving[k] for k in ("chains_per_s", "device_rows_per_s", "chains_per_flush",
+                                "host_expansion_ms_per_flush", "device_span_share",
+                                "kernel_launches", "decides", "chunks")})
+    emit(main)
+    return dict(launches=launches + serving["kernel_launches"],
+                decides=decides + serving["decides"])
+
+
+def chain_window(card: str, writeback) -> dict:
+    """A window of the scenario's GEBC frames (256 chains, 8 callers, in a
+    client process: this script with --geb-window chain) into the GEB door
+    of a node of the zipf100m deployment built as the daemon builds it,
+    run here so that the chain call can be timed around: the host ms a
+    flush outside the engine's chained decide is the expansion and
+    collapse of TorchBackend.decide_chain."""
+    from gubernator_tpu_torch.cluster import LocalCluster
+    from gubernator_tpu_torch.serve.stages import STAGES
+
+    g, geb = free_ports(2)
+    env = dict(SERVING_ENV, GUBER_GRPC_ADDRESS=f"127.0.0.1:{g}")
+    c = LocalCluster([f"127.0.0.1:{g}"], env=env, geb_ports=[geb])
+    c.start(timeout=BOOT_S)
+    try:
+        s = c.servers[0]
+        backend, eng = s.backend, s.backend.engine
+        calls = dict(decide_chain=[], decide_chain_arrays=[])
+
+        def timed(name, fn):
+            def wrapper(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    calls[name].append((time.perf_counter() - t0) * 1e3)
+            return wrapper
+
+        backend.decide_chain = timed("decide_chain", backend.decide_chain)
+        eng.decide_chain_arrays = timed("decide_chain_arrays", eng.decide_chain_arrays)
+        writeback.writeback_add.launches = 0  # count this leg only
+        b0, span0 = backend.stats()["batches"], eng.device_span_ms
+        chunks0 = eng.install_chunks + eng.gossip_chunks
+        STAGES.reset()
+        w = client_process(["--geb-window", "chain", f"127.0.0.1:{geb}", str(WINDOW_S), "81"],
+                           WINDOW_S, "the chain window")
+        launches = writeback.writeback_add.launches
+        decides = backend.stats()["batches"] - b0
+        chunks = eng.install_chunks + eng.gossip_chunks - chunks0
+        span_ms = eng.device_span_ms - span0
+        stages = STAGES.snapshot()["stages"]
+    finally:
+        c.stop()
+    torch.cuda.empty_cache()
+    if decides <= 0 or launches != decides + chunks:
+        fail(f"chain window: writeback kernel launched {launches} times for {decides} decides "
+             f"+ {chunks} chunks")
+    flush, engine = calls["decide_chain"], calls["decide_chain_arrays"]
+    refused = w.pop("refused_by_level")
+    w.update(
+        chains_per_s=w["decisions_per_s"], device_rows_per_s=w["decisions_per_s"] * CHAIN_ROWS,
+        flushes=len(flush), chains_per_flush=w["items"] / max(len(flush), 1),
+        flush_ms_median=statistics.median(flush), engine_ms_median=statistics.median(engine),
+        host_expansion_ms_per_flush=float(np.mean(flush) - np.mean(engine)),
+        device_span_ms=span_ms, device_span_share=span_ms / (w["seconds"] * 1e3),
+        refused={k: v / w["items"] for k, v in refused.items()},
+        kernel_launches=launches, decides=decides, chunks=chunks,
+        submit_host_ms=stages.get("submit_host", {}).get("mean_ms"),
+        batch_queue_ms=stages.get("batch_queue", {}).get("mean_ms"))
+    w.pop("decisions_per_s")
+    emit(dict(phase="window", path="chain", card=card, **w))
+    return w
 
 
 def balanced_addresses(ring_hash, n: int, lo: float = 0.2, hi: float = 0.5) -> list:
@@ -2637,6 +2939,7 @@ def main() -> int:
     edge_thread.join()
     geb = geb_path(card, edge_res)
     geb_checked = geb_checked_leg(card, writeback)
+    chain = chain_path(card, ladder, writeback)
     floor_launches = writeback.add_one.launches
     if floor_launches:
         fail(f"the copy floor's kernel launched {floor_launches} times on the paths")
@@ -2660,7 +2963,7 @@ def main() -> int:
         launches_by_path={"exact": exact["launches"], "two_tier": two["launches"],
                           "serving": serving["launches"], "doors": doors["launches"],
                           "cluster": cluster["launches"], "geb": geb["launches"],
-                          "geb_checked": geb_checked["launches"]},
+                          "geb_checked": geb_checked["launches"], "chain": chain["launches"]},
     ), dict(
         # the copy floor runs on no serving path: it measures the pass
         # over the store that bounds the writeback from below

@@ -10,7 +10,8 @@ presorts, the marshal and the arrival prep run in the native library
 as the JAX package's do; the numpy functions here are their plain twins,
 byte-identical to them and to the JAX package's numpy path. The device
 side takes the padded arrays as tensors (`to_device`) and runs
-`decide_packed` (exact tier) or `decide_packed_sketch` (two-tier).
+`decide_packed` (exact tier), `decide_packed_sketch` (two-tier) or
+`decide_packed_chain` (quota chains, exact tier only).
 Arrival prep (`prep_run_single`, `build_presorted_request`) splits the
 presort into per-group sorted runs that serve/prep.py merges.
 
@@ -31,6 +32,7 @@ from gubernator_tpu_torch.core.kernels import (
     BatchGroups,
     BatchRequest,
     decide_presorted,
+    decide_presorted_chain,
     decide_presorted_sketch,
     pack_outputs,
 )
@@ -243,6 +245,15 @@ def decide_packed_sketch(store, sketch, req, now, groups=None):
     return store, sketch, pack_outputs(resp, stats)
 
 
+def decide_packed_chain(store, req, now, groups, chain_id):
+    """Quota-chain twin of decide_packed (the reference's
+    _decide_packed_chain_jit): rows coupled by `chain_id`
+    (kernels.decide_presorted_chain); exact tier only, the sketch is
+    never consulted. The packed layout is decide_packed's."""
+    store, resp, stats = decide_presorted_chain(store, req, now, chain_id, groups)
+    return store, pack_outputs(resp, stats)
+
+
 def pad_request_sorted(
     buckets: Sequence[int],
     store_buckets: int,
@@ -382,6 +393,36 @@ def pad_sorted_fields(fields: dict, n: int, B: int) -> BatchRequest:
     )
 
 
+def _gather_clip_sorted(fields: dict, order: np.ndarray, n: int) -> dict:
+    """The fields of one batch clipped into their device dtypes and
+    gathered into sorted order (`order[j]` is the caller index of sorted
+    row j, n rows): one native gather a field when the library loads,
+    else numpy, elementwise identical (the reference's
+    _gather_clip_sorted)."""
+    hn = _native()
+    if hn is not None and n:
+        return dict(
+            key_hash=hn.gather_pad_u64(fields["key_hash"], order, n),
+            hits=hn.gather_pad_i64_clip(fields["hits"], order, n, -_I32_SAT, _I32_SAT),
+            limit=hn.gather_pad_i64_clip(fields["limit"], order, n, -_I32_SAT, _I32_SAT),
+            duration=hn.gather_pad_i64_clip(
+                fields["duration"], order, n, TIME_FLOOR, MAX_DURATION_MS
+            ),
+            algo=hn.gather_pad_i32(fields["algo"], order, n),
+            gnp=hn.gather_pad_u8(
+                np.asarray(fields["gnp"], bool).view(np.uint8), order, n
+            ).view(bool),
+        )
+    return dict(
+        key_hash=np.asarray(fields["key_hash"], np.uint64)[order],
+        hits=_sat_i32(fields["hits"])[order],
+        limit=_sat_i32(fields["limit"])[order],
+        duration=_sat_duration(fields["duration"])[order],
+        algo=np.asarray(fields["algo"], np.int32)[order],
+        gnp=np.asarray(fields["gnp"], bool)[order],
+    )
+
+
 def prep_run_single(fields: dict, store_buckets: int) -> dict:
     """Arrival-time prep of one caller group (serve/batcher.py): presort
     it by (bucket, fingerprint) and clip every field into its device
@@ -400,14 +441,7 @@ def prep_run_single(fields: dict, store_buckets: int) -> dict:
     kh = np.ascontiguousarray(fields["key_hash"], np.uint64)
     n = kh.shape[0]
     order = _np_presort(kh, store_buckets)
-    sorted_fields = dict(
-        key_hash=kh[order],
-        hits=_sat_i32(fields["hits"])[order],
-        limit=_sat_i32(fields["limit"])[order],
-        duration=_sat_duration(fields["duration"])[order],
-        algo=np.asarray(fields["algo"], np.int32)[order],
-        gnp=np.asarray(fields["gnp"], bool)[order],
-    )
+    sorted_fields = _gather_clip_sorted(fields, order, n)
     return dict(
         n=n,
         # the sort key is elementwise in the key hash, so computing it on

@@ -39,8 +39,11 @@ the store's device. What differs from jnp and is handled here:
 - uint64 casts of window ids and key halves are int64 sign extension
   and masks; the uint64 multiplies wrap identically in int64.
 
-Not ported yet: quota chains (decide_presorted_chain); `_decide_presorted`
-raises NotImplementedError for a chain.
+With a `chain_id` (decide_presorted_chain), rows are coupled into quota
+chains: a chain any of whose rows is refused has every other row's charge
+rolled back before the one writeback (no partial debit,
+gubernator_tpu/core/kernels.py:495-529, :1275-1335). The chain program is
+exact-only and never touches the sketch.
 """
 
 from __future__ import annotations
@@ -334,6 +337,30 @@ def decide_presorted(
     return store, resp, stats
 
 
+def decide_presorted_chain(
+    store: Store,
+    req: BatchRequest,
+    now,
+    chain_id: torch.Tensor,
+    groups: Optional[BatchGroups] = None,
+) -> Tuple[Store, BatchResponse, BatchStats]:
+    """Quota-chain decide of one PRESORTED padded batch whose rows are
+    coupled into chains: `chain_id` int32[B] gives each row its chain
+    slot in [0, B) (a chained request's levels share one; every other
+    row has its own). Each row decides as decide_presorted would, then a
+    chain with ANY refused row has every other member's charge rolled
+    back before the single writeback: a refusal at one level consumes
+    quota at no other. Responses stay the per-row verdicts (the serving
+    tier collapses them, most restrictive wins). Exact-only: the sketch
+    is neither read nor written. With every chain a singleton the
+    results and the store bytes equal decide_presorted's. Mirrors
+    gubernator_tpu/core/kernels.py:495."""
+    store, _sketch, resp, stats = _decide_presorted(
+        store, req, now, groups, None, chain_id=chain_id
+    )
+    return store, resp, stats
+
+
 def decide_presorted_sketch(
     store: Store,
     sketch: Sketch,
@@ -364,11 +391,9 @@ def _decide_presorted(
     padding rows repeat the last real key with valid=False; `groups`
     (optional) is the host-computed group structure padded to a [G]
     rung, else it is derived here at G == B. Mirrors
-    gubernator_tpu/core/kernels.py:563 with chain_id=None; `sketch` is
-    None (exact only) or the cold tier's Sketch."""
-    if chain_id is not None:
-        raise NotImplementedError("quota chains are not ported yet")
-
+    gubernator_tpu/core/kernels.py:563; `sketch` is None (exact only) or
+    the cold tier's Sketch, `chain_id` None or the chain slots of
+    decide_presorted_chain (never both)."""
     data = store.data
     dev = data.device
     buckets, _W = data.shape
@@ -796,14 +821,52 @@ def _decide_presorted(
     reset = torch.where(leaky_zero_r, now + g_durS_r, reset)
     resp_limit = torch.where(leaky_zero_r, lim_q, g_lim_resp)
 
+    # ---- quota-chain no-partial-debit ---------------------------------------
+    # a chain ANY of whose rows is refused has every OTHER member's charge
+    # rolled back: the group aggregates the writeback consumes are taken
+    # again with those rows masked out. The refusing row keeps its own
+    # bookkeeping (sticky flip, leaky touch), which is what makes the
+    # all-singleton program byte-identical to the plain one.
+    ldr_chg = torch.where(~existing & charged_ldr, g_hits, 0)
+    if chain_id is not None:
+        cid = chain_id.long()
+        over_i = ((status == OVER) & valid).to(_i32)
+        bad_cnt = torch.zeros(B, dtype=_i32, device=dev).index_add_(0, cid, over_i)
+        m_ok = (bad_cnt[cid] - over_i) == 0
+        incl_w = _seg_scan(
+            is_leader,
+            torch.stack(
+                [
+                    torch.where(charged & ~is_creation_leader & m_ok, h, 0),
+                    (decr & m_ok).to(_i32),
+                    (viable & (h != 0) & m_ok).to(_i32),
+                ],
+                dim=-1,
+            ),
+        )
+        z_w = z & m_ok
+        c3_w = _cumsum32(z_w.to(_i32))
+        ends_w = torch.cat([incl_w, c3_w[:, None]], dim=1)[end_pos_G]
+        total_charged_w = ends_w[:, 0]
+        any_decr_w = ends_w[:, 1] > 0
+        any_hits_w = ends_w[:, 2] > 0
+        z_lead_w = torch.stack([c3_w, z_w.to(_i32)], dim=-1)[lead_clip]
+        any_z_w = (ends_w[:, 3] - (z_lead_w[:, 0] - z_lead_w[:, 1])) > 0
+        ldr_chg_w = torch.where(m_ok[lead_clip], ldr_chg, 0)  # the leader's mask
+    else:
+        total_charged_w, any_decr_w, any_hits_w, any_z_w = (
+            total_charged, any_decr, any_hits, any_z
+        )
+        ldr_chg_w = ldr_chg
+
     # ---- state writeback at [G] -------------------------------------------
     # every hit charged to the group this batch, a creation leader's too
-    ldr_chg = torch.where(~existing & charged_ldr, g_hits, 0)
-    chg_all = total_charged + ldr_chg
+    # (explicit, so a rolled-back leader restores the whole budget)
+    chg_all = total_charged_w + ldr_chg_w
     R0C = R0 + ldr_chg
     rem_final = R0C - chg_all
 
-    sticky_final = sticky0 | any_z
+    sticky_final = sticky0 | any_z_w
 
     w_leaky = eff_leaky
     g_expire_new = torch.where(existing, g_exp, now + g_durQ)
@@ -811,7 +874,7 @@ def _decide_presorted(
         w_leaky,
         torch.where(
             existing,
-            torch.where(any_decr, now + g_durS, g_exp),
+            torch.where(any_decr_w, now + g_durS, g_exp),
             now + g_durQ,
         ),
         g_expire_new,
@@ -831,7 +894,7 @@ def _decide_presorted(
     new_expire = torch.where(eff_gcra, gcra_tat_new, new_expire)
 
     new_rem = torch.where(eff_sld, torch.where(existing, sld_cur0, 0) + chg_all, rem_final)
-    new_ts = torch.where(existing & w_leaky & ~any_hits, g_ts, now)
+    new_ts = torch.where(existing & w_leaky & ~any_hits_w, g_ts, now)
     new_ts = torch.where(eff_sld, torch.where(existing, sld_prev0, 0), new_ts)
     new_limit = torch.where(existing, g_limS, g_limQ)
     new_duration = torch.where(existing, g_durS, g_durQ)

@@ -19,9 +19,11 @@ request-object API (get_rate_limits[_submit/_wait]), the array API
 decide_submit_presorted), the GLOBAL surfaces (update_globals in both
 call forms, apply_global_hits), the promoter's engine surfaces
 (observe_hook, sketch_estimates, live_mask, snapshot_read,
-install_windows, promote_from_sketch), warmup, and load_state, which
-carries a JAX engine's store, sketch and clock across. Not ported yet:
-the mesh policy and quota chains.
+install_windows, promote_from_sketch), warmup, load_state, which
+carries a JAX engine's store, sketch and clock across, and the quota-chain
+surface (pad_request_chained, decide_chain_submit / decide_chain_arrays:
+chained batches decide exact-only, the sketch untouched). Not ported yet:
+the mesh policy.
 
 Every submit path ends in `_dispatch`, which feeds `observe_hook` the
 host-side numpy BatchRequest and runs the decide; on a CUDA device the
@@ -45,12 +47,14 @@ from gubernator_tpu_torch.api import types as api_types
 from gubernator_tpu_torch.core.engine import (
     EngineStats,
     EpochClock,
+    _gather_clip_sorted,
     _native,
     _sat_i32,
     build_presorted_request,
     choose_bucket,
     group_rungs,
     decide_packed,
+    decide_packed_chain,
     decide_packed_sketch,
     pad_request_sorted,
     pad_to_bucket,
@@ -86,11 +90,62 @@ from gubernator_tpu_torch.core.store import (
     StoreConfig,
     bucket_index,
     fingerprints,
+    group_sort_key_np,
     key_hash_tensor,
     new_store,
     rebase,
     resolve_device,
 )
+
+
+def pad_request_chained(
+    buckets: Sequence[int],
+    store_buckets: int,
+    n_shards: int,
+    key_hash: np.ndarray,
+    hits: np.ndarray,
+    limit: np.ndarray,
+    duration: np.ndarray,
+    algo: np.ndarray,
+    chain_ids: np.ndarray,
+    route_hash: np.ndarray,
+):
+    """Presort + pad one CHAINED batch: rows whose `chain_ids` match are
+    one hierarchical request's levels and decide in one pass. Each row
+    keeps its own key hash for its bucket; `route_hash` (the chain head's
+    key hash) would pick the owning shard of a mesh, which the port does
+    not have yet, so `n_shards` must be 1. numpy only (the native prep
+    has no chain column).
+
+    Returns (req, order, take_idx, groups, chain_local), numpy: the
+    padded sorted request, `order[j]` the caller index of sorted row j
+    (n rows), take_idx None (the flat layout), the group structure, and
+    `chain_local` int32[B], each row's chain slot localized into [0, n)
+    by np.unique, padding rows singleton chains at arange(n, B). Mirrors
+    gubernator_tpu/parallel/sharded.py:684-761 on its flat layout."""
+    if n_shards != 1:
+        raise ValueError(
+            f"quota chains over {n_shards} shards need the mesh policy, "
+            "which is not ported to gubernator_tpu_torch yet"
+        )
+    kh = np.ascontiguousarray(key_hash, np.uint64)
+    n = kh.shape[0]
+    skey = group_sort_key_np(kh, store_buckets)
+    order = np.argsort(skey, kind="stable").astype(np.int32)
+    sorted_fields = _gather_clip_sorted(
+        dict(
+            key_hash=kh, hits=hits, limit=limit, duration=duration,
+            algo=algo, gnp=np.zeros(n, bool),
+        ),
+        order,
+        n,
+    )
+    req, groups, B = build_presorted_request(buckets, sorted_fields, skey[order], n)
+    chain_local = np.arange(B, dtype=np.int32)
+    if n:
+        _, inv = np.unique(np.asarray(chain_ids, np.int64)[order], return_inverse=True)
+        chain_local[:n] = inv.reshape(-1)  # values < n <= B
+    return req, order, None, groups, chain_local
 
 
 class TorchEngine:
@@ -235,12 +290,13 @@ class TorchEngine:
 
     # -- array decide paths --------------------------------------------------
 
-    def _dispatch(self, req, groups, e_now, observe: bool = True):
+    def _dispatch(self, req, groups, e_now, observe: bool = True, chain_id=None):
         """The one dispatch funnel of every submit path: feed the hot-key
         observer the numpy batch (unless `observe` is False), copy it to
-        the device and run the exact-only or the two-tier decide there;
-        returns (the packed output tensor, the CUDA event recorded before
-        the upload, or None off the card)."""
+        the device and run the exact-only or the two-tier decide there,
+        or with `chain_id` (numpy int32[B]) the quota-chain decide, which
+        is exact-only; returns (the packed output tensor, the CUDA event
+        recorded before the upload, or None off the card)."""
         hook = self.observe_hook if observe else None
         if hook is not None:
             try:
@@ -253,6 +309,10 @@ class TorchEngine:
             start.record()
         req_t = to_device(req, self.device)
         groups_t = to_device(groups, self.device)
+        if chain_id is not None:
+            chain_t = torch.from_numpy(chain_id).to(self.device)
+            _store, packed = decide_packed_chain(self.store, req_t, e_now, groups_t, chain_t)
+            return packed, start
         if self.sketch is not None and self.sketch_on:
             _store, _sketch, packed = decide_packed_sketch(
                 self.store, self.sketch, req_t, e_now, groups_t
@@ -421,6 +481,57 @@ class TorchEngine:
         """Array-level entry point: submit + wait (int64 unix-ms in/out)."""
         return self.decide_wait(
             self.decide_submit(key_hash, hits, limit, duration, algo, gnp, now)
+        )
+
+    # -- quota chains --------------------------------------------------------
+
+    def decide_chain_submit(
+        self,
+        key_hash: np.ndarray,
+        hits: np.ndarray,
+        limit: np.ndarray,
+        duration: np.ndarray,
+        algo: np.ndarray,
+        chain_ids: np.ndarray,
+        route_hash: np.ndarray,
+        now: int,
+    ):
+        """Dispatch one CHAINED batch without waiting: rows sharing a
+        `chain_ids` value are one hierarchical request's levels, decided
+        together under the no-partial-debit contract
+        (kernels.decide_presorted_chain); `route_hash` is the chain head's
+        key hash per row. Exact-only (the sketch is untouched) and on the
+        numpy prep. The handle is decide_wait's."""
+        n = key_hash.shape[0]
+        e_now = self._engine_now(now)
+        req, order, _take, groups, chain_local = pad_request_chained(
+            self.buckets, self.config.slots, 1, key_hash, hits, limit,
+            duration, algo, chain_ids, route_hash,
+        )
+        B = req.key_hash.shape[0]
+        packed, start = self._dispatch(req, groups, e_now, chain_id=chain_local)
+        order_p = np.empty(B, np.int32)
+        order_p[:n] = order
+        order_p[n:] = np.arange(n, B, dtype=np.int32)
+        return self._handle(packed, start, order_p, n, B)
+
+    def decide_chain_arrays(
+        self,
+        key_hash: np.ndarray,
+        hits: np.ndarray,
+        limit: np.ndarray,
+        duration: np.ndarray,
+        algo: np.ndarray,
+        chain_ids: np.ndarray,
+        route_hash: np.ndarray,
+        now: int,
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """Array-level chained decide: submit + wait (int64 unix-ms in
+        and out, like decide_arrays)."""
+        return self.decide_wait(
+            self.decide_chain_submit(
+                key_hash, hits, limit, duration, algo, chain_ids, route_hash, now
+            )
         )
 
     # -- host-side state reads (non-mutating) --------------------------------

@@ -7,11 +7,11 @@ port has one backend so far: `TorchBackend`, the single-device slot store
 (+ count-min cold tier) of `TorchEngine`, in place of the reference's
 TpuBackend. `_ArrayOps` is the reference's array-level surface shared by
 its device backends, copied: the object<->array seam the batcher's
-arrival prep and merged submit run through, the GLOBAL hit apply, and
-the promoter's engine surfaces. Not ported yet: ExactBackend (it sits on
-the reference's host LRU and oracle), the mesh and multi-host backends,
-and quota chains (`decide_chain` raises NotImplementedError, as the
-engine does).
+arrival prep and merged submit run through, the GLOBAL hit apply, the
+promoter's engine surfaces, and the quota-chain expansion
+(`decide_chain`, with `chain_level_keys` and `collapse_chain_responses`).
+Not ported yet: ExactBackend (it sits on the reference's host LRU and
+oracle) and the mesh and multi-host backends.
 
 Concurrency contract (the reference's): decide_submit calls are strictly
 serialized on the batcher's one submit thread, while up to fetch_depth
@@ -31,7 +31,13 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from gubernator_tpu_torch.api import types as api_types
-from gubernator_tpu_torch.api.types import RateLimitReq, RateLimitResp, resps_from_columns
+from gubernator_tpu_torch.api.types import (
+    RateLimitReq,
+    RateLimitResp,
+    Status,
+    hash_key,
+    resps_from_columns,
+)
 from gubernator_tpu_torch.core.hashing import slot_hash_batch
 from gubernator_tpu_torch.core.store import DeviceLike, StoreConfig
 
@@ -39,6 +45,35 @@ log = logging.getLogger("gubernator_tpu_torch.backends")
 
 #: the reference's backends that the port does not carry yet
 NOT_PORTED_BACKENDS = ("exact", "mesh", "multihost")
+
+
+def chain_level_keys(r: RateLimitReq):
+    """(cache_key, limit, duration) per level of a chained request,
+    shallow -> deep, the request's own key last. A level duration of 0
+    inherits the request's."""
+    rows = [
+        (hash_key(r.name, lv.unique_key), lv.limit, lv.duration or r.duration)
+        for lv in r.chain
+    ]
+    rows.append((r.hash_key(), r.limit, r.duration))
+    return rows
+
+
+def collapse_chain_responses(resps):
+    """Most restrictive wins: the FIRST (shallowest) OVER_LIMIT or
+    erroring level's response answers the whole chained request, else
+    the leaf's (every level admitted and was debited).
+    `metadata["chain_level"]` names the refusing level's index when it
+    is not the leaf."""
+    pick = len(resps) - 1
+    for j, resp in enumerate(resps):
+        if resp.status == Status.OVER_LIMIT or resp.error:
+            pick = j
+            break
+    out = resps[pick]
+    if pick != len(resps) - 1:
+        out.metadata["chain_level"] = str(pick)
+    return out
 
 
 class _ArrayOps:
@@ -148,12 +183,56 @@ class _ArrayOps:
         thread (DeviceBatcher.run_serialized)."""
         return self.engine.promote_from_sketch(key_hash, limits, durations, now)
 
+    # -- hierarchical quota chains --------------------------------------------
+
     def decide_chain(
         self, reqs: Sequence[RateLimitReq], now=None
     ) -> List[RateLimitResp]:
-        raise NotImplementedError(
-            "quota chains are not ported to gubernator_tpu_torch yet"
+        """Chained decide on the device engine: expand every request into
+        one row per level (shallow -> deep, leaf last; the request's hits
+        charge EVERY level), run ONE chain-coupled decide over all of them
+        (engine.decide_chain_arrays: no partial debit), and collapse each
+        request's level responses, most restrictive wins. Ancestors are
+        TOKEN counters; only the leaf carries the request's algorithm, so
+        a shared ancestor never flips algorithm between callers. Runs on
+        the batcher's submit thread: it submits AND waits."""
+        if not reqs:
+            return []
+        if now is None:
+            now = api_types.millisecond_now()
+        keys, lims, durs, routes = [], [], [], []
+        hits_l, algo_l, cids, spans = [], [], [], []
+        for i, r in enumerate(reqs):
+            rows = chain_level_keys(r)
+            route = r.routing_key()
+            for j, (key, lim, dur) in enumerate(rows):
+                keys.append(key)
+                lims.append(lim)
+                durs.append(dur)
+                routes.append(route)
+                hits_l.append(r.hits)
+                algo_l.append(int(r.algorithm) if j == len(rows) - 1 else 0)
+                cids.append(i)
+            spans.append(len(rows))
+        status, limit, remaining, reset = self.engine.decide_chain_arrays(
+            slot_hash_batch(keys),
+            np.asarray(hits_l, np.int64),
+            np.asarray(lims, np.int64),
+            np.asarray(durs, np.int64),
+            np.asarray(algo_l, np.int32),
+            np.asarray(cids, np.int64),
+            slot_hash_batch(routes),
+            now,
         )
+        out = []
+        k = 0
+        for span in spans:
+            out.append(collapse_chain_responses(resps_from_columns(
+                status[k : k + span], limit[k : k + span],
+                remaining[k : k + span], reset[k : k + span],
+            )))
+            k += span
+        return out
 
 
 class TorchBackend(_ArrayOps):

@@ -1,9 +1,9 @@
 """Device micro-batcher: coalesces concurrent requests into device batches.
 
 The port's copy of gubernator_tpu/serve/batcher.py with its imports
-rewritten. Left out, to come with the backends that use them: the inline
-fast path and the blocking decide of host backends (ExactBackend), and
-the quota-chain lane. The knobs come from the caller (serve/config.py
+rewritten, the quota-chain lane included. Left out, to come with the
+backend that uses them: the inline fast path and the blocking decide of
+host backends (ExactBackend). The knobs come from the caller (serve/config.py
 ServerConfig), never from the environment; the native prep library
 sizes its own thread pool from GUBER_PREP_THREADS, as the reference's
 does. The file references below are the reference package's.
@@ -105,6 +105,9 @@ def _item_weight(item) -> int:
     requests/updates, not queue entries."""
     if item[0] == "decide_arrays":
         return max(1, item[1]["key_hash"].shape[0])
+    if item[0] == "chain":
+        # a chained request expands to one device row per level
+        return max(1, sum(1 + len(r.chain) for r in item[1]))
     return max(1, len(item[1]))
 
 
@@ -310,6 +313,26 @@ class DeviceBatcher:
         )
         return await fut
 
+    async def decide_chain(
+        self, reqs: Sequence[RateLimitReq], frame: bool = False
+    ):
+        """Hierarchical quota chains: a dedicated, coalescing lane —
+        chained caller groups in one flush window merge into ONE
+        backend.decide_chain call, which expands levels and runs the
+        chain-coupled decide. The call runs on the single submit thread
+        (it submits AND waits against the store), so a chain batch
+        serializes with — never races — the pipelined plain submits;
+        plain traffic keeps its full pipeline. `frame=True` marks the
+        group for the per-frame stage clock, as in decide()."""
+        if not reqs:
+            return []
+        if self._closed:
+            raise RuntimeError("DeviceBatcher is stopped")
+        loop = asyncio.get_running_loop()
+        fut = loop.create_future()
+        self._queue.put_nowait(("chain", list(reqs), _QMeta(frame), fut))
+        return await fut
+
     async def run_serialized(self, fn, *args):
         """Run `fn(*args)` on the single submit thread, serialized with
         every device dispatch. Bucket replication's snapshot reads
@@ -468,11 +491,12 @@ class DeviceBatcher:
             b for b in batch if b[0] in ("decide", "decide_arrays")
         ]
         global_items = [b for b in batch if b[0] == "globals"]
+        chain_items = [b for b in batch if b[0] == "chain"]
         # batch_queue stage: enqueue -> collect, per frame-flagged
-        # caller group; traced groups get the same span regardless of
-        # frame flag
+        # caller group (the chain lane's too); traced groups get the same
+        # span regardless of frame flag
         t_collect = time.monotonic()
-        for it in decide_items:
+        for it in decide_items + chain_items:
             m = it[-2]
             if m.frame:
                 STAGES.add("batch_queue", t_collect - m.t)
@@ -510,6 +534,9 @@ class DeviceBatcher:
             # a cancel mid-call propagates to _run's handler, which fails
             # this and every remaining item in the batch
 
+        if chain_items:
+            await self._flush_chains(chain_items, t_collect)
+
         if not decide_items:
             return
         if self.prep_at_arrival:
@@ -536,6 +563,55 @@ class DeviceBatcher:
                 handle, decide_items, submit_s, t_collect
             ),
         )
+
+    async def _flush_chains(self, chain_items, t_collect) -> None:
+        """The coalesced chain lane: ONE backend.decide_chain per flush,
+        its responses sliced back per caller group. It runs on the
+        one-wide submit pool (never a shared thread pool), which
+        serializes its submit-and-wait on the store with the pipelined
+        plain submits."""
+        all_chain = [r for _, reqs, _m, _fut in chain_items for r in reqs]
+
+        def chain_call():
+            # the whole call (expansion, submit, wait) is the submit
+            # thread's span, recorded as the decide lanes record theirs
+            t0 = time.monotonic()
+            try:
+                return self.backend.decide_chain(all_chain)
+            finally:
+                STAGES.add("submit_host", time.monotonic() - t0)
+
+        t0c = time.monotonic()
+        try:
+            resps = await asyncio.get_running_loop().run_in_executor(
+                self._submit_pool, chain_call
+            )
+        except Exception as e:
+            for _, _reqs, _m, fut in chain_items:
+                if not fut.done():
+                    fut.set_exception(e)
+            return
+        k = 0
+        for _, reqs_c, _m, fut in chain_items:
+            span = resps[k : k + len(reqs_c)]
+            k += len(reqs_c)
+            if not fut.done():
+                fut.set_result(span)
+        # device stage per frame-flagged chain group: collect -> responses
+        # resolved, the span the decide lanes record
+        nf = sum(1 for it in chain_items if it[-2].frame)
+        if nf:
+            STAGES.add("device", (time.monotonic() - t_collect) * nf, nf)
+        self._trace_device(
+            chain_items, t_collect, len(all_chain),
+            extra=dict(chain=True, rows=sum(1 + len(r.chain) for r in all_chain)),
+        )
+        try:
+            metrics.DEVICE_BATCH_SIZE.observe(len(resps))
+            metrics.DEVICE_LAUNCH_MS.observe((time.monotonic() - t0c) * 1e3)
+            self._observe_cache_stats()
+        except Exception:  # pragma: no cover - defensive
+            pass
 
     async def _submit_pipelined(
         self, submit_call, decide_items, finish_factory

@@ -16,9 +16,9 @@ hello differs from the reference's in two bits, and only there:
   would count a key in a second row. The edge's items then ride string
   frames, which the string fold below puts on the array path, hashed
   here.
-- HELLO_CHAIN (bit 3) is never offered: quota chains are not ported. A
-  GEBC frame that arrives anyway decodes, and each chained item gets
-  the instance's per-item "not ported" answer.
+- HELLO_CHAIN (bit 3) is offered while the instance serves quota chains
+  (GUBER_CHAINS on), as the reference's is; GEBC frames' chained items
+  then decide on the instance's chain lane.
 
 Everything below the hello (framings, fold, shed screen, stage clock,
 drain and stale-ring refusals) is the reference's. Pre-hashed frames
@@ -435,8 +435,8 @@ def decode_chain_request_frame(
     a GEB1 item plus a u8 level count and that many
     (u16 key_len | key | i64 limit | i64 duration) ancestor levels,
     shallow to deep. Non-UTF-8 item bytes decode to None exactly like
-    decode_request_frame; the port's Instance answers each chained item
-    with its per-item CHAINS_NOT_PORTED error."""
+    decode_request_frame; depth and behavior are validated serving-side
+    (instance.chain_error), per item."""
     from gubernator_tpu_torch.api.types import ChainLevel
 
     items: List[Optional[RateLimitReq]] = []
@@ -756,10 +756,12 @@ class FrameService:
             # per-CONNECTION capability (r18): only a unix-socket
             # client of an shm-enabled service sees this bit
             flags |= HELLO_SHM
-        # HELLO_CHAIN is never set: the port serves no quota chains, so
-        # a chaining client's capability check fails fast instead of
-        # shipping frames that would only be refused per item (the
-        # reference's rationale for its GUBER_CHAINS=0 switch)
+        if getattr(getattr(self.instance, "conf", None), "chains", True):
+            # advertise GEBC only when chains are actually served: with
+            # the GUBER_CHAINS=0 kill switch on, the client's capability
+            # check fails fast instead of shipping frames that would
+            # only be refused per item
+            flags |= HELLO_CHAIN
         if self._fast_ok():
             flags |= HELLO_FAST
             # hash-implementation bit (r12): pre-hashing clients check

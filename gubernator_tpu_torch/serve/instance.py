@@ -22,12 +22,16 @@ batched-device execution model:
 - set_peers rebuilds the picker on membership change, reusing existing
   connections, and recomputes health (gubernator.go:254-292);
   health_check merges in breaker state.
+- hierarchical quota chains: a chained request is validated
+  (chain_error), routed by its chain HEAD's key so one owner debits the
+  whole chain, kept out of the shed cache, and decided on the batcher's
+  chain lane (no partial debit, most restrictive wins), at the client
+  door, the peer door and in degraded mode alike.
 
 Not ported yet, and refused loudly rather than ignored: bucket
 replication, ring rescale and checkpoint/restore (a config that turns
 one on raises at construction; with them go the successor takeover and
-the owner-side replication hooks), and quota chains (a chained item
-gets a per-item error, at the door and at the owner).
+the owner-side replication hooks).
 Comments name the reference's modules and files.
 """
 
@@ -66,8 +70,24 @@ class BatchTooLargeError(ValueError):
     pass
 
 
-#: the per-item error of a chained request: quota chains are not ported
-CHAINS_NOT_PORTED = "quota chains are not ported to gubernator_tpu_torch yet"
+def chain_error(r: RateLimitReq, conf: ServerConfig) -> str:
+    """Validation of a hierarchical quota chain: '' when the chain is
+    acceptable, else the per-item error string."""
+    if not conf.chains:
+        return "quota chains are disabled (GUBER_CHAINS=0)"
+    if len(r.chain) > conf.chain_max_depth:
+        return (
+            f"chain has {len(r.chain)} ancestor levels; "
+            f"GUBER_CHAIN_MAX_DEPTH allows {conf.chain_max_depth}"
+        )
+    if r.behavior == Behavior.GLOBAL:
+        # GLOBAL's replica/broadcast machinery is per-key; a chain must
+        # debit all levels atomically on one owner — incompatible
+        return "behavior GLOBAL is incompatible with a quota chain"
+    for lv in r.chain:
+        if not lv.unique_key:
+            return "chain level 'unique_key' cannot be empty"
+    return ""
 
 
 class Instance:
@@ -201,8 +221,10 @@ class Instance:
                 )
                 continue
             if r.chain:
-                out[i] = RateLimitResp(error=CHAINS_NOT_PORTED)
-                continue
+                err = chain_error(r, self.conf)
+                if err:
+                    out[i] = RateLimitResp(error=err)
+                    continue
             valid.append((i, r, r.hash_key()))
 
         hashes = (
@@ -213,11 +235,14 @@ class Instance:
             shed.refresh_generation()
         fps = {}
 
+        chain_local: List[Tuple[int, RateLimitReq]] = []
         for j, (i, r, key) in enumerate(valid):
             h = int(hashes[j])
             fps[i] = h
             try:
-                peer = self.get_peer(key)
+                # chained requests route by the chain HEAD's key so one
+                # owner debits the whole chain atomically
+                peer = self.get_peer(r.routing_key() if r.chain else key)
             except Exception as e:
                 out[i] = RateLimitResp(
                     error=(
@@ -225,6 +250,17 @@ class Instance:
                         f"'{key}' - '{e}'"
                     )
                 )
+                continue
+            if r.chain:
+                # the shed cache is bypassed for chains: a cached LEAF
+                # verdict cannot speak for the parent levels, and a
+                # collapsed chain response must never populate a
+                # leaf-fingerprint entry (the observe calls below are
+                # chain-gated too)
+                if peer.is_owner:
+                    chain_local.append((i, r))
+                else:
+                    forwards.append((i, r, peer))
                 continue
             # over-limit shed screen (serve/shedcache.py): a cached
             # frozen refusal answers here — no batcher, no forward RPC.
@@ -278,7 +314,7 @@ class Instance:
                         peer=peer.host, items=1,
                     )
                 resp.metadata["owner"] = peer.host
-                if shed is not None:
+                if shed is not None and not r.chain:
                     shed.observe_resps([fps[i]], [r], [resp])
             except Exception as e:
                 degraded = await self._degraded_fallback([(i, r)], peer, e)
@@ -311,11 +347,19 @@ class Instance:
                     resp.metadata["owner"] = peer.host
                     out[i] = resp
                 if shed is not None:
-                    shed.observe_resps(
-                        [fps[i] for i, _ in items],
-                        [r for _, r in items],
-                        resps,
-                    )
+                    # collapsed chain responses never seed
+                    # leaf-fingerprint entries
+                    plain = [
+                        (i, r, resp)
+                        for (i, r), resp in zip(items, resps)
+                        if not r.chain
+                    ]
+                    if plain:
+                        shed.observe_resps(
+                            [fps[i] for i, _, _ in plain],
+                            [r for _, r, _ in plain],
+                            [resp for _, _, resp in plain],
+                        )
             except Exception as e:
                 degraded = await self._degraded_fallback(items, peer, e)
                 if degraded is not None:
@@ -349,6 +393,32 @@ class Instance:
             asyncio.ensure_future(forward_group(p, items))
             for p, items in grouped.items()
         ]
+
+        if chain_local:
+            # owned chains ride the batcher's chain lane, overlapped with
+            # the plain local batch below. Frame attribution: a chain-only
+            # frame's stage span rides the chain lane; a frame with BOTH
+            # plain and chained local work flags only the plain lane (one
+            # frame contributes one batch_queue/device span)
+            chain_frame = stage_frame and not local
+
+            async def chain_decide(items):
+                try:
+                    resps = await self.batcher.decide_chain(
+                        [r for _, r in items], frame=chain_frame
+                    )
+                    for (i, _), resp in zip(items, resps):
+                        out[i] = resp
+                except Exception as e:
+                    for i, r in items:
+                        out[i] = RateLimitResp(
+                            error=(
+                                f"while applying chained rate limit "
+                                f"for '{r.hash_key()}' - '{e}'"
+                            )
+                        )
+
+            tasks.append(asyncio.ensure_future(chain_decide(chain_local)))
 
         if local:
             local_reqs = [r for _, r, _ in local]
@@ -386,9 +456,18 @@ class Instance:
         if not getattr(self.conf, "degraded_local", False):
             return None
         try:
-            resps = await self.decide_local(
-                [r for _, r in items], [False] * len(items)
-            )
+            # chained items keep FULL chain semantics against the local
+            # store (every level, no partial debit) through the chain
+            # lane: a leaf-only decide would skip their ancestor quotas
+            resps: List[Optional[RateLimitResp]] = [None] * len(items)
+            for chained, decide in (
+                (True, self.batcher.decide_chain),
+                (False, lambda rs: self.decide_local(rs, [False] * len(rs))),
+            ):
+                idx = [j for j, (_, r) in enumerate(items) if bool(r.chain) == chained]
+                if idx:
+                    for j, resp in zip(idx, await decide([items[j][1] for j in idx])):
+                        resps[j] = resp
         except Exception:
             return None
         for resp in resps:
@@ -451,25 +530,41 @@ class Instance:
                 # owner-side injection point: a chaos spec can make THIS
                 # node a slow/failing owner for its peers' forwards
                 await FAULTS.inject("peer_serve")
-            if not any(r.chain for r in reqs):
+            chained_idx = [i for i, r in enumerate(reqs) if r.chain]
+            if not chained_idx:
                 return await self._peer_serve_plain(reqs)
-            # a chained item forwarded by a peer that serves chains gets
-            # the same per-item error as at this node's own door
+            # forwarded chains decide on THIS node's chain lane (the
+            # forwarder routed them here by the chain head), past the
+            # shed cache. Validation runs with the RECEIVING node's
+            # config: the kill switch, the depth bound (the device-row
+            # expansion a hostile peer could otherwise demand) and the
+            # GLOBAL check hold at every door
+            out: List[Optional[RateLimitResp]] = [None] * len(reqs)
+            ok_idx = []
+            for i in chained_idx:
+                err = chain_error(reqs[i], self.conf)
+                if err:
+                    out[i] = RateLimitResp(error=err)
+                else:
+                    ok_idx.append(i)
+            if ok_idx:
+                cresps = await self.batcher.decide_chain([reqs[i] for i in ok_idx])
+                for i, resp in zip(ok_idx, cresps):
+                    out[i] = resp
             plain = [(i, r) for i, r in enumerate(reqs) if not r.chain]
-            out = [RateLimitResp(error=CHAINS_NOT_PORTED) for _ in reqs]
             if plain:
                 presps = await self._peer_serve_plain([r for _, r in plain])
                 for (i, _), resp in zip(plain, presps):
                     out[i] = resp
-            return out
+            return [o if o is not None else RateLimitResp() for o in out]
         except Exception as e:
             return [RateLimitResp(error=str(e)) for _ in reqs]
 
     async def _peer_serve_plain(
         self, reqs: Sequence[RateLimitReq]
     ) -> List[RateLimitResp]:
-        """The owner-side decide for forwarded batches: shed screen +
-        device decide."""
+        """The owner-side decide for PLAIN (non-chained) forwarded
+        batches: shed screen + device decide."""
         try:
             shed = self.shed
             if shed is None:

@@ -526,8 +526,8 @@ class Server:
                         gubernator_pb2.Behavior, item.get("behavior", 0)
                     ),
                 )
-                # quota chain levels parse as at the reference's door, so
-                # a chained item gets its per-item "not ported" answer
+                # hierarchical quota chain: ancestor levels, validated
+                # serving-side (instance.chain_error)
                 for lv in item.get("chain", []) or []:
                     pb.chain.add(
                         unique_key=str(lv.get("uniqueKey", lv.get("unique_key", ""))),

@@ -221,6 +221,42 @@ def test_engine_on_card_matches_cpu():
     assert gpu.stats.snapshot() == cpu.stats.snapshot()
 
 
+def test_chained_engine_on_card_matches_cpu():
+    """Chained batches (chains of 1-4 rows over shared TOKEN ancestors,
+    the leaf any algorithm) on the two-tier engine: identical responses
+    and store bytes on the card and on the CPU, the sketch untouched, one
+    writeback launch a chain decide."""
+    _need_card()
+    rng = np.random.default_rng(6)
+    leaves = rng.integers(0, 2**64, 2000, dtype=np.uint64)
+    ancestors = rng.integers(0, 2**64, 8, dtype=np.uint64)
+    cfg = StoreConfig(rows=16, slots=64)
+    skc = derive_sketch_config(1)
+    gpu = TorchEngine(cfg, buckets=(256, 1024), sketch=skc)
+    cpu = TorchEngine(cfg, buckets=(256, 1024), device="cpu", sketch=skc)
+    now = 1_700_000_000_000
+    before = writeback_add.launches
+    for step in range(16):
+        now += int(rng.choice([1, 50, 5000]))
+        depth = rng.integers(1, 5, int(rng.integers(1, 256)))
+        kh = np.concatenate([np.append(ancestors[rng.integers(0, 8, d - 1)],
+                                       leaves[rng.integers(0, 2000)]) for d in depth])
+        leaf = np.concatenate([np.arange(d) == d - 1 for d in depth])
+        n = kh.shape[0]
+        fields = (
+            kh, np.repeat(rng.choice([0, 1, 2], depth.shape[0]), depth),
+            np.where(leaf, rng.choice([3, 100], n), rng.choice([5, 40], n)),
+            rng.choice([1000, 60_000], n), np.where(leaf, rng.integers(0, 4, n), 0).astype(np.int32),
+            np.repeat(np.arange(depth.shape[0]), depth), np.repeat(kh[np.cumsum(depth) - depth], depth),
+        )
+        for a, b in zip(gpu.decide_chain_arrays(*fields, now), cpu.decide_chain_arrays(*fields, now)):
+            np.testing.assert_array_equal(a, b, err_msg=f"step {step}")
+        assert torch.equal(gpu.store.data.cpu(), cpu.store.data), f"step {step}"
+    assert not gpu.sketch.data.any()
+    assert writeback_add.launches == before + 16
+    assert gpu.stats.snapshot() == cpu.stats.snapshot()
+
+
 @pytest.mark.parametrize("derivation", ["v2", "r13"])
 def test_two_tier_engine_on_card_matches_cpu(derivation):
     """The two-tier decide under tier pressure (a pool 4x the store, all

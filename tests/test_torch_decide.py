@@ -139,9 +139,11 @@ def test_decide_presorted_matches_jax(seed, buckets, rows, use_groups):
         assert totals[2] > 0 and totals[3] > 0  # dropped creates, evictions
 
 
-def test_decide_unported_tiers_raise():
-    """Quota chains are not ported and raise; the sketch tier is ported
-    (tests/test_torch_sketch.py) and runs."""
+def test_decide_sketch_and_chain_tiers_run_and_match_jax():
+    """Both extra tiers of the decide run: the sketch tier
+    (tests/test_torch_sketch.py holds it against the JAX package) and
+    quota chains, whose decide matches the JAX package's byte for byte
+    (tests/test_torch_chains.py covers chains in full)."""
     st = tstore.new_store(tstore.StoreConfig(rows=1, slots=16), CPU)
     req, groups = _pad(_batch(np.random.default_rng(0), np.arange(1, 9, dtype=np.uint64)), 16)
     sk = new_sketch(SketchConfig(rows=2, width=64), CPU)
@@ -149,9 +151,19 @@ def test_decide_unported_tiers_raise():
         st, to_device(req, CPU), 1, None, sketch=sk
     )
     assert got_sk is sk
-    with pytest.raises(NotImplementedError):
-        tk._decide_presorted(st, to_device(req, CPU), 1, None, None,
-                             chain_id=torch.zeros(B, dtype=torch.int32))
+    # rows coupled into chains of up to 4: a refusal rolls its chain back
+    chain_id = (np.arange(B, dtype=np.int32) // 4).astype(np.int32)
+    j_data = jnp.asarray(st.data.numpy())
+    j_store, j_resp, j_stats = jk.decide_presorted_chain(
+        jstore.Store(data=j_data), req, jnp.int32(2), jnp.asarray(chain_id), groups
+    )
+    _st, resp, stats = tk.decide_presorted_chain(
+        st, to_device(req, CPU), 2, torch.from_numpy(chain_id), to_device(groups, CPU)
+    )
+    np.testing.assert_array_equal(
+        tk.pack_outputs(resp, stats).numpy(), np.asarray(jk.pack_outputs(j_resp, j_stats))
+    )
+    np.testing.assert_array_equal(st.data.numpy(), np.asarray(j_store.data))
 
 
 def test_floor_division_and_narrowing_match_jnp():

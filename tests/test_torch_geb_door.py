@@ -18,10 +18,9 @@ clock, and driven by the same script:
 - a stale-ring fast frame (GEBR with the frame's id, then the connection
   closes) and a drain (GEBR with the drain code on a connection opened
   before it);
-- a chained item (GEBC): the port answers it with its per-item
-  "not ported" error and serves the frame's plain items as the JAX door
-  does; its hello withholds HELLO_CHAIN, so the port's client refuses a
-  chained batch before the wire.
+- a chained item (GEBC) among plain ones, as a raw frame and through the
+  port's client (which sends GEBC because the hello offers HELLO_CHAIN):
+  the answers must be the JAX door's.
 
 The fast frames need both packages to hash with one slot hash; both are
 pinned to blake2b-8 (tests/test_torch_hash.py), which the JAX client hashes
@@ -53,7 +52,6 @@ from gubernator_tpu.serve.backends import TpuBackend
 from gubernator_tpu_torch.cluster import LocalCluster
 from gubernator_tpu_torch.core.store import StoreConfig
 from gubernator_tpu_torch.serve.backends import TorchBackend
-from gubernator_tpu_torch.serve.instance import CHAINS_NOT_PORTED
 from gubernator_tpu_torch.serve.tracing import TraceContext
 
 T0 = 1_700_000_000_000
@@ -238,8 +236,8 @@ def _drive(name, ports, clock):
         stale = _frame("geb7", _requests(rng, 3, True), s.ring ^ 1, fid=555)
         out["stale_ring"] = (s.exchange(stale), s.closed())
         s.close()
-        # chained items: the port's per-item refusal (after the store
-        # snapshot: the JAX door serves chains, and debits their levels)
+        # chained items, decided on the chain lane (after the store
+        # snapshot, which the steps above pin)
         chain = [types.RateLimitReq(name="c", unique_key="plain", hits=1, limit=5, duration=60_000),
                  types.RateLimitReq(name="c", unique_key="leaf", hits=1, limit=5, duration=60_000,
                                     chain=[types.ChainLevel(unique_key="head", limit=9,
@@ -286,14 +284,13 @@ def _flags(hello: bytes) -> int:
 
 
 @pytest.mark.parametrize("door", ["hello_socket", "hello_http"])
-def test_hello_matches_jax_except_the_chain_bit(runs, door):
+def test_hello_matches_jax(runs, door):
     t, j = runs["torch"][door], runs["jax"][door]
-    assert t[:4] + t[8:] == j[:4] + j[8:]
-    # bit 3 only: both doors offer fast (bit 0) to a blake2b client
-    assert _flags(t) | tclient.HELLO_CHAIN == _flags(j)
+    assert t == j
+    # both doors offer fast (bit 0) to a blake2b client, and chains
     hello = tclient.parse_hello_bytes(t)
-    assert hello.fast and hello.windowed and hello.trace
-    assert not hello.xxh64 and not hello.chain and not hello.shm
+    assert hello.fast and hello.windowed and hello.trace and hello.chain
+    assert not hello.xxh64 and not hello.shm
 
 
 @pytest.mark.parametrize("step", [s[0] for s in STEPS])
@@ -342,11 +339,10 @@ def test_drain_refuses_with_the_drain_code(runs):
         struct.pack("<II", tclient.MAGIC_STALE, tclient.DRAIN_FRAME_ID), True)
 
 
-def test_chained_items_get_the_ports_per_item_answer(runs):
+def test_chained_items_get_the_jax_answer(runs):
     t, j = runs["torch"]["chain_frame"], runs["jax"]["chain_frame"]
-    assert _resps(t[:1]) == _resps(j[:1])  # the plain item, served alike
-    assert t[1].error == CHAINS_NOT_PORTED and t[1].limit == 0
-    assert j[1].error == ""  # the reference serves the chain
-    # no HELLO_CHAIN on the port: its client refuses before the wire
-    assert runs["torch"]["chain_client"] == "GebError"
-    assert runs["jax"]["chain_client"][1][4] == ""
+    assert _resps(t) == _resps(j)
+    assert t[1].error == "" and t[1].status == 0  # the chain was served
+    # HELLO_CHAIN on both: each client sends the GEBC frame
+    assert runs["torch"]["chain_client"] == runs["jax"]["chain_client"]
+    assert runs["torch"]["chain_client"][1][4] == ""

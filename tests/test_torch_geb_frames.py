@@ -9,10 +9,9 @@ and `gubernator_tpu_torch.serve.edge_bridge`:
   fast-record dtypes must agree exactly (tolerance zero);
 - the hello must be byte-identical, on both slot hashes (both packages
   pinned to blake2b-8 or to the port's native XXH64, tests/test_torch_hash.py),
-  except in HELLO_CHAIN (bit 3), which the port never sets because quota
-  chains are not ported, and, on blake2b-8 only, HELLO_FAST (bit 0) on
-  the edge bridge, which withholds it there because the compiled edge
-  pre-hashes XXH64;
+  HELLO_CHAIN (bit 3) included, except, on blake2b-8 only, in HELLO_FAST
+  (bit 0) on the edge bridge, which withholds it there because the
+  compiled edge pre-hashes XXH64;
 - malformed frames (a seeded hostile corpus, and a hypothesis fuzz) close
   the connection in both packages, and a listener survives them.
 
@@ -47,9 +46,6 @@ PKGS = {
     "jax": (jeb, JResp, JStatus),
     "torch": (teb, TResp, TStatus),
 }
-
-#: the hello bit the port never sets (module docstring)
-PORT_HELLO_BITS = teb.HELLO_CHAIN
 
 
 def _item(name: bytes, key: bytes, hits=1, limit=5, duration=1000,
@@ -251,11 +247,11 @@ PEERS = [FakePeer("10.0.0.2:81"), FakePeer("10.0.0.1:81", is_owner=True),
 
 @pytest.mark.parametrize("slot_hash", HASHES)
 @pytest.mark.parametrize("door", ["geb", "geb_door_map", "core", "edge_unix", "edge_tcp"])
-def test_hello_matches_jax_except_the_port_bits(door, slot_hash, monkeypatch):
+def test_hello_matches_jax_except_the_edge_fast_bit_on_blake2b(door, slot_hash, monkeypatch):
     pin_hash(monkeypatch, slot_hash)
     xxh64 = slot_hash == "xxh64"
     # on blake2b-8 the port's edge bridge withholds fast from the edge
-    mask = PORT_HELLO_BITS | (teb.HELLO_FAST if not xxh64 and door.startswith("edge") else 0)
+    mask = teb.HELLO_FAST if not xxh64 and door.startswith("edge") else 0
     hellos = {}
     for name, (pkg, Resp, Status) in PKGS.items():
         inst = _fake_instance(Resp, Status, PEERS)
@@ -276,7 +272,7 @@ def test_hello_matches_jax_except_the_port_bits(door, slot_hash, monkeypatch):
         assert tf & ~mask == jf & ~mask
         assert t[:4] + t[8:] == j[:4] + j[8:]
         assert jf & teb.HELLO_FAST and jf & teb.HELLO_CHAIN  # the reference's
-        assert not tf & teb.HELLO_CHAIN
+        assert tf & teb.HELLO_CHAIN  # chains are served (GUBER_CHAINS on)
         assert bool(tf & teb.HELLO_XXH64) == bool(jf & teb.HELLO_XXH64) == xxh64
         # the hash-agreement rule: fast to every client on XXH64; on
         # blake2b-8 to the blake2b client, never to the XXH64-only edge

@@ -338,8 +338,9 @@ def test_apply_global_hits_keeps_a_concurrent_fetchs_stats():
 def test_refusals_of_what_is_not_ported(clock):
     """Replication, rescale and checkpointing raise with the reason
     instead of being ignored; a ring with other members is served (the
-    forwarding half came with the doors), and a chained item gets a
-    per-item error."""
+    forwarding half came with the doors), and so is a chained item (quota
+    chains came later; tests/test_torch_chains.py holds them against the
+    JAX package)."""
     backend = TorchBackend(StoreConfig(rows=1, slots=16), buckets=LADDER, device="cpu")
     for kw in (dict(replication=True), dict(rescale=True),
                dict(checkpoint_dir="/nonexistent/ckpt")):
@@ -363,7 +364,8 @@ def test_refusals_of_what_is_not_ported(clock):
                 chain=[t_types.ChainLevel(unique_key="root", limit=9)],
             )
             resp = (await inst.get_rate_limits([r]))[0]
-            assert "not ported" in resp.error
+            assert resp.error == "" and resp.status == t_types.Status.UNDER_LIMIT
+            assert (resp.limit, resp.remaining) == (5, 4)  # the leaf answers
         finally:
             await inst.stop()
 
