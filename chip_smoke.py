@@ -5,7 +5,8 @@
 Drives the port (gubernator_tpu_torch) through the entry points a user
 calls (the engine, the serving core, the daemon's doors, a cluster of
 nodes forwarding to each other, the GEB frame doors with the compiled
-edge in front, and hierarchical quota chains), at two of the repo's
+edge in front, hierarchical quota chains, and durability: checkpoint and
+restore, bucket replication and ring rescale), at two of the repo's
 deployments:
 
 - exact tier, "Zipfian 10M keys, 1 GiB store" (GUBER_SKETCH=0): a slot
@@ -150,13 +151,44 @@ Phases, one JSON line each:
              Instance -> chain lane -> TorchBackend.decide_chain, no error
              answer, launches balanced, chains/s, host ms a flush outside
              the engine (the expansion and collapse), device span share;
-11. kernels  the contract line over every kernel of the path.
+11. durability  (a) the two-tier engine filled with 2^20 live windows by
+             decides of 32,768 distinct keys (a quarter each token, leaky,
+             sliding, GCRA; an eighth then spent OVER, its token windows
+             sticky): export_windows on the card (ms, bytes copied off it)
+             field for field against a CPU engine given the same store,
+             write_checkpoint (s, MiB on disk), read_checkpoint (s), a
+             restore into a fresh card engine through the checkpoint
+             manager's lane path (32 install chunks, one writeback launch
+             each; s), a flat repartition (s), the restored and
+             repartitioned exports equal to the original's, and a checked
+             batch of 32,768 over the restored keys identical on the
+             original, the restored and a CPU engine restored from the same
+             files; time to recover = read + install. Cut: 2^20 live
+             windows of the store's 16.8M entries. (b) a full-fleet
+             restart: a Server of the deployment with GUBER_CHECKPOINT_DIR
+             and GUBER_CHECKPOINT_INTERVAL_MS=250, 64 canaries (all four
+             algorithms) driven OVER through gRPC, one flush, the drain
+             (the final checkpoint), a second Server on the same directory:
+             every canary OVER, restored_windows_total and
+             restore_lag_seconds on /metrics, seconds from stop to serving,
+             and the export's stall of the submit thread. (c) three card
+             nodes of a LocalCluster with GUBER_REPLICATION=1,
+             GUBER_RESCALE=1, GUBER_REPLICATION_SYNC_WAIT_MS=50: 96 token
+             canaries driven OVER at their owners, one replication sync,
+             one owner taken out of the others' ring (each of its canaries
+             answers OVER at its successor from the standby snapshot,
+             metadata replicated=true), then a fourth node joins and the
+             rescale hands it the windows it now owns (each OVER at its
+             door); no canary answer under the limit anywhere;
+12. kernels  the contract line over every kernel of the path.
 
 The writeback kernel's launch count is set to 0 before each in-process
-path and read after it (the copy floor's and the ablation's are set to 0
+path (each durability leg) and read after it (the copy floor's and the ablation's are set to 0
 before the first path and read after the last: they run on none, so they
 must stay 0); each must equal that path's decides plus
-window-install (and, in the cluster, gossip-charge) chunks. The daemon's
+window-install (and, in the cluster, gossip-charge) chunks, plus, in the
+durability legs (b) and (c), two launches a ladder rung for each node
+that boots in the leg (its warmup: one decide and one install a rung). The daemon's
 count lives in its own process: it is read from /v1/debug/stats just
 before and just after the doors window, and the difference must equal
 the window's decides plus install and gossip chunks, read the same way.
@@ -170,8 +202,10 @@ any phase fails. Imports nothing of JAX or of gubernator_tpu.
 
 from __future__ import annotations
 
+import asyncio
 import contextlib
 import json
+import os
 import statistics
 import struct
 import subprocess
@@ -2763,6 +2797,489 @@ def chain_window(card: str, writeback) -> dict:
     return w
 
 
+# -- durability: the exact backend's sibling managers on the card ------------
+
+DUR_WINDOWS = 1 << 20  # live windows of the engine leg (the full store: 16.8M entries)
+DUR_LIMIT = 8  # each window's limit; the OVER pass spends the other 7
+DUR_ID_BASE = 1 << 40  # key ids no other phase uses
+DUR_CANARIES = 64  # OVER canaries of the full-fleet restart
+DUR_RING_CANARIES = 96  # OVER canaries of the replication/rescale leg
+CKPT_INTERVAL_MS = 250
+
+
+def _warmup_launches(engine) -> int:
+    """writeback launches of one engine warmup: one decide and one
+    one-chunk window install per ladder rung (TorchEngine.warmup)."""
+    return 2 * len(engine.buckets)
+
+
+def _same_export(a: dict, b: dict, what: str, skip=()) -> None:
+    if sorted(a) != sorted(b):
+        fail(f"{what}: export columns {sorted(a)} != {sorted(b)}")
+    for col in a:
+        if col in skip:
+            continue
+        if a[col].dtype != b[col].dtype or not np.array_equal(a[col], b[col]):
+            fail(f"{what}: export column {col} differs")
+
+
+def _by_key(w: dict) -> dict:
+    o = np.argsort(w["key_hash"], kind="stable")
+    return {c: v[o] for c, v in w.items()}
+
+
+async def _lane_restore(config, skc, ladder, lanes, now, ckpt_dir, device):
+    """A fresh TorchBackend on `device` restored through the checkpoint
+    manager's lane path (CheckpointManager._restore_lanes: install_windows
+    of the full lanes on the batcher's submit thread, then the shed purge),
+    as Server boot's restore() runs it after reading the files. Returns
+    (engine, windows installed, install seconds)."""
+    from gubernator_tpu_torch.serve.backends import TorchBackend
+    from gubernator_tpu_torch.serve.config import config_from_env
+    from gubernator_tpu_torch.serve.instance import Instance
+
+    backend = TorchBackend(config, buckets=ladder, sketch=skc, device=device)
+    inst = Instance(config_from_env(dict(SERVING_ENV, GUBER_CHECKPOINT_DIR=ckpt_dir)), backend)
+    try:
+        t = time.monotonic()
+        n = await inst.checkpoint._restore_lanes(lanes, now)
+        torch.cuda.synchronize()
+        return backend.engine, n, time.monotonic() - t
+    finally:
+        await inst.stop()
+
+
+def durability_engine_leg(card: str, ladder, writeback) -> dict:
+    """(a) The zipf100m two-tier engine filled with DUR_WINDOWS live windows
+    (a quarter each token, leaky, sliding, GCRA; an eighth then spent to
+    OVER): export_windows on the device against a CPU engine given the same
+    store, write_checkpoint, read_checkpoint, a restore into a fresh engine
+    through the checkpoint manager's lane path, a flat repartition, and a
+    checked batch identical on the original, the restored and a CPU engine
+    restored from the same files."""
+    import shutil
+    import tempfile
+
+    from gubernator_tpu_torch.core.engine import TorchEngine
+    from gubernator_tpu_torch.core.sketches import derive_two_tier_config
+    from gubernator_tpu_torch.core.store import FLAG_ALGO_SLIDING
+    from gubernator_tpu_torch.serve.checkpoint import (
+        LANE_COLS,
+        read_checkpoint,
+        write_checkpoint,
+    )
+
+    config, skc = derive_two_tier_config(1024)
+    windows, depth = DUR_WINDOWS, DEPTH
+    eng = TorchEngine(config, buckets=ladder, sketch=skc)
+    eng.warmup(now=T0)
+    writeback.writeback_add.launches = 0  # this leg from here on
+    decides = 0
+    kh = hash_ids(np.arange(windows, dtype=np.int64) + DUR_ID_BASE)
+    algo = (np.arange(windows) % 4).astype(np.int32)
+    one = np.ones(depth, np.int64)
+    no_gnp = np.zeros(depth, bool)
+    now = T0
+    t0 = time.monotonic()
+    for c in range(windows // depth):
+        sl = slice(c * depth, (c + 1) * depth)
+        now += 1
+        eng.decide_arrays(kh[sl], one, one * DUR_LIMIT, one * DURATION_100M, algo[sl],
+                          no_gnp, now)
+        decides += 1
+    # an eighth spends its budget (OVER from then on), and a peek pass over
+    # it persists the token windows' OVER status: the sticky bit
+    for hits in (DUR_LIMIT - 1, 0):
+        for c in range(windows // depth // 8):
+            sl = slice(c * depth, (c + 1) * depth)
+            now += 1
+            eng.decide_arrays(kh[sl], one * hits, one * DUR_LIMIT, one * DURATION_100M,
+                              algo[sl], no_gnp, now)
+            decides += 1
+    torch.cuda.synchronize()
+    fill_s = time.monotonic() - t0
+
+    # export on the device against a CPU engine given the same store
+    now += 1
+    w = eng.export_windows(now)
+    export = dict(eng.last_export)
+    if w["key_hash"].shape[0] != windows:
+        fail(f"durability: export holds {w['key_hash'].shape[0]} windows, not {windows}")
+    cpu = TorchEngine(config, buckets=ladder, device="cpu")
+    cpu.load_state(eng.store.data.cpu().numpy(), eng.clock.epoch)
+    _same_export(w, cpu.export_windows(now), "durability: device export vs CPU export")
+    del cpu
+    sticky = int(w["is_over"].sum())
+    algos = sorted(set(np.unique(w["flags"] & 14).tolist()))
+    if sticky != windows // 32 or algos != [0, 2, 4, 8]:
+        fail(f"durability: export has {sticky} sticky windows and algorithm bits {algos}")
+
+    d = tempfile.mkdtemp(prefix="guber-ckpt-")
+    try:
+        t0 = time.monotonic()
+        write_checkpoint(d, [], {c: w[c] for c in LANE_COLS}, "chip-smoke", now)
+        write_s = time.monotonic() - t0
+        disk = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+        t0 = time.monotonic()
+        manifest, snaps, lanes = read_checkpoint(d)
+        read_s = time.monotonic() - t0
+        if manifest["lane_windows"] != windows or snaps:
+            fail(f"durability: read back {manifest['lane_windows']} lane windows")
+
+        restored, n_inst, install_s = asyncio.run(
+            _lane_restore(config, skc, ladder, lanes, now, d, "cuda"))
+        if n_inst != windows or restored.install_chunks != windows // max(ladder):
+            fail(f"durability: restore installed {n_inst} windows in "
+                 f"{restored.install_chunks} chunks")
+        t0 = time.monotonic()
+        moved = eng.repartition(now=now)
+        torch.cuda.synchronize()
+        repartition_s = time.monotonic() - t0
+        ref = _by_key(w)
+        _same_export(_by_key(restored.export_windows(now)), ref,
+                     "durability: restored export vs the original's")
+        _same_export(_by_key(moved.export_windows(now)), ref,
+                     "durability: repartitioned export vs the original's")
+
+        # the checked batch over restored keys, three ways
+        cpu_r, _n, _s = asyncio.run(_lane_restore(config, skc, ladder, lanes, now, d, "cpu"))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    rng = np.random.default_rng(31)
+    sel = np.sort(rng.choice(windows, depth, replace=False))
+    fields = (kh[sel], rng.choice([0, 1, 1, 2], depth).astype(np.int64), one * DUR_LIMIT,
+              one * DURATION_100M, algo[sel], no_gnp)
+    now += 5
+    outs = [e.decide_arrays(*fields, now) for e in (eng, restored, cpu_r)]
+    decides += 2
+    for name, out in (("restored", outs[1]), ("CPU-restored", outs[2])):
+        for a, b in zip(outs[0], out):
+            if not np.array_equal(np.asarray(a), np.asarray(b)):
+                fail(f"durability: the checked batch answers differently on the {name} engine")
+    over = int((np.asarray(outs[0][0]) == 1).sum())
+    if not 0 < over < depth:
+        fail(f"durability: the checked batch has {over} OVER answers of {depth}")
+    e_orig, e_rest, e_cpu = (_by_key(e.export_windows(now)) for e in (eng, restored, cpu_r))
+    _same_export(e_rest, e_cpu, "durability: restored export vs CPU-restored after the batch")
+    # the ts lane is carried raw in engine-ms (the reference's layout), and
+    # the restored engine's clock has its own epoch: where ts is a time
+    # (token, leaky, GCRA) it differs by the epoch shift once a batch writes
+    # it, so it is held to the original's on the sliding entries (a count)
+    _same_export(e_rest, e_orig, "durability: restored export vs the original's after the batch",
+                 skip=("ts",))
+    sld = (e_orig["flags"] & FLAG_ALGO_SLIDING) != 0
+    if not np.array_equal(e_orig["ts"][sld], e_rest["ts"][sld]):
+        fail("durability: a sliding entry's count differs after the batch")
+    eng.export_windows(now)  # once more, warm: no allocation left to make
+    warm = {k: eng.last_export[k] for k in ("ms", "mask_ms", "copy_ms")}
+    launches = writeback.writeback_add.launches
+    chunks = restored.install_chunks + moved.install_chunks
+    if launches != decides + chunks:
+        fail(f"durability: writeback launched {launches} times for {decides} decides "
+             f"+ {chunks} install chunks")
+    recover_s = read_s + install_s
+    out = dict(
+        phase="durability", leg="engine", card=card, windows=windows,
+        store_shape=list(eng.store.data.shape),
+        sketch_shape=list(eng.sketch.data.shape),
+        sticky_windows=sticky, fill_s=fill_s,
+        export_ms=export["ms"], export_mask_ms=export["mask_ms"],
+        export_copy_ms=export["copy_ms"], export_warm=warm, export_bytes=export["bytes"],
+        export_rows_per_s=windows / (export["ms"] / 1e3),
+        write_s=write_s, disk_mib=disk / (1 << 20), disk_bytes_per_window=disk / windows,
+        write_rows_per_s=windows / write_s,
+        read_s=read_s, read_rows_per_s=windows / read_s,
+        install_s=install_s, install_chunks=restored.install_chunks,
+        install_rows_per_s=windows / install_s,
+        recover_s=recover_s, recover_rows_per_s=windows / recover_s,
+        repartition_s=repartition_s, repartition_rows_per_s=windows / repartition_s,
+        epoch_shift_ms=int(restored.clock.epoch - eng.clock.epoch),
+        checked=dict(rows=depth, over=over, identical=3),
+        decides=decides, chunks=chunks, launches=launches,
+        reduced=[f"live windows {windows} of the store's "
+                 f"{config.slots * config.rows} entries (the JSON checkpoint of the "
+                 f"full store would be ~{disk / windows * config.slots * config.rows / 2**30:.1f}"
+                 " GiB at this run's bytes a window, encoded on the host)"],
+    )
+    del eng, restored, moved, cpu_r
+    torch.cuda.empty_cache()
+    return out
+
+
+async def _canary_answers(client, reqs, what: str) -> list:
+    resps = await client.get_rate_limits(reqs, timeout=120)
+    bad = [r.error for r in resps if r.error]
+    if bad:
+        fail(f"durability {what}: error answers {bad[:3]}")
+    return resps
+
+
+async def _restart_leg(card: str) -> dict:
+    import shutil
+    import tempfile
+
+    import gubernator_tpu_torch.api.types as types
+    from gubernator_tpu_torch.client import AsyncV1Client
+    from gubernator_tpu_torch.serve.config import config_from_env
+    from gubernator_tpu_torch.serve.server import Server
+
+    d = tempfile.mkdtemp(prefix="guber-ckpt-")
+    g, h = free_ports(2)
+    env = dict(SERVING_ENV, GUBER_GRPC_ADDRESS=f"127.0.0.1:{g}",
+               GUBER_HTTP_ADDRESS=f"127.0.0.1:{h}", GUBER_CHECKPOINT_DIR=d,
+               GUBER_CHECKPOINT_INTERVAL_MS=str(CKPT_INTERVAL_MS))
+    canaries = [types.RateLimitReq(
+        name="canary", unique_key=f"c{i}", hits=5, limit=5, duration=DURATION_100M,
+        algorithm=types.Algorithm(i % 4)) for i in range(DUR_CANARIES)]
+    after = [types.RateLimitReq(name=r.name, unique_key=r.unique_key, hits=1, limit=r.limit,
+                                duration=r.duration, algorithm=r.algorithm) for r in canaries]
+    counted = {"decides": 0, "chunks": 0, "warmups": 0}
+
+    def count(server):
+        e = server.backend.engine
+        counted["decides"] += e.stats.snapshot()["batches"]
+        counted["chunks"] += e.install_chunks + e.gossip_chunks
+        counted["warmups"] += _warmup_launches(e)
+
+    try:
+        first = Server(config_from_env(env))
+        t0 = time.monotonic()
+        await first.start()
+        boot_s = time.monotonic() - t0
+        client = AsyncV1Client(f"127.0.0.1:{g}")
+        try:
+            await _canary_answers(client, canaries, "restart: spend")
+            over = await _canary_answers(client, after, "restart: drive over")
+        finally:
+            await client.close()
+        if any(int(r.status) != 1 for r in over):
+            fail("durability restart: a canary is not OVER before the stop")
+        # one flush pass lands on disk (the loop's interval)
+        t_drive = types.millisecond_now()
+        deadline = time.monotonic() + 30
+        while first.instance.checkpoint.last_ok_ms < t_drive:
+            if time.monotonic() > deadline:
+                fail("durability restart: no checkpoint flush landed within 30 s")
+            await asyncio.sleep(0.05)
+        stall = dict(first.backend.engine.last_export)
+        t_stop = time.monotonic()
+        drain = await first.drain()
+        await first.stop()
+        count(first)
+        if "checkpoint_flush" not in drain:
+            fail(f"durability restart: the drain wrote no final checkpoint: {drain}")
+        del first
+        second = Server(config_from_env(env))
+        t0 = time.monotonic()
+        await second.start()  # restore() runs inside, before any door opens
+        boot2_s = time.monotonic() - t0
+        client = AsyncV1Client(f"127.0.0.1:{g}")
+        try:
+            got = await _canary_answers(client, after, "restart: after the restore")
+        finally:
+            await client.close()
+        stop_to_serving_s = time.monotonic() - t_stop
+        under = sum(int(r.status) != 1 for r in got)
+        # the scrape runs off this loop: the server answers on it
+        text = await asyncio.to_thread(http_text, f"http://127.0.0.1:{h}/metrics")
+        restored = metric_value(text, "restored_windows_total")
+        lag = metric_value(text, "restore_lag_seconds")
+        if under or restored < DUR_CANARIES:
+            fail(f"durability restart: {under} canaries under the limit after the restore, "
+                 f"restored_windows_total {restored}")
+        await second.drain()
+        await second.stop()
+        count(second)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return dict(
+        phase="durability", leg="restart", card=card, canaries=DUR_CANARIES,
+        canary_under_admissions=under, boot_s=boot_s, drain_s=drain["total"],
+        drain_steps={k: v for k, v in drain.items() if k != "total"},
+        restart_boot_s=boot2_s, stop_to_serving_s=stop_to_serving_s,
+        restored_windows_total=restored, restore_lag_seconds=lag,
+        checkpoint_interval_ms=CKPT_INTERVAL_MS,
+        export_stall_ms=stall["ms"], export_stall_mask_ms=stall["mask_ms"],
+        export_stall_bytes=stall["bytes"],
+        export_stall_windows=stall["windows"], **counted,
+    )
+
+
+def _ring(types, addrs, me):
+    return [types.PeerInfo(address=a, is_owner=(a == me)) for a in addrs]
+
+
+def _ring_leg(card: str, writeback) -> dict:
+    """(c) Replication and rescale on three nodes of one LocalCluster: token
+    canaries driven OVER at their owners' doors and one replication sync;
+    one owner taken out of the other two's ring, each of its canaries asked
+    at its successor (now its owner), which answers from the standby
+    snapshot (metadata replicated=true); then a fourth node joins the ring
+    of the two, the rescale hands the windows it now owns over, and each
+    such canary is asked at the new node's door. Every canary answer after
+    the drive must be OVER."""
+    import gubernator_tpu_torch.api.types as types
+    from gubernator_tpu_torch.client import V1Client
+    from gubernator_tpu_torch.cluster import LocalCluster
+    from gubernator_tpu_torch.core.hashing import ring_hash
+    from gubernator_tpu_torch.serve import metrics
+    from gubernator_tpu_torch.serve.config import config_from_env
+    from gubernator_tpu_torch.serve.server import Server
+
+    addrs = balanced_addresses(ring_hash, CLUSTER_NODES)
+    env = dict(SERVING_ENV, GUBER_PEER_TIMEOUT_MS="10000", GUBER_GLOBAL_TIMEOUT_MS="10000",
+               GUBER_GLOBAL_SYNC_WAIT_MS="600000", GUBER_REPLICATION="1", GUBER_RESCALE="1",
+               GUBER_REPLICATION_SYNC_WAIT_MS="50")
+    cl = LocalCluster(addrs, env=env)
+    cl.start(timeout=BOOT_S)
+    fourth = None
+    counted = {"decides": 0, "chunks": 0, "warmups": 0}
+    try:
+        for s in cl.servers:
+            cl.run(s.instance.promoter.stop())
+        base = [(s.backend.stats()["batches"], s.backend.engine.install_chunks
+                 + s.backend.engine.gossip_chunks) for s in cl.servers]
+        launches0 = writeback.writeback_add.launches
+        canaries = [types.RateLimitReq(name="ring", unique_key=f"r{i}", hits=5, limit=5,
+                                       duration=DURATION_100M)
+                    for i in range(DUR_RING_CANARIES)]
+        after = [types.RateLimitReq(name="ring", unique_key=r.unique_key, hits=1, limit=5,
+                                    duration=DURATION_100M) for r in canaries]
+        owner = [_owner(ring_hash, addrs, r.hash_key()) for r in canaries]
+        answers = []  # every canary answer after the drive: all must be OVER
+
+        def ask(addr: str, reqs: list, what: str, record: bool = True) -> list:
+            with V1Client(addr) as c:
+                resps = c.get_rate_limits(reqs, timeout=120)
+            bad = [r.error for r in resps if r.error]
+            if bad:
+                fail(f"durability ring {what}: error answers {bad[:3]}")
+            if record:
+                answers.extend(resps)
+            return resps
+
+        for node in range(CLUSTER_NODES):  # driven OVER at their owners
+            mine = [j for j in range(len(canaries)) if owner[j] == node]
+            ask(addrs[node], [canaries[j] for j in mine], "spend", record=False)
+            ask(addrs[node], [after[j] for j in mine], "drive over")
+        # one replication sync: the owners' loops (50 ms) ship the dirty
+        # windows to their successors; a loop's send may still be in flight
+        # when an explicit flush finds nothing dirty, so wait for the rows
+        t0 = time.monotonic()
+        for s in cl.servers:
+            cl.run(s.instance.repl.flush_once(), timeout=120)
+        while sum(s.instance.repl.standby_len for s in cl.servers) < len(canaries):
+            if time.monotonic() - t0 > 30:
+                break
+            time.sleep(0.01)
+        sync_s = time.monotonic() - t0
+        standby = sum(s.instance.repl.standby_len for s in cl.servers)
+        if standby != len(canaries):
+            fail(f"durability ring: {standby} standby rows for {len(canaries)} canaries")
+
+        # take out the node other than 0 that owns the most canaries
+        x = max((1, 2), key=owner.count)
+        rest = [a for i, a in enumerate(addrs) if i != x]
+        for i, s in enumerate(cl.servers):
+            if i != x:
+                cl.run(s.instance.set_peers(_ring(types, rest, addrs[i])))
+        taken = [j for j in range(len(after)) if owner[j] == x]
+        replicated = 0
+        for succ in rest:
+            mine = [after[j] for j in taken if rest[_owner(ring_hash, rest,
+                                                            after[j].hash_key())] == succ]
+            if mine:
+                got = ask(succ, mine, "takeover")
+                replicated += sum(r.metadata.get("replicated") == "true" for r in got)
+        if not taken or replicated != len(taken):
+            fail(f"durability ring: {replicated} of {len(taken)} taken-over canaries "
+                 "answered from a standby snapshot")
+
+        # a fourth node joins the ring of the two that remain; its port is
+        # drawn so that its ring arc takes some canaries from them
+        for _ in range(200):
+            four = rest + [f"127.0.0.1:{free_ports(1)[0]}"]
+            moved = [j for j, r in enumerate(canaries)
+                     if _owner(ring_hash, four, r.hash_key()) == 2]
+            if len(moved) >= 8:
+                break
+        else:
+            fail("durability ring: no fourth port takes 8 canaries")
+        moved0 = metrics.RESCALE_KEYS_MOVED._value.get()
+        conf = config_from_env(dict(cl._env))
+        conf.grpc_address = conf.advertise_address = four[-1]
+        conf.peers = list(four)
+        fourth = Server(conf)
+        t0 = time.monotonic()
+        cl.run(fourth.start(), timeout=BOOT_S)
+        boot_s = time.monotonic() - t0
+        cl.run(fourth.instance.promoter.stop())
+        t_flip = time.monotonic()
+        for i, s in enumerate(cl.servers):
+            if i != x:
+                cl.run(s.instance.set_peers(_ring(types, four, addrs[i])))
+        # the rescale loops hand the moved windows over on their own
+        deadline = time.monotonic() + 30
+        while metrics.RESCALE_KEYS_MOVED._value.get() - moved0 < len(moved):
+            if time.monotonic() > deadline:
+                fail("durability ring: the rescale handoff did not land within 30 s")
+            time.sleep(0.01)
+        handoff_s = time.monotonic() - t_flip
+        moved_keys = metrics.RESCALE_KEYS_MOVED._value.get() - moved0
+        got = ask(four[-1], [after[j] for j in moved], "after the node add")
+        if any(int(r.status) != 1 for r in got):
+            fail("durability ring: a moved canary is under the limit at its new owner")
+        under = sum(int(r.status) != 1 for r in answers)
+        if under:
+            fail(f"durability ring: {under} canary answers under the limit")
+        for (b0, c0), s in zip(base, cl.servers):
+            counted["decides"] += s.backend.stats()["batches"] - b0
+            counted["chunks"] += (s.backend.engine.install_chunks
+                                  + s.backend.engine.gossip_chunks - c0)
+    finally:
+        if fourth is not None:
+            cl.run(fourth.stop(), timeout=60)
+        cl.stop()
+    launches = writeback.writeback_add.launches - launches0
+    e4 = fourth.backend.engine
+    counted["decides"] += e4.stats.snapshot()["batches"]
+    counted["chunks"] += e4.install_chunks + e4.gossip_chunks
+    counted["warmups"] += _warmup_launches(e4)
+    return dict(
+        phase="durability", leg="ring", card=card, nodes=CLUSTER_NODES + 1,
+        canaries=DUR_RING_CANARIES, standby_rows=standby, replication_sync_s=sync_s,
+        removed_node=x,
+        taken_over=len(taken), replicated_answers=replicated,
+        moved_to_new_node=len(moved), rescale_keys_moved=moved_keys,
+        fourth_boot_s=boot_s, handoff_s=handoff_s,
+        canary_answers=len(answers), canary_under_admissions=under,
+        launches=launches, **counted,
+    )
+
+
+def durability_path(card: str, ladder, writeback) -> dict:
+    """The durability phase: (a) the engine leg, (b) a full-fleet restart
+    from a checkpoint, (c) replication and rescale on card nodes. Every
+    writeback launch of the phase is one decide, one install or gossip
+    chunk, or one of a booting node's warmup launches."""
+    engine = durability_engine_leg(card, ladder, writeback)
+    emit(engine)
+    writeback.writeback_add.launches = 0
+    restart = asyncio.run(_restart_leg(card))
+    emit(restart)
+    b_launches = writeback.writeback_add.launches
+    want = restart["decides"] + restart["chunks"] + restart["warmups"]
+    if b_launches != want:
+        fail(f"durability restart: writeback launched {b_launches} times for {want}")
+    ring = _ring_leg(card, writeback)
+    emit(ring)
+    want = ring["decides"] + ring["chunks"] + ring["warmups"]
+    if ring["launches"] != want:
+        fail(f"durability ring: writeback launched {ring['launches']} times for {want}")
+    return dict(launches=engine["launches"] + b_launches + ring["launches"])
+
+
+
 def balanced_addresses(ring_hash, n: int, lo: float = 0.2, hi: float = 0.5) -> list:
     """n free localhost addresses whose ring arcs each own between `lo`
     and `hi` of the key space. The ring has one crc32 point per address,
@@ -2940,6 +3457,7 @@ def main() -> int:
     geb = geb_path(card, edge_res)
     geb_checked = geb_checked_leg(card, writeback)
     chain = chain_path(card, ladder, writeback)
+    durability = durability_path(card, ladder, writeback)
     floor_launches = writeback.add_one.launches
     if floor_launches:
         fail(f"the copy floor's kernel launched {floor_launches} times on the paths")
@@ -2963,7 +3481,8 @@ def main() -> int:
         launches_by_path={"exact": exact["launches"], "two_tier": two["launches"],
                           "serving": serving["launches"], "doors": doors["launches"],
                           "cluster": cluster["launches"], "geb": geb["launches"],
-                          "geb_checked": geb_checked["launches"], "chain": chain["launches"]},
+                          "geb_checked": geb_checked["launches"], "chain": chain["launches"],
+                          "durability": durability["launches"]},
     ), dict(
         # the copy floor runs on no serving path: it measures the pass
         # over the store that bounds the writeback from below

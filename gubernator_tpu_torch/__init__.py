@@ -15,12 +15,16 @@ the same place:
   eager tensor code.
 - `core.writeback`: the store writeback, a hand-written CUDA kernel for
   Hopper (`csrc/writeback.cu`) beside its plain PyTorch version.
+- `core.cache`, `core.oracle`: the host LRU and the exact algorithms
+  over it (copies), which the exact backend decides with.
 - `core.engine`, `parallel.sharded`: host glue and the single-device
-  `TorchEngine`, with the arrival-prep, GLOBAL and promoter surfaces.
+  `TorchEngine`, with the arrival-prep, GLOBAL, promoter and
+  export/repartition surfaces.
 - `serve`: the serving core: `Instance`, the `DeviceBatcher` (arrival
-  prep, deep batches, pipelined fetch), `TorchBackend` and
-  `make_backend`, the over-limit shed cache, the sketch promoter loop,
-  the GLOBAL manager, config, metrics and tracing; the doors
+  prep, deep batches, pipelined fetch), `TorchBackend`, `ExactBackend`
+  and `make_backend`, the over-limit shed cache, the sketch promoter loop,
+  the GLOBAL manager, bucket replication, ring rescale and
+  checkpoint/restore, config, metrics and tracing; the doors
   (`serve.server`: gRPC, HTTP JSON, `/metrics`; `serve.edge_bridge` and
   `serve.shm`: the GEB frame doors and the shared-memory lane) and the
   daemon, `cluster` and the clients (`client`, `client_geb`).

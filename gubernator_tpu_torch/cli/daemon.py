@@ -5,7 +5,8 @@ from GUBER_* env vars with an optional KEY=value config file injected
 first (the reference daemon's surface, cmd/gubernator/main.go +
 config.go). The node serves on the CUDA device: on a host with no GPU it
 exits non-zero with the engine's message, and it has no CPU fallback
-(a CPU node is built in code: `Server(conf, device="cpu")`). The
+(a CPU node is built in code: `Server(conf, device="cpu")`); only
+GUBER_BACKEND=exact, which holds no device state, needs no GPU. The
 multi-host mesh (GUBER_DIST_COORDINATOR) is not ported and is refused.
 """
 

@@ -9,7 +9,9 @@ encoding. The per-algorithm state layout and integer conventions are
 documented at gubernator_tpu/core/algorithms.py:1-101 and are the ones
 core.kernels implements.
 
-`sketch_sliding_budget` / `sketch_gcra_budget` are the host twins of the
+`sliding_dur` / `sliding_rotate` / `sliding_used` are the host integer
+math of a stored sliding window that the exact oracle (core/oracle.py)
+decides with. `sketch_sliding_budget` / `sketch_gcra_budget` are the host twins of the
 decide's sketch branch for sliding windows (the window-ring blend of the
 current and previous epoch window's estimates) and GCRA (a theoretical
 arrival time re-quantized from the same two estimates); the tests hold
@@ -42,6 +44,36 @@ SHEDDABLE_ALGOS = frozenset({ALGO_TOKEN})
 #: sketch promotion gate (serve/promoter.py): install_windows writes the
 #: token fixed-window layout, so only token keys promote
 PROMOTABLE_ALGOS = frozenset({ALGO_TOKEN})
+
+
+def sliding_dur(duration: int) -> int:
+    """The effective sliding-window period for a stored or requested
+    duration (the decide's clip to [1, SLIDING_MAX_DURATION_MS])."""
+    return max(min(duration, SLIDING_MAX_DURATION_MS), 1)
+
+
+def sliding_rotate(
+    expire: int, duration: int, now: int, cur: int, prev: int
+) -> Tuple[int, int, int]:
+    """(window_start', cur', prev') after advancing a stored sliding entry
+    to `now`. `expire` is the stored expiry (ws + 2d, d the effective
+    duration); one whole-window advance shifts cur into prev, two or more
+    clear both."""
+    d = sliding_dur(duration)
+    ws0 = expire - 2 * d
+    k = max((now - ws0) // d, 0)
+    if k == 0:
+        return ws0, cur, prev
+    if k == 1:
+        return ws0 + d, 0, cur
+    return ws0 + k * d, 0, 0
+
+
+def sliding_used(ws: int, duration: int, now: int, cur: int, prev: int) -> int:
+    """Weighted consumed total: the current count plus the previous
+    subwindow's count scaled by its remaining overlap (floor)."""
+    d = sliding_dur(duration)
+    return cur + (prev * (d - (now - ws))) // d
 
 
 def gcra_params(limit: int, duration: int) -> Tuple[int, int]:

@@ -20,10 +20,12 @@ decide_submit_presorted), the GLOBAL surfaces (update_globals in both
 call forms, apply_global_hits), the promoter's engine surfaces
 (observe_hook, sketch_estimates, live_mask, snapshot_read,
 install_windows, promote_from_sketch), warmup, load_state, which
-carries a JAX engine's store, sketch and clock across, and the quota-chain
+carries a JAX engine's store, sketch and clock across, the quota-chain
 surface (pad_request_chained, decide_chain_submit / decide_chain_arrays:
-chained batches decide exact-only, the sketch untouched). Not ported yet:
-the mesh policy.
+chained batches decide exact-only, the sketch untouched), and the
+durability surfaces: export_windows (the full-store read of every live
+window that a checkpoint writes) and repartition (export + install into a
+new engine). Not ported yet: the mesh policy.
 
 Every submit path ends in `_dispatch`, which feeds `observe_hook` the
 host-side numpy BatchRequest and runs the decide; on a CUDA device the
@@ -38,6 +40,7 @@ their own handle and the stats, which land under EngineStats' lock.
 
 from __future__ import annotations
 
+import time
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -82,9 +85,11 @@ from gubernator_tpu_torch.core.store import (
     L_DURATION,
     L_EXPIRE,
     L_FLAGS,
+    L_KEYLOW,
     L_LIMIT,
     L_REMAINING,
     L_TAG,
+    L_TS,
     LANES,
     DeviceLike,
     StoreConfig,
@@ -187,6 +192,10 @@ class TorchEngine:
         self.sketch_config = sketch
         self.sketch = None if sketch is None else new_sketch(sketch, self.device)
         self.sketch_on = sketch is not None
+        # the last export_windows: its wall ms, split into the live-entry
+        # mask on the device (through the sync its count needs) and the
+        # copy to the host; the bytes copied off the device; the windows
+        self.last_export = dict(ms=0.0, mask_ms=0.0, copy_ms=0.0, bytes=0, windows=0)
 
     def reset(self) -> None:
         """Wipe the store and the sketch in place (the clock keeps its
@@ -615,6 +624,95 @@ class TorchEngine:
         e_now = int(self.clock.to_engine(now))
         live = (rows[:, :, L_TAG] == fp[:, None]) & (rows[:, :, L_EXPIRE] >= e_now)
         return live.any(axis=1)[:n]
+
+    # -- full-store export / repartition ---------------------------------------
+
+    def export_windows(self, now: Optional[int] = None) -> dict:
+        """Host-side read of EVERY live window in the store, in store
+        order: {key_hash uint64[m], limit, remaining, reset_time (unix-ms),
+        is_over, duration, ts, flags}, the full-store twin of snapshot_read.
+        Each entry's 64-bit key hash is rebuilt from its L_TAG|L_KEYLOW
+        lanes; `is_over` is the FLAG_STICKY_OVER bit only (an exhausted
+        but not sticky window must reinstall as exactly that), and the raw
+        duration/ts/flags lanes ride along, so every algorithm's entry
+        round-trips byte-exact through install_windows. `reset_time` is
+        the L_EXPIRE lane in unix-ms, whatever the algorithm keeps there.
+        The live mask runs on the device, so only live entries are copied
+        off it (`last_export` records the ms and bytes). Non-mutating;
+        runs on the batcher's submit thread (DeviceBatcher.run_serialized),
+        so on a serving node the copy stalls the dispatches behind it."""
+        empty = dict(
+            key_hash=np.empty(0, np.uint64),
+            limit=np.empty(0, np.int64),
+            remaining=np.empty(0, np.int64),
+            reset_time=np.empty(0, np.int64),
+            is_over=np.empty(0, bool),
+            duration=np.empty(0, np.int64),
+            ts=np.empty(0, np.int64),
+            flags=np.empty(0, np.int64),
+        )
+        if self.clock.epoch is None:
+            return empty  # nothing ever decided
+        if now is None:
+            now = api_types.millisecond_now()
+        e_now = int(self.clock.to_engine(now))
+        t0 = time.perf_counter()
+        ent = self.store.data.view(-1, LANES)
+        live = (ent[:, L_TAG] != 0) & (ent[:, L_EXPIRE] >= e_now)
+        ent = ent[live]  # the count of live entries syncs with the device
+        t1 = time.perf_counter()
+        ent = ent.cpu().numpy()
+        t2 = time.perf_counter()
+        self.last_export = dict(
+            ms=(t2 - t0) * 1e3,
+            mask_ms=(t1 - t0) * 1e3,
+            copy_ms=(t2 - t1) * 1e3,
+            bytes=int(ent.nbytes),
+            windows=int(ent.shape[0]),
+        )
+        if not ent.shape[0]:
+            return empty
+        mask = np.uint64(0xFFFFFFFF)
+        hi = ent[:, L_TAG].astype(np.int64).view(np.uint64) & mask
+        lo = ent[:, L_KEYLOW].astype(np.int64).view(np.uint64) & mask
+        return dict(
+            key_hash=(hi << np.uint64(32)) | lo,
+            limit=ent[:, L_LIMIT].astype(np.int64),
+            remaining=ent[:, L_REMAINING].astype(np.int64),
+            reset_time=np.asarray(self.clock.from_engine(ent[:, L_EXPIRE]), np.int64),
+            is_over=(ent[:, L_FLAGS] & FLAG_STICKY_OVER) != 0,
+            duration=ent[:, L_DURATION].astype(np.int64),
+            ts=ent[:, L_TS].astype(np.int64),
+            flags=ent[:, L_FLAGS].astype(np.int64),
+        )
+
+    def repartition(self, shards: int = 1, now: Optional[int] = None) -> "TorchEngine":
+        """A NEW engine on the same device, geometry, ladder and sketch
+        config, carrying every live window of this one (export_windows ->
+        install_windows with the full lanes): the store re-partition path,
+        flat to flat. Sketch counts do not migrate (window-keyed and
+        transient, as in the reference). More than one shard needs the
+        mesh policy, which is not ported, and raises. Call with the
+        batcher idle or on its submit thread."""
+        if shards != 1:
+            raise ValueError(
+                f"repartition to {shards} shards needs the mesh policy, "
+                "which is not ported to gubernator_tpu_torch yet"
+            )
+        if now is None:
+            now = api_types.millisecond_now()
+        eng = TorchEngine(
+            self.config, buckets=self.buckets, device=self.device,
+            sketch=self.sketch_config,
+        )
+        w = self.export_windows(now)
+        if w["key_hash"].shape[0]:
+            eng.install_windows(
+                w["key_hash"], w["limit"], w["remaining"], w["reset_time"],
+                w["is_over"], now=now, duration=w["duration"], ts=w["ts"],
+                flags=w["flags"],
+            )
+        return eng
 
     # -- window install ------------------------------------------------------
 

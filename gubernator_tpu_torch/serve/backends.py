@@ -3,15 +3,21 @@ gubernator_tpu/serve/backends.py, with `make_backend` from
 gubernator_tpu/serve/server.py:38-158).
 
 The serving layer (serve/instance.py) speaks one small interface. The
-port has one backend so far: `TorchBackend`, the single-device slot store
-(+ count-min cold tier) of `TorchEngine`, in place of the reference's
-TpuBackend. `_ArrayOps` is the reference's array-level surface shared by
-its device backends, copied: the object<->array seam the batcher's
-arrival prep and merged submit run through, the GLOBAL hit apply, the
-promoter's engine surfaces, and the quota-chain expansion
-(`decide_chain`, with `chain_level_keys` and `collapse_chain_responses`).
-Not ported yet: ExactBackend (it sits on the reference's host LRU and
-oracle) and the mesh and multi-host backends.
+port has two backends:
+
+- `ExactBackend`, the reference's host LRU + exact oracle algorithms
+  (core/cache.py, core/oracle.py), copied: no device state at all, chosen
+  only by GUBER_BACKEND=exact. Its decide runs inline on the event loop.
+- `TorchBackend`, the single-device slot store (+ count-min cold tier) of
+  `TorchEngine`, in place of the reference's TpuBackend.
+
+`_ArrayOps` is the reference's array-level surface shared by its device
+backends, copied: the object<->array seam the batcher's arrival prep and
+merged submit run through, the GLOBAL hit apply, the replication
+snapshot read, the promoter's engine surfaces, and the quota-chain
+expansion (`decide_chain`, with `chain_level_keys` and
+`collapse_chain_responses`). Not ported yet: the mesh and multi-host
+backends.
 
 Concurrency contract (the reference's): decide_submit calls are strictly
 serialized on the batcher's one submit thread, while up to fetch_depth
@@ -26,25 +32,33 @@ imports.
 from __future__ import annotations
 
 import logging
-from typing import List, Optional, Sequence
+from dataclasses import replace
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from gubernator_tpu_torch.api import types as api_types
 from gubernator_tpu_torch.api.types import (
+    Algorithm,
     RateLimitReq,
     RateLimitResp,
     Status,
     hash_key,
     resps_from_columns,
 )
+from gubernator_tpu_torch.core.cache import LRUCache
 from gubernator_tpu_torch.core.hashing import slot_hash_batch
+from gubernator_tpu_torch.core.oracle import get_rate_limit
 from gubernator_tpu_torch.core.store import DeviceLike, StoreConfig
 
 log = logging.getLogger("gubernator_tpu_torch.backends")
 
 #: the reference's backends that the port does not carry yet
-NOT_PORTED_BACKENDS = ("exact", "mesh", "multihost")
+NOT_PORTED_BACKENDS = ("mesh", "multihost")
+
+#: rough host footprint of one replication standby row (a small dataclass
+#: + dict node, the reference's measure), for the boot-time tier split
+STANDBY_ENTRY_BYTES = 160
 
 
 def chain_level_keys(r: RateLimitReq):
@@ -74,6 +88,152 @@ def collapse_chain_responses(resps):
     if pick != len(resps) - 1:
         out.metadata["chain_level"] = str(pick)
     return out
+
+
+class ExactBackend:
+    """Host-memory exact semantics (reference algorithms over an LRU)."""
+
+    # decide() is microseconds of pure-Python dict work: the batcher runs
+    # it inline on the event loop (a thread hop per batch would cost more
+    # than the decide), as the reference answers local cache hits
+    # synchronously (gubernator.go:236-251). Device backends keep the
+    # thread hop: they block on the device.
+    inline_decide = True
+
+    def __init__(self, cache_size: int = 50_000):
+        self.cache = LRUCache(cache_size)
+
+    def decide(
+        self,
+        reqs: Sequence[RateLimitReq],
+        gnp: Sequence[bool],
+        now: Optional[int] = None,
+    ) -> List[RateLimitResp]:
+        out = []
+        for r, is_gnp in zip(reqs, gnp):
+            if is_gnp:
+                item, ok = self.cache.get(r.hash_key(), now)
+                if ok and isinstance(item, RateLimitResp):
+                    out.append(replace(item, metadata=dict(item.metadata)))
+                    continue
+                if ok:
+                    # algorithm switched under a GLOBAL key: drop the stale
+                    # entry and reprocess (gubernator.go:181-185)
+                    self.cache.remove(r.hash_key())
+                # miss: process locally as if owned (gubernator.go:189-194)
+            out.append(get_rate_limit(self.cache, r, now))
+        return out
+
+    def update_globals(self, updates, now=None) -> None:
+        # cache.Add(key, status, status.reset_time), gubernator.go:199-207;
+        # `now` is unused (expiry comes from the status) but kept for
+        # interface parity with the device backends
+        for key, status in updates:
+            self.cache.add(key, status, status.reset_time)
+
+    def stats(self) -> dict:
+        s = self.cache.stats()
+        return dict(size=s.size, hit=s.hit, miss=s.miss)
+
+    def snapshot_read(self, keys, now=None):
+        """Bucket-replication snapshot surface (serve/replication.py): per
+        key, (limit, duration, remaining, reset_time, over) for a live
+        token window, else None. NON-MUTATING via LRUCache.peek (no
+        recency move, no stats, no expiry deletion), so the flush loop is
+        invisible to the decision stream. A cached token window has no
+        duration: the manager backfills it from the dirtying request."""
+        if now is None:
+            now = api_types.millisecond_now()
+        out = []
+        for key in keys:
+            v, ok = self.cache.peek(key, now)
+            if not ok or not isinstance(v, RateLimitResp):
+                out.append(None)
+                continue
+            out.append((
+                v.limit,
+                0,  # duration not persisted; the caller backfills
+                v.remaining,
+                v.reset_time,
+                v.status == Status.OVER_LIMIT or v.remaining == 0,
+            ))
+        return out
+
+    def shed_generation(self) -> int:
+        """Store-wipe epoch for the over-limit shed cache: the host LRU
+        never resets wholesale."""
+        return 0
+
+    def decide_chain(
+        self, reqs: Sequence[RateLimitReq], now=None
+    ) -> List[RateLimitResp]:
+        """Hierarchical quota chains on the host backend: per request, peek
+        every level, debit every level only if all admit, else answer from
+        the first refusing level (most restrictive wins; nothing is
+        consumed). Ancestors decide as TOKEN buckets, only the leaf with
+        the request's algorithm, as on the device path. The peek pass is
+        made non-mutating by snapshot/restore (a leaky peek persists its
+        leak credit, the reference's quirk), and `planned` carries the
+        charges earlier levels of the same chain would make per key, so a
+        chain naming one key twice is judged against its post-charge
+        budget (no partial debit)."""
+        out = []
+        for r in reqs:
+            rows = chain_level_keys(r)
+            levels = [
+                replace(
+                    r, unique_key="", name="", chain=[], hits=r.hits,
+                    limit=lim, duration=dur,
+                    algorithm=(
+                        r.algorithm if j == len(rows) - 1
+                        else Algorithm.TOKEN_BUCKET
+                    ),
+                )
+                for j, (_k, lim, dur) in enumerate(rows)
+            ]
+            refuse = None
+            planned: Dict[str, int] = {}
+            saved = {key: self.cache.snapshot(key) for key, _l, _d in rows}
+            for j, ((key, lim, _dur), lv) in enumerate(zip(rows, levels)):
+                peek = self._decide_key(key, replace(lv, hits=0), now)
+                already = planned.get(key, 0)
+                if (
+                    peek.status == Status.OVER_LIMIT
+                    or r.hits + already > peek.remaining
+                    or r.hits > lim
+                ):
+                    refuse = (j, peek, already)
+                    break
+                if r.hits > 0:
+                    planned[key] = already + r.hits
+            for key, snap in saved.items():
+                if snap is None:
+                    self.cache.remove(key)
+                else:
+                    self.cache.add(key, snap[0], snap[1])
+            if refuse is not None:
+                j, peek, already = refuse
+                resp = RateLimitResp(
+                    status=Status.OVER_LIMIT,
+                    limit=peek.limit,
+                    remaining=max(peek.remaining - already, 0),
+                    reset_time=peek.reset_time,
+                )
+                if j != len(rows) - 1:
+                    resp.metadata["chain_level"] = str(j)
+                out.append(resp)
+                continue
+            out.append(collapse_chain_responses([
+                self._decide_key(key, lv, now)
+                for (key, _lim, _dur), lv in zip(rows, levels)
+            ]))
+        return out
+
+    def _decide_key(self, key: str, r: RateLimitReq, now=None):
+        """get_rate_limit against an explicit cache key: the oracle keys on
+        name + "_" + unique_key, so split the key back into the two."""
+        name, _, uk = key.partition("_")
+        return get_rate_limit(self.cache, replace(r, name=name, unique_key=uk), now)
 
 
 class _ArrayOps:
@@ -137,6 +297,13 @@ class _ArrayOps:
     @staticmethod
     def resps_from_arrays(status, limit, remaining, reset):
         return resps_from_columns(status, limit, remaining, reset)
+
+    def snapshot_read(self, keys, now=None):
+        """Bucket-replication snapshot surface over the device store: hash
+        the keys once and gather their rows non-mutatingly
+        (TorchEngine.snapshot_read). Runs on the batcher's submit thread
+        (DeviceBatcher.run_serialized), never beside a dispatch."""
+        return self.engine.snapshot_read(slot_hash_batch(list(keys)), now)
 
     def shed_generation(self) -> int:
         """Engine store-wipe epoch: the shed cache clears itself whenever
@@ -289,8 +456,11 @@ def make_backend(conf, device: DeviceLike = None):
         raise ValueError(
             f"GUBER_BACKEND={conf.backend} is not ported to "
             f"gubernator_tpu_torch yet (only 'tpu', the single-device "
-            f"backend, is); not ported: {', '.join(NOT_PORTED_BACKENDS)}"
+            f"backend, and 'exact', the host LRU, are); not ported: "
+            f"{', '.join(NOT_PORTED_BACKENDS)}"
         )
+    if conf.backend == "exact":
+        return ExactBackend(conf.cache_size)
     if conf.backend != "tpu":
         raise ValueError(f"unknown backend '{conf.backend}'")
     from gubernator_tpu_torch.core.engine import buckets_for_limit
@@ -306,6 +476,10 @@ def make_backend(conf, device: DeviceLike = None):
     sketch = conf.sketch_config()
     sketch_bytes = sketch_footprint_bytes(sketch) if sketch is not None else 0
     shed_bytes = conf.shed_cache_keys * SHED_BYTES if conf.shed_cache else 0
+    standby_bytes = (
+        conf.replication_standby_keys * STANDBY_ENTRY_BYTES
+        if conf.replication else 0
+    )
     log.info(
         "store tiers: exact %d slots x %d ways = %d entries (%.0f MiB)"
         "%s + shed %.1f MiB + standby %.1f MiB",
@@ -319,7 +493,7 @@ def make_backend(conf, device: DeviceLike = None):
             else " (sketch tier off)"
         ),
         shed_bytes / (1 << 20),
-        0.0,  # replication standby: replication is not ported yet
+        standby_bytes / (1 << 20),
     )
     host_lint = check_host_budget(
         conf.store_mib,
@@ -327,14 +501,22 @@ def make_backend(conf, device: DeviceLike = None):
             "exact store": store_footprint_bytes(store),
             "sketch": sketch_bytes,
             "shed cache": shed_bytes,
+            "replication standby": standby_bytes,
         },
     )
     if host_lint:
-        # STRICT hard-fails only when the host-side part was sized
+        # STRICT hard-fails only when a host-side part was sized
         # explicitly; the default shed cache overflows any tiny budget on
         # its own, and those boots warn instead (the reference's rule)
-        default_keys = type(conf).__dataclass_fields__["shed_cache_keys"].default
-        if conf.store_size_strict and conf.shed_cache_keys != default_keys:
+        fields = type(conf).__dataclass_fields__
+        host_explicit = (
+            conf.shed_cache_keys != fields["shed_cache_keys"].default
+        ) or (
+            conf.replication
+            and conf.replication_standby_keys
+            != fields["replication_standby_keys"].default
+        )
+        if conf.store_size_strict and host_explicit:
             raise ValueError(f"GUBER_STORE_SIZE_STRICT: {host_lint}")
         log.warning("%s", host_lint)
     buckets = buckets_for_limit(conf.device_batch_limit)

@@ -1,9 +1,9 @@
 """Device micro-batcher: coalesces concurrent requests into device batches.
 
 The port's copy of gubernator_tpu/serve/batcher.py with its imports
-rewritten, the quota-chain lane included. Left out, to come with the
-backend that uses them: the inline fast path and the blocking decide of
-host backends (ExactBackend). The knobs come from the caller (serve/config.py
+rewritten, the quota-chain lane and the host backend's (ExactBackend)
+inline fast path and blocking decide included. The knobs come from the
+caller (serve/config.py
 ServerConfig), never from the environment; the native prep library
 sizes its own thread pool from GUBER_PREP_THREADS, as the reference's
 does. The file references below are the reference package's.
@@ -19,8 +19,8 @@ The backend call itself runs in a worker thread (it blocks on the device);
 the event loop keeps accepting requests for the *next* batch meanwhile,
 giving natural double-buffering: batch N on device while batch N+1 fills.
 
-The backend's decide_submit/decide_wait give one more level of
-pipelining: the flusher submits batch N+1 (host presort +
+Backends exposing decide_submit/decide_wait (the device backends) get
+one more level of pipelining: the flusher submits batch N+1 (host presort +
 async dispatch) while batch N's device fetch is still in flight, so
 sustained throughput tracks max(host work, device time) per batch instead
 of their sum. Up to `fetch_depth` batches may be in flight (default 2):
@@ -169,7 +169,22 @@ class DeviceBatcher:
         # reads and await a future that never resolves (same guard as
         # PeerClient._closed)
         self._closed = False
-        self.prep_at_arrival = bool(prep_at_arrival)
+        # inline backends (host-memory decide, microseconds of work) take
+        # a same-task fast path when nothing is queued, collected, parked
+        # or flushing: the decide runs synchronously in the caller's
+        # handler, skipping the queue + flusher round trip. Safe because
+        # the loop cannot interleave between the check and the call (no
+        # await), and every place earlier work can hide is checked.
+        self._inline = bool(getattr(backend, "inline_decide", False))
+        # arrival-time prep needs the backend's prep surface (engine-side
+        # presort + merge-combined dispatch); the host backend has none
+        prep_ok = (
+            callable(getattr(backend, "prep_group", None))
+            and getattr(backend, "merge_prepped", None) is not None
+            and getattr(backend, "decide_submit_merged", None) is not None
+            and getattr(backend, "decide_submit_arrays", None) is not None
+        )
+        self.prep_at_arrival = bool(prep_at_arrival) and prep_ok
         if prep_threads <= 0:
             # auto: leave a core for the serving loop — a prep pool as
             # wide as the box measurably thrashes small hosts (2-core
@@ -247,6 +262,31 @@ class DeviceBatcher:
             return []
         if self._closed:
             raise RuntimeError("DeviceBatcher is stopped")
+        if (
+            self._inline
+            and not self._flushing
+            and not self._live_batch
+            and not self._carry
+            and self._queue.empty()
+            and self._task is not None
+        ):
+            t0 = time.monotonic()
+            resps = self.backend.decide(list(reqs), [bool(g) for g in gnp])
+            tr = tracing.active()
+            if tr is not None:
+                # inline fast path: no queue wait, the decide IS the
+                # device span
+                tr.add_span(
+                    "device", start=t0, batch=len(resps),
+                    rung=self._rung(len(resps)), inline=True,
+                )
+            try:
+                metrics.DEVICE_BATCH_SIZE.observe(len(resps))
+                metrics.DEVICE_LAUNCH_MS.observe((time.monotonic() - t0) * 1e3)
+                self._observe_cache_stats()
+            except Exception:  # pragma: no cover - defensive
+                pass
+            return resps
         # one queue item + ONE future per caller (an RPC's whole request
         # list): per-item futures cost ~0.1-0.3ms of event-loop work per
         # request on a contended host, which at 1000-item batches was
@@ -519,10 +559,13 @@ class DeviceBatcher:
                 for u in updates
             ]
             try:
-                await asyncio.get_running_loop().run_in_executor(
-                    self._submit_pool, self.backend.update_globals,
-                    all_updates,
-                )
+                if self._inline:
+                    self.backend.update_globals(all_updates)
+                else:
+                    await asyncio.get_running_loop().run_in_executor(
+                        self._submit_pool, self.backend.update_globals,
+                        all_updates,
+                    )
             except Exception as e:
                 for _, _updates, _m, fut in global_items:
                     if not fut.done():
@@ -553,6 +596,25 @@ class DeviceBatcher:
             return
         reqs = [r for it in decide_items for r in it[1]]
         gnp = [g for it in decide_items for g in it[2]]
+        if getattr(self.backend, "decide_submit", None) is None:
+            # non-pipelined (host) backend: one blocking decide per batch,
+            # inline on the loop for an inline_decide backend (its decide
+            # is microseconds of dict work), on a worker thread otherwise
+            t0 = time.monotonic()
+            try:
+                if self._inline:
+                    resps = self.backend.decide(reqs, gnp)
+                else:
+                    resps = await asyncio.to_thread(self.backend.decide, reqs, gnp)
+            except Exception as e:
+                self._fail(decide_items, e)
+                return
+            self._resolve(decide_items, resps, time.monotonic() - t0)
+            nf = sum(1 for it in decide_items if it[-2].frame)
+            if nf:
+                STAGES.add("device", (time.monotonic() - t_collect) * nf, nf)
+            self._trace_device(decide_items, t_collect, len(resps))
+            return
         # pipelined path: submit now (host presort + async dispatch);
         # fetch in a background task so the flusher can collect and
         # submit the NEXT batch while the device computes this one.
@@ -569,7 +631,7 @@ class DeviceBatcher:
         its responses sliced back per caller group. It runs on the
         one-wide submit pool (never a shared thread pool), which
         serializes its submit-and-wait on the store with the pipelined
-        plain submits."""
+        plain submits; an inline (host) backend runs it on the loop."""
         all_chain = [r for _, reqs, _m, _fut in chain_items for r in reqs]
 
         def chain_call():
@@ -583,9 +645,14 @@ class DeviceBatcher:
 
         t0c = time.monotonic()
         try:
-            resps = await asyncio.get_running_loop().run_in_executor(
-                self._submit_pool, chain_call
-            )
+            if self._inline:
+                # host backends decide chains on the loop like their plain
+                # decide
+                resps = self.backend.decide_chain(all_chain)
+            else:
+                resps = await asyncio.get_running_loop().run_in_executor(
+                    self._submit_pool, chain_call
+                )
         except Exception as e:
             for _, _reqs, _m, fut in chain_items:
                 if not fut.done():

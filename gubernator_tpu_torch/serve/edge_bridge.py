@@ -1049,10 +1049,27 @@ class FrameService:
         the object path: names AND hashes feed the sketches."""
         import numpy as np
 
-        # (the reference also feeds folded windows to its replication,
-        # rescale and checkpoint managers here; the port's Instance
-        # refuses a config that turns one on)
         self.instance.traffic.observe(full, fields["key_hash"])
+        repl = getattr(self.instance, "repl", None)
+        resc = getattr(self.instance, "rescale", None)
+        ckpt = getattr(self.instance, "checkpoint", None)
+        if repl is not None or resc is not None or ckpt is not None:
+            # folded frames are all-owned by construction: their windows
+            # dirty the replication queue and join the rescale and
+            # checkpoint tracked sets like any other owner decide
+            # (pre-hashed fast frames carry no key strings and cannot).
+            # One eligibility screen feeds all three managers.
+            from gubernator_tpu_torch.serve.replication import (
+                eligible_field_indices,
+            )
+
+            elig = eligible_field_indices(fields)
+            if repl is not None:
+                repl.queue_dirty_fields(full, fields, elig=elig)
+            if resc is not None:
+                resc.note_owned_fields(full, fields, elig=elig)
+            if ckpt is not None:
+                ckpt.note_owned_fields(full, fields, elig=elig)
         status, limit, remaining, reset = (
             await self._decide_arrays_shed(fields, n)
         )

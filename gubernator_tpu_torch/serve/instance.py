@@ -28,10 +28,12 @@ batched-device execution model:
   chain lane (no partial debit, most restrictive wins), at the client
   door, the peer door and in degraded mode alike.
 
-Not ported yet, and refused loudly rather than ignored: bucket
-replication, ring rescale and checkpoint/restore (a config that turns
-one on raises at construction; with them go the successor takeover and
-the owner-side replication hooks).
+- the durability managers, each off by default: bucket replication
+  (serve/replication.py: owner-side dirtying, the successor takeover with
+  its standby seeds, the reconcile handback), ring rescale
+  (serve/rescale.py: owned-key tracking, double-serve routing, pending
+  handoff seeds) and checkpoint/restore (serve/checkpoint.py: tracking
+  and parked import seeds); `replicate_buckets` is their receive path.
 Comments name the reference's modules and files.
 """
 
@@ -54,10 +56,13 @@ from gubernator_tpu_torch.core.sketches import TrafficStats
 from gubernator_tpu_torch.serve import metrics, tracing
 from gubernator_tpu_torch.serve.batcher import DeviceBatcher
 from gubernator_tpu_torch.serve.breaker import OPEN as BREAKER_OPEN
+from gubernator_tpu_torch.serve.checkpoint import CheckpointManager
 from gubernator_tpu_torch.serve.config import MAX_BATCH_SIZE, ServerConfig
 from gubernator_tpu_torch.serve.faults import FAULTS
 from gubernator_tpu_torch.serve.global_mgr import GlobalManager
 from gubernator_tpu_torch.serve.peers import ConsistentHashPicker, PeerClient
+from gubernator_tpu_torch.serve.replication import ReplicationManager, snapshot_resp
+from gubernator_tpu_torch.serve.rescale import RescaleManager
 from gubernator_tpu_torch.serve.stages import STAGES
 
 log = logging.getLogger("gubernator_tpu_torch.instance")
@@ -92,28 +97,6 @@ def chain_error(r: RateLimitReq, conf: ServerConfig) -> str:
 
 class Instance:
     def __init__(self, conf: ServerConfig, backend):
-        # bucket replication, ring rescale and checkpoint/restore are
-        # not ported yet: a config that asks for one is refused here,
-        # never silently ignored
-        asked = [
-            name
-            for name, on in (
-                ("GUBER_REPLICATION (serve/replication.py)",
-                 getattr(conf, "replication", False)),
-                ("GUBER_RESCALE (serve/rescale.py)",
-                 getattr(conf, "rescale", False)),
-                ("GUBER_CHECKPOINT_DIR / GUBER_CHECKPOINT_EXPORT_PEERS "
-                 "(serve/checkpoint.py)",
-                 bool(getattr(conf, "checkpoint_dir", ""))
-                 or bool(getattr(conf, "checkpoint_export_peers", ()))),
-            )
-            if on
-        ]
-        if asked:
-            raise ValueError(
-                "not ported to gubernator_tpu_torch yet: "
-                + "; ".join(asked)
-            )
         self.conf = conf
         self.backend = backend
         self.batcher = DeviceBatcher(
@@ -154,6 +137,29 @@ class Instance:
             )
         else:
             self.shed = None
+        # the durability managers, each off by default: bucket
+        # replication (owned windows snapshot to each key's ring
+        # successor, so a killed owner's state survives takeover), ring
+        # rescale (moved keys' windows ship to their new owners on a
+        # membership change) and checkpoint/restore (to local disk and/or
+        # a blue-green import stream). All three read windows through the
+        # backend's non-mutating snapshot surface: a backend without one
+        # is refused at boot
+        ckpt_on = bool(conf.checkpoint_dir or conf.checkpoint_export_peers)
+        for knob, on in (
+            ("GUBER_REPLICATION=1", conf.replication),
+            ("GUBER_RESCALE=1", conf.rescale),
+            ("GUBER_CHECKPOINT_DIR / GUBER_CHECKPOINT_EXPORT_PEERS", ckpt_on),
+        ):
+            if on and getattr(backend, "snapshot_read", None) is None:
+                raise ValueError(
+                    f"{knob} needs a backend with a non-mutating "
+                    f"snapshot_read surface (exact/tpu); backend "
+                    f"'{conf.backend}' does not expose one"
+                )
+        self.repl = ReplicationManager(conf, self) if conf.replication else None
+        self.rescale = RescaleManager(conf, self) if conf.rescale else None
+        self.checkpoint = CheckpointManager(conf, self) if ckpt_on else None
         # sketch-tier promoter (r13, serve/promoter.py): streaming
         # SpaceSaving top-K over dispatched key hashes; hot sketch-tier
         # keys migrate into exact buckets on a flush-tick cadence, and
@@ -171,12 +177,24 @@ class Instance:
     def start(self) -> None:
         self.batcher.start()
         self.global_mgr.start()
+        if self.repl is not None:
+            self.repl.start()
+        if self.rescale is not None:
+            self.rescale.start()
+        if self.checkpoint is not None:
+            self.checkpoint.start()
         if self.promoter is not None:
             self.promoter.start()
 
     async def stop(self) -> None:
         if self.promoter is not None:
             await self.promoter.stop()
+        if self.checkpoint is not None:
+            await self.checkpoint.stop()
+        if self.rescale is not None:
+            await self.rescale.stop()
+        if self.repl is not None:
+            await self.repl.stop()
         await self.global_mgr.stop()
         await self.batcher.stop()
         for peer in self.picker.peers():
@@ -233,6 +251,13 @@ class Instance:
         shed = self.shed
         if shed is not None:
             shed.refresh_generation()
+        repl = self.repl
+        resc = self.rescale
+        ckpt = self.checkpoint
+        # takeover/handoff seeds: owned first touches whose key has a
+        # replicated standby snapshot, a pending rescale handoff or a
+        # parked checkpoint import install it BEFORE deciding
+        seeds: List[Tuple[int, str, object]] = []
         fps = {}
 
         chain_local: List[Tuple[int, RateLimitReq]] = []
@@ -272,12 +297,38 @@ class Instance:
             verdict = (
                 shed.lookup_resp(h, r) if shed is not None else None
             )
+            if not peer.is_owner and resc is not None and (
+                resc._transition is not None
+                and r.behavior != Behavior.GLOBAL
+            ):
+                # double-serve routing: while a ring change's window is
+                # open, MOVED keys keep forwarding to their old (warm)
+                # owner, or serve locally when that is this node, until
+                # the new owner has installed the handoff. GLOBAL items
+                # keep their replica-answer semantics; chained requests
+                # never reach here (the chain branch above continued)
+                ov = resc.route_override(key, r)
+                if ov is not None:
+                    peer = ov
             if peer.is_owner:
+                if repl is not None:
+                    repl.queue_dirty(r)
+                if resc is not None:
+                    resc.note_owned(r)
+                if ckpt is not None:
+                    ckpt.note_owned(r)
                 if verdict is not None:
                     if r.behavior == Behavior.GLOBAL:
                         self.global_mgr.queue_update(r)
                     out[i] = verdict
                     continue
+                s = repl.standby_pop(key) if repl is not None else None
+                if s is None and resc is not None:
+                    s = resc.pending_pop(key)
+                if s is None and ckpt is not None:
+                    s = ckpt.pending_pop(key)
+                if s is not None:
+                    seeds.append((i, key, s))
                 local.append((i, r, False))
             elif r.behavior == Behavior.GLOBAL:
                 # replica answer + async hit forward (gubernator.go:133-140)
@@ -317,6 +368,10 @@ class Instance:
                 if shed is not None and not r.chain:
                     shed.observe_resps([fps[i]], [r], [resp])
             except Exception as e:
+                taken = await self._takeover_fallback([(i, r)], peer, e)
+                if taken is not None:
+                    out[i] = taken[0]
+                    return
                 degraded = await self._degraded_fallback([(i, r)], peer, e)
                 if degraded is not None:
                     out[i] = degraded[0]
@@ -361,6 +416,11 @@ class Instance:
                             [resp for _, _, resp in plain],
                         )
             except Exception as e:
+                taken = await self._takeover_fallback(items, peer, e)
+                if taken is not None:
+                    for (i, _), resp in zip(items, taken):
+                        out[i] = resp
+                    return
                 degraded = await self._degraded_fallback(items, peer, e)
                 if degraded is not None:
                     for (i, _), resp in zip(items, degraded):
@@ -420,6 +480,13 @@ class Instance:
 
             tasks.append(asyncio.ensure_future(chain_decide(chain_local)))
 
+        seeded_idx: List[int] = []
+        if seeds:
+            # install the standby snapshots BEFORE the batch decides; the
+            # awaited install funnels through the same flusher queue as
+            # the decide, so the first owned touch continues the dead
+            # owner's window
+            seeded_idx = await self._seed_standby(seeds)
         if local:
             local_reqs = [r for _, r, _ in local]
             gnp = [g for _, _, g in local]
@@ -443,7 +510,120 @@ class Instance:
                     )
         if tasks:
             await asyncio.gather(*tasks)
+        for i in seeded_idx:
+            resp = out[i]
+            if resp is not None and not resp.error:
+                resp.metadata["replicated"] = "true"
         return [r if r is not None else RateLimitResp() for r in out]
+
+    async def _install_seeds(self, seeds) -> bool:
+        """Install popped standby snapshots ((key, Snapshot) pairs)
+        into the local store through the UpdatePeerGlobals machinery —
+        which also purges shed-cache entries for those keys, keeping
+        the r10 invalidation rules intact. Returns False on install
+        failure: the caller's decide then proceeds un-seeded (a fresh
+        window — amnesia for those keys, not an outage)."""
+        try:
+            await self.update_peer_globals(
+                [(k, snapshot_resp(s)) for k, s in seeds]
+            )
+        except Exception as e:
+            log.warning("standby seed install failed: %s", e)
+            return False
+        if self.repl is not None:
+            self.repl.note_seeded(seeds)
+        if self.rescale is not None:
+            # a seeded window is live local state this node must hand
+            # off on the NEXT ring change, even if only peeked here
+            self.rescale.note_seeded(seeds)
+        if self.checkpoint is not None:
+            # likewise live state the next checkpoint must capture
+            self.checkpoint.note_seeded(seeds)
+        return True
+
+    async def _seed_standby(self, seeds) -> List[int]:
+        """(out_index, key, Snapshot) triples -> installed; returns the
+        out-indices seeded (their responses get
+        metadata["replicated"]="true")."""
+        if not await self._install_seeds([(k, s) for _, k, s in seeds]):
+            return []
+        return [i for i, _, _ in seeds]
+
+    async def _takeover_local(self, reqs: Sequence[RateLimitReq]):
+        """Decide items locally in a dead owner's stead (this node is
+        their ring successor): seed first touches from the standby
+        table, and track every key for the reconcile handback once the
+        owner returns."""
+        repl = self.repl
+        seeds = []
+        for r in reqs:
+            repl.mark_taken(r)
+            s = repl.standby_pop(r.hash_key())
+            if s is not None:
+                seeds.append((r.hash_key(), s))
+        if seeds:
+            await self._install_seeds(seeds)
+        return await self.decide_local(reqs, [False] * len(reqs))
+
+    async def _takeover_fallback(self, items, peer, exc):
+        """Successor takeover (GUBER_REPLICATION=1): a forward that
+        failed because its owner is unreachable (breaker open — which
+        fails fast, so this is usually cheap — retries exhausted, or
+        deadline) is routed to each key's ring SUCCESSOR: the node the
+        consistent hash elects on owner removal, and the one holding
+        the replicated standby snapshots. Served locally when the
+        successor is this node, via one forwarded group otherwise (the
+        remote successor seeds from its own standby table in
+        get_peer_rate_limits). Responses carry metadata owner=successor
+        and replicated="true". Returns the responses or None
+        (replication off / no distinct successor / successor also
+        unreachable — the caller then falls through to degraded mode
+        and per-item errors, the r8 ladder)."""
+        repl = self.repl
+        if repl is None:
+            return None
+        out: List[Optional[RateLimitResp]] = [None] * len(items)
+        by_succ: dict = {}
+        for j, (_, r) in enumerate(items):
+            if r.chain:
+                # chains are outside the replication scope (documented
+                # r15 limit): no standby snapshot holds level state,
+                # and deciding only the leaf here would silently skip
+                # every ancestor quota — refuse honestly instead
+                out[j] = RateLimitResp(
+                    error=(
+                        f"owner '{peer.host}' unreachable and chained "
+                        f"requests are outside the takeover scope "
+                        f"(chain levels are not replicated) - '{exc}'"
+                    )
+                )
+                continue
+            try:
+                succ = self.picker.get_successor(r.hash_key())
+            except Exception:
+                succ = None
+            if succ is None or succ.host == peer.host:
+                return None
+            by_succ.setdefault(succ, []).append(j)
+        try:
+            for succ, idxs in by_succ.items():
+                reqs = [items[j][1] for j in idxs]
+                if succ.is_owner:
+                    resps = await self._takeover_local(reqs)
+                else:
+                    resps = await succ.get_peer_rate_limits_grouped(reqs)
+                for j, resp in zip(idxs, resps):
+                    if not resp.error:
+                        resp.metadata["owner"] = succ.host
+                        resp.metadata["replicated"] = "true"
+                    out[j] = resp
+        except Exception as e2:
+            log.warning(
+                "takeover route for %d item(s) failed (owner '%s': %s; "
+                "successor: %s)", len(items), peer.host, exc, e2,
+            )
+            return None
+        return out
 
     async def _degraded_fallback(self, items, peer, exc):
         """Degraded mode (GUBER_DEGRADED_LOCAL=1): a forward that failed
@@ -530,6 +710,8 @@ class Instance:
                 # owner-side injection point: a chaos spec can make THIS
                 # node a slow/failing owner for its peers' forwards
                 await FAULTS.inject("peer_serve")
+            if self.repl is not None or self.rescale is not None:
+                await self._peer_serve_replication(reqs)
             chained_idx = [i for i, r in enumerate(reqs) if r.chain]
             if not chained_idx:
                 return await self._peer_serve_plain(reqs)
@@ -603,11 +785,97 @@ class Instance:
         except Exception as e:
             return [RateLimitResp(error=str(e)) for _ in reqs]
 
+    async def _peer_serve_replication(
+        self, reqs: Sequence[RateLimitReq]
+    ) -> None:
+        """Owner-side replication/rescale hooks for a forwarded batch:
+        owned keys dirty the snapshot queue and the rescale tracked
+        set; keys the ring says ANOTHER node owns were routed here by a
+        peer's takeover fallback or by double-serve routing after a
+        ring change — track them for the reconcile handback and count
+        the double-serve answer; and any first touch with a standby
+        snapshot or pending handoff seeds the store before the batch
+        decides."""
+        repl = self.repl
+        resc = self.rescale
+        ckpt = self.checkpoint
+        seeds = []
+        for r in reqs:
+            if r.chain:
+                # chain levels are outside the replication scope (r15
+                # documented limit, like leaky): level keys are owned
+                # by the chain head's ring position, not their own
+                continue
+            key = r.hash_key()
+            try:
+                own = self.get_peer(key).is_owner
+            except Exception:
+                own = True
+            if own:
+                if repl is not None:
+                    repl.queue_dirty(r)
+                if resc is not None:
+                    resc.note_owned(r)
+                if ckpt is not None:
+                    ckpt.note_owned(r)
+            else:
+                if repl is not None:
+                    repl.mark_taken(r)
+                if resc is not None:
+                    # the old owner answering a moved key inside its
+                    # double-serve window (forwarders still route it
+                    # here): counted, and re-dirtied for the
+                    # end-of-window reconcile flush
+                    resc.note_double_serve(r)
+            s = repl.standby_pop(key) if repl is not None else None
+            if s is None and resc is not None and own:
+                s = resc.pending_pop(key)
+            if s is None and ckpt is not None and own:
+                s = ckpt.pending_pop(key)
+            if s is not None:
+                seeds.append((key, s))
+        if seeds:
+            await self._install_seeds(seeds)
+
+    async def replicate_buckets(self, owner: str, snaps) -> None:
+        """ReplicateBuckets receive path (peers.proto): file or install
+        another owner's bucket snapshots. With replication on, the r11
+        install handles both halves (owned -> store, others ->
+        standby); with only rescale on, its install provides the same
+        split against the pending handoff table. A node with both off
+        accepts and ignores — knob/version skew across the fleet must
+        not fail the sender."""
+        if self.checkpoint is not None and (
+            owner.startswith("import:") or owner.startswith("importfwd:")
+        ):
+            # blue-green import batch (r19): the owner marker routes it
+            # to the checkpoint manager REGARDLESS of repl/rescale
+            # knobs — the green fleet's import handling must not depend
+            # on matching the blue fleet's replication config
+            await self.checkpoint.install_import(owner, snaps)
+        elif self.repl is not None:
+            await self.repl.install(owner, snaps)
+        elif self.rescale is not None:
+            await self.rescale.install(owner, snaps)
+        elif self.checkpoint is not None:
+            await self.checkpoint.install(owner, snaps)
+
     # -- GLOBAL replica installs -------------------------------------------
 
     async def update_peer_globals(
         self, updates: Sequence[Tuple[str, RateLimitResp]]
     ) -> None:
+        if self.repl is not None and updates:
+            # an owner broadcasting status for these keys is alive and
+            # authoritative: any replicated standby snapshot for them is
+            # superseded (the reconcile contract)
+            self.repl.standby_purge([k for k, _ in updates])
+        if self.rescale is not None and updates:
+            # the same supersession rule for pending handoff snapshots
+            self.rescale.pending_purge([k for k, _ in updates])
+        if self.checkpoint is not None and updates:
+            # and for parked checkpoint-import rows
+            self.checkpoint.pending_purge([k for k, _ in updates])
         if self.shed is None or not updates:
             await self.batcher.update_globals(list(updates))
             return
@@ -695,7 +963,19 @@ class Instance:
             self.picker.get_peer_by_host(h) for h in old_hosts - new_hosts
         ]
 
+        old_picker = self.picker
         self.picker = picker
+        if old_hosts != new_hosts:
+            if self.rescale is not None:
+                # planned handoff: the flush loop diffs the old ring
+                # against the new one and ships moved keys' windows to
+                # their new owners; non-blocking here
+                self.rescale.note_ring_change(old_picker, picker)
+            if self.repl is not None:
+                # standby hygiene: rows whose keys this node no longer
+                # succeeds (or owns) after the reshuffle could seed a
+                # WRONG takeover window later; purge them now
+                await self.repl.purge_unsucceeded_standby()
         self.health = HealthCheckResp(
             status=UNHEALTHY if errs else HEALTHY,
             message="|".join(errs),

@@ -3,10 +3,11 @@
 
 The ring is the reference's, copied: a crc32 point per peer, a sorted
 ring, binary-search successor with wraparound (reference hash.go:62-96),
-so a mixed cluster would agree on key ownership. The picker's successor
-and ownership-diff queries serve replication and rescale, which are not
-ported yet, and are left out with them; the edge bridge needs only
-`self_owned_mask`.
+so a mixed cluster would agree on key ownership. Beside `get`, the
+picker answers the successor query of bucket replication
+(`get_successor`), the planned-handoff diff of ring rescale
+(`ownership_diff`) and the edge bridge's ownership screen
+(`self_owned_mask`).
 
 PeerClient mirrors the reference's forwarding semantics (peers.go):
 BATCHING/GLOBAL requests coalesce into micro-batches flushed every
@@ -19,8 +20,7 @@ bounded retry of what is safe to resend).
 grpc, protobuf and the wire conversions load only when a client first
 needs them (`connect` of a remote peer, or its first RPC): the client of
 this node itself opens no channel, so a one-node Instance serves with
-none of the three importable. Bucket replication (`replicate_buckets`)
-is not ported yet and raises.
+none of the three importable.
 """
 
 from __future__ import annotations
@@ -308,10 +308,39 @@ class PeerClient:
         await self._call_resilient(call, idempotent=True, timeout=timeout)
 
     async def replicate_buckets(self, snaps, owner: str) -> None:
-        raise NotImplementedError(
-            "bucket replication (ReplicateBuckets) is not ported to "
-            "gubernator_tpu_torch yet"
+        """Ship owned-bucket snapshots to this peer (the key's ring
+        successor, a reconcile handback's returned owner, a rescale's new
+        owner or a blue-green import door). `snaps`: a sequence of
+        serve/replication.Snapshot. Installs are last-write-wins by
+        (reset_time, snapshot_ms), so retries and duplicate deliveries
+        are always safe."""
+        _convert, peers_pb2 = _wire()
+        pb_req = peers_pb2.ReplicateBucketsReq(
+            owner=owner,
+            buckets=[
+                peers_pb2.BucketSnapshot(
+                    key=s.key,
+                    algorithm=s.algorithm,
+                    limit=s.limit,
+                    duration=s.duration,
+                    remaining=s.remaining,
+                    reset_time=s.reset_time,
+                    status=s.status,
+                    snapshot_ms=s.snapshot_ms,
+                )
+                for s in snaps
+            ],
         )
+        timeout = self.conf.global_timeout
+        tp = tracing.propagation_header()
+        kw = {"metadata": ((tracing.TRACEPARENT, tp),)} if tp else {}
+
+        async def call() -> None:
+            await self._get_stub().ReplicateBuckets(
+                pb_req, timeout=timeout or None, **kw
+            )
+
+        await self._call_resilient(call, idempotent=True, timeout=timeout)
 
     # -- resilience envelope (r8) -------------------------------------------
 
@@ -492,6 +521,52 @@ class ConsistentHashPicker:
         if i == len(self._keys):
             i = 0
         return self._by_point[self._keys[i]]
+
+    def get_successor(self, key: str) -> Optional[PeerClient]:
+        """The peer that would own `key` if its current owner left the
+        ring: the next ring point after the key's, skipping the owner's
+        own points (wrapping like get()). Both the replication target
+        (serve/replication.py) and the takeover route when the owner's
+        breaker opens. None when the ring has fewer than two hosts."""
+        if not self._keys:
+            return None
+        point = self._hash(key)
+        i = bisect.bisect_left(self._keys, point)
+        if i == len(self._keys):
+            i = 0
+        owner = self._by_point[self._keys[i]]
+        n = len(self._keys)
+        for step in range(1, n):
+            peer = self._by_point[self._keys[(i + step) % n]]
+            if peer.host != owner.host:
+                return peer
+        return None
+
+    def ownership_diff(
+        self, new: "ConsistentHashPicker", keys: Sequence[str]
+    ) -> Dict[str, Tuple["PeerClient", List[str]]]:
+        """Keys THIS ring routes to this node (is_owner) that `new` routes
+        to a DIFFERENT host, grouped by their new owner:
+        {new_owner_host: (new_owner_client, [keys])}: the planned-handoff
+        work list of a ring change (serve/rescale.py), called on the OLD
+        picker. Keys the old ring did not route here, and keys still owned
+        here under `new`, contribute nothing; an empty ring on either side
+        diffs to nothing."""
+        out: Dict[str, Tuple[PeerClient, List[str]]] = {}
+        if not self._keys or not new._keys:
+            return out
+        for key in keys:
+            if not self.get(key).is_owner:
+                continue
+            owner = new.get(key)
+            if owner.is_owner:
+                continue
+            entry = out.get(owner.host)
+            if entry is None:
+                out[owner.host] = (owner, [key])
+            else:
+                entry[1].append(key)
+        return out
 
     def self_owned_mask(self, keys: Sequence[str]):
         """bool[len(keys)]: the key's ring successor is this server

@@ -13,11 +13,16 @@ shared-memory lane. The backend is the port's own
 (serve/backends.make_backend) on `device`: cuda unless the caller asks
 for another.
 
+The durability managers ride the Instance (serve/replication.py,
+serve/rescale.py, serve/checkpoint.py): PeersV1.ReplicateBuckets feeds
+their receive path, a checkpoint restore runs at boot right after the
+Instance starts and before any door opens, and the drain runs their
+rescale handoff, replication flush and final checkpoint.
+
 Not ported yet, and refused when the server is built rather than
 ignored (`refuse_not_ported`): etcd and Kubernetes discovery, and the
 multi-host mesh (GUBER_DIST_COORDINATOR); `make_backend` refuses the
-backends and the Instance the managers that are not ported.
-PeersV1.ReplicateBuckets answers UNIMPLEMENTED.
+backends that are not ported (mesh, multihost).
 """
 
 from __future__ import annotations
@@ -192,11 +197,31 @@ class PeersV1Servicer:
         return peers_pb2.UpdatePeerGlobalsResp()
 
     async def ReplicateBuckets(self, request, context):
-        await context.abort(
-            grpc.StatusCode.UNIMPLEMENTED,
-            "bucket replication (ReplicateBuckets) is not ported to "
-            "gubernator_tpu_torch yet",
+        from gubernator_tpu_torch.serve.replication import Snapshot
+
+        snaps = [
+            Snapshot(
+                key=b.key,
+                algorithm=b.algorithm,
+                limit=b.limit,
+                duration=b.duration,
+                remaining=b.remaining,
+                reset_time=b.reset_time,
+                status=b.status,
+                snapshot_ms=b.snapshot_ms,
+            )
+            for b in request.buckets
+        ]
+        tracer = self.instance.tracer
+        tp = _md_traceparent(context)
+        trace = (
+            tracer.join("peers_replicate", tracing.parse_traceparent(tp))
+            if tp
+            else None
         )
+        with tracing.scope(tracer, trace):
+            await self.instance.replicate_buckets(request.owner, snaps)
+        return peers_pb2.ReplicateBucketsResp()
 
 
 def register_servicers(grpc_server, instance: Instance):
@@ -271,6 +296,11 @@ class Server:
             # load included) before accepting traffic
             await asyncio.to_thread(warmup)
         self.instance.start()
+        if self.instance.checkpoint is not None:
+            # boot-time warm restore BEFORE any door opens: the batcher
+            # runs (the installs need it) but no traffic can race the
+            # install. Every failure path inside boots cold and loudly
+            await self.instance.checkpoint.restore()
 
         self.grpc_server = grpc.aio.server(
             interceptors=[StatsInterceptor()],
@@ -327,6 +357,55 @@ class Server:
         else:
             log.info("over-limit shed cache: off (GUBER_SHED_CACHE=0)")
 
+        repl = self.instance.repl
+        if repl is not None:
+            from gubernator_tpu_torch.serve.replication import footprint_mib
+
+            log.info(
+                "bucket replication: on — window %.0f ms, standby "
+                "bound %d keys (~%.1f MiB), backlog %d "
+                "(GUBER_REPLICATION / GUBER_REPLICATION_SYNC_WAIT_MS / "
+                "GUBER_REPLICATION_STANDBY_KEYS / "
+                "GUBER_REPLICATION_BACKLOG)",
+                repl.sync_wait * 1e3, repl.standby_cap,
+                footprint_mib(repl.standby_cap), repl.backlog_cap,
+            )
+        else:
+            log.info("bucket replication: off (GUBER_REPLICATION=0)")
+
+        resc = self.instance.rescale
+        if resc is not None:
+            log.info(
+                "elastic rescale: on — double-serve window %.0f ms, "
+                "tracked-key bound %d, flush tick %.0f ms "
+                "(GUBER_RESCALE / GUBER_RESCALE_DOUBLE_SERVE_MS / "
+                "GUBER_RESCALE_TRACK_KEYS / "
+                "GUBER_REPLICATION_SYNC_WAIT_MS)",
+                resc.double_serve_s * 1e3, resc.track_cap,
+                resc.sync_wait * 1e3,
+            )
+        else:
+            log.info("elastic rescale: off (GUBER_RESCALE=0)")
+
+        ckpt = self.instance.checkpoint
+        if ckpt is not None:
+            from gubernator_tpu_torch.serve.checkpoint import disk_footprint_mib
+
+            log.info(
+                "checkpoint/restore: on — dir %r, interval %.0f ms, "
+                "max restore age %.0f s, tracked-key bound %d "
+                "(~%.1f MiB on disk), export targets %s "
+                "(GUBER_CHECKPOINT_DIR / GUBER_CHECKPOINT_INTERVAL_MS "
+                "/ GUBER_CHECKPOINT_MAX_AGE_MS / "
+                "GUBER_CHECKPOINT_TRACK_KEYS / "
+                "GUBER_CHECKPOINT_EXPORT_PEERS)",
+                ckpt.dir, ckpt.sync_wait * 1e3, ckpt.max_age,
+                ckpt.track_cap, disk_footprint_mib(ckpt.track_cap),
+                ckpt.export_peers or "none",
+            )
+        else:
+            log.info("checkpoint/restore: off (GUBER_CHECKPOINT_DIR unset)")
+
         if self.conf.geb_port:
             from gubernator_tpu_torch.serve.edge_bridge import GebListener
 
@@ -371,14 +450,18 @@ class Server:
 
     async def drain(self) -> dict:
         """Graceful drain (SIGTERM path), bounded end to end by
-        GUBER_DRAIN_TIMEOUT_MS: (1) deregister from discovery; (2) the
+        GUBER_DRAIN_TIMEOUT_MS: (0) with rescale on, hand every tracked
+        window to the owner the ring elects without this node; (1)
+        deregister from discovery; (2) the
         edge bridge and the GEB door answer the frames in flight, then
         refuse new ones with the GEBR drain code; (3) the gRPC server
         and (4) the HTTP gateway stop accepting and let in-flight
         requests finish — every request door is closed BEFORE the queues
         flush, or the batcher's run-dry wait could chase a moving
         target; (5) aggregated GLOBAL hits/updates flush to their
-        owners; (6) the device batcher runs dry. Each step gets the
+        owners, then (with the managers on) dirty owned windows ship to
+        their successors and the final checkpoint is written; (6) the
+        device batcher runs dry. Each step gets the
         budget remaining; a step that times out keeps its handle so the
         caller's stop() still hard-closes it. Returns step timings."""
         t0 = time.monotonic()
@@ -403,6 +486,12 @@ class Server:
             timings[name] = time.monotonic() - t
             return ok
 
+        if self.instance.rescale is not None:
+            # planned-departure handoff BEFORE deregistration: every
+            # tracked window ships to the owner the ring elects once this
+            # node is gone, so the snapshots are parked on their new
+            # owners before any peer's ring flips
+            await step("rescale_handoff", self.instance.rescale.drain())
         if self._pool is not None:
             if await step("deregister", self._pool.close()):
                 self._pool = None
@@ -434,6 +523,14 @@ class Server:
             if await step("http", self._http_runner.cleanup()):
                 self._http_runner = None
         await step("global_flush", self.instance.global_mgr.drain())
+        if self.instance.repl is not None:
+            # ship still-dirty owned windows to their successors (and try
+            # one handback round) before the batcher runs dry
+            await step("replication_flush", self.instance.repl.drain())
+        if self.instance.checkpoint is not None:
+            # final checkpoint + blue-green export: what is on disk is
+            # then at most one in-flight request stale, not one interval
+            await step("checkpoint_flush", self.instance.checkpoint.drain())
         await step("batcher", self.instance.batcher.drain())
         timings["total"] = time.monotonic() - t0
         try:
@@ -683,6 +780,8 @@ class Server:
             metrics.SHED_HITS.set(shed.hits)
             metrics.SHED_LOOKUPS.set(shed.lookups)
             metrics.SHED_ENTRIES.set(len(shed))
+        if self.instance.repl is not None:
+            metrics.REPLICATION_STANDBY_ENTRIES.set(self.instance.repl.standby_len)
         snap = STAGES.snapshot()
         for name, s in snap["stages"].items():
             metrics.STAGE_SECONDS.labels(stage=name).set(s["total_s"])
@@ -695,6 +794,21 @@ class Server:
             if svc is not None:
                 metrics.FRAME_INFLIGHT.labels(door=door).set(svc._active_frames)
                 metrics.FRAME_CONNECTIONS.labels(door=door).set(len(svc._conns))
+        if self.instance.repl is not None:
+            metrics.REPLICATION_BACKLOG_ENTRIES.set(self.instance.repl.backlog_len)
+        ckpt = self.instance.checkpoint
+        if ckpt is not None:
+            metrics.CHECKPOINT_TRACKED_ENTRIES.set(ckpt.tracked_len)
+            # age refreshes at scrape time (the flush loop only stamps
+            # last_ok_ms) so operators see it GROW when writes fail
+            age = ckpt.age_seconds
+            if age is not None:
+                metrics.CHECKPOINT_AGE.set(age)
+        if self.instance.rescale is not None:
+            metrics.RESCALE_TRACKED_ENTRIES.set(
+                self.instance.rescale.tracked_len
+                + self.instance.rescale.pending_len
+            )
         for queue, size in self.instance.global_mgr.backlog_sizes().items():
             metrics.GLOBAL_BACKLOG_ENTRIES.labels(queue=queue).set(size)
         rec = self.instance.tracer.recorder

@@ -221,6 +221,60 @@ def test_engine_on_card_matches_cpu():
     assert gpu.stats.snapshot() == cpu.stats.snapshot()
 
 
+def test_export_install_round_trip_on_card_matches_cpu():
+    """A CUDA engine's export_windows (all four algorithms, sticky creates,
+    peeks) equals the CPU engine's given the same decides; installing it
+    into fresh engines (the restore's lane path) launches writeback_add
+    once per install chunk on the card and leaves both stores equal, and
+    the flat repartition carries every window."""
+    _need_card()
+    rng = np.random.default_rng(9)
+    pool = rng.integers(0, 2**64, 3000, dtype=np.uint64)
+    cfg = StoreConfig(rows=16, slots=64)
+    gpu = TorchEngine(cfg, buckets=(256,))
+    cpu = TorchEngine(cfg, buckets=(256,), device="cpu")
+    now = 1_700_000_000_000
+    for step in range(8):
+        now += int(rng.choice([1, 50, 5000]))
+        n = 256
+        idx = rng.integers(0, pool.shape[0], n)
+        fields = (
+            pool[idx], rng.choice([0, 1, 2, 9], n), rng.choice([3, 5, 100], n),
+            rng.choice([1000, 60_000], n), (idx % 4).astype(np.int32),
+            np.zeros(n, bool),
+        )
+        for a, b in zip(gpu.decide_arrays(*fields, now), cpu.decide_arrays(*fields, now)):
+            np.testing.assert_array_equal(a, b, err_msg=f"step {step}")
+    w = gpu.export_windows(now)
+    want = cpu.export_windows(now)
+    assert sorted(w) == sorted(want)
+    for col in w:
+        np.testing.assert_array_equal(w[col], want[col], err_msg=col)
+    assert w["key_hash"].shape[0] > 256 and w["is_over"].any()
+    assert set(np.unique(w["flags"] & 14).tolist()) == {0, 2, 4, 8}
+    assert gpu.last_export["bytes"] == w["key_hash"].shape[0] * 32
+    fresh_gpu = TorchEngine(cfg, buckets=(256,))
+    fresh_cpu = TorchEngine(cfg, buckets=(256,), device="cpu")
+    before = writeback_add.launches
+    for eng in (fresh_gpu, fresh_cpu):
+        eng.install_windows(
+            w["key_hash"], w["limit"], w["remaining"], w["reset_time"], None,
+            now=now, duration=w["duration"], ts=w["ts"], flags=w["flags"],
+        )
+    torch.cuda.synchronize()
+    assert fresh_gpu.install_chunks == -(-w["key_hash"].shape[0] // 256)
+    assert writeback_add.launches - before == fresh_gpu.install_chunks
+    assert torch.equal(fresh_gpu.store.data.cpu(), fresh_cpu.store.data)
+    order = np.argsort(w["key_hash"])
+    got = fresh_gpu.export_windows(now)
+    o2 = np.argsort(got["key_hash"])
+    for col in w:
+        np.testing.assert_array_equal(got[col][o2], w[col][order], err_msg=col)
+    moved = gpu.repartition(now=now)
+    assert moved.device.type == "cuda"
+    assert torch.equal(moved.store.data.cpu(), fresh_cpu.store.data)
+
+
 def test_chained_engine_on_card_matches_cpu():
     """Chained batches (chains of 1-4 rows over shared TOKEN ancestors,
     the leaf any algorithm) on the two-tier engine: identical responses

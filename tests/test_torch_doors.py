@@ -56,13 +56,11 @@ from gubernator_tpu_torch.serve.backends import TorchBackend
 T0 = 1_700_000_000_000
 BUCKETS = (64, 256, 1024)  # tests/test_functional.py:34-37
 
-#: metric families of features the port does not carry yet (replication,
-#: rescale, checkpoint, mesh): the JAX package may expose them, the port
-#: must not
-UNPORTED_METRICS = (
-    "replication_", "replicated_", "rescale_",
-    "checkpoint_", "restore_", "restored_",
-)
+#: metric families of features the port does not carry yet: the JAX
+#: package may expose them, the port must not. Empty since the durability
+#: managers (replication, rescale, checkpoint) were ported with their
+#: series
+UNPORTED_METRICS = ()
 
 
 class FakeClock:
@@ -448,6 +446,8 @@ def test_metric_names_match_jax_less_unported_features(runs):
     t, j = runs["torch"][2], runs["jax"][2]
     assert not {n for n in t if n.startswith(UNPORTED_METRICS)}
     assert t == {n for n in j if not n.startswith(UNPORTED_METRICS)}
+    assert {"replication_snapshots_sent_total", "rescale_keys_moved_total",
+            "restored_windows_total"} <= t
     for name in ("device_batch_size_count", "grpc_request_duration_milliseconds_count",
                  "store_dropped_creates_total", "store_evictions_total", "shed_entries"):
         assert name in t
@@ -472,8 +472,7 @@ def test_daemon_without_a_gpu_exits_nonzero_with_the_engines_message():
 @pytest.mark.parametrize("knob", [
     "GUBER_ETCD_ENDPOINTS=127.0.0.1:2379",
     "GUBER_K8S_ENDPOINTS_SELECTOR=app=guber", "GUBER_DIST_COORDINATOR=127.0.0.1:7002",
-    "GUBER_REPLICATION=1", "GUBER_RESCALE=1", "GUBER_CHECKPOINT_DIR=/nonexistent/ckpt",
-    "GUBER_BACKEND=exact",
+    "GUBER_BACKEND=mesh", "GUBER_BACKEND=multihost",
 ])
 def test_unported_doors_and_managers_are_refused_at_boot(knob):
     from gubernator_tpu_torch.serve.config import config_from_env
@@ -503,3 +502,57 @@ def test_frame_doors_are_no_longer_refused_at_boot(knob):
     )
     refuse_not_ported(conf)
     Server(conf, device="cpu")
+
+
+@pytest.mark.parametrize("knob", [
+    "GUBER_REPLICATION=1", "GUBER_RESCALE=1", "GUBER_CHECKPOINT_DIR=<tmp>",
+    "GUBER_CHECKPOINT_EXPORT_PEERS=127.0.0.1:<dead>", "GUBER_BACKEND=exact",
+])
+def test_durability_knobs_and_the_exact_backend_boot_and_serve(knob, tmp_path):
+    """The managers and the exact backend are ported: a Server built with
+    the knob boots, builds the manager (or the host backend), answers a key
+    through its gRPC door until it is over the limit, and drains."""
+    import asyncio
+
+    from gubernator_tpu_torch.client import AsyncV1Client
+    from gubernator_tpu_torch.serve.backends import ExactBackend
+    from gubernator_tpu_torch.serve.config import config_from_env
+    from gubernator_tpu_torch.serve.server import Server
+
+    g, h, dead = free_ports(3)
+    key, _, value = knob.partition("=")
+    value = value.replace("<tmp>", str(tmp_path / "ckpt")).replace("<dead>", str(dead))
+    env = {"GUBER_GRPC_ADDRESS": f"127.0.0.1:{g}", "GUBER_HTTP_ADDRESS": f"127.0.0.1:{h}",
+           "GUBER_STORE_MIB": "8", key: value}
+    conf = config_from_env(env)
+
+    async def run():
+        server = Server(conf, device="cpu")
+        inst = server.instance
+        manager = {
+            "GUBER_REPLICATION": inst.repl, "GUBER_RESCALE": inst.rescale,
+            "GUBER_CHECKPOINT_DIR": inst.checkpoint,
+            "GUBER_CHECKPOINT_EXPORT_PEERS": inst.checkpoint,
+        }.get(key, inst.backend)
+        assert manager is not None
+        if key == "GUBER_BACKEND":
+            assert isinstance(inst.backend, ExactBackend)
+        await server.start()
+        try:
+            client = AsyncV1Client(f"127.0.0.1:{g}")
+            try:
+                req = RateLimitReq(name="boot", unique_key="k", hits=1, limit=2,
+                                   duration=60_000)
+                got = [(await client.get_rate_limits([req]))[0] for _ in range(3)]
+            finally:
+                await client.close()
+            assert [(r.error, int(r.status), r.remaining) for r in got] == [
+                ("", 0, 1), ("", 0, 0), ("", 1, 0)]
+            timings = await server.drain()
+            if key == "GUBER_CHECKPOINT_DIR":
+                assert "checkpoint_flush" in timings
+                assert (tmp_path / "ckpt" / "manifest.json").exists()
+        finally:
+            await server.stop()
+
+    asyncio.run(run())

@@ -152,12 +152,13 @@ def test_import_loads_no_jax_and_nothing_of_the_jax_package():
         "import gubernator_tpu_torch\n"
         "import numpy as np\n"
         "from gubernator_tpu_torch.core import (\n"
-        "    algorithms, engine, kernels, sketches, store, writeback)\n"
+        "    algorithms, cache, engine, kernels, oracle, sketches, store, writeback)\n"
         "from gubernator_tpu_torch.parallel.sharded import TorchEngine\n"
         "from gubernator_tpu_torch.serve import (\n"
-        "    aio, backends, batcher, breaker, config, discovery, edge_bridge, faults,\n"
-        "    global_mgr, instance, logging_setup, metrics, peers, prep, promoter,\n"
-        "    server, shedcache, shm, stages, tracing)\n"
+        "    aio, backends, batcher, breaker, checkpoint, config, discovery,\n"
+        "    edge_bridge, faults, global_mgr, instance, logging_setup, metrics, peers,\n"
+        "    prep, promoter, replication, rescale, server, shedcache, shm, stages,\n"
+        "    tracing)\n"
         "from gubernator_tpu_torch import client, client_geb, cluster, endpoints\n"
         "from gubernator_tpu_torch.native import edge_build, hashlib_native\n"
         "from gubernator_tpu_torch.core.hashing import using_native_hash\n"
@@ -180,6 +181,12 @@ def test_import_loads_no_jax_and_nothing_of_the_jax_package():
         " np.zeros(64, bool), 1_700_000_000_000)\n"
         "assert s.stats.snapshot()['dropped'] > 0\n"
         "s.promote_from_sketch(kh, one * 5, one * 1000, 1_700_000_000_001)\n"
+        "w = s.export_windows(1_700_000_000_002)\n"
+        "assert w['key_hash'].shape[0] > 0\n"
+        "s.repartition(now=1_700_000_000_002)\n"
+        "x = backends.make_backend(config.config_from_env({'GUBER_BACKEND': 'exact'}))\n"
+        "x.decide([gubernator_tpu_torch.RateLimitReq("
+        "name='a', unique_key='b', hits=1, limit=1, duration=1000)], [False])\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'gubernator_tpu')"
         " or m.startswith(('jax.', 'jaxlib.', 'gubernator_tpu.'))]\n"
         "assert not bad, bad\n"

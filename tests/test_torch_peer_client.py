@@ -8,7 +8,8 @@ error raised and its message) — the micro-batch flusher (flush at
 batch_limit without waiting, flush at the batch_wait window, whole-batch
 failure fan-back, response-count mismatch, close() failing queued
 callers), the retry classification and budget, the deadline and the
-circuit breaker. Then the instance-level envelope on a CPU TorchBackend:
+circuit breaker, and bucket replication's ReplicateBuckets send (the
+request the stub saw, its retry). Then the instance-level envelope on a CPU TorchBackend:
 per-item errors for an unreachable owner, degraded mode, breaker-aware
 health. Tolerance is zero.
 """
@@ -80,6 +81,17 @@ class FakeStub:
         )
 
 
+    async def ReplicateBuckets(self, pb_req, timeout=None):
+        self.batches.append((pb_req.owner, [
+            (b.key, b.algorithm, b.limit, b.duration, b.remaining,
+             b.reset_time, b.status, b.snapshot_ms)
+            for b in pb_req.buckets
+        ]))
+        if self.fail:
+            raise self.fail.pop(0)
+        return peers_pb2.ReplicateBucketsResp()
+
+
 def _client(side, stub, flusher=True, **kw):
     mod, conf_cls = SIDES[side]
     c = mod.PeerClient(conf_cls(**kw), "127.0.0.1:1")
@@ -95,6 +107,8 @@ async def _outcome(coro):
         out = await asyncio.wait_for(coro, timeout=5)
     except Exception as e:  # the error's class name and message
         return ("raised", type(e).__name__, str(e))
+    if out is None:  # a send with no answer (ReplicateBuckets)
+        return ("ok", None)
     if isinstance(out, list):
         return ("ok", [(r.remaining, r.limit, r.error) for r in out])
     return ("ok", (out.remaining, out.limit, out.error))
@@ -212,6 +226,32 @@ async def _trip_raises_root_cause(side):
     return stub.batches, await _outcome(c.get_peer_rate_limits([_req(0)]))
 
 
+def _snapshots():
+    from gubernator_tpu_torch.serve.replication import Snapshot
+
+    return [
+        Snapshot(key=f"pc_k{i}", algorithm=0, limit=10, duration=60_000,
+                 remaining=i, reset_time=1_700_000_060_000 + i, status=i % 2,
+                 snapshot_ms=1_700_000_000_000)
+        for i in range(3)
+    ]
+
+
+async def _replicate_sends(side):
+    stub = FakeStub()
+    c = _client(side, stub, flusher=False)
+    out = await _outcome(c.replicate_buckets(_snapshots(), owner="10.0.0.1:81"))
+    return stub.batches, out
+
+
+async def _replicate_retries(side):
+    stub = FakeStub(fail=[_UnavailableError(), _UnavailableError()])
+    c = _client(side, stub, flusher=False, peer_retries=2, peer_backoff=0.001,
+                peer_backoff_max=0.002)
+    out = await _outcome(c.replicate_buckets(_snapshots()[:1], owner="import:b:81"))
+    return stub.batches, out
+
+
 SCENARIOS = {
     "flush_at_batch_limit_without_waiting": _flush_at_limit,
     "flush_at_window_for_partial_batch": _flush_at_window,
@@ -226,6 +266,8 @@ SCENARIOS = {
     "deadline_bounds_hung_stub": _deadline_bounds_hang,
     "breaker_fails_fast_after_trip": _breaker_fails_fast,
     "trip_failure_raises_root_cause_not_breaker_error": _trip_raises_root_cause,
+    "replicate_buckets_sends_every_snapshot": _replicate_sends,
+    "replicate_buckets_retries_unavailable": _replicate_retries,
 }
 
 #: what each scenario must show on both sides (the reference's contract)
@@ -257,6 +299,13 @@ EXPECT = {
         and o[2] == "open"),
     "trip_failure_raises_root_cause_not_breaker_error": lambda o: (
         len(o[0]) == 2 and o[1][1] == "_UnavailableError"),
+    "replicate_buckets_sends_every_snapshot": lambda o: (
+        o[0] == [("10.0.0.1:81", [
+            (f"pc_k{i}", 0, 10, 60_000, i, 1_700_000_060_000 + i, i % 2,
+             1_700_000_000_000) for i in range(3)])]
+        and o[1][0] == "ok"),
+    "replicate_buckets_retries_unavailable": lambda o: (
+        len(o[0]) == 3 and o[0][0][0] == "import:b:81" and o[1][0] == "ok"),
 }
 
 
@@ -279,10 +328,11 @@ def test_is_retryable_classification_matches_jax():
     assert got == [True, True, False, False, True, True]
 
 
-def test_the_owner_opens_no_channel_and_replication_is_refused():
+def test_the_owner_opens_no_channel():
     """The client of this node itself dials nothing (a one-node ring
-    needs no grpc); a remote peer's channel opens at connect; bucket
-    replication raises."""
+    needs no grpc); a remote peer's channel opens at connect, and a
+    ReplicateBuckets send to a peer that is not listening fails with the
+    peer's error (the manager counts and retries it)."""
 
     async def run():
         conf = BehaviorConfig()
@@ -295,7 +345,7 @@ def test_the_owner_opens_no_channel_and_replication_is_refused():
             assert remote.channel is not None and remote.stub is not None
             with pytest.raises(ValueError, match="invalid peer address"):
                 t_peers.PeerClient(conf, "nohost").connect()
-            with pytest.raises(NotImplementedError, match="not ported"):
+            with pytest.raises(grpc.RpcError):
                 await remote.replicate_buckets([], owner="x")
         finally:
             await own.close()

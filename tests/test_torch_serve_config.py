@@ -8,11 +8,11 @@ the JAX package's, on the CPU.
   `store_config()` / `sketch_config()` geometry, and refuses the same
   environments;
 - `make_backend` builds the TorchBackend for GUBER_BACKEND=tpu on the
-  device it is given, and refuses the backends not ported yet; an
-  Instance refuses replication, rescale and checkpointing from the env;
+  device it is given and the host ExactBackend for GUBER_BACKEND=exact,
+  and refuses the backends not ported yet (mesh, multihost); an Instance
+  builds the replication, rescale and checkpoint managers from the env;
 - the port's metrics registry has the JAX registry's metric names, types,
-  label sets and help texts, less those of features not ported yet, and
-  renders the same exposition headers.
+  label sets and help texts, and renders the same exposition headers.
 """
 
 import dataclasses
@@ -23,7 +23,7 @@ from gubernator_tpu.serve import config as jconfig
 from gubernator_tpu.serve import metrics as jmetrics
 from gubernator_tpu_torch.serve import config as tconfig
 from gubernator_tpu_torch.serve import metrics as tmetrics
-from gubernator_tpu_torch.serve.backends import TorchBackend, make_backend
+from gubernator_tpu_torch.serve.backends import ExactBackend, TorchBackend, make_backend
 from gubernator_tpu_torch.serve.instance import Instance
 
 ENVS = [
@@ -158,11 +158,24 @@ def test_make_backend_builds_torch_backend_on_the_given_device():
     )
 
 
-@pytest.mark.parametrize("backend", ["exact", "mesh", "multihost"])
+@pytest.mark.parametrize("backend", ["mesh", "multihost"])
 def test_make_backend_refuses_backends_not_ported(backend):
     conf = tconfig.config_from_env({"GUBER_BACKEND": backend})
     with pytest.raises(ValueError, match=f"GUBER_BACKEND={backend} is not ported"):
         make_backend(conf, device="cpu")
+
+
+def test_make_backend_builds_the_exact_backend():
+    """GUBER_BACKEND=exact is the host LRU of GUBER_CACHE_SIZE entries, as
+    the JAX make_backend builds it; it holds no device state."""
+    from gubernator_tpu.serve.server import make_backend as j_make_backend
+
+    env = {"GUBER_BACKEND": "exact", "GUBER_CACHE_SIZE": "321"}
+    t = make_backend(tconfig.config_from_env(env))
+    j = j_make_backend(jconfig.config_from_env(env))
+    assert isinstance(t, ExactBackend) and not hasattr(t, "engine")
+    assert (type(t).__name__, t.cache.max_size, t.inline_decide) == (
+        type(j).__name__, j.cache.max_size, j.inline_decide)
 
 
 @pytest.mark.parametrize(
@@ -172,11 +185,23 @@ def test_make_backend_refuses_backends_not_ported(backend):
      {"GUBER_CHECKPOINT_EXPORT_PEERS": "10.0.0.1:81"}],
     ids=["replication", "rescale", "checkpoint_dir", "checkpoint_export"],
 )
-def test_instance_refuses_managers_not_ported(env):
+def test_instance_builds_the_managers(env):
+    """Each durability knob builds its manager with the knobs the JAX
+    Instance reads (nothing is refused any more)."""
     conf = tconfig.config_from_env(dict(env, GUBER_STORE_SLOTS="16", GUBER_STORE_ROWS="1"))
-    backend = make_backend(conf, device="cpu")
-    with pytest.raises(ValueError, match="not ported"):
-        Instance(conf, backend)
+    inst = Instance(conf, make_backend(conf, device="cpu"))
+    built = {
+        "repl": inst.repl is not None, "rescale": inst.rescale is not None,
+        "checkpoint": inst.checkpoint is not None,
+    }
+    want = {
+        "repl": conf.replication, "rescale": conf.rescale,
+        "checkpoint": bool(conf.checkpoint_dir or conf.checkpoint_export_peers),
+    }
+    assert built == want and any(built.values())
+    if inst.checkpoint is not None:
+        assert inst.checkpoint.export_peers == conf.checkpoint_export_peers
+        assert inst.checkpoint.dir == conf.checkpoint_dir
 
 
 def _collectors(registry):
@@ -186,12 +211,10 @@ def _collectors(registry):
     }
 
 
-#: metric families of what the port does not carry yet (replication,
-#: rescale, checkpoint/restore): the port's registry leaves them out
-UNPORTED_METRICS = (
-    "replication_", "replicated_", "rescale_",
-    "checkpoint_", "restore_", "restored_",
-)
+#: metric families of what the port does not carry yet: the port's
+#: registry leaves them out. Empty since the durability managers were
+#: ported with their series
+UNPORTED_METRICS = ()
 
 
 def test_metrics_registry_matches_jax():

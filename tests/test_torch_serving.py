@@ -335,17 +335,19 @@ def test_apply_global_hits_keeps_a_concurrent_fetchs_stats():
     assert te.stats.snapshot()["batches"] == 1
 
 
-def test_refusals_of_what_is_not_ported(clock):
-    """Replication, rescale and checkpointing raise with the reason
-    instead of being ignored; a ring with other members is served (the
-    forwarding half came with the doors), and so is a chained item (quota
-    chains came later; tests/test_torch_chains.py holds them against the
-    JAX package)."""
+def test_managers_build_and_a_wider_ring_serves(clock):
+    """Replication, rescale and checkpointing build their managers on the
+    device backend (tests/test_torch_{replication,rescale,checkpoint}.py
+    hold them against the JAX package); a ring with other members is
+    served (the forwarding half came with the doors), and so is a chained
+    item (tests/test_torch_chains.py holds chains against the JAX
+    package)."""
     backend = TorchBackend(StoreConfig(rows=1, slots=16), buckets=LADDER, device="cpu")
-    for kw in (dict(replication=True), dict(rescale=True),
-               dict(checkpoint_dir="/nonexistent/ckpt")):
-        with pytest.raises(ValueError, match="not ported"):
-            Instance(ServerConfig(grpc_address=ADDR, **kw), backend)
+    for kw, attr in ((dict(replication=True), "repl"), (dict(rescale=True), "rescale"),
+                     (dict(checkpoint_dir="/nonexistent/ckpt"), "checkpoint")):
+        built = Instance(ServerConfig(grpc_address=ADDR, **kw), backend)
+        assert getattr(built, attr) is not None
+        assert built.batcher.prep_at_arrival  # the device backend keeps its prep
 
     async def run():
         inst = Instance(ServerConfig(grpc_address=ADDR, sketch=False), backend)
