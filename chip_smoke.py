@@ -5,9 +5,10 @@
 Drives the port (gubernator_tpu_torch) through the entry points a user
 calls (the engine, the serving core, the daemon's doors, a cluster of
 nodes forwarding to each other, the GEB frame doors with the compiled
-edge in front, hierarchical quota chains, and durability: checkpoint and
-restore, bucket replication and ring rescale), at two of the repo's
-deployments:
+edge in front, hierarchical quota chains, durability: checkpoint and
+restore, bucket replication and ring rescale, and the workloads: the
+serving benchmarks' scenarios and three daemons driven by the load
+generator), at two of the repo's deployments:
 
 - exact tier, "Zipfian 10M keys, 1 GiB store" (GUBER_SKETCH=0): a slot
   store of int32[2^21, 128] (GUBER_STORE_MIB=1024), zipf(a=1.2) ids over
@@ -180,17 +181,49 @@ Phases, one JSON line each:
              metadata replicated=true), then a fourth node joins and the
              rescale hands it the windows it now owns (each OVER at its
              door); no canary answer under the limit anywhere;
-12. kernels  the contract line over every kernel of the path.
+12. workloads  (a) the port's cli/bench_serving scenarios in this
+             process on the card, each through its own parser at its
+             deployment's flags with 1-2 s windows: zipf10m (BASELINE
+             config 4: --depths 32768 --keys 10000000 --store-mib 1024
+             --group 4096; its mean device batch beside the rung),
+             zipf100m --rounds 2 (the two-tier deployment paired with its
+             exact baseline, then its tail-error phase, whose dicts must
+             equal the same calls on the CPU), key-churn, shed (four
+             shares), flash-crowd --algorithm sliding, mixed-tenant-zipf
+             --chain-depth 3, gcra-vs-token, the reference suite on
+             three card nodes (--backend tpu --nodes 3), and the same
+             cluster with the compiled edge in front of node 0, its
+             batched gRPC row (--edge --edge-only: fed single-item
+             requests by 16 callers, the edge stops sending frames on a
+             gVisor host; PERF.md §6); each scenario's launches must equal the
+             decides, chunks and warmups of every engine it built. (b)
+             three `python -m gubernator_tpu_torch.cli.daemon` processes,
+             each the serving phase's deployment, on static peers with
+             their own GEB doors and chains on, driven for 5 s a leg by
+             the port's cli/loadgen in a process of its own: gRPC frames
+             of 1,000 to node 0 at an over-limit share of 0.9 (forwarding),
+             fast GEB frames routed by owner (--ring-route 1, a cold key
+             space of 262,144) and chained GEB frames (--chain-depth 3,
+             share 0.5); each leg 0 errors (the loadgen counts failed
+             calls; an item answered with an error is no refusal, so errors
+             on hot keys pull the share down), its over-limit share within
+             [share - 0.02, share + 0.001], the transport it asked for, each
+             daemon's launches over the leg equal to its decides and chunks
+             (/v1/debug/stats), and forwarded RPCs on nodes 1-2 in leg 1;
+             decisions/s a leg beside the doors phase's one daemon and the
+             cluster phase's one-loop cluster;
+13. kernels  the contract line over every kernel of the path.
 
 The writeback kernel's launch count is set to 0 before each in-process
-path (each durability leg) and read after it (the copy floor's and the ablation's are set to 0
+path (each durability leg, each workloads scenario) and read after it (the copy floor's and the ablation's are set to 0
 before the first path and read after the last: they run on none, so they
 must stay 0); each must equal that path's decides plus
 window-install (and, in the cluster, gossip-charge) chunks, plus, in the
-durability legs (b) and (c), two launches a ladder rung for each node
-that boots in the leg (its warmup: one decide and one install a rung). The daemon's
-count lives in its own process: it is read from /v1/debug/stats just
-before and just after the doors window, and the difference must equal
+durability legs (b) and (c) and the workloads scenarios, two launches a
+ladder rung for each engine warmup (one decide and one install a rung). A
+daemon's count lives in its own process: it is read from /v1/debug/stats
+just before and just after the doors window (and each workloads leg), and
+the difference must equal
 the window's decides plus install and gossip chunks, read the same way.
 Every window requires every answer to be a decision: one per-item error
 (a failed forward, an open breaker) fails the run.
@@ -216,14 +249,13 @@ import time
 import numpy as np
 import torch
 
+# the repo's key streams (the port's copy of cli/keystreams.py; numpy only)
+from gubernator_tpu_torch.cli import keystreams
+
 # H100 SXM data sheet: HBM3 at 3.35 TB/s (the roofline for bytes)
 HBM_BYTES_PER_S = 3.35e12
 T0 = 1_700_000_000_000
 
-# the repo's zipf key recipe (gubernator_tpu/cli/keystreams.py:34-65)
-ZIPF_A = 1.2
-MIX_MUL = 0x9E3779B97F4A7C15
-MIX_XOR = 0xDEADBEEFCAFEF00D
 KEY_SPACE = 10_000_000
 KEY_SPACE_100M = 100_000_000
 DEPTH = 32_768
@@ -246,12 +278,8 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def hash_ids(ids: np.ndarray) -> np.ndarray:
-    return (ids.astype(np.uint64) * np.uint64(MIX_MUL)) ^ np.uint64(MIX_XOR)
-
-
 def zipf_hashes(n: int, seed: int = 42, key_space: int = KEY_SPACE) -> np.ndarray:
-    return hash_ids(np.random.default_rng(seed).zipf(ZIPF_A, n) % key_space)
+    return keystreams.zipf_pool(key_space, n, np.random.default_rng(seed))
 
 
 def single_call_ms(fn, reps: int = 15) -> float:
@@ -476,8 +504,8 @@ def hash_phase(card: str, slots: int) -> dict:
     ) != 0x9CDB6129259B938E:
         fail(f"hash: XXH64 vectors {vectors}")
     rng = np.random.default_rng(21)
-    ids = rng.zipf(ZIPF_A, DEPTH) % KEY_SPACE_100M
-    kh = hash_ids(ids)
+    ids = keystreams.zipf_ids(KEY_SPACE_100M, DEPTH, rng)
+    kh = keystreams.hash_ids(ids)
     ones = np.ones(DEPTH, np.int64)
     batch = dict(key_hash=kh, hits=ones, limit=ones * LIMIT, duration=ones * DURATION_100M,
                  algo=rng.integers(0, 4, DEPTH).astype(np.int32),
@@ -757,7 +785,7 @@ def two_tier_path(card: str, ladder, writeback) -> dict:
     t0 = time.monotonic()
     for c in range(n_ids // DEPTH):
         now += 1
-        eng.decide_arrays(hash_ids(np.arange(c * DEPTH, (c + 1) * DEPTH)), *tok, now)
+        eng.decide_arrays(keystreams.hash_ids(np.arange(c * DEPTH, (c + 1) * DEPTH)), *tok, now)
         decides += 1
     torch.cuda.synchronize()
     prefill = dict(ids=n_ids, batches=n_ids // DEPTH, seconds=time.monotonic() - t0,
@@ -865,7 +893,7 @@ def two_tier_path(card: str, ladder, writeback) -> dict:
     # current window, while creates in the other buckets still drop to
     # the sketch. Held against the CPU like the checked batches.
     now = T0 + 1 + EXPIRED_PREFILL + DURATION_100M
-    expired = hash_ids(np.arange(EXPIRED_PREFILL * DEPTH))
+    expired = keystreams.hash_ids(np.arange(EXPIRED_PREFILL * DEPTH))
     exp_dur = np.full(expired.shape[0], DURATION_100M, np.int64)
     est_before = eng.sketch_estimates(expired, exp_dur, now)
     cpu = TorchEngine(config, buckets=ladder, device="cpu", sketch=skc)
@@ -905,7 +933,7 @@ def two_tier_path(card: str, ladder, writeback) -> dict:
 # -- the serving phase: the port's serving core at the zipf100m deployment --
 
 SERVING_ADDR = "127.0.0.1:9990"  # this node's ring address (never dialed)
-SERVING_ENV = {  # cli/bench_serving.py:747-761 (run_zipf100m's conf_for)
+SERVING_ENV = {  # cli/bench_serving.py run_zipf100m's conf_for (both packages)
     "GUBER_BACKEND": "tpu",
     "GUBER_DEVICE_BATCH_LIMIT": str(DEPTH),
     "GUBER_DEVICE_DEEP_BATCH": "1",
@@ -991,7 +1019,7 @@ async def _serving(card, writeback, engine_rate):
     async def filler(w: int):
         for c in range(w, n_groups, FILLERS):
             out = await inst.batcher.decide_arrays(
-                dict(tok, key_hash=hash_ids(np.arange(c * GROUP, (c + 1) * GROUP))))
+                dict(tok, key_hash=keystreams.hash_ids(np.arange(c * GROUP, (c + 1) * GROUP))))
             if not (out[0] == 0).all():
                 fail(f"serving prefill group {c}: a fresh id was refused")
 
@@ -1336,6 +1364,18 @@ def free_ports(n: int) -> list:
             s.close()
 
 
+def spawn_daemon(env: dict, root: str) -> tuple:
+    """`python -m gubernator_tpu_torch.cli.daemon` with `env`, its output
+    gathered by a reader thread; returns (process, log lines, reader)."""
+    proc = subprocess.Popen([sys.executable, "-m", "gubernator_tpu_torch.cli.daemon"],
+                            cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    log: list = []
+    reader = threading.Thread(target=lambda: log.extend(proc.stdout), daemon=True)
+    reader.start()
+    return proc, log, reader
+
+
 def http_json(url: str, body=None, timeout: float = 30.0):
     """(status, decoded JSON) of a GET, or of a POST of `body`."""
     import urllib.error
@@ -1372,7 +1412,7 @@ def zipf_rpcs(rng, n_rpcs: int, name: str, behavior: int = 0) -> list:
 
     out = []
     for _ in range(n_rpcs):
-        ids = rng.zipf(ZIPF_A, RPC_ITEMS) % KEY_SPACE_100M
+        ids = keystreams.zipf_ids(KEY_SPACE_100M, RPC_ITEMS, rng)
         out.append(gubernator_pb2.GetRateLimitsReq(requests=[
             gubernator_pb2.RateLimitReq(
                 name=name, unique_key=str(int(i)), hits=HITS, limit=LIMIT,
@@ -1466,7 +1506,7 @@ def client_window(target: str, seed: int, name: str, seconds: float) -> dict:
                           seconds, f"the window against {target}")
 
 
-def quiet_stats(base: str) -> dict:
+def quiet_stats(base: str, what: str = "doors") -> dict:
     """/v1/debug/stats once two reads 0.3 s apart agree on the kernel
     launches, the decides and the engine's chunks (a promoter tick or a
     batch in flight between the launch and its count would skew one
@@ -1482,7 +1522,7 @@ def quiet_stats(base: str) -> dict:
         if key(cur) == key(prev):
             return cur
         prev = cur
-    fail(f"doors: /v1/debug/stats did not settle: {key(prev)}")
+    fail(f"{what}: /v1/debug/stats did not settle: {key(prev)}")
 
 
 def doors_path(card: str) -> dict:
@@ -1493,7 +1533,6 @@ def doors_path(card: str) -> dict:
     import asyncio
     import os
     import signal
-    import threading
 
     from gubernator_tpu_torch.api.types import RateLimitReq, Status
     from gubernator_tpu_torch.client import V1Client
@@ -1505,12 +1544,7 @@ def doors_path(card: str) -> dict:
     env.update(GUBER_GRPC_ADDRESS=target, GUBER_HTTP_ADDRESS=f"127.0.0.1:{h}",
                PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
     t0 = time.monotonic()
-    proc = subprocess.Popen([sys.executable, "-m", "gubernator_tpu_torch.cli.daemon"],
-                            cwd=root, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    log = []
-    reader = threading.Thread(target=lambda: log.extend(proc.stdout), daemon=True)
-    reader.start()
+    proc, log, reader = spawn_daemon(env, root)
 
     def died(what):
         proc.kill()
@@ -1910,7 +1944,7 @@ STRING_WINDOWS = ("shm_deep", "unix_deep")  # string frames, folded in the serve
 def _zipf_reqs(types, rng, n: int, name: str) -> list:
     """n request objects of zipf(1.2) ids over 100M: token, hits 1, limit
     1000, 600 s (the doors window's traffic)."""
-    ids = rng.zipf(ZIPF_A, n) % KEY_SPACE_100M
+    ids = keystreams.zipf_ids(KEY_SPACE_100M, n, rng)
     return [types.RateLimitReq(name=name, unique_key=str(int(i)), hits=HITS, limit=LIMIT,
                                duration=DURATION_100M) for i in ids.tolist()]
 
@@ -2195,12 +2229,7 @@ def geb_path(card: str, edge_build_result: dict) -> dict:
                GUBER_EDGE_TCP=f"127.0.0.1:{etcp}",
                PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
     t0 = time.monotonic()
-    proc = subprocess.Popen([sys.executable, "-m", "gubernator_tpu_torch.cli.daemon"],
-                            cwd=root, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    log: list = []
-    reader = threading.Thread(target=lambda: log.extend(proc.stdout), daemon=True)
-    reader.start()
+    proc, log, reader = spawn_daemon(env, root)
     edge = None
 
     def died(what):
@@ -2553,12 +2582,6 @@ CHAIN_GROUP = 256  # chains a GEBC frame carries (the scenario's chain_group)
 CHAIN_CALLERS = 8  # the scenario's workers
 
 
-def tenant_zipf_ids(n: int, rng) -> np.ndarray:
-    """zipf(1.2) tenant ids mod 64 (gubernator_tpu/cli/keystreams.py
-    tenant_zipf_ids)."""
-    return (rng.zipf(ZIPF_A, size=n) % CHAIN_TENANTS).astype(np.int64)
-
-
 def chain_reqs(types, rng, n: int, name: str = "mtz") -> list:
     """n chained requests of the scenario: global -> region:{t%4} ->
     tenant:{t} above the leaf k:{t}:{0..2^14}, hits 1, 60 s."""
@@ -2568,7 +2591,7 @@ def chain_reqs(types, rng, n: int, name: str = "mtz") -> list:
         duration=CHAIN_DURATION,
         chain=[types.ChainLevel("global", lim[0], 0), types.ChainLevel(f"region:{t % 4}", lim[1], 0),
                types.ChainLevel(f"tenant:{t}", lim[2], 0)])
-        for t in tenant_zipf_ids(n, rng).tolist()]
+        for t in keystreams.tenant_zipf_ids(CHAIN_TENANTS, n, rng).tolist()]
 
 
 def chain_rows(tenants, leaves, name: str = "mtz", leaf_limit: int = CHAIN_LEVEL_LIMITS[3]):
@@ -2591,7 +2614,7 @@ def chain_rows(tenants, leaves, name: str = "mtz", leaf_limit: int = CHAIN_LEVEL
 
 
 def zipf_chain_rows(rng, n: int):
-    ts = tenant_zipf_ids(n, rng).tolist()
+    ts = keystreams.tenant_zipf_ids(CHAIN_TENANTS, n, rng).tolist()
     return chain_rows(ts, [f"k:{t}:{int(x)}" for t, x in zip(ts, rng.integers(1 << 14, size=n))])
 
 
@@ -2875,7 +2898,7 @@ def durability_engine_leg(card: str, ladder, writeback) -> dict:
     eng.warmup(now=T0)
     writeback.writeback_add.launches = 0  # this leg from here on
     decides = 0
-    kh = hash_ids(np.arange(windows, dtype=np.int64) + DUR_ID_BASE)
+    kh = keystreams.hash_ids(np.arange(windows, dtype=np.int64) + DUR_ID_BASE)
     algo = (np.arange(windows) % 4).astype(np.int32)
     one = np.ones(depth, np.int64)
     no_gnp = np.zeros(depth, bool)
@@ -3279,6 +3302,285 @@ def durability_path(card: str, ladder, writeback) -> dict:
     return dict(launches=engine["launches"] + b_launches + ring["launches"])
 
 
+# -- the workloads phase: the port's bench_serving and loadgen ---------------
+
+#: leg (a): the port's cli/bench_serving scenarios in this process, on the
+#: card, each at its deployment's own flags (1-2 s windows)
+WORKLOAD_SCENARIOS = (
+    ("zipf10m", ["--scenario", "zipf10m", "--depths", str(DEPTH), "--keys", "10000000",
+                 "--store-mib", "1024", "--group", "4096", "--seconds", "2"]),
+    ("zipf100m", ["--scenario", "zipf100m", "--rounds", "2", "--seconds", "1"]),
+    ("key-churn", ["--scenario", "key-churn", "--seconds", "1"]),
+    ("shed", ["--scenario", "shed", "--seconds", "1"]),
+    ("flash-crowd", ["--scenario", "flash-crowd", "--algorithm", "sliding", "--seconds", "1"]),
+    ("mixed-tenant-zipf", ["--scenario", "mixed-tenant-zipf", "--chain-depth", "3",
+                           "--seconds", "1"]),
+    ("gcra-vs-token", ["--scenario", "gcra-vs-token", "--seconds", "1"]),
+    ("cluster", ["--backend", "tpu", "--nodes", "3", "--seconds", "1"]),
+    # the compiled edge in front of node 0, its batched gRPC row alone:
+    # fed single-item requests by 16 callers, the edge stops sending
+    # frames on a gVisor (runsc) host after a few hundred requests, in
+    # front of a CPU node as of a card node (PERF.md §6)
+    ("cluster-edge", ["--backend", "tpu", "--nodes", "3", "--edge", "--edge-only",
+                      "--seconds", "1"]),
+)
+DAEMONS = 3
+LOADGEN_S = 5.0  # each leg of (b)
+#: leg (b): the port's loadgen, in a process of its own, against the
+#: three daemons; (name, where it aims, its flags, the over-limit share)
+LOADGEN_LEGS = (
+    ("forward", "grpc", ["--protocol", "grpc", "--batch", "1000", "--concurrency", "16",
+                         "--share", "0.9"], 0.9),
+    ("ring_route", "geb", ["--protocol", "geb", "--mode", "fast", "--ring-route", "1",
+                           "--batch", "1000", "--concurrency", "16", "--share", "0.9",
+                           "--keyspace", "262144"], 0.9),
+    ("chains", "geb", ["--protocol", "geb", "--chain-depth", "3", "--batch", "256",
+                       "--concurrency", "8", "--share", "0.5"], 0.5),
+)
+
+
+class EngineCensus:
+    """Every TorchEngine built and every warmup run while it is open: the
+    writeback launches those engines owe, their decides plus install and
+    gossip chunks, plus two a ladder rung for each warmup (one decide and
+    one install; the warmup then zeroes the engine's counts)."""
+
+    def __enter__(self):
+        from gubernator_tpu_torch.parallel.sharded import TorchEngine
+
+        self.cls, self.engines, self.warmups = TorchEngine, [], 0
+        self.saved = (TorchEngine.__init__, TorchEngine.warmup)
+        init, warmup = self.saved
+
+        def counted_init(eng, *a, **kw):
+            init(eng, *a, **kw)
+            self.engines.append(eng)
+
+        def counted_warmup(eng, *a, **kw):
+            warmup(eng, *a, **kw)
+            self.warmups += _warmup_launches(eng)
+
+        self.cls.__init__, self.cls.warmup = counted_init, counted_warmup
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.__init__, self.cls.warmup = self.saved
+
+    def owed(self) -> dict:
+        return dict(engines=len(self.engines),
+                    decides=sum(e.stats.batches for e in self.engines),
+                    chunks=sum(e.install_chunks + e.gossip_chunks for e in self.engines),
+                    warmups=self.warmups)
+
+
+def _scenario_summary(name: str, doc: dict) -> dict:
+    """The headline numbers of one scenario's JSON (every row stays in the
+    `doc` field beside them)."""
+    rows = doc.get("rows") or doc.get("results") or []
+    if name.startswith("cluster"):
+        return {r["name"]: r.get("decisions_per_sec", r["ops_per_sec"]) for r in rows}
+    if name == "gcra-vs-token":
+        return {r["algorithm"]: dict(admitted_per_sec=r["admitted_per_sec"],
+                                     admission_gap_cv=r["admission_gap_cv"],
+                                     max_refusal_run=r["max_refusal_run"]) for r in rows}
+    keys = ("decisions_per_sec", "chains_per_sec", "mean_device_batch", "over_limit_share",
+            "refusal_share", "dropped_creates")
+    return {r.get("metric", str(i)): {k: r[k] for k in keys if k in r}
+            for i, r in enumerate(rows)}
+
+
+def workloads_scenarios(card: str, writeback) -> dict:
+    """Leg (a): each scenario of the port's cli/bench_serving through its
+    own parser on the card, its launches held against the engines it
+    built; zipf100m's tail errors held against the same calls on the CPU."""
+    import contextlib
+    import io
+
+    from gubernator_tpu_torch.cli import bench_serving as bs
+
+    # the suite's fixed ports, drawn free here
+    ports = free_ports(DAEMONS + 3)
+    bs.ADDRESSES = [f"127.0.0.1:{p}" for p in ports[:DAEMONS]]
+    bs.PYTHON_HTTP_ADDR = f"127.0.0.1:{ports[DAEMONS]}"
+    bs.EDGE_PORT, bs.EDGE_GRPC_PORT = ports[DAEMONS + 1:]
+    out = {}
+    for name, argv in WORKLOAD_SCENARIOS:
+        stdout = io.StringIO()
+        writeback.writeback_add.launches = 0
+        t0 = time.monotonic()
+        with EngineCensus() as census, contextlib.redirect_stdout(stdout):
+            rc = bs.main(argv + ["--json"])
+        seconds = time.monotonic() - t0
+        launches = writeback.writeback_add.launches
+        owed = census.owed()
+        del census
+        torch.cuda.empty_cache()
+        lines = stdout.getvalue().strip().splitlines()
+        if rc != 0 or not lines:
+            fail(f"workloads {name}: exit {rc}, {len(lines)} lines of JSON")
+        doc = json.loads(lines[-1])
+        rows = doc.get("rows") or doc.get("results")
+        if not rows or any(r.get("errors") for r in rows):
+            fail(f"workloads {name}: rows {rows}")
+        want = owed["decides"] + owed["chunks"] + owed["warmups"]
+        if launches != want or launches == 0:
+            fail(f"workloads {name}: writeback launched {launches} times for {owed}")
+        rec = dict(phase="workloads", leg="scenarios", scenario=name, card=card, argv=argv,
+                   seconds=seconds, launches=launches, **owed,
+                   summary=_scenario_summary(name, doc))
+        if name == "zipf10m":
+            rec["rung"], rec["mean_device_batch"] = DEPTH, rows[0]["mean_device_batch"]
+        if name == "zipf100m":
+            # the card's tail errors against the same calls on the CPU: the
+            # sketch is integer state, so the dicts are equal
+            t0 = time.monotonic()
+            cpu_ab = bs.measure_tail_error_ab(device="cpu")
+            cpu_arms = {arm: bs.measure_tail_error(algorithm=arm, device="cpu")
+                        for arm in ("sliding", "gcra")}
+            if doc["tail_error_derivation_ab"] != cpu_ab or doc["tail_error_arms"] != cpu_arms:
+                fail("workloads zipf100m: the card's tail errors differ from the CPU's")
+            if doc["tail_error"] != cpu_ab["v2"]:
+                fail("workloads zipf100m: tail_error is not the A/B's v2")
+            rec.update(tail_error_cpu_identical=True, tail_error_cpu_s=time.monotonic() - t0,
+                       tail_error=doc["tail_error_derivation_ab"],
+                       tail_error_arms=doc["tail_error_arms"],
+                       paired_ratios=doc["paired_ratios"])
+        emit(rec)
+        emit(dict(phase="workloads", leg="scenarios", scenario=name, doc=doc))
+        out[name] = rec
+    return out
+
+
+def _peer_rpcs(metrics_text: str) -> float:
+    """PeersV1/GetPeerRateLimits calls a node served (forwards it owned)."""
+    return sum(float(ln.split()[-1]) for ln in metrics_text.splitlines()
+               if ln.startswith("grpc_request_counts_total{") and "GetPeerRateLimits" in ln)
+
+
+def workloads_daemons(card: str, single_rate: float, cluster_rate: float) -> dict:
+    """Leg (b): three daemons in processes of their own, each the zipf100m
+    deployment on the card, on static peers, driven by the port's loadgen
+    in a process of its own, leg after leg; each daemon's launches over a
+    leg held against its decides and chunks."""
+    from gubernator_tpu_torch.core.hashing import ring_hash
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    addrs = balanced_addresses(ring_hash, DAEMONS)
+    ports = free_ports(2 * DAEMONS)
+    https = [f"127.0.0.1:{p}" for p in ports[:DAEMONS]]
+    gebs = ports[DAEMONS:]
+    doors = ",".join(f"{a}=127.0.0.1:{p}" for a, p in zip(addrs, gebs))
+    bases = [f"http://{h}" for h in https]
+    procs = []
+    t0 = time.monotonic()
+    try:
+        for i in range(DAEMONS):
+            # a forward waits for its owner's batch, whose dispatch beside
+            # a busy event loop takes 94-417 ms (PERF.md §5): the peer and
+            # gossip deadlines rise from the reference's 500 ms, as in the
+            # cluster phase, so a slow owner is not counted as a dead one
+            env = dict(os.environ, **SERVING_ENV)
+            env.update(GUBER_GRPC_ADDRESS=addrs[i], GUBER_ADVERTISE_ADDRESS=addrs[i],
+                       GUBER_HTTP_ADDRESS=https[i], GUBER_PEERS=",".join(addrs),
+                       GUBER_GEB_PORT=str(gebs[i]), GUBER_GEB_PEER_DOORS=doors,
+                       GUBER_CHAINS="1", GUBER_PEER_TIMEOUT_MS="10000",
+                       GUBER_GLOBAL_TIMEOUT_MS="10000",
+                       PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+            procs.append(spawn_daemon(env, root)[:2])
+        for i, (proc, log) in enumerate(procs):
+            while not any("HTTP listening" in ln for ln in log):
+                if proc.poll() is not None or time.monotonic() - t0 > BOOT_S:
+                    sys.stderr.write("".join(log[-60:]))
+                    fail(f"workloads daemon {i}: exit {proc.poll()} during boot")
+                time.sleep(0.2)
+        boot_s = time.monotonic() - t0
+        tiers = [next((ln.strip() for ln in log if "store tiers:" in ln), "") for _, log in procs]
+        emit(dict(phase="workloads", leg="daemons", card=card, boot_s=boot_s, addresses=addrs,
+                  tiers=tiers))
+        legs = {}
+        for name, door, args, share in LOADGEN_LEGS:
+            target = addrs[0] if door == "grpc" else f"127.0.0.1:{gebs[0]}"
+            s0 = [quiet_stats(b, f"workloads {name}") for b in bases]
+            m0 = [http_text(b + "/metrics") for b in bases]
+            t1 = time.monotonic()
+            r = subprocess.run([sys.executable, "-m", "gubernator_tpu_torch.cli.loadgen",
+                                target, "--json", "--duration", str(LOADGEN_S), *args],
+                               cwd=root, capture_output=True, text=True,
+                               timeout=LOADGEN_S + 300)
+            leg_s = time.monotonic() - t1
+            if r.returncode != 0:
+                sys.stderr.write(r.stderr[-4000:])
+                fail(f"workloads {name}: loadgen exited {r.returncode}")
+            summary = json.loads(r.stdout.strip().splitlines()[-1])
+            s1 = [quiet_stats(b, f"workloads {name}") for b in bases]
+            m1 = [http_text(b + "/metrics") for b in bases]
+            per_node = []
+            for i in range(DAEMONS):
+                launches = (s1[i]["kernel_launches"]["writeback_add"]
+                            - s0[i]["kernel_launches"]["writeback_add"])
+                decides = s1[i]["backend"]["batches"] - s0[i]["backend"]["batches"]
+                chunks = sum(s1[i]["engine_chunks"][k] - s0[i]["engine_chunks"][k]
+                             for k in ("install_chunks", "gossip_chunks"))
+                if launches != decides + chunks:
+                    fail(f"workloads {name} daemon {i}: writeback launched {launches} times "
+                         f"for {decides} decides + {chunks} install and gossip chunks")
+                per_node.append(dict(launches=launches, decides=decides, chunks=chunks,
+                                     peer_rpcs=_peer_rpcs(m1[i]) - _peer_rpcs(m0[i])))
+            over = summary["over_limit_share"]
+            transport = summary.get("client", {}).get("transport", "grpc")
+            want_transport = "grpc" if door == "grpc" else "tcp"
+            if summary["errors"] or summary["sent"] <= 0:
+                fail(f"workloads {name}: {summary}")
+            if not share - 0.02 <= over <= share + 0.001:
+                fail(f"workloads {name}: over-limit share {over}, asked {share}")
+            if transport != want_transport:
+                fail(f"workloads {name}: the client's transport is {transport}")
+            if name == "forward" and sum(n["peer_rpcs"] for n in per_node[1:]) <= 0:
+                fail("workloads forward: nodes 1-2 served no forwarded RPC")
+            if name == "ring_route" and not summary["client"]["ring_routed"]:
+                fail(f"workloads ring_route: the client did not route by owner: {summary}")
+            legs[name] = dict(seconds=leg_s, summary=summary, per_node=per_node,
+                              decisions_per_s=summary["decisions_per_sec"],
+                              launches=sum(n["launches"] for n in per_node))
+            emit(dict(phase="workloads", leg="daemons", loadgen=name, card=card,
+                      processes=1,
+                      decisions_per_s_per_process=[summary["decisions_per_sec"]],
+                      **legs[name]))
+        for proc, _log in procs:
+            proc.terminate()
+        for i, (proc, log) in enumerate(procs):
+            if proc.wait(timeout=120) != 0:
+                sys.stderr.write("".join(log[-40:]))
+                fail(f"workloads daemon {i}: exit {proc.returncode} after SIGTERM")
+    finally:
+        for proc, _log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(30)
+    fwd = legs["forward"]["decisions_per_s"]
+    out = dict(boot_s=boot_s, legs=legs,
+               launches=sum(leg["launches"] for leg in legs.values()),
+               forward_decisions_per_s=fwd, one_daemon_decisions_per_s=single_rate,
+               one_loop_cluster_decisions_per_s=cluster_rate,
+               forward_over_one_loop_cluster=fwd / cluster_rate if cluster_rate else None,
+               forward_over_one_daemon=fwd / single_rate if single_rate else None)
+    emit(dict(phase="workloads", leg="daemons", card=card,
+              **{k: v for k, v in out.items() if k != "legs"}))
+    return out
+
+
+def workloads_path(card: str, writeback, single_rate: float, cluster_rate: float) -> dict:
+    """The workloads phase: (a) the bench_serving scenarios in this
+    process, (b) three daemons driven by loadgen processes."""
+    t0 = time.monotonic()
+    scenarios = workloads_scenarios(card, writeback)
+    daemons = workloads_daemons(card, single_rate, cluster_rate)
+    emit(dict(phase="workloads", seconds=time.monotonic() - t0,
+              scenario_seconds={k: v["seconds"] for k, v in scenarios.items()}))
+    return dict(launches=sum(s["launches"] for s in scenarios.values()),
+                daemon_launches=daemons["launches"])
+
+
 
 def balanced_addresses(ring_hash, n: int, lo: float = 0.2, hi: float = 0.5) -> list:
     """n free localhost addresses whose ring arcs each own between `lo`
@@ -3458,6 +3760,8 @@ def main() -> int:
     geb_checked = geb_checked_leg(card, writeback)
     chain = chain_path(card, ladder, writeback)
     durability = durability_path(card, ladder, writeback)
+    workloads = workloads_path(card, writeback, doors["decisions_per_s"],
+                               cluster["window"]["decisions_per_s"])
     floor_launches = writeback.add_one.launches
     if floor_launches:
         fail(f"the copy floor's kernel launched {floor_launches} times on the paths")
@@ -3482,7 +3786,9 @@ def main() -> int:
                           "serving": serving["launches"], "doors": doors["launches"],
                           "cluster": cluster["launches"], "geb": geb["launches"],
                           "geb_checked": geb_checked["launches"], "chain": chain["launches"],
-                          "durability": durability["launches"]},
+                          "durability": durability["launches"],
+                          "workloads": workloads["launches"],
+                          "daemons": workloads["daemon_launches"]},
     ), dict(
         # the copy floor runs on no serving path: it measures the pass
         # over the store that bounds the writeback from below

@@ -2,13 +2,17 @@
 reference server); the port's copy of gubernator_tpu/client.py, so code
 that must not import the JAX package (chip_smoke.py) has a client.
 
-Covers the reference's Go client (reference client.go) and Python client
-package (reference python/gubernator/__init__.py): blocking and asyncio
-flavors, and the duration constants.
+Covers the reference's Go client helpers (reference client.go) and Python
+client package (reference python/gubernator/__init__.py): blocking and
+asyncio flavors, duration constants, a reset-time sleeper, and peer/string
+helpers for load generation.
 """
 
 from __future__ import annotations
 
+import random
+import string
+import time
 from typing import List, Optional, Sequence
 
 import grpc
@@ -29,6 +33,9 @@ from gubernator_tpu_torch.endpoints import parse_endpoint
 __all__ = [
     "V1Client",
     "AsyncV1Client",
+    "sleep_until_reset",
+    "random_peer",
+    "random_string",
     "MILLISECOND",
     "SECOND",
     "MINUTE",
@@ -113,3 +120,20 @@ class AsyncV1Client:
     async def close(self) -> None:
         await self.channel.close()
 
+
+
+def sleep_until_reset(resp: RateLimitResp) -> None:
+    """Sleep until the limit's reset time (python client's helper)."""
+    delta = resp.reset_time / 1000.0 - time.time()
+    if delta > 0:
+        time.sleep(delta)
+
+
+def random_peer(peers: Sequence[str]) -> str:
+    return random.choice(list(peers))
+
+
+def random_string(prefix: str = "", n: int = 10) -> str:
+    return prefix + "".join(
+        random.choices(string.ascii_letters + string.digits, k=n)
+    )

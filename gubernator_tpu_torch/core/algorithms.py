@@ -25,6 +25,10 @@ ALGO_LEAKY = 1
 ALGO_SLIDING = 2
 ALGO_GCRA = 3
 
+#: CLI/README names of the algorithms (the reference's ALGO_NAMES)
+ALGO_NAMES = {"token": ALGO_TOKEN, "leaky": ALGO_LEAKY, "sliding": ALGO_SLIDING,
+              "gcra": ALGO_GCRA}
+
 _I32_MAX = (1 << 31) - 1
 
 #: Sliding-window duration cap: half the generic MAX_DURATION_MS, so the

@@ -527,3 +527,19 @@ def test_server_on_card_walks_a_key_through_grpc():
             await server.stop()
 
     asyncio.run(run())
+
+
+@pytest.mark.parametrize("case", [dict(), dict(derivation="r13"), dict(algorithm="gcra")],
+                         ids=["v2_token", "r13_token", "v2_gcra"])
+def test_tail_error_on_card_matches_cpu(case):
+    """cli/bench_serving.measure_tail_error on the card returns the dict
+    the same call returns on the CPU: the sketch is integer state, so the
+    errors are the same numbers; its writeback launches are its decides."""
+    _need_card()
+    from gubernator_tpu_torch.cli.bench_serving import measure_tail_error
+
+    before = writeback_add.launches
+    card = measure_tail_error(batches=16, device="cuda", **case)
+    assert writeback_add.launches - before == 16 + 1  # the fillers' decide, then 16
+    assert card == measure_tail_error(batches=16, device="cpu", **case)
+    assert card["under_counts"] == 0 and card["within_bound"]

@@ -165,7 +165,11 @@ def test_import_loads_no_jax_and_nothing_of_the_jax_package():
         "assert using_native_hash()\n"
         "from gubernator_tpu_torch.api import convert, grpc_glue\n"
         "from gubernator_tpu_torch.api.proto.gen import gubernator_pb2, peers_pb2\n"
-        "from gubernator_tpu_torch.cli import ablate_writeback, cluster_main, daemon\n"
+        "from gubernator_tpu_torch.cli import (\n"
+        "    ablate_writeback, bench_serving, cluster_main, daemon, keystreams, loadgen)\n"
+        "assert bench_serving.measure_tail_error(batches=1, device='cpu')['under_counts'] == 0\n"
+        "keystreams.stream_pool('flash-crowd', 1 << 20, 64)\n"
+        "loadgen._shed_pool(0.5, 8, chain_depth=3)\n"
         "backends.make_backend(config.config_from_env({'GUBER_STORE_MIB': '8'}),"
         " device='cpu')\n"
         "e = TorchEngine(store.StoreConfig(rows=1, slots=16), buckets=(64,),"
