@@ -6,9 +6,10 @@ Drives the port (gubernator_tpu_torch) through the entry points a user
 calls (the engine, the serving core, the daemon's doors, a cluster of
 nodes forwarding to each other, the GEB frame doors with the compiled
 edge in front, hierarchical quota chains, durability: checkpoint and
-restore, bucket replication and ring rescale, and the workloads: the
+restore, bucket replication and ring rescale, the workloads: the
 serving benchmarks' scenarios and three daemons driven by the load
-generator), at two of the repo's deployments:
+generator, and discovery: daemons finding each other through etcd and
+the chaos soak's three modes), at two of the repo's deployments:
 
 - exact tier, "Zipfian 10M keys, 1 GiB store" (GUBER_SKETCH=0): a slot
   store of int32[2^21, 128] (GUBER_STORE_MIB=1024), zipf(a=1.2) ids over
@@ -212,7 +213,30 @@ Phases, one JSON line each:
              (/v1/debug/stats), and forwarded RPCs on nodes 1-2 in leg 1;
              decisions/s a leg beside the doors phase's one daemon and the
              cluster phase's one-loop cluster;
-13. kernels  the contract line over every kernel of the path.
+13. discovery  (a) three daemons of the exact-tier deployment
+             (GUBER_BACKEND=tpu, GUBER_SKETCH=0, GUBER_STORE_MIB=1024: an
+             int32[2^21, 128] store, 1 GiB a daemon) with no peer list,
+             registered through the port's fake etcd (cli/fake_etcd.py, in
+             this process, real gRPC): every /v1/HealthCheck reads
+             peerCount 3; 4,096 keys sent through each node, the owner each
+             answer names (a forwarded answer's `owner` metadata, else the
+             node) the same on every node and in the ring built from the
+             peer list; node 2's SIGTERM (its drain deletes its etcd key)
+             takes the others to peerCount 2 and its restart back to 3,
+             each within 10 s (the seconds printed), then a second pass of
+             keys; every drain exits 0 and leaves etcd empty; (c) each
+             daemon's launches over each pass equal its decides and chunks
+             (/v1/debug/stats); (b) the port's chaos soak
+             (cli/chaos_soak.py --backend tpu) in its three modes at the
+             JAX tests' lengths (kill 15 s, rolling 12 s, restore 12 s),
+             each three such daemons in processes of their own, each mode's
+             JSON on a line, held to tests/test_chaos_soak.py's gates
+             (error rate < 0.05, no in-flight loss, recovery within 2
+             cooldowns + 1 s, faults injected, 0 canary under-admissions
+             and > 30 over-limit samples, three drains exiting 0 with keys
+             moved and the handoff lag within its bound, every restore
+             cycle restoring windows);
+14. kernels  the contract line over every kernel of the path.
 
 The writeback kernel's launch count is set to 0 before each in-process
 path (each durability leg, each workloads scenario) and read after it (the copy floor's and the ablation's are set to 0
@@ -224,7 +248,8 @@ ladder rung for each engine warmup (one decide and one install a rung). A
 daemon's count lives in its own process: it is read from /v1/debug/stats
 just before and just after the doors window (and each workloads leg), and
 the difference must equal
-the window's decides plus install and gossip chunks, read the same way.
+the window's decides plus install and gossip chunks, read the same way
+(the discovery phase's daemons likewise, over each of its traffic passes).
 Every window requires every answer to be a decision: one per-item error
 (a failed forward, an open breaker) fails the run.
 Prints the card's name and power limit (nvidia-smi) on a line of its own
@@ -3457,6 +3482,33 @@ def _peer_rpcs(metrics_text: str) -> float:
                if ln.startswith("grpc_request_counts_total{") and "GetPeerRateLimits" in ln)
 
 
+def _wait_listening(proc, log, what: str, t0: float) -> float:
+    """Seconds from `t0` until the daemon logs its HTTP door open."""
+    while not any("HTTP listening" in ln for ln in log):
+        if proc.poll() is not None or time.monotonic() - t0 > BOOT_S:
+            sys.stderr.write("".join(log[-60:]))
+            fail(f"{what}: exit {proc.poll()} during boot")
+        time.sleep(0.05)
+    return time.monotonic() - t0
+
+
+def _launch_balance(s0: list, s1: list, what: str) -> list:
+    """Each daemon's writeback launches between two /v1/debug/stats reads
+    against its decides and install and gossip chunks; fails on a
+    difference."""
+    per_node = []
+    for i, (a, b) in enumerate(zip(s0, s1)):
+        launches = b["kernel_launches"]["writeback_add"] - a["kernel_launches"]["writeback_add"]
+        decides = b["backend"]["batches"] - a["backend"]["batches"]
+        chunks = sum(b["engine_chunks"][k] - a["engine_chunks"][k]
+                     for k in ("install_chunks", "gossip_chunks"))
+        if launches != decides + chunks:
+            fail(f"{what} daemon {i}: writeback launched {launches} times for "
+                 f"{decides} decides + {chunks} install and gossip chunks")
+        per_node.append(dict(launches=launches, decides=decides, chunks=chunks))
+    return per_node
+
+
 def workloads_daemons(card: str, single_rate: float, cluster_rate: float) -> dict:
     """Leg (b): three daemons in processes of their own, each the zipf100m
     deployment on the card, on static peers, driven by the port's loadgen
@@ -3487,13 +3539,8 @@ def workloads_daemons(card: str, single_rate: float, cluster_rate: float) -> dic
                        GUBER_GLOBAL_TIMEOUT_MS="10000",
                        PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
             procs.append(spawn_daemon(env, root)[:2])
-        for i, (proc, log) in enumerate(procs):
-            while not any("HTTP listening" in ln for ln in log):
-                if proc.poll() is not None or time.monotonic() - t0 > BOOT_S:
-                    sys.stderr.write("".join(log[-60:]))
-                    fail(f"workloads daemon {i}: exit {proc.poll()} during boot")
-                time.sleep(0.2)
-        boot_s = time.monotonic() - t0
+        boot_s = max(_wait_listening(proc, log, f"workloads daemon {i}", t0)
+                     for i, (proc, log) in enumerate(procs))
         tiers = [next((ln.strip() for ln in log if "store tiers:" in ln), "") for _, log in procs]
         emit(dict(phase="workloads", leg="daemons", card=card, boot_s=boot_s, addresses=addrs,
                   tiers=tiers))
@@ -3514,18 +3561,9 @@ def workloads_daemons(card: str, single_rate: float, cluster_rate: float) -> dic
             summary = json.loads(r.stdout.strip().splitlines()[-1])
             s1 = [quiet_stats(b, f"workloads {name}") for b in bases]
             m1 = [http_text(b + "/metrics") for b in bases]
-            per_node = []
-            for i in range(DAEMONS):
-                launches = (s1[i]["kernel_launches"]["writeback_add"]
-                            - s0[i]["kernel_launches"]["writeback_add"])
-                decides = s1[i]["backend"]["batches"] - s0[i]["backend"]["batches"]
-                chunks = sum(s1[i]["engine_chunks"][k] - s0[i]["engine_chunks"][k]
-                             for k in ("install_chunks", "gossip_chunks"))
-                if launches != decides + chunks:
-                    fail(f"workloads {name} daemon {i}: writeback launched {launches} times "
-                         f"for {decides} decides + {chunks} install and gossip chunks")
-                per_node.append(dict(launches=launches, decides=decides, chunks=chunks,
-                                     peer_rpcs=_peer_rpcs(m1[i]) - _peer_rpcs(m0[i])))
+            per_node = _launch_balance(s0, s1, f"workloads {name}")
+            for i, node in enumerate(per_node):
+                node["peer_rpcs"] = _peer_rpcs(m1[i]) - _peer_rpcs(m0[i])
             over = summary["over_limit_share"]
             transport = summary.get("client", {}).get("transport", "grpc")
             want_transport = "grpc" if door == "grpc" else "tcp"
@@ -3580,6 +3618,273 @@ def workloads_path(card: str, writeback, single_rate: float, cluster_rate: float
     return dict(launches=sum(s["launches"] for s in scenarios.values()),
                 daemon_launches=daemons["launches"])
 
+
+# -- the discovery phase: membership through etcd, and the chaos soak --------
+
+DISCOVERY_KEYS = 4096  # keys sent through each node of leg (a), owners compared
+#: a SIGTERMed node leaves the others' rings (its drain deletes its etcd
+#: key, their watches push), and a restarted node's registration reaches
+#: every ring (from its HTTP door opening), each within this many seconds
+MEMBERSHIP_BOUND_S = 10.0
+#: leg (b): the soak's modes at tests/test_chaos_soak.py's lengths
+SOAK_MODES = (("kill", 15.0), ("rolling", 12.0), ("restore", 12.0))
+DISCOVERY_BUDGET_S = 300.0  # the phase's planned length (reported, not a gate)
+
+
+def _spawn_exact_daemon(i: int, addrs: list, https: list, etcd_port: int, root: str):
+    """Daemon `i` of leg (a): the soak's card deployment, the exact tier
+    (BASELINE.md config 4: an int32[2^21, 128] store, 1 GiB a daemon, the
+    sketch off), its peers found through the fake etcd (no GUBER_PEERS).
+    The peer deadline rises from the reference's 500 ms as in the cluster
+    phase: a forward waits on its owner's batch."""
+    from gubernator_tpu_torch.cli.chaos_soak import TPU_ENV
+
+    env = dict(os.environ, GUBER_BACKEND="tpu", **TPU_ENV)
+    env.pop("GUBER_PEERS", None)
+    env.update(GUBER_GRPC_ADDRESS=addrs[i], GUBER_ADVERTISE_ADDRESS=addrs[i],
+               GUBER_HTTP_ADDRESS=https[i], GUBER_ETCD_ENDPOINTS=f"127.0.0.1:{etcd_port}",
+               GUBER_PEER_TIMEOUT_MS="10000", GUBER_GLOBAL_TIMEOUT_MS="10000",
+               PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    return spawn_daemon(env, root)[:2]
+
+
+def _wait_peer_count(bases: list, want: int, bound_s: float, what: str) -> float:
+    """Seconds until every node in `bases` reads peerCount `want` on
+    /v1/HealthCheck; fails past `bound_s`."""
+    t0 = time.monotonic()
+    counts = []
+    while True:
+        try:
+            counts = [http_json(b + "/v1/HealthCheck", timeout=5)[1]["peerCount"]
+                      for b in bases]
+        except OSError:
+            counts = []
+        if counts and all(c == want for c in counts):
+            return time.monotonic() - t0
+        if time.monotonic() - t0 > bound_s:
+            fail(f"{what}: peer counts {counts} did not all reach {want} in {bound_s} s")
+        time.sleep(0.02)
+
+
+def _owners_through(bases: list, addrs: list, name: str) -> list:
+    """DISCOVERY_KEYS keys sent through each node in GetRateLimits of at
+    most 1,000 (hits 1 of a limit no key reaches); for each node, the
+    owner each answer names (a forwarded answer's `owner` metadata, or
+    the node itself for one it decided)."""
+    keys = [str(k) for k in range(DISCOVERY_KEYS)]
+    out = []
+    for i, base in enumerate(bases):
+        owners = []
+        for lo in range(0, len(keys), 1000):
+            body = {"requests": [dict(name=name, uniqueKey=k, hits=1, limit=1_000_000,
+                                      duration=DURATION) for k in keys[lo:lo + 1000]]}
+            status, resp = http_json(base + "/v1/GetRateLimits", body)
+            answers = resp.get("responses", []) if status == 200 else []
+            if len(answers) != len(body["requests"]):
+                fail(f"discovery ring: node {i} answered {status} {str(resp)[:300]}")
+            for r in answers:
+                if r.get("error") or r.get("status", "UNDER_LIMIT") != "UNDER_LIMIT":
+                    fail(f"discovery ring: node {i} answered {r}")
+                owners.append(r.get("metadata", {}).get("owner", addrs[i]))
+        out.append(owners)
+    return out
+
+
+def discovery_ring(card: str) -> dict:
+    """Legs (a) and (c): three daemons of the exact-tier deployment find
+    each other through the port's fake etcd (in this process, real gRPC);
+    every node reads peerCount 3; the owners of DISCOVERY_KEYS keys sent
+    through each node agree across nodes and with the ring built from the
+    static peer list; node 2's SIGTERM takes it out of the others' rings
+    and its restart puts it back, each within MEMBERSHIP_BOUND_S; each
+    daemon's launches over each traffic pass equal its decides and
+    chunks."""
+    from gubernator_tpu_torch.api.types import hash_key
+    from gubernator_tpu_torch.cli.fake_etcd import FakeEtcd
+    from gubernator_tpu_torch.core.hashing import ring_hash
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    addrs = balanced_addresses(ring_hash, DAEMONS)
+    https = [f"127.0.0.1:{p}" for p in free_ports(DAEMONS)]
+    bases = [f"http://{h}" for h in https]
+    etcd = FakeEtcd().start()
+    procs = []
+    passes = []
+    try:
+        t0 = time.monotonic()
+        procs = [_spawn_exact_daemon(i, addrs, https, etcd.port, root) for i in range(DAEMONS)]
+        boot_s = max(_wait_listening(p, lg, f"discovery daemon {i}", t0)
+                     for i, (p, lg) in enumerate(procs))
+        join_s = _wait_peer_count(bases, DAEMONS, MEMBERSHIP_BOUND_S, "discovery join")
+        registered = sorted(v.decode() for v, *_ in etcd._kv.values())
+        if registered != sorted(addrs):
+            fail(f"discovery: etcd holds {registered}, not {sorted(addrs)}")
+
+        def traffic_pass(name: str) -> dict:
+            want = [addrs[_owner(ring_hash, addrs, hash_key(name, str(k)))]
+                    for k in range(DISCOVERY_KEYS)]
+            s0 = [quiet_stats(b, f"discovery {name}") for b in bases]
+            t = time.monotonic()
+            owners = _owners_through(bases, addrs, name)
+            seconds = time.monotonic() - t
+            s1 = [quiet_stats(b, f"discovery {name}") for b in bases]
+            for i, got in enumerate(owners):
+                bad = [k for k, (g, w) in enumerate(zip(got, want)) if g != w]
+                if bad:
+                    fail(f"discovery {name}: node {i} names {got[bad[0]]} the owner of key "
+                         f"{bad[0]}, the static ring {want[bad[0]]} ({len(bad)} keys differ)")
+            per_node = _launch_balance(s0, s1, f"discovery {name}")
+            if any(n["decides"] <= 0 for n in per_node):
+                fail(f"discovery {name}: a daemon decided nothing: {per_node}")
+            rec = dict(keys=DISCOVERY_KEYS, seconds=seconds,
+                       forwarded_share=[sum(o != addrs[i] for o in got) / len(got)
+                                        for i, got in enumerate(owners)],
+                       owners_agree=True, per_node=per_node,
+                       launches=sum(n["launches"] for n in per_node))
+            emit(dict(phase="discovery", leg="ring", traffic=name, card=card, **rec))
+            return rec
+
+        passes.append(traffic_pass("disc"))
+        # node 2 leaves: its drain deregisters before the doors close
+        t = time.monotonic()
+        procs[2][0].terminate()
+        depart_s = _wait_peer_count(bases[:2], DAEMONS - 1, MEMBERSHIP_BOUND_S,
+                                    "discovery departure")
+        if procs[2][0].wait(timeout=120) != 0:
+            sys.stderr.write("".join(procs[2][1][-40:]))
+            fail(f"discovery: node 2 exited {procs[2][0].returncode} after SIGTERM")
+        drain_s = time.monotonic() - t
+        left = sorted(v.decode() for v, *_ in etcd._kv.values())
+        if left != sorted(addrs[:2]):
+            fail(f"discovery: after node 2's drain etcd holds {left}")
+        # ... and comes back: a new process on the same addresses
+        t = time.monotonic()
+        procs[2] = _spawn_exact_daemon(2, addrs, https, etcd.port, root)
+        reboot_s = _wait_listening(*procs[2], "discovery node 2 restart", t)
+        rejoin_s = _wait_peer_count(bases, DAEMONS, MEMBERSHIP_BOUND_S, "discovery rejoin")
+        passes.append(traffic_pass("disc2"))
+        for proc, _log in procs:
+            proc.terminate()
+        for i, (proc, log) in enumerate(procs):
+            if proc.wait(timeout=120) != 0:
+                sys.stderr.write("".join(log[-40:]))
+                fail(f"discovery daemon {i}: exit {proc.returncode} after SIGTERM")
+        if etcd._kv:
+            fail(f"discovery: etcd still holds {list(etcd._kv)} after every drain")
+    finally:
+        for proc, _log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(30)
+        etcd.stop()
+    out = dict(addresses=addrs, boot_s=boot_s, join_s=join_s, departure_s=depart_s,
+               drain_s=drain_s, restart_boot_s=reboot_s, rejoin_s=rejoin_s,
+               membership_bound_s=MEMBERSHIP_BOUND_S,
+               launches=sum(p["launches"] for p in passes))
+    emit(dict(phase="discovery", leg="ring", card=card, **out))
+    return out
+
+
+def _soak_gates(mode: str, doc: dict) -> list:
+    """tests/test_chaos_soak.py's assertions on one mode's JSON, as a list
+    of the ones that fail."""
+    bad = []
+
+    def need(ok: bool, what: str):
+        if not ok:
+            bad.append(what)
+
+    need(doc.get("pass") is True and not doc.get("failures"), f"failures {doc.get('failures')}")
+    need(doc.get("error_rate", 1.0) < 0.05, f"error rate {doc.get('error_rate')}")
+    if mode == "kill":
+        need(doc.get("inflight_loss") == 0, f"in-flight loss {doc.get('inflight_loss')}")
+        need(doc.get("recovery_s", 1e9) <= doc.get("recovery_bound_s", 0) + 1.0,
+             f"recovery {doc.get('recovery_s')} s")
+        need(doc.get("faults_injected", 0) > 0, "no fault injected")
+        counts = doc.get("counts", {})
+        need(counts.get("degraded", 0) + counts.get("replicated", 0) > 0,
+             "no degraded or replicated answer")
+        need(doc.get("amnesia_outage_samples", {}).get("under", 1) == 0,
+             f"outage under-admissions {doc.get('amnesia_outage_samples')}")
+        need(doc.get("amnesia_outage_samples", {}).get("over", 0) > 0,
+             "no OVER answer in the outage")
+        need(doc.get("reconcile_lag_s") is not None, "no reconcile")
+        need(doc.get("amnesia_reconciled_samples", {}).get("under", 1) == 0,
+             f"reconciled under-admissions {doc.get('amnesia_reconciled_samples')}")
+    else:
+        samples = doc.get("canary_samples", {})
+        need(samples.get("under", 1) == 0, f"canary under-admissions {samples}")
+        need(samples.get("over", 0) > 30, f"canary over-limit samples {samples}")
+    if mode == "rolling":
+        restarts = doc.get("restarts", [])
+        need(len(restarts) == 3 and all(r["drain_exit"] == 0 for r in restarts),
+             f"restarts {restarts}")
+        need(doc.get("keys_moved_total", 0) > 0, "no key moved")
+        need(doc.get("handoff_lag_max_s") is not None
+             and doc["handoff_lag_max_s"] <= doc.get("handoff_lag_bound_s", 0),
+             f"handoff lag {doc.get('handoff_lag_max_s')} s")
+    if mode == "restore":
+        cycles = doc.get("cycles", [])
+        need(len(cycles) >= 1, "no restore cycle")
+        need(all(c["restored_windows_total"] > 0 and c["restore_lag_s"] is not None
+                 for c in cycles), f"cycles {cycles}")
+    return bad
+
+
+def discovery_soak(card: str) -> dict:
+    """Leg (b): the port's chaos soak (cli/chaos_soak.py) in each mode with
+    --backend tpu, three daemons of the exact-tier deployment a mode, in a
+    process of its own; each mode's JSON on a line of its own, held to the
+    JAX tests' gates."""
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = tempfile.mkdtemp(prefix="chip-smoke-soak-")
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    docs = {}
+    for mode, seconds in SOAK_MODES:
+        path = os.path.join(out_dir, f"chaos_{mode}.json")
+        t = time.monotonic()
+        r = subprocess.run([sys.executable, "-m", "gubernator_tpu_torch.cli.chaos_soak",
+                            "--mode", mode, "--seconds", str(seconds), "--backend", "tpu",
+                            "--json", path], cwd=root, env=env, capture_output=True,
+                           text=True, timeout=seconds + 300)
+        wall = time.monotonic() - t
+        doc = json.load(open(path)) if os.path.exists(path) else {}
+        emit(dict(phase="discovery", leg="soak", mode=mode, card=card, rc=r.returncode,
+                  wall_s=wall, doc=doc))
+        bad = _soak_gates(mode, doc)
+        if r.returncode != 0 or bad or doc.get("backend") != "tpu":
+            sys.stderr.write(r.stderr[-6000:])
+            fail(f"discovery soak {mode}: exit {r.returncode}, gates failed: {bad}")
+        docs[mode] = dict(wall_s=wall, doc=doc)
+    return docs
+
+
+def discovery_path(card: str) -> dict:
+    """The discovery phase: legs (a) and (c) (the ring through etcd), then
+    leg (b) (the soak's three modes)."""
+    t0 = time.monotonic()
+    ring = discovery_ring(card)
+    soak = discovery_soak(card)
+    seconds = time.monotonic() - t0
+    summary = dict(
+        seconds=seconds, budget_s=DISCOVERY_BUDGET_S, join_s=ring["join_s"],
+        departure_s=ring["departure_s"], rejoin_s=ring["rejoin_s"],
+        launches=ring["launches"],
+        kill={k: soak["kill"]["doc"].get(k) for k in (
+            "boot_s", "breaker_trip_s", "takeover_first_over_s", "recovery_s",
+            "reconcile_lag_s", "drain_s", "error_rate", "faults_injected")},
+        rolling=dict(keys_moved_total=soak["rolling"]["doc"].get("keys_moved_total"),
+                     handoff_lag_max_s=soak["rolling"]["doc"].get("handoff_lag_max_s"),
+                     canary_samples=soak["rolling"]["doc"].get("canary_samples"),
+                     restarts=soak["rolling"]["doc"].get("restarts")),
+        restore=[{k: c.get(k) for k in ("kill_to_serving_s", "respawn_to_serving_s",
+                                        "restore_lag_s", "restored_windows_total")}
+                 for c in soak["restore"]["doc"].get("cycles", [])],
+    )
+    emit(dict(phase="discovery", card=card, **summary))
+    return dict(launches=ring["launches"], seconds=seconds)
 
 
 def balanced_addresses(ring_hash, n: int, lo: float = 0.2, hi: float = 0.5) -> list:
@@ -3762,6 +4067,7 @@ def main() -> int:
     durability = durability_path(card, ladder, writeback)
     workloads = workloads_path(card, writeback, doors["decisions_per_s"],
                                cluster["window"]["decisions_per_s"])
+    discovery = discovery_path(card)
     floor_launches = writeback.add_one.launches
     if floor_launches:
         fail(f"the copy floor's kernel launched {floor_launches} times on the paths")
@@ -3788,7 +4094,8 @@ def main() -> int:
                           "geb_checked": geb_checked["launches"], "chain": chain["launches"],
                           "durability": durability["launches"],
                           "workloads": workloads["launches"],
-                          "daemons": workloads["daemon_launches"]},
+                          "daemons": workloads["daemon_launches"],
+                          "discovery": discovery["launches"]},
     ), dict(
         # the copy floor runs on no serving path: it measures the pass
         # over the store that bounds the writeback from below

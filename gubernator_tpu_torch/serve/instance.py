@@ -599,7 +599,19 @@ class Instance:
                 )
                 continue
             try:
-                succ = self.picker.get_successor(r.hash_key())
+                if self.picker.get_peer_by_host(peer.host) is None:
+                    # the ring changed under the forward and dropped its
+                    # owner (set_peers closed the client mid-batch): the
+                    # node the hash elects on that removal is the key's
+                    # owner in the ring as it is now, and the one the
+                    # departing owner's drain handed the window to. The
+                    # current ring's successor would be the node after
+                    # it, holding neither. (The reference takes the
+                    # current ring's successor here too; ROADMAP Queue 3
+                    # item 2 lists this divergence.)
+                    succ = self.picker.get(r.hash_key())
+                else:
+                    succ = self.picker.get_successor(r.hash_key())
             except Exception:
                 succ = None
             if succ is None or succ.host == peer.host:

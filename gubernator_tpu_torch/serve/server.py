@@ -4,12 +4,13 @@
 Wires config -> backend -> Instance -> servers, mirroring the reference
 daemon's shape (reference cmd/gubernator/main.go:40-147): gRPC on one
 listener, an HTTP gateway exposing POST /v1/GetRateLimits and
-GET /v1/HealthCheck as JSON plus GET /metrics for Prometheus, static
-discovery pushing the peer list into Instance.set_peers, and graceful
-shutdown. The GEB frame doors (serve/edge_bridge.py) ride beside them:
-the client-facing GEB door (GUBER_GEB_PORT), POST /v1/geb on the HTTP
-port, and the edge bridge (GUBER_EDGE_SOCKET, GUBER_EDGE_TCP) with its
-shared-memory lane. The backend is the port's own
+GET /v1/HealthCheck as JSON plus GET /metrics for Prometheus, discovery
+(etcd, else Kubernetes Endpoints, else the static peer list; see
+serve/discovery.py) pushing the peer list into Instance.set_peers, and
+graceful shutdown. The GEB frame doors (serve/edge_bridge.py) ride
+beside them: the client-facing GEB door (GUBER_GEB_PORT), POST /v1/geb
+on the HTTP port, and the edge bridge (GUBER_EDGE_SOCKET,
+GUBER_EDGE_TCP) with its shared-memory lane. The backend is the port's own
 (serve/backends.make_backend) on `device`: cuda unless the caller asks
 for another.
 
@@ -20,9 +21,9 @@ Instance starts and before any door opens, and the drain runs their
 rescale handoff, replication flush and final checkpoint.
 
 Not ported yet, and refused when the server is built rather than
-ignored (`refuse_not_ported`): etcd and Kubernetes discovery, and the
-multi-host mesh (GUBER_DIST_COORDINATOR); `make_backend` refuses the
-backends that are not ported (mesh, multihost).
+ignored (`refuse_not_ported`): the multi-host mesh
+(GUBER_DIST_COORDINATOR); `make_backend` refuses the backends that are
+not ported (mesh, multihost).
 """
 
 from __future__ import annotations
@@ -54,22 +55,13 @@ log = logging.getLogger("gubernator_tpu_torch.server")
 
 
 def refuse_not_ported(conf: ServerConfig) -> None:
-    """Raise ValueError naming every door or manager the config selects
-    that the port does not carry yet."""
-    asked = [
-        name
-        for name, on in (
-            ("GUBER_ETCD_ENDPOINTS (etcd discovery)", conf.etcd_endpoints),
-            ("GUBER_K8S_ENDPOINTS_SELECTOR (Kubernetes discovery)",
-             conf.k8s_endpoints_selector),
-            ("GUBER_DIST_COORDINATOR (the multi-host mesh)",
-             conf.dist_coordinator),
-        )
-        if on
-    ]
-    if asked:
+    """Raise ValueError if the config selects the multi-host mesh
+    (GUBER_DIST_COORDINATOR), the one server knob the port does not
+    carry yet."""
+    if conf.dist_coordinator:
         raise ValueError(
-            "not ported to gubernator_tpu_torch yet: " + "; ".join(asked)
+            "not ported to gubernator_tpu_torch yet: "
+            "GUBER_DIST_COORDINATOR (the multi-host mesh)"
         )
 
 
@@ -948,14 +940,37 @@ class Server:
     # -- discovery ----------------------------------------------------------
 
     async def _start_discovery(self) -> None:
-        from gubernator_tpu_torch.serve.discovery import StaticPool
-
         advertise = self.conf.resolved_advertise()
-        self._pool = StaticPool(
-            peers=self.conf.peers or [advertise],
-            advertise=advertise,
-            on_update=self._on_peers,
-        )
+        if self.conf.etcd_endpoints:
+            from gubernator_tpu_torch.serve.discovery import EtcdPool
+
+            self._pool = EtcdPool(
+                endpoints=self.conf.etcd_endpoints,
+                prefix=self.conf.etcd_prefix,
+                advertise=advertise,
+                on_update=self._on_peers,
+                tls_cert=self.conf.etcd_tls_cert,
+                tls_key=self.conf.etcd_tls_key,
+                tls_ca=self.conf.etcd_tls_ca,
+            )
+        elif self.conf.k8s_endpoints_selector:
+            from gubernator_tpu_torch.serve.discovery import K8sPool
+
+            self._pool = K8sPool(
+                namespace=self.conf.k8s_namespace,
+                selector=self.conf.k8s_endpoints_selector,
+                pod_ip=self.conf.k8s_pod_ip,
+                pod_port=self.conf.k8s_pod_port,
+                on_update=self._on_peers,
+            )
+        else:
+            from gubernator_tpu_torch.serve.discovery import StaticPool
+
+            self._pool = StaticPool(
+                peers=self.conf.peers or [advertise],
+                advertise=advertise,
+                on_update=self._on_peers,
+            )
         await self._pool.start()
 
     async def _on_peers(self, peers) -> None:

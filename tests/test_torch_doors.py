@@ -470,8 +470,7 @@ def test_daemon_without_a_gpu_exits_nonzero_with_the_engines_message():
 
 
 @pytest.mark.parametrize("knob", [
-    "GUBER_ETCD_ENDPOINTS=127.0.0.1:2379",
-    "GUBER_K8S_ENDPOINTS_SELECTOR=app=guber", "GUBER_DIST_COORDINATOR=127.0.0.1:7002",
+    "GUBER_DIST_COORDINATOR=127.0.0.1:7002",
     "GUBER_BACKEND=mesh", "GUBER_BACKEND=multihost",
 ])
 def test_unported_doors_and_managers_are_refused_at_boot(knob):
@@ -502,6 +501,27 @@ def test_frame_doors_are_no_longer_refused_at_boot(knob):
     )
     refuse_not_ported(conf)
     Server(conf, device="cpu")
+
+
+@pytest.mark.parametrize("knob", [
+    "GUBER_ETCD_ENDPOINTS=127.0.0.1:<dead>", "GUBER_K8S_ENDPOINTS_SELECTOR=app=guber",
+])
+def test_discovery_knobs_are_no_longer_refused_at_boot(knob):
+    """etcd and Kubernetes discovery are ported: a Server builds with
+    either knob and contacts neither etcd nor the API server before
+    start() (the pool is made there; a dead etcd endpoint costs nothing
+    here), and `refuse_not_ported` passes the config."""
+    from gubernator_tpu_torch.serve.config import config_from_env
+    from gubernator_tpu_torch.serve.server import Server, refuse_not_ported
+
+    (dead,) = free_ports(1)
+    key, _, value = knob.partition("=")
+    conf = config_from_env({"GUBER_GRPC_ADDRESS": "127.0.0.1:7003", "GUBER_STORE_MIB": "8",
+                            key: value.replace("<dead>", str(dead))})
+    assert conf.etcd_endpoints or conf.k8s_endpoints_selector
+    refuse_not_ported(conf)
+    server = Server(conf, device="cpu")
+    assert server._pool is None
 
 
 @pytest.mark.parametrize("knob", [

@@ -156,17 +156,19 @@ def test_import_loads_no_jax_and_nothing_of_the_jax_package():
         "from gubernator_tpu_torch.parallel.sharded import TorchEngine\n"
         "from gubernator_tpu_torch.serve import (\n"
         "    aio, backends, batcher, breaker, checkpoint, config, discovery,\n"
-        "    edge_bridge, faults, global_mgr, instance, logging_setup, metrics, peers,\n"
-        "    prep, promoter, replication, rescale, server, shedcache, shm, stages,\n"
-        "    tracing)\n"
+        "    edge_bridge, etcd_client, faults, global_mgr, instance, k8s_client,\n"
+        "    logging_setup, metrics, peers, prep, promoter, replication, rescale,\n"
+        "    server, shedcache, shm, stages, tracing)\n"
         "from gubernator_tpu_torch import client, client_geb, cluster, endpoints\n"
         "from gubernator_tpu_torch.native import edge_build, hashlib_native\n"
         "from gubernator_tpu_torch.core.hashing import using_native_hash\n"
         "assert using_native_hash()\n"
         "from gubernator_tpu_torch.api import convert, grpc_glue\n"
-        "from gubernator_tpu_torch.api.proto.gen import gubernator_pb2, peers_pb2\n"
+        "from gubernator_tpu_torch.api.proto.gen import (\n"
+        "    etcd_mvcc_pb2, etcd_rpc_pb2, gubernator_pb2, peers_pb2)\n"
         "from gubernator_tpu_torch.cli import (\n"
-        "    ablate_writeback, bench_serving, cluster_main, daemon, keystreams, loadgen)\n"
+        "    ablate_writeback, bench_serving, chaos_soak, cluster_main, daemon,\n"
+        "    fake_etcd, keystreams, loadgen)\n"
         "assert bench_serving.measure_tail_error(batches=1, device='cpu')['under_counts'] == 0\n"
         "keystreams.stream_pool('flash-crowd', 1 << 20, 64)\n"
         "loadgen._shed_pool(0.5, 8, chain_depth=3)\n"
@@ -191,6 +193,12 @@ def test_import_loads_no_jax_and_nothing_of_the_jax_package():
         "x = backends.make_backend(config.config_from_env({'GUBER_BACKEND': 'exact'}))\n"
         "x.decide([gubernator_tpu_torch.RateLimitReq("
         "name='a', unique_key='b', hits=1, limit=1, duration=1000)], [False])\n"
+        "etcd = fake_etcd.FakeEtcd().start()\n"
+        "c = etcd_client.VendoredEtcdClient(port=etcd.port)\n"
+        "c.put('/p/a', 'a', lease=c.lease(30))\n"
+        "assert [v for v, _ in c.get_prefix('/p/')] == [b'a']\n"
+        "c.close(); etcd.stop()\n"
+        "assert len(set(chaos_soak.free_ports(3))) == 3\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'gubernator_tpu')"
         " or m.startswith(('jax.', 'jaxlib.', 'gubernator_tpu.'))]\n"
         "assert not bad, bad\n"
