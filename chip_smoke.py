@@ -8,8 +8,9 @@ nodes forwarding to each other, the GEB frame doors with the compiled
 edge in front, hierarchical quota chains, durability: checkpoint and
 restore, bucket replication and ring rescale, the workloads: the
 serving benchmarks' scenarios and three daemons driven by the load
-generator, and discovery: daemons finding each other through etcd and
-the chaos soak's three modes), at two of the repo's deployments:
+generator, discovery: daemons finding each other through etcd and the
+chaos soak's three modes, and the mesh policy: the key space sharded over
+1-8 shards of the card), at two of the repo's deployments:
 
 - exact tier, "Zipfian 10M keys, 1 GiB store" (GUBER_SKETCH=0): a slot
   store of int32[2^21, 128] (GUBER_STORE_MIB=1024), zipf(a=1.2) ids over
@@ -236,15 +237,45 @@ Phases, one JSON line each:
              and > 30 over-limit samples, three drains exiting 0 with keys
              moved and the handoff lag within its bound, every restore
              cycle restoring windows);
-14. kernels  the contract line over every kernel of the path.
+14. mesh     the mesh policy on the one card (MeshEngine: each shard a
+             store and sub-sketch of its own, every batch presorted by
+             (owner, bucket, fingerprint) into per-shard sub-batches, each
+             shard's decide ending in its own writeback launch): (a) the
+             two-tier deployment as 4 shards ([4, 2^20, 128] store, [4, 2,
+             2^25] sketch, 3 GiB): 16 batches of 32,768 zipf100m keys whose
+             answers, shards, sub-sketches and stats equal the port's CPU
+             MeshEngine's, then the flat engine on the same batches (the
+             same answers) for its rate; (b) a 1-shard mesh against the
+             flat engine, 8 batches, bytes and stats equal; (c) BASELINE
+             config 4's exact store as 8 shards (8 GiB): 16 zipf10m
+             batches answered as the flat exact engine answers them,
+             nothing evicted, then apply_global_hits and sync_globals on
+             4,096 keys equal to the flat engine's, a replica of each
+             sampled key on every shard, and non-owner peeks answered from
+             them; (d) the serving core over MeshBackend at 4 shards, then
+             the flat backend, 10 s each of zipf groups of 4,096 (arrival
+             prep), and a `GUBER_BACKEND=mesh` daemon (GUBER_SHARDS=0: the
+             one card, one shard) answering 5 s of the doors phase's gRPC
+             traffic with no error, launches balanced, SIGTERM exit 0; (e)
+             flat -> 4 -> 2 -> flat: 65,536 live windows (all four
+             algorithms, an eighth OVER) moved at each step with every
+             column preserved; (f) `bench_serving --scenario shard --shards
+             1,2,4` (a flat row, then 1, 2, 4 shards of the card: routing
+             and per-shard dispatch, not chip scaling). Each leg prints
+             decisions/s and batch ms beside the flat engine's, and peak
+             memory; its writeback launches must equal n_shards x (decides
+             + install and gossip chunks) of the engines it built (a GLOBAL
+             sync step is one gossip and one install chunk);
+15. kernels  the contract line over every kernel of the path.
 
 The writeback kernel's launch count is set to 0 before each in-process
 path (each durability leg, each workloads scenario) and read after it (the copy floor's and the ablation's are set to 0
 before the first path and read after the last: they run on none, so they
 must stay 0); each must equal that path's decides plus
-window-install (and, in the cluster, gossip-charge) chunks, plus, in the
-durability legs (b) and (c) and the workloads scenarios, two launches a
-ladder rung for each engine warmup (one decide and one install a rung). A
+window-install (and, in the cluster, gossip-charge) chunks, times the
+engine's shards on the mesh legs, plus, in the durability legs (b) and
+(c) and the workloads scenarios, each engine warmup's own (the flat
+engine's: one decide and one install a ladder rung). A
 daemon's count lives in its own process: it is read from /v1/debug/stats
 just before and just after the doors window (and each workloads leg), and
 the difference must equal
@@ -1106,7 +1137,8 @@ async def _serving(card, writeback, engine_rate):
               max_memory_allocated=torch.cuda.max_memory_allocated()))
     del eng, backend, inst
     torch.cuda.empty_cache()
-    return dict(launches=launches, decides=decides, install_chunks=chunks)
+    return dict(launches=launches, decides=decides, install_chunks=chunks,
+                decisions_per_s=window["decisions_per_s"])
 
 
 def batch_histogram() -> tuple:
@@ -2856,9 +2888,11 @@ CKPT_INTERVAL_MS = 250
 
 
 def _warmup_launches(engine) -> int:
-    """writeback launches of one engine warmup: one decide and one
-    one-chunk window install per ladder rung (TorchEngine.warmup)."""
-    return 2 * len(engine.buckets)
+    """writeback launches of an engine's last warmup, which the warmup
+    records before it zeroes the counts: n_shards x (its decides + install
+    and gossip chunks); on the flat engine one decide and one one-chunk
+    window install a ladder rung (TorchEngine.warmup)."""
+    return engine.warmup_launches
 
 
 def _same_export(a: dict, b: dict, what: str, skip=()) -> None:
@@ -3365,36 +3399,37 @@ LOADGEN_LEGS = (
 
 
 class EngineCensus:
-    """Every TorchEngine built and every warmup run while it is open: the
-    writeback launches those engines owe, their decides plus install and
-    gossip chunks, plus two a ladder rung for each warmup (one decide and
-    one install; the warmup then zeroes the engine's counts)."""
+    """Every engine built (flat or mesh) and every warmup run while it is
+    open: the writeback launches those engines owe, n_shards x (their
+    decides plus install and gossip chunks), plus each warmup's own
+    (_warmup_launches; the warmup then zeroes the engine's counts)."""
 
     def __enter__(self):
-        from gubernator_tpu_torch.parallel.sharded import TorchEngine
+        from gubernator_tpu_torch.parallel.sharded import MeshEngine, TorchEngine
 
-        self.cls, self.engines, self.warmups = TorchEngine, [], 0
-        self.saved = (TorchEngine.__init__, TorchEngine.warmup)
-        init, warmup = self.saved
+        self.engines, self.warmups = [], 0
+        self.saved = [(cls, cls.__init__, cls.warmup) for cls in (TorchEngine, MeshEngine)]
+        for cls, init, warmup in self.saved:
+            def counted_init(eng, *a, _init=init, **kw):
+                _init(eng, *a, **kw)
+                self.engines.append(eng)
 
-        def counted_init(eng, *a, **kw):
-            init(eng, *a, **kw)
-            self.engines.append(eng)
+            def counted_warmup(eng, *a, _warmup=warmup, **kw):
+                _warmup(eng, *a, **kw)
+                self.warmups += _warmup_launches(eng)
 
-        def counted_warmup(eng, *a, **kw):
-            warmup(eng, *a, **kw)
-            self.warmups += _warmup_launches(eng)
-
-        self.cls.__init__, self.cls.warmup = counted_init, counted_warmup
+            cls.__init__, cls.warmup = counted_init, counted_warmup
         return self
 
     def __exit__(self, *exc):
-        self.cls.__init__, self.cls.warmup = self.saved
+        for cls, init, warmup in self.saved:
+            cls.__init__, cls.warmup = init, warmup
 
     def owed(self) -> dict:
         return dict(engines=len(self.engines),
-                    decides=sum(e.stats.batches for e in self.engines),
-                    chunks=sum(e.install_chunks + e.gossip_chunks for e in self.engines),
+                    decides=sum(e.n * e.stats.batches for e in self.engines),
+                    chunks=sum(e.n * (e.install_chunks + e.gossip_chunks)
+                               for e in self.engines),
                     warmups=self.warmups)
 
 
@@ -3887,6 +3922,502 @@ def discovery_path(card: str) -> dict:
     return dict(launches=ring["launches"], seconds=seconds)
 
 
+# -- the mesh phase: the key space over shards of the one card -----------------
+
+MESH_SHARDS = 4  # leg (a): the serving deployment a shard, 3 GiB on the card
+MESH_EXACT_SHARDS = 8  # leg (c): BASELINE config 4's 1 GiB store a shard, 8 GiB
+MESH_BATCHES = 16  # batches of 32,768 in legs (a) and (c)
+MESH_ONE_BATCHES = 8  # leg (b)
+MESH_GLOBAL_KEYS = 4096  # leg (c)'s GLOBAL keys
+MESH_REPART_BATCHES = 2  # leg (e): 65,536 live windows moved flat -> 4 -> 2 -> flat
+MESH_REPART_ID_BASE = 1 << 41  # key ids no other phase uses
+MESH_DAEMON_S = 5.0  # leg (d)'s gRPC window through the one-shard mesh daemon
+MESH_SHARD_SECONDS = 2.0  # leg (f): each rung's window of the shard scenario
+
+
+def _owed(engines) -> int:
+    """writeback launches these engines owe on the card: n_shards x (their
+    decides + install and gossip chunks)."""
+    return sum(e.n * (e.stats.batches + e.install_chunks + e.gossip_chunks) for e in engines)
+
+
+def _mesh_launches(writeback, engines, what: str) -> int:
+    """The leg's writeback launches (the count was set to 0 at its start)
+    held against what its engines owe."""
+    launches = writeback.writeback_add.launches
+    owed = _owed(engines)
+    if launches != owed or launches == 0:
+        fail(f"mesh {what}: writeback launched {launches} times, the engines owe {owed} "
+             "(n_shards x (decides + install and gossip chunks))")
+    return launches
+
+
+def _timed_decides(eng, pool, fields, now: int, step: int):
+    """Each batch of `pool` decided, host-timed with the card drained
+    before it; returns (outputs, batch ms, the last now)."""
+    outs, ms = [], []
+    for kh in pool:
+        now += step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(eng.decide_arrays(kh, *fields, now))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return outs, ms, now
+
+
+def _rate(ms: list) -> dict:
+    return dict(decisions_per_s=len(ms) * DEPTH / (sum(ms) / 1e3),
+                batch_ms_median=statistics.median(ms), batch_ms_max=max(ms))
+
+
+def _same_outs(a, b, what: str) -> None:
+    for i, (x, y) in enumerate(zip(a, b)):
+        for name, u, v in zip(("status", "limit", "remaining", "reset"), x, y):
+            if not np.array_equal(np.asarray(u, np.int64), np.asarray(v, np.int64)):
+                fail(f"mesh {what}: batch {i} {name} differs")
+
+
+def _same_shards(card_eng, cpu_eng, what: str) -> None:
+    """Every shard's store and sub-sketch bytes, and the stats, equal."""
+    for s, (a, b) in enumerate(zip(card_eng.stores, cpu_eng.stores)):
+        if not torch.equal(a.data.cpu(), b.data):
+            fail(f"mesh {what}: shard {s}'s store differs from the CPU run")
+    for s, (a, b) in enumerate(zip(card_eng.sketches or [], cpu_eng.sketches or [])):
+        if not torch.equal(a.data.cpu(), b.data):
+            fail(f"mesh {what}: shard {s}'s sketch differs from the CPU run")
+    if card_eng.stats.snapshot() != cpu_eng.stats.snapshot():
+        fail(f"mesh {what}: stats {card_eng.stats.snapshot()} != {cpu_eng.stats.snapshot()}")
+
+
+def mesh_two_tier_leg(card: str, ladder, writeback) -> dict:
+    """(a) The two-tier deployment as 4 shards of one card (a
+    [4, 2^20, 128] store and a [4, 2, 2^25] sketch): 16 batches of 32,768
+    zipf100m keys, every answer, shard, sub-sketch and the stats equal to
+    the port's CPU MeshEngine on the same batches; then the flat engine on
+    the card decides the same batches (the same answers: no tier pressure)
+    for its rate beside the mesh's."""
+    from gubernator_tpu_torch.core.engine import TorchEngine
+    from gubernator_tpu_torch.core.sketches import derive_two_tier_config
+    from gubernator_tpu_torch.parallel.sharded import MeshEngine
+
+    config, skc = derive_two_tier_config(1024)
+    pool = zipf_hashes(MESH_BATCHES * DEPTH, seed=71, key_space=KEY_SPACE_100M).reshape(
+        MESH_BATCHES, DEPTH)
+    fields = (np.full(DEPTH, HITS, np.int64), np.full(DEPTH, LIMIT, np.int64),
+              np.full(DEPTH, DURATION_100M, np.int64), np.zeros(DEPTH, np.int32),
+              np.zeros(DEPTH, bool))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = MeshEngine(config, devices=["cuda:0"] * MESH_SHARDS, buckets=ladder, sketch=skc)
+    shapes = dict(store=[mesh.n] + list(mesh.stores[0].data.shape),
+                  sketch=[mesh.n] + list(mesh.sketches[0].data.shape))
+    on_card = mesh.n * (mesh.stores[0].data.numel() + mesh.sketches[0].data.numel()) * 4
+    if shapes != dict(store=[4, 1 << 20, 128], sketch=[4, 2, 1 << 25]):
+        fail(f"mesh two-tier: shapes {shapes}")
+    cpu = MeshEngine(config, devices=["cpu"] * MESH_SHARDS, buckets=ladder, sketch=skc)
+    writeback.writeback_add.launches = 0
+    outs, ms, _ = _timed_decides(mesh, pool, fields, T0, 2)
+    launches = _mesh_launches(writeback, [mesh], "two-tier")
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.monotonic()
+    now = T0
+    ref = []
+    for kh in pool:
+        now += 2
+        ref.append(cpu.decide_arrays(kh, *fields, now))
+    cpu_s = time.monotonic() - t0
+    _same_outs(outs, ref, "two-tier vs the CPU")
+    _same_shards(mesh, cpu, "two-tier")
+    stats = mesh.stats.snapshot()
+    del cpu, mesh
+    torch.cuda.empty_cache()
+    flat = TorchEngine(config, buckets=ladder, sketch=skc)
+    flat_outs, flat_ms, _ = _timed_decides(flat, pool, fields, T0, 2)
+    _same_outs(outs, flat_outs, "two-tier vs the flat engine")
+    del flat
+    torch.cuda.empty_cache()
+    rec = dict(phase="mesh", leg="two_tier", card=card, shards=MESH_SHARDS, shapes=shapes,
+               bytes_on_card=on_card, batches=MESH_BATCHES, batch=DEPTH, **_rate(ms),
+               flat=_rate(flat_ms), launches=launches,
+               stats=stats, cpu_identical=True,
+               flat_identical=True, cpu_seconds=cpu_s, max_memory_allocated=peak)
+    rec["mesh_over_flat"] = rec["decisions_per_s"] / rec["flat"]["decisions_per_s"]
+    emit(rec)
+    return rec
+
+
+def mesh_one_shard_leg(card: str, ladder, writeback) -> dict:
+    """(b) A 1-shard mesh on the card against the flat TorchEngine: the
+    same batches give the same answers, store and sketch bytes and
+    stats."""
+    from gubernator_tpu_torch.core.engine import TorchEngine
+    from gubernator_tpu_torch.core.sketches import derive_two_tier_config
+    from gubernator_tpu_torch.parallel.sharded import MeshEngine
+
+    config, skc = derive_two_tier_config(1024)
+    pool = zipf_hashes(MESH_ONE_BATCHES * DEPTH, seed=73, key_space=KEY_SPACE_100M).reshape(
+        MESH_ONE_BATCHES, DEPTH)
+    fields = (np.full(DEPTH, HITS, np.int64), np.full(DEPTH, LIMIT, np.int64),
+              np.full(DEPTH, DURATION_100M, np.int64),
+              (np.arange(DEPTH) % 4).astype(np.int32), np.zeros(DEPTH, bool))
+    torch.cuda.reset_peak_memory_stats()
+    one = MeshEngine(config, devices=["cuda:0"], buckets=ladder, sketch=skc)
+    flat = TorchEngine(config, buckets=ladder, sketch=skc)
+    writeback.writeback_add.launches = 0
+    outs, ms, _ = _timed_decides(one, pool, fields, T0, 2)
+    flat_outs, flat_ms, _ = _timed_decides(flat, pool, fields, T0, 2)
+    launches = _mesh_launches(writeback, [one, flat], "one shard")
+    _same_outs(outs, flat_outs, "one shard vs flat")
+    if not (torch.equal(one.stores[0].data, flat.store.data)
+            and torch.equal(one.sketches[0].data, flat.sketch.data)
+            and one.stats.snapshot() == flat.stats.snapshot()):
+        fail("mesh one shard: store, sketch or stats differ from the flat engine's")
+    rec = dict(phase="mesh", leg="one_shard", card=card, batches=MESH_ONE_BATCHES,
+               **_rate(ms), flat=_rate(flat_ms), launches=launches,
+               stats=one.stats.snapshot(), flat_identical=True,
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    del one, flat
+    torch.cuda.empty_cache()
+    emit(rec)
+    return rec
+
+
+def mesh_exact_leg(card: str, ladder, writeback) -> dict:
+    """(c) BASELINE config 4's exact store as 8 shards of the card
+    (8 x int32[2^21, 128], 8 GiB): 16 zipf10m batches answered as the flat
+    exact engine answers them (nothing evicted or dropped on either), then
+    GLOBAL: apply_global_hits and sync_globals on 4,096 keys equal the flat
+    engine's, every shard holds a replica of each sampled key, and
+    non-owner (gnp) peeks answer from the replicas as the flat engine's
+    owner state."""
+    from gubernator_tpu_torch.core.engine import TorchEngine
+    from gubernator_tpu_torch.core.store import (
+        L_TAG, LANES, bucket_index, derive_store_config, fingerprints, key_hash_tensor,
+    )
+    from gubernator_tpu_torch.parallel.sharded import MeshEngine
+
+    config = derive_store_config(mib=1024)
+    pool = zipf_hashes(MESH_BATCHES * DEPTH, seed=79).reshape(MESH_BATCHES, DEPTH)
+    fields = (np.full(DEPTH, HITS, np.int64), np.full(DEPTH, LIMIT, np.int64),
+              np.full(DEPTH, DURATION, np.int64), np.zeros(DEPTH, np.int32),
+              np.zeros(DEPTH, bool))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = MeshEngine(config, devices=["cuda:0"] * MESH_EXACT_SHARDS, buckets=ladder)
+    flat = TorchEngine(config, buckets=ladder)
+    on_card = mesh.n * mesh.stores[0].data.numel() * 4
+    writeback.writeback_add.launches = 0
+    outs, ms, now = _timed_decides(mesh, pool, fields, T0, 2)
+    flat_outs, flat_ms, _ = _timed_decides(flat, pool, fields, T0, 2)
+    _same_outs(outs, flat_outs, "exact vs flat")
+    for e, name in ((mesh, "mesh"), (flat, "flat")):
+        st = e.stats.snapshot()
+        if st["evictions"] or st["dropped"]:
+            fail(f"mesh exact: the {name} engine evicted or dropped: {st}")
+    # GLOBAL: the owner charge + combine + replica install against the flat
+    kh = np.unique(pool[0])[:MESH_GLOBAL_KEYS]
+    n = kh.shape[0]
+    g = (np.full(n, 2, np.int64), np.full(n, LIMIT, np.int64), np.full(n, DURATION, np.int64))
+    now += 2
+    t0 = time.perf_counter()
+    a = mesh.apply_global_hits(kh, *g, now)
+    apply_ms = (time.perf_counter() - t0) * 1e3
+    _same_outs([a], [flat.apply_global_hits(kh, *g, now)], "apply_global_hits vs flat")
+    now += 2
+    t0 = time.perf_counter()
+    mesh.sync_globals(kh, g[1], g[2], now)
+    torch.cuda.synchronize()
+    sync_ms = (time.perf_counter() - t0) * 1e3
+    flat.sync_globals(kh, g[1], g[2], now)
+    now += 2
+    peek = (kh, np.zeros(n, np.int64), g[1], g[2], np.zeros(n, np.int32), np.ones(n, bool))
+    _same_outs([mesh.decide_arrays(*peek, now)], [flat.decide_arrays(*peek, now)],
+               "gnp peeks vs flat")
+    sample = key_hash_tensor(kh[:64], "cuda")
+    fp = fingerprints(sample)
+    b = bucket_index(sample, config.slots)
+    for s, st in enumerate(mesh.stores):
+        tags = st.data.index_select(0, b).view(64, -1, LANES)[:, :, L_TAG]
+        if not bool((tags == fp[:, None]).any(dim=1).all()):
+            fail(f"mesh exact: shard {s} lacks a replica of a GLOBAL key")
+    launches = _mesh_launches(writeback, [mesh, flat], "exact")
+    rec = dict(phase="mesh", leg="exact", card=card, shards=MESH_EXACT_SHARDS,
+               store_shape=[mesh.n] + list(mesh.stores[0].data.shape),
+               bytes_on_card=on_card, batches=MESH_BATCHES, batch=DEPTH, **_rate(ms),
+               flat=_rate(flat_ms), global_keys=n, apply_global_hits_ms=apply_ms,
+               sync_globals_ms=sync_ms, replicas_on_every_shard=True, flat_identical=True,
+               launches=launches,
+               stats=mesh.stats.snapshot(), gossip_chunks=mesh.gossip_chunks,
+               install_chunks=mesh.install_chunks,
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    rec["mesh_over_flat"] = rec["decisions_per_s"] / rec["flat"]["decisions_per_s"]
+    del mesh, flat
+    torch.cuda.empty_cache()
+    emit(rec)
+    return rec
+
+
+async def _mesh_serving_window(card, writeback, devices) -> dict:
+    """The serving deployment booted from SERVING_ENV (GUBER_BACKEND=mesh
+    on `devices`, else tpu), warmed, and one window of zipf100m groups of
+    4,096 through the batcher's array door (arrival prep on)."""
+    import asyncio
+
+    from gubernator_tpu_torch.api.types import PeerInfo
+    from gubernator_tpu_torch.serve.backends import make_backend
+    from gubernator_tpu_torch.serve.config import config_from_env
+
+    from gubernator_tpu_torch.serve.instance import Instance
+
+    env = dict(SERVING_ENV)
+    if devices is not None:
+        env["GUBER_BACKEND"] = "mesh"
+    conf = config_from_env(env)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    backend = make_backend(conf, devices=devices)
+    eng = backend.engine
+    t0 = time.monotonic()
+    await asyncio.to_thread(backend.warmup)
+    warm_s = time.monotonic() - t0
+    inst = Instance(conf, backend)
+    inst.start()
+    await inst.set_peers([PeerInfo(address=SERVING_ADDR, is_owner=True)])
+    if not inst.batcher.prep_at_arrival:
+        fail("mesh serving: arrival prep is off")
+    writeback.writeback_add.launches = 0
+    b0, c0 = eng.stats.batches, eng.install_chunks + eng.gossip_chunks
+    pool = zipf_hashes(ZIPF_POOL, seed=83, key_space=KEY_SPACE_100M)
+    window = await serving_window(inst, backend, pool, WINDOW_S)
+    await inst.stop()
+    owed = eng.n * (eng.stats.batches - b0 + eng.install_chunks + eng.gossip_chunks - c0)
+    launches = writeback.writeback_add.launches
+    if launches != owed or launches == 0:
+        fail(f"mesh serving: writeback launched {launches} times, owed {owed}")
+    out = dict(shards=eng.n, warmup_s=warm_s, warmup_launches=eng.warmup_launches,
+               launches=launches, max_memory_allocated=torch.cuda.max_memory_allocated(),
+               **{k: window[k] for k in ("decisions_per_s", "mean_device_batch",
+                                          "device_batches", "seconds")})
+    del eng, backend, inst
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_daemon(card: str) -> dict:
+    """(d, second half) `python -m gubernator_tpu_torch.cli.daemon` with
+    GUBER_BACKEND=mesh and GUBER_SHARDS=0 (every card: one shard here) at
+    the serving deployment: the boot names the partitioned engine, 5 s of
+    the doors phase's gRPC traffic (16 callers x 1,000 zipf100m items in a
+    client process) get no error answer, its launches over the window equal
+    n_shards x (decides + chunks), and SIGTERM drains it to exit 0."""
+    import os
+    import signal
+
+    g, h = free_ports(2)
+    target, base = f"127.0.0.1:{g}", f"http://127.0.0.1:{h}"
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, **SERVING_ENV)
+    env.update(GUBER_BACKEND="mesh", GUBER_SHARDS="0", GUBER_GRPC_ADDRESS=target,
+               GUBER_HTTP_ADDRESS=f"127.0.0.1:{h}",
+               PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.monotonic()
+    proc, log, reader = spawn_daemon(env, root)
+
+    def died(what):
+        proc.kill()
+        reader.join(5)
+        sys.stderr.write("".join(log[-60:]))
+        fail(f"mesh daemon: {what}")
+
+    try:
+        while not any("HTTP listening" in ln for ln in log):
+            if proc.poll() is not None:
+                died(f"the daemon exited with {proc.returncode} during boot")
+            if time.monotonic() - t0 > BOOT_S:
+                died("the daemon did not open its doors in time")
+            time.sleep(0.2)
+        boot_s = time.monotonic() - t0
+        policy = next((ln.strip() for ln in log if "partitioned engine:" in ln), "")
+        if "1-shard mesh" not in policy:
+            died(f"the boot log names no 1-shard mesh: {policy!r}")
+        s0 = quiet_stats(base, "mesh daemon")
+        window = client_window(target, 7, "mesh", MESH_DAEMON_S)
+        s1 = quiet_stats(base, "mesh daemon")
+        launches = (s1["kernel_launches"]["writeback_add"]
+                    - s0["kernel_launches"]["writeback_add"])
+        decides = s1["backend"]["batches"] - s0["backend"]["batches"]
+        chunks = sum(s1["engine_chunks"][k] - s0["engine_chunks"][k]
+                     for k in ("install_chunks", "gossip_chunks"))
+        n_shards = s1["engine_chunks"]["n_shards"]
+        if decides <= 0 or launches != n_shards * (decides + chunks):
+            died(f"writeback launched {launches} times for {n_shards} x ({decides} decides "
+                 f"+ {chunks} chunks)")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        reader.join(10)
+        if rc != 0:
+            died(f"the drain exited {rc}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+    return dict(boot_s=boot_s, policy=policy, launches=launches, decides=decides,
+                chunks=chunks, n_shards=n_shards, **window)
+
+
+def mesh_serving_leg(card: str, writeback, serving_rate: float) -> dict:
+    """(d) The serving core over MeshBackend at 4 shards of the card, then
+    the flat TorchBackend, each a 10 s window of the serving phase's zipf
+    groups (no prefill: both from an empty store); then the one-shard
+    GUBER_BACKEND=mesh daemon."""
+    import asyncio
+
+    mesh = asyncio.run(_mesh_serving_window(card, writeback, ["cuda:0"] * MESH_SHARDS))
+    flat = asyncio.run(_mesh_serving_window(card, writeback, None))
+    daemon = mesh_daemon(card)
+    rec = dict(phase="mesh", leg="serving", card=card, mesh=mesh, flat=flat,
+               mesh_over_flat=mesh["decisions_per_s"] / flat["decisions_per_s"],
+               serving_phase_decisions_per_s=serving_rate, daemon=daemon,
+               launches=mesh["launches"] + flat["launches"])
+    emit(rec)
+    return rec
+
+
+def mesh_repartition_leg(card: str, ladder, writeback) -> dict:
+    """(e) flat -> 4 shards -> 2 shards -> flat on the card: 65,536 live
+    windows (a quarter each token, leaky, sliding, GCRA; an eighth spent
+    OVER) move at each step with every column of every window preserved
+    (the export in key order equals the first's), each step's snapshot of
+    a sample equal, and a checked batch answered alike on the first and
+    the last engine."""
+    from gubernator_tpu_torch.core.engine import TorchEngine
+    from gubernator_tpu_torch.core.sketches import derive_two_tier_config
+    from gubernator_tpu_torch.parallel.policy import ShardingPolicy
+
+    config, skc = derive_two_tier_config(1024)
+    windows = MESH_REPART_BATCHES * DEPTH
+    kh = keystreams.hash_ids(np.arange(windows, dtype=np.int64) + MESH_REPART_ID_BASE)
+    algo = (np.arange(windows) % 4).astype(np.int32)
+    one = np.ones(DEPTH, np.int64)
+    no_gnp = np.zeros(DEPTH, bool)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    first = TorchEngine(config, buckets=ladder, sketch=skc)
+    writeback.writeback_add.launches = 0
+    now = T0
+    # every window created, then an eighth spent OVER and peeked (the
+    # token windows' sticky bit), as the durability phase fills its store
+    for c in range(MESH_REPART_BATCHES):
+        sl = slice(c * DEPTH, (c + 1) * DEPTH)
+        now += 1
+        first.decide_arrays(kh[sl], one, one * DUR_LIMIT, one * DURATION_100M, algo[sl],
+                            no_gnp, now)
+    eighth = slice(0, windows // 8)
+    part = np.ones(windows // 8, np.int64)
+    for hits in (DUR_LIMIT - 1, 0):
+        now += 1
+        first.decide_arrays(kh[eighth], part * hits, part * DUR_LIMIT, part * DURATION_100M,
+                            algo[eighth], np.zeros(windows // 8, bool), now)
+    now += 1
+    want = _by_key(first.export_windows(now))
+    if want["key_hash"].shape[0] != windows:
+        fail(f"mesh repartition: {want['key_hash'].shape[0]} live windows, not {windows}")
+    sample = kh[:: windows // 1024]
+    snap = first.snapshot_read(sample, now)
+    engines, steps, eng = [first], [], first
+    for label, policy in (("4", ShardingPolicy.over_mesh(["cuda:0"] * 4)),
+                          ("2", ShardingPolicy.over_mesh(["cuda:0"] * 2)),
+                          ("flat", ShardingPolicy.single("cuda"))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nxt = eng.repartition(policy, now=now)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        _same_export(_by_key(nxt.export_windows(now)), want, f"mesh repartition to {label}")
+        if nxt.snapshot_read(sample, now) != snap:
+            fail(f"mesh repartition to {label}: the snapshot of the sample differs")
+        steps.append(dict(to=label, shards=nxt.n, seconds=sec,
+                          install_chunks=nxt.install_chunks))
+        engines.append(nxt)
+        if eng is not first:
+            del eng
+        eng = nxt
+    if not eng.policy.flat:
+        fail("mesh repartition: the last step did not give the flat engine")
+    now += 1
+    check = (kh[:DEPTH], one, one * DUR_LIMIT, one * DURATION_100M, algo[:DEPTH], no_gnp, now)
+    _same_outs([eng.decide_arrays(*check)], [first.decide_arrays(*check)],
+               "repartition: the checked batch")
+    launches = _mesh_launches(writeback, engines, "repartition")
+    rec = dict(phase="mesh", leg="repartition", card=card, windows=windows, steps=steps,
+               every_window_preserved=True, launches=launches,
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    del engines, eng, first
+    torch.cuda.empty_cache()
+    emit(rec)
+    return rec
+
+
+def mesh_shard_scenario(card: str, writeback) -> dict:
+    """(f) The port's `bench_serving --scenario shard --shards 1,2,4` on the
+    card: a flat row, then 1, 2 and 4 shards of the one card (routing and
+    per-shard dispatch, not chip scaling), each rung's launches held
+    against the engines it built."""
+    import contextlib
+    import io
+
+    from gubernator_tpu_torch.cli import bench_serving as bs
+
+    argv = ["--scenario", "shard", "--shards", "1,2,4", "--seconds",
+            str(MESH_SHARD_SECONDS), "--json"]
+    stdout = io.StringIO()
+    writeback.writeback_add.launches = 0
+    t0 = time.monotonic()
+    with EngineCensus() as census, contextlib.redirect_stdout(stdout):
+        rc = bs.main(argv)
+    seconds = time.monotonic() - t0
+    launches = writeback.writeback_add.launches
+    owed = census.owed()
+    del census
+    torch.cuda.empty_cache()
+    lines = stdout.getvalue().strip().splitlines()
+    if rc != 0 or not lines:
+        fail(f"mesh shard scenario: exit {rc}, {len(lines)} lines of JSON")
+    doc = json.loads(lines[-1])
+    rows = doc["rows"]
+    if [(r["policy"], r["shards"]) for r in rows] != [("flat", 1), ("mesh", 1), ("mesh", 2),
+                                                     ("mesh", 4)]:
+        fail(f"mesh shard scenario: rows {[(r['policy'], r['shards']) for r in rows]}")
+    if any(r["decisions_per_sec"] <= 0 for r in rows):
+        fail("mesh shard scenario: a rung decided nothing")
+    want = owed["decides"] + owed["chunks"] + owed["warmups"]
+    if launches != want:
+        fail(f"mesh shard scenario: writeback launched {launches} times for {owed}")
+    rec = dict(phase="mesh", leg="shard_scenario", card=card, argv=argv, seconds=seconds,
+               launches=launches, **owed,
+               rows=[{k: r[k] for k in ("policy", "shards", "decisions_per_sec",
+                                        "mean_device_batch", "vs_flat", "warmup_seconds")}
+                     for r in rows], scope=doc["scope"], notes=doc["notes"])
+    emit(rec)
+    return rec
+
+
+def mesh_path(card: str, ladder, writeback, serving_rate: float) -> dict:
+    """The mesh policy on the one card, legs (a)-(f); each leg's writeback
+    launches held against n_shards x (decides + chunks) of its engines."""
+    t0 = time.monotonic()
+    legs = dict(two_tier=mesh_two_tier_leg(card, ladder, writeback),
+                one_shard=mesh_one_shard_leg(card, ladder, writeback),
+                exact=mesh_exact_leg(card, ladder, writeback),
+                serving=mesh_serving_leg(card, writeback, serving_rate),
+                repartition=mesh_repartition_leg(card, ladder, writeback),
+                shard_scenario=mesh_shard_scenario(card, writeback))
+    out = dict(launches={k: v["launches"] for k, v in legs.items()},
+               seconds=time.monotonic() - t0)
+    emit(dict(phase="mesh", leg="summary", card=card, **out))
+    return out
+
+
 def balanced_addresses(ring_hash, n: int, lo: float = 0.2, hi: float = 0.5) -> list:
     """n free localhost addresses whose ring arcs each own between `lo`
     and `hi` of the key space. The ring has one crc32 point per address,
@@ -4068,6 +4599,7 @@ def main() -> int:
     workloads = workloads_path(card, writeback, doors["decisions_per_s"],
                                cluster["window"]["decisions_per_s"])
     discovery = discovery_path(card)
+    mesh = mesh_path(card, ladder, writeback, serving["decisions_per_s"])
     floor_launches = writeback.add_one.launches
     if floor_launches:
         fail(f"the copy floor's kernel launched {floor_launches} times on the paths")
@@ -4095,7 +4627,8 @@ def main() -> int:
                           "durability": durability["launches"],
                           "workloads": workloads["launches"],
                           "daemons": workloads["daemon_launches"],
-                          "discovery": discovery["launches"]},
+                          "discovery": discovery["launches"],
+                          "mesh": mesh["launches"]},
     ), dict(
         # the copy floor runs on no serving path: it measures the pass
         # over the store that bounds the writeback from below

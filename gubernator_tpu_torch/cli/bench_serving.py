@@ -20,7 +20,7 @@ and the serving scenarios (zipf10m, zipf100m, key-churn, shed,
 flash-crowd, mixed-tenant-zipf, gcra-vs-token) through the serving stack
 booted as the daemon boots it.
 
-Usage: python -m gubernator_tpu_torch.cli.bench_serving [--backend tpu|exact]
+Usage: python -m gubernator_tpu_torch.cli.bench_serving [--backend tpu|mesh|exact]
        [--device cuda|cpu] [--seconds N] [--json]
 
 The port of gubernator_tpu/cli/bench_serving.py: the same scenarios,
@@ -33,9 +33,11 @@ and `device` fields name the card (torch.cuda.get_device_name). The
 port compiles nothing per rung, so there is no compile cache. Every
 call of the cluster suite carries a deadline (`CALL_TIMEOUT_S`, the HTTP
 calls' 10 s; the reference's gRPC calls have none), so a wedged door
-shows as counted errors instead of a hung run. Not ported, and refused
-loudly: the `shard` scenario and `--backend mesh`
-(multi-GPU, ROADMAP Queue 2 item 6).
+shows as counted errors instead of a hung run. The `shard` scenario
+runs its rungs in this process, each rung's shards laid over the local
+devices in turn (the reference spawns one process a rung to size its
+simulated XLA devices), and `--backend mesh` shards each node over the
+local devices.
 """
 
 from __future__ import annotations
@@ -60,14 +62,6 @@ EDGE_GRPC_PORT = 19981  # the edge's gRPC door under --edge
 #: the suite's per-call deadline, gRPC and HTTP alike: a wedged door
 #: shows as counted errors instead of a worker hung past its window
 CALL_TIMEOUT_S = 10
-
-#: why the shard scenario and the mesh backend are refused
-NOT_PORTED_MESH = (
-    "is not ported to gubernator_tpu_torch yet (multi-GPU: ROADMAP Queue 2 "
-    "item 6); the port runs the single-device backend (--backend tpu) and "
-    "the host backend (--backend exact)"
-)
-
 
 def _dev(device: str):
     """The engine's `device` argument for a --device name: None for cuda,
@@ -195,15 +189,16 @@ async def _attach_edge_bridge(server, sock_path):
     return bridge
 
 
-async def _boot_stack(conf, metric, depth, device="cuda"):
+async def _boot_stack(conf, metric, depth, device="cuda", devices=None):
     """Boot the SHIPPED stack (make_backend -> warmup -> Instance) on
-    `device`; returns (instance, backend, warmup_seconds)."""
+    `device` (a mesh on `devices` when given); returns (instance,
+    backend, warmup_seconds)."""
     import asyncio
 
     from gubernator_tpu_torch.serve.backends import make_backend
     from gubernator_tpu_torch.serve.instance import Instance
 
-    backend = make_backend(conf, device=_dev(device))
+    backend = make_backend(conf, device=_dev(device), devices=devices)
     print(f"{metric} depth {depth}: warmup (every ladder rung once)...",
           file=sys.stderr)
     t0 = time.monotonic()
@@ -337,14 +332,14 @@ async def _measure_window(
 async def _drive_pool(
     conf, pool, depth, seconds, group, metric, limit=1000,
     duration=60_000, churn=False, key_space=1 << 40, prefill_ids=0,
-    device="cuda",
+    device="cuda", devices=None,
 ) -> dict:
     """_boot_stack + optional _prefill_sequential + one
     _measure_window + stop — the single-phase scenario runner."""
     # a caller group can never exceed the ladder top (the batcher
     # ships an oversized group alone and choose_bucket would refuse)
     group = min(group, depth)
-    inst, backend, warm_s = await _boot_stack(conf, metric, depth, device)
+    inst, backend, warm_s = await _boot_stack(conf, metric, depth, device, devices)
     try:
         if prefill_ids:
             await _prefill_sequential(
@@ -465,12 +460,101 @@ def run_zipf10m(args) -> int:
     return 0
 
 
+def shard_devices(n: int, device: str) -> list:
+    """n shards over the local devices of `device`'s kind, in turn: on a
+    machine with one GPU (or on the CPU) every shard shares it."""
+    from gubernator_tpu_torch.parallel.policy import local_devices
+
+    avail = local_devices(_dev(device))
+    return [avail[i % len(avail)] for i in range(n)]
+
+
 def run_shard(args) -> int:
-    """The reference's shard-scaling ladder (mesh shards on simulated
-    XLA host devices) is multi-GPU work the port has not taken yet:
-    refused loudly."""
-    print(f"the shard scenario {NOT_PORTED_MESH}", file=sys.stderr)
-    return 2
+    """Shard-count ladder: the same serving stack under the flat policy
+    (1 shard, GUBER_BACKEND=tpu) and the mesh policy at each --shards
+    rung (GUBER_BACKEND=mesh, the rung's shards laid over the local
+    devices in turn), one zipf window each through the batcher's array
+    door. The reference runs each rung on that many SIMULATED host
+    devices sharing one CPU; here each rung's shards share the devices
+    there are, so on one GPU (or the CPU) the rows measure the mesh's
+    host routing and per-shard dispatch, not chip scaling: that needs a
+    card a shard. The per-shard table geometry is the same on every
+    rung."""
+    import asyncio
+    import os
+
+    from gubernator_tpu_torch.cli import keystreams
+    from gubernator_tpu_torch.serve.config import config_from_env
+
+    ladder = [int(x) for x in args.shards.split(",") if x.strip()]
+    pool = keystreams.zipf_pool(args.keys, 1 << 18)
+    rows = []
+    for policy, n in [("flat", 1)] + [("mesh", n) for n in ladder]:
+        env = dict(os.environ)
+        env.update(
+            {
+                "GUBER_BACKEND": "tpu" if policy == "flat" else "mesh",
+                "GUBER_DEVICE_BATCH_LIMIT": str(args.shard_depth),
+                "GUBER_STORE_SLOTS": str(args.shard_slots),
+                "GUBER_GRPC_ADDRESS": "127.0.0.1:0",
+            }
+        )
+        for k in ("GUBER_STORE_MIB", "GUBER_STORE_TARGET_KEYS", "GUBER_SHARDS"):
+            env.pop(k, None)
+        if policy == "mesh":
+            env["GUBER_SHARDS"] = str(n)
+        conf = config_from_env(env)
+        devices = shard_devices(n, args.device) if policy == "mesh" else None
+        print(f"shard ladder: {policy} x{n}...", file=sys.stderr)
+        row = asyncio.run(_drive_pool(
+            conf, pool, conf.device_batch_limit, args.seconds, args.group,
+            f"shard_{policy}_{n}", device=args.device, devices=devices,
+        ))
+        row["shards"] = n
+        row["policy"] = policy
+        row["shard_devices"] = [str(d) for d in devices] if devices else [args.device]
+        print(
+            f"  {policy} x{n}: {row['decisions_per_sec']:>12,.0f} dec/s"
+            f"  (mean device batch {row['mean_device_batch']:,.0f})",
+            file=sys.stderr,
+        )
+        rows.append(row)
+
+    flat_rate = rows[0]["decisions_per_sec"]
+    for r in rows:
+        r["vs_flat"] = round(r["decisions_per_sec"] / flat_rate, 4) if flat_rate else 0.0
+    info = _device_info(args.device)
+    doc = dict(
+        scenario="shard_ladder_r14",
+        scope=info["platform"],
+        device=info["kind"],
+        n_devices=info["count"],
+        host_cpus=os.cpu_count(),
+        shards_ladder=ladder,
+        served_via=(
+            "config_from_env -> make_backend (GUBER_BACKEND=tpu|mesh, "
+            "GUBER_SHARDS, the shard list over the local devices) -> "
+            "Instance/DeviceBatcher array door"
+        ),
+        env_knobs={
+            "GUBER_DEVICE_BATCH_LIMIT": str(args.shard_depth),
+            "GUBER_STORE_SLOTS": str(args.shard_slots),
+            "GUBER_SHARDS": "<row shards>",
+        },
+        key_space=args.keys,
+        notes=(
+            "Each rung's shards share the local devices in turn (one GPU "
+            "or the CPU holds every shard), so rows measure the mesh's "
+            "host owner-routing and per-shard dispatch against the flat "
+            "policy, not chip scaling: each shard needs a card of its own "
+            "for that. Per-shard sub-batches hold ~B/n rows "
+            "(tests/test_torch_sharded.py pins the sub-batch economy)."
+        ),
+        rows=rows,
+    )
+    if args.json:
+        print(json.dumps(doc))
+    return 0
 
 
 def _filler_hashes(slots: int) -> "np.ndarray":
@@ -1486,7 +1570,7 @@ def main(argv=None) -> int:
         "--algorithm (r15 suite); mixed-tenant-zipf = quota chains "
         "over a zipf tenant draw at --chain-depth; gcra-vs-token = "
         "single-hot-key admission-fairness A/B; shard = the mesh "
-        "shard ladder, not ported (refused)",
+        "shard-count ladder (--shards) over the local devices",
     )
     parser.add_argument(
         "--algorithm",
@@ -1505,6 +1589,21 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--rounds", type=int, default=3,
         help="zipf100m: interleaved paired baseline/sketch rounds",
+    )
+    parser.add_argument(
+        "--shards", default="1,2,4,8",
+        help="shard scenario: comma list of mesh shard counts, laid over "
+        "the local devices in turn (a flat 1-shard row is always "
+        "included as the degenerate-policy baseline)",
+    )
+    parser.add_argument(
+        "--shard-depth", type=int, default=8192,
+        help="shard scenario: GUBER_DEVICE_BATCH_LIMIT per rung",
+    )
+    parser.add_argument(
+        "--shard-slots", type=int, default=1 << 12,
+        help="shard scenario: GUBER_STORE_SLOTS per rung (per-shard "
+        "table geometry is identical across the ladder)",
     )
     parser.add_argument(
         "--shed-shares",
@@ -1648,8 +1747,17 @@ def main(argv=None) -> int:
 
         backend_factory = lambda: ExactBackend(100_000)  # noqa: E731
     elif args.backend == "mesh":
-        print(f"--backend mesh {NOT_PORTED_MESH}", file=sys.stderr)
-        return 2
+        from gubernator_tpu_torch.core.engine import buckets_for_limit
+        from gubernator_tpu_torch.core.store import StoreConfig
+        from gubernator_tpu_torch.parallel.policy import local_devices
+        from gubernator_tpu_torch.serve.backends import MeshBackend
+
+        # the reference's store shape, a shard for each local device
+        backend_factory = lambda: MeshBackend(  # noqa: E731
+            StoreConfig(rows=16, slots=1 << 12),
+            devices=local_devices(_dev(args.device)),
+            buckets=buckets_for_limit(device_limit),
+        )
     elif args.backend == "tpu":
         from gubernator_tpu_torch.core.engine import buckets_for_limit
         from gubernator_tpu_torch.core.store import StoreConfig
@@ -1666,7 +1774,7 @@ def main(argv=None) -> int:
         # publish numbers under a false label
         parser.error(f"unknown --backend {args.backend!r}")
 
-    device_backend = args.backend == "tpu"
+    device_backend = args.backend in ("tpu", "mesh")
 
     # node 0 also serves the Python HTTP/JSON gateway so the edge's
     # front-door multiplier is a measured comparison, not a claim

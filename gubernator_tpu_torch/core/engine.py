@@ -137,6 +137,39 @@ def choose_bucket(buckets: Sequence[int], n: int) -> int:
     return buckets[i]
 
 
+def extend_ladder(buckets: Sequence[int], n: int) -> Sequence[int]:
+    """`buckets`, continued past its top rung up to n with the ladder's
+    1.5x-midpoint progression (hi*1.5, hi*2, hi*3, hi*4, ...) when n
+    overflows it: the mesh engine serves batches beyond its configured
+    ladder this way, at O(log) distinct shapes. TorchEngine does not use
+    it: its ladder stays a hard cap sized to the batcher's device batch
+    limit (buckets_for_limit)."""
+    p = max(buckets)
+    if n <= p:
+        return buckets
+    rungs = sorted(buckets)
+    while p < n:
+        half_up = p * 3 // 2
+        p = half_up if n <= half_up else p * 2
+        rungs.append(p)
+    return tuple(rungs)
+
+
+def dense_ladder_extension(buckets: Sequence[int], n: int) -> tuple:
+    """`buckets` plus EVERY 1.5x-midpoint and doubling rung above its top
+    up to n: for any m <= n the smallest rung here >= m equals
+    choose_bucket(extend_ladder(buckets, m), m). The native one-call prep
+    receives this dense form because it picks a rung before the
+    per-shard maximum count is known on the host."""
+    rungs = set(buckets)
+    p = max(buckets)
+    while p < n:
+        rungs.add(p * 3 // 2)
+        p *= 2
+        rungs.add(p)
+    return tuple(sorted(rungs))
+
+
 def _native():
     """native/hashlib_native when the library builds and loads, else None
     (the numpy twins below serve)."""

@@ -1,2 +1,2 @@
-"""Engines: the single-device TorchEngine (the flat half of the JAX
-package's PartitionedEngine)."""
+"""Engines: the single-device TorchEngine and the MeshEngine over a list
+of shards (the JAX package's PartitionedEngine under its two policies)."""

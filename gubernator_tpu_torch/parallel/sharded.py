@@ -1,45 +1,61 @@
-"""TorchEngine: the single-device engine (PyTorch port of the flat half
-of gubernator_tpu.parallel.sharded.PartitionedEngine).
+"""Engines over one device or a list of devices (PyTorch port of
+gubernator_tpu/parallel/sharded.py).
 
-Host glue + the decide for a slot store resident on one device, with or
-without the count-min cold tier: presort and pad each batch on the host
-(core.engine; the merge of prepped runs and the responses' unpermute
-run in the native prep library when it loads, as the reference's do,
-numpy otherwise), copy the padded arrays to the device, run the exact-tier
-or two-tier decide (which update the store and sketch tensors in place;
-JAX donates them instead), and fetch ONE packed int32 array of
-responses + stats per batch.
+`TorchEngine` is the flat half of the reference's PartitionedEngine, its
+single-device policy: host glue + the decide for a slot store resident on
+one device, with or without the count-min cold tier. It presorts and pads
+each batch on the host (core.engine; the merge of prepped runs and the
+responses' unpermute run in the native prep library when it loads, as the
+reference's do, numpy otherwise), copies the padded arrays to the device,
+runs the exact-tier or two-tier decide (which update the store and sketch
+tensors in place; JAX donates them instead), and fetches ONE packed int32
+array of responses + stats per batch.
 
-Ported surfaces: construction (optionally with a SketchConfig), reset
-(bumping `reset_generation`, the shed cache's store-wipe epoch) and the
-epoch clock with its store rebase (both clear the sketch), the
+`MeshEngine` is its mesh policy (parallel/policy.py over_mesh): the key
+space split over a list of shards by `owner_of`, each shard's store and
+sub-sketch on its own device, every batch presorted by (owner, bucket,
+fingerprint) into [n_shards, B_sub] sub-batches (pad_request_sharded,
+or prep_run_sharded + build_presorted_sharded on the arrival-prep path),
+each shard's decide run on its own rows, the packed rows of all shards
+fetched together and unpermuted on the host. The reference's collectives
+(the GLOBAL sync, the owner-masked row and sketch reads, the owner-masked
+installs) are loops over the shard list whose sums land on the leader,
+devices[0] (`_hier_psum`). The shards live in one process; a device may
+repeat, so one GPU (or the CPU) holds any number of shards.
+
+Ported surfaces, on both: construction (optionally with a SketchConfig),
+reset (bumping `reset_generation`, the shed cache's store-wipe epoch) and
+the epoch clock with its store rebase (both clear the sketch), the
 request-object API (get_rate_limits[_submit/_wait]), the array API
 (decide_submit / decide_wait / decide_arrays), the arrival-prep path
 (prep_run / merge_prepped / decide_submit_merged /
 decide_submit_presorted), the GLOBAL surfaces (update_globals in both
-call forms, apply_global_hits), the promoter's engine surfaces
-(observe_hook, sketch_estimates, live_mask, snapshot_read,
-install_windows, promote_from_sketch), warmup, load_state, which
-carries a JAX engine's store, sketch and clock across, the quota-chain
-surface (pad_request_chained, decide_chain_submit / decide_chain_arrays:
-chained batches decide exact-only, the sketch untouched), and the
-durability surfaces: export_windows (the full-store read of every live
-window that a checkpoint writes) and repartition (export + install into a
-new engine). Not ported yet: the mesh policy.
+call forms, sync_globals, apply_global_hits), the promoter's engine
+surfaces (observe_hook, sketch_estimates, live_mask, snapshot_read,
+install_windows, promote_from_sketch), warmup, load_state, which carries
+a JAX engine's store, sketch and clock across, the quota-chain surface
+(pad_request_chained, decide_chain_submit / decide_chain_arrays: chained
+batches decide exact-only, the sketch untouched; over shards a chain goes
+whole to its head's owner), and the durability surfaces: export_windows
+(the full-store read of every live window that a checkpoint writes) and
+repartition (export + install under another ShardingPolicy). Not ported
+yet: the reference's multi-process mesh (parallel/multihost.py).
 
 Every submit path ends in `_dispatch`, which feeds `observe_hook` the
-host-side numpy BatchRequest and runs the decide; on a CUDA device the
-submit then starts a non-blocking copy of the packed outputs into pinned
-host memory and records an event, so `decide_wait` waits for its own
-batch only, never for batches submitted after it.
+host-side numpy BatchRequest ([B] flat, [n_shards, B_sub] on a mesh) and
+runs the decide; on a CUDA device the submit then starts non-blocking
+copies of the packed outputs into pinned host memory and records an event
+a device, so `decide_wait` waits for its own batch only, never for
+batches submitted after it.
 
 Thread model (the reference's): submits are serialized on one thread;
 decide_wait calls may run concurrently on fetch threads, touching only
 their own handle and the stats, which land under EngineStats' lock.
 """
-
 from __future__ import annotations
 
+import contextlib
+import logging
 import time
 from typing import Optional, Sequence, Tuple
 
@@ -47,18 +63,23 @@ import numpy as np
 import torch
 
 from gubernator_tpu_torch.api import types as api_types
+from gubernator_tpu_torch.core import hashing
 from gubernator_tpu_torch.core.engine import (
     EngineStats,
     EpochClock,
     _gather_clip_sorted,
     _native,
+    _sat_duration,
     _sat_i32,
+    build_groups,
     build_presorted_request,
     choose_bucket,
-    group_rungs,
     decide_packed,
     decide_packed_chain,
     decide_packed_sketch,
+    dense_ladder_extension,
+    extend_ladder,
+    group_rungs,
     pad_request_sorted,
     pad_to_bucket,
     prep_run_single,
@@ -68,6 +89,7 @@ from gubernator_tpu_torch.core.engine import (
 from gubernator_tpu_torch.core.kernels import (
     BatchGroups,
     BatchRequest,
+    decide_presorted,
     sketch_min,
     unpack_outputs,
     upsert_globals,
@@ -80,6 +102,7 @@ from gubernator_tpu_torch.core.sketches import (
     window_id_np,
 )
 from gubernator_tpu_torch.core.store import (
+    COUNTER_MAX,
     FLAG_ALGO_LEAKY,
     FLAG_STICKY_OVER,
     L_DURATION,
@@ -91,16 +114,384 @@ from gubernator_tpu_torch.core.store import (
     L_TAG,
     L_TS,
     LANES,
+    MAX_DURATION_MS,
+    TIME_FLOOR,
     DeviceLike,
     StoreConfig,
+    _i64,
+    _srl,
     bucket_index,
     fingerprints,
     group_sort_key_np,
     key_hash_tensor,
+    mix64,
     new_store,
     rebase,
     resolve_device,
 )
+from gubernator_tpu_torch.parallel.policy import ShardingPolicy
+
+
+_SHARD_SALT = np.uint64(0xA24BAED4963EE407)
+_SHARD_SALT_I64 = _i64(0xA24BAED4963EE407)
+
+_log = logging.getLogger("gubernator_tpu_torch.sharded")
+_warned_ladder_overflow = False
+
+
+def _warn_ladder_overflow(top: int, n: int) -> None:
+    """One-time note that a batch (or one shard's share of it) passed the
+    configured ladder top: the rung progression is extended, so the pad
+    grows 1.5x at a time (library callers only: the serving batcher caps
+    batches at the ladder top)."""
+    global _warned_ladder_overflow
+    if not _warned_ladder_overflow:
+        _warned_ladder_overflow = True
+        _log.warning(
+            "batch of %d exceeds the configured ladder top %d: extending the "
+            "rung ladder; size the `buckets` ladder to your peak batch", n, top,
+        )
+
+
+def owner_of(key_hash: torch.Tensor, n_shards: int) -> torch.Tensor:
+    """Owning shard (int32) of each key hash (int64 bit patterns of the
+    uint64 hashes), on the tensor's device: mix64(h ^ salt) mod n as an
+    UNSIGNED 64-bit remainder. torch has no uint64 `%`, so the mixed hash
+    splits into 32-bit halves: (hi * 2^32 + lo) mod n = ((hi mod n) *
+    (2^32 mod n) + lo mod n) mod n, every term non-negative and below
+    2^63. Bit-identical to owner_of_np."""
+    x = mix64(key_hash ^ _SHARD_SALT_I64)
+    hi = _srl(x, 32)
+    lo = x & 0xFFFFFFFF
+    n = int(n_shards)
+    return (((hi % n) * ((1 << 32) % n) + lo % n) % n).to(torch.int32)
+
+
+def owner_of_np(key_hash: np.ndarray, n_shards: int) -> np.ndarray:
+    """Host-side twin of owner_of (numpy uint64)."""
+    return (
+        hashing.mix64(np.asarray(key_hash, np.uint64) ^ _SHARD_SALT)
+        % np.uint64(n_shards)
+    ).astype(np.int32)
+
+
+def _owner_sort_keys(owner: np.ndarray, key_hash: np.ndarray, store_buckets: int):
+    """The sharded presort's composite key: the owner's bits just above
+    the (bucket << 32 | fp) group key, as guber_presort_sharded packs it."""
+    bucket_bits = max(int(store_buckets).bit_length() - 1, 1)
+    return (
+        owner.astype(np.uint64) << np.uint64(32 + bucket_bits)
+    ) | group_sort_key_np(key_hash, store_buckets)
+
+
+def _np_presort_sharded(key_hash: np.ndarray, store_buckets: int, n_shards: int):
+    """Numpy twin of the native sharded presort: stable argsort by
+    (owner_shard, bucket, fingerprint) + per-shard counts."""
+    owner = owner_of_np(key_hash, n_shards)
+    comp = _owner_sort_keys(owner, key_hash, store_buckets)
+    order = np.argsort(comp, kind="stable").astype(np.int32)
+    counts = np.bincount(owner, minlength=n_shards).astype(np.int64)
+    return order, counts
+
+
+def _np_presort_sharded_grouped(key_hash: np.ndarray, store_buckets: int, n_shards: int):
+    """Numpy twin of the native sharded+grouped presort: (order, counts,
+    group_id, leader_pos, per-shard group counts)."""
+    owner = owner_of_np(key_hash, n_shards)
+    comp = _owner_sort_keys(owner, key_hash, store_buckets)
+    order = np.argsort(comp, kind="stable").astype(np.int32)
+    counts = np.bincount(owner, minlength=n_shards).astype(np.int64)
+    s = comp[order]
+    n = s.shape[0]
+    is_leader = np.empty(n, bool)
+    if n:
+        is_leader[0] = True
+        np.not_equal(s[1:], s[:-1], out=is_leader[1:])
+    group_id = np.cumsum(is_leader).astype(np.int32) - 1
+    leader_pos = np.flatnonzero(is_leader).astype(np.int32)
+    bucket_bits = max(int(store_buckets).bit_length() - 1, 1)
+    g_owner = (s[leader_pos] >> np.uint64(32 + bucket_bits)).astype(np.int64)
+    group_counts = np.bincount(g_owner, minlength=n_shards).astype(np.int64)
+    return order, counts, group_id, leader_pos, group_counts
+
+
+def _presort_sharded(key_hash: np.ndarray, store_buckets: int, n_shards: int):
+    hn = _native()
+    if hn is not None:
+        return hn.presort_sharded(key_hash, store_buckets, n_shards)
+    return _np_presort_sharded(key_hash, store_buckets, n_shards)
+
+
+def _presort_sharded_grouped(key_hash: np.ndarray, store_buckets: int, n_shards: int):
+    hn = _native()
+    if hn is not None:
+        return hn.presort_sharded_grouped(key_hash, store_buckets, n_shards)
+    return _np_presort_sharded_grouped(key_hash, store_buckets, n_shards)
+
+
+def sub_batch_ladder(buckets: Sequence[int]) -> tuple:
+    """Padding rungs for per-shard sub-batches: the host ladder densified
+    with 1.5x midpoints (64, 96, 128, 192, ... between its min and max).
+    A shard's count sits near B/n_shards with multinomial jitter, so the
+    coarse 4x host ladder would pad a sub-batch up to 4x; the midpoints
+    cap the waste at 1.5x."""
+    lo, hi = min(buckets), max(buckets)
+    rungs = set(buckets)
+    p = lo
+    while p < hi:
+        rungs.add(p)
+        rungs.add(min(p * 3 // 2, hi))
+        p *= 2
+    rungs.add(hi)
+    return tuple(sorted(rungs))
+
+
+def _take_idx(counts: np.ndarray, starts: np.ndarray, n: int, n_shards: int, B_sub: int):
+    """take_idx[k]: the flattened [n_shards * B_sub] cell of global sorted
+    row k (shard of k, k - the shard's start)."""
+    shard_of_k = np.repeat(np.arange(n_shards, dtype=np.int64), counts)
+    return shard_of_k * B_sub + (np.arange(n, dtype=np.int64) - starts[shard_of_k])
+
+
+def _pad_src(counts: np.ndarray, starts: np.ndarray, n: int, B_sub: int):
+    """(src, valid) of the [n_shards, B_sub] layout: padded cell (s, j)
+    reads sorted row starts[s] + min(j, count - 1), repeating the shard's
+    last row (an empty shard clamps to a neighbour), valid only below the
+    shard's count."""
+    j = np.arange(B_sub, dtype=np.int64)[None, :]
+    src = starts[:-1, None] + np.minimum(j, np.maximum(counts[:, None] - 1, 0))
+    np.clip(src, 0, max(n - 1, 0), out=src)
+    return src, j < counts[:, None]
+
+
+def pad_request_sharded(
+    buckets: Sequence[int],
+    store_buckets: int,
+    n_shards: int,
+    key_hash: np.ndarray,
+    hits: np.ndarray,
+    limit: np.ndarray,
+    duration: np.ndarray,
+    algo: np.ndarray,
+    gnp: np.ndarray,
+    with_groups: bool = False,
+    group_rung: Optional[int] = None,
+):
+    """Partition a batch into per-shard sub-batches: the mesh sibling of
+    engine.pad_request_sorted. One (owner, bucket, fp) presort makes each
+    shard's rows a contiguous sorted run; every field becomes an
+    [n_shards, B_sub] array (B_sub the rung holding the LARGEST shard's
+    count) whose row s is shard s's sub-batch, padded by repeating its
+    last row with valid=False.
+
+    Returns numpy (req, order, take_idx), plus `groups` when with_groups:
+    order[k] is the caller index of the k-th row in global sorted order,
+    take_idx[k] its flattened [n_shards * B_sub] cell, and groups each
+    shard's duplicate-key structure with indices LOCAL to its sub-batch.
+    `group_rung` overrides the G rung (it must hold every shard's group
+    count). Unpermute with `out[order] = resp_flat[take_idx]`. Mirrors
+    gubernator_tpu/parallel/sharded.py:333."""
+    n = key_hash.shape[0]
+    if n == 0:
+        # one all-invalid row per shard at the smallest rung
+        B0 = min(buckets)
+        req = BatchRequest(
+            key_hash=np.zeros((n_shards, B0), np.uint64),
+            hits=np.zeros((n_shards, B0), np.int32),
+            limit=np.zeros((n_shards, B0), np.int32),
+            duration=np.zeros((n_shards, B0), np.int32),
+            algo=np.zeros((n_shards, B0), np.int32),
+            gnp=np.zeros((n_shards, B0), bool),
+            valid=np.zeros((n_shards, B0), bool),
+        )
+        empty = (req, np.empty(0, np.int32), np.empty(0, np.int64))
+        if with_groups:
+            G0 = group_rungs(B0)[0]
+            return (*empty, BatchGroups(
+                key_hash=np.zeros((n_shards, G0), np.uint64),
+                leader_pos=np.full((n_shards, G0), B0, np.int32),
+                end_pos=np.full((n_shards, G0), B0 - 1, np.int32),
+                valid=np.zeros((n_shards, G0), bool),
+                group_id=np.zeros((n_shards, B0), np.int32),
+            ))
+        return empty
+    hn = _native()
+    if hn is not None and with_groups:
+        # one native call: presort + groups + marshal fused
+        # (guber_prep_sharded), byte-identical to the numpy path below;
+        # its arrays are views into a per-thread buffer ring, so callers
+        # keeping order/take_idx past the next call copy them
+        rungs = np.asarray(dense_ladder_extension(buckets, n), np.int64)
+        order, counts, take_idx, fields, groups_d, _B_sub, _G = hn.prep_sharded(
+            key_hash, hits, limit, duration, algo, gnp,
+            store_buckets, n_shards, rungs,
+            int(group_rung) if group_rung else 0,
+            -COUNTER_MAX, COUNTER_MAX, TIME_FLOOR, MAX_DURATION_MS,
+        )
+        if int(counts.max()) > max(buckets):
+            _warn_ladder_overflow(max(buckets), int(counts.max()))
+        return BatchRequest(**fields), order, take_idx, BatchGroups(
+            key_hash=groups_d["key_hash"],
+            leader_pos=groups_d["leader_pos"],
+            end_pos=groups_d["end_pos"],
+            valid=groups_d["valid"],
+            group_id=groups_d["group_id"],
+        )
+
+    if with_groups:
+        order, counts, gid_g, lp_g, gcounts = _presort_sharded_grouped(
+            key_hash, store_buckets, n_shards
+        )
+    else:
+        order, counts = _presort_sharded(key_hash, store_buckets, n_shards)
+    counts = counts.astype(np.int64)
+    starts = np.zeros(n_shards + 1, np.int64)
+    np.cumsum(counts, out=starts[1:])
+    maxc = max(int(counts.max()), 1)
+    if maxc > max(buckets):
+        _warn_ladder_overflow(max(buckets), maxc)
+    B_sub = choose_bucket(extend_ladder(buckets, maxc), maxc)
+    src, valid = _pad_src(counts, starts, n, B_sub)
+    idx = order[src]  # caller index per padded cell
+
+    def shard_field(x, dtype, sat=None):
+        x = sat(x) if sat is not None else np.asarray(x, dtype)
+        return x[idx]
+
+    req = BatchRequest(
+        key_hash=shard_field(key_hash, np.uint64),
+        hits=shard_field(hits, np.int32, _sat_i32),
+        limit=shard_field(limit, np.int32, _sat_i32),
+        duration=shard_field(duration, np.int32, _sat_duration),
+        algo=shard_field(algo, np.int32),
+        gnp=shard_field(gnp, bool),
+        valid=valid,
+    )
+    take_idx = _take_idx(counts, starts, n, n_shards, B_sub)
+    if not with_groups:
+        return req, order, take_idx
+    groups = stack_shard_groups(
+        req.key_hash, gid_g, lp_g, gcounts, counts, starts, n_shards, B_sub,
+        group_rung,
+    )
+    return req, order, take_idx, groups
+
+
+def stack_shard_groups(
+    req_kh: np.ndarray,
+    gid_g: np.ndarray,
+    lp_g: np.ndarray,
+    gcounts: np.ndarray,
+    counts: np.ndarray,
+    starts: np.ndarray,
+    n_shards: int,
+    B_sub: int,
+    group_rung: Optional[int] = None,
+) -> BatchGroups:
+    """Per-shard group structure with LOCAL indices, each shard's built
+    by engine.build_groups. Global group ids are contiguous in shard order
+    (shard boundaries break groups), so shard s's groups are gstarts[s]
+    .. gstarts[s + 1]. Shared by the flush-time presort
+    (pad_request_sharded) and the merge (build_presorted_sharded)."""
+    gstarts = np.zeros(n_shards + 1, np.int64)
+    np.cumsum(gcounts, out=gstarts[1:])
+    if group_rung is not None:
+        if group_rung < int(gcounts.max()):
+            raise ValueError(
+                f"group_rung {group_rung} < max shard group count {int(gcounts.max())}"
+            )
+        G_sub = group_rung
+    else:
+        G_sub = choose_bucket(group_rungs(B_sub), max(int(gcounts.max()), 1))
+    per_shard = []
+    for s in range(n_shards):
+        gc, cs = int(gcounts[s]), int(counts[s])
+        per_shard.append(build_groups(
+            req_kh[s],
+            gid_g[starts[s] : starts[s] + cs] - int(gstarts[s]),
+            lp_g[gstarts[s] : gstarts[s] + gc] - int(starts[s]),
+            gc, cs, B_sub, G_sub,
+        ))
+    return BatchGroups(*(np.stack(leaves) for leaves in zip(*per_shard)))
+
+
+def sharded_sort_keys_np(key_hash: np.ndarray, store_buckets: int, n_shards: int) -> np.ndarray:
+    """Composite host sort key of the sharded presort order: (owner |
+    bucket | fingerprint), the packing the presorts order by."""
+    kh = np.asarray(key_hash, np.uint64)
+    return _owner_sort_keys(owner_of_np(kh, n_shards), kh, store_buckets)
+
+
+def prep_run_sharded(fields: dict, store_buckets: int, n_shards: int) -> dict:
+    """Arrival-time prep of one caller group for the mesh engine: presort
+    by (owner, bucket, fingerprint), clip the fields to device dtypes and
+    count rows per shard, a sorted run the flush-time merge
+    (serve/prep.py) stitches into one sharded batch. One fused native call
+    (guber_prep_run) when the library loads; the numpy is its twin."""
+    hn = _native()
+    if hn is not None:
+        return hn.prep_run(
+            fields, store_buckets, n_shards, -COUNTER_MAX, COUNTER_MAX,
+            TIME_FLOOR, MAX_DURATION_MS,
+        )
+    kh = np.ascontiguousarray(fields["key_hash"], np.uint64)
+    n = kh.shape[0]
+    order, counts = _presort_sharded(kh, store_buckets, n_shards)
+    sorted_fields = _gather_clip_sorted(fields, order, n)
+    return dict(
+        n=n,
+        # elementwise in the key hash, so computed on the sorted hashes
+        skey=sharded_sort_keys_np(sorted_fields["key_hash"], store_buckets, n_shards),
+        order=order,
+        counts=np.asarray(counts, np.int64),
+        fields=sorted_fields,
+    )
+
+
+def build_presorted_sharded(
+    sub_buckets: Sequence[int],
+    store_buckets: int,
+    n_shards: int,
+    fields: dict,
+    skey: np.ndarray,
+    counts: np.ndarray,
+):
+    """(req, take_idx, groups, B_sub) of an already-sorted sharded batch:
+    the merge twin of pad_request_sharded(with_groups=True), without its
+    argsort and byte-identical to it."""
+    n = skey.shape[0]
+    counts = np.asarray(counts, np.int64)
+    starts = np.zeros(n_shards + 1, np.int64)
+    np.cumsum(counts, out=starts[1:])
+    maxc = max(int(counts.max()), 1)
+    if maxc > max(sub_buckets):
+        _warn_ladder_overflow(max(sub_buckets), maxc)
+    B_sub = choose_bucket(extend_ladder(sub_buckets, maxc), maxc)
+    # sorted_x[src] == x[order][src]: the same repeat-pad and clamp as
+    # pad_request_sharded, gathered from the sorted stream directly
+    src, valid = _pad_src(counts, starts, n, B_sub)
+    req = BatchRequest(
+        key_hash=fields["key_hash"][src],
+        hits=fields["hits"][src],
+        limit=fields["limit"][src],
+        duration=fields["duration"][src],
+        algo=fields["algo"][src],
+        gnp=fields["gnp"][src],
+        valid=valid,
+    )
+    # the group structure straight off the sorted keys: one diff pass
+    is_leader = np.empty(n, bool)
+    is_leader[0] = True
+    np.not_equal(skey[1:], skey[:-1], out=is_leader[1:])
+    gid_g = np.cumsum(is_leader).astype(np.int32) - 1
+    lp_g = np.flatnonzero(is_leader).astype(np.int32)
+    bucket_bits = max(int(store_buckets).bit_length() - 1, 1)
+    g_owner = (skey[lp_g] >> np.uint64(32 + bucket_bits)).astype(np.int64)
+    gcounts = np.bincount(g_owner, minlength=n_shards).astype(np.int64)
+    groups = stack_shard_groups(
+        req.key_hash, gid_g, lp_g, gcounts, counts, starts, n_shards, B_sub
+    )
+    return req, _take_idx(counts, starts, n, n_shards, B_sub), groups, B_sub
 
 
 def pad_request_chained(
@@ -116,27 +507,27 @@ def pad_request_chained(
     route_hash: np.ndarray,
 ):
     """Presort + pad one CHAINED batch: rows whose `chain_ids` match are
-    one hierarchical request's levels and decide in one pass. Each row
-    keeps its own key hash for its bucket; `route_hash` (the chain head's
-    key hash) would pick the owning shard of a mesh, which the port does
-    not have yet, so `n_shards` must be 1. numpy only (the native prep
-    has no chain column).
+    one hierarchical request's levels and decide in one pass, so they
+    must land on one shard. Ownership therefore follows `route_hash` (the
+    chain head's key hash, the same for every row of a chain), while each
+    row keeps its own key hash for its bucket. numpy only (the native
+    prep has no chain column).
 
-    Returns (req, order, take_idx, groups, chain_local), numpy: the
-    padded sorted request, `order[j]` the caller index of sorted row j
-    (n rows), take_idx None (the flat layout), the group structure, and
-    `chain_local` int32[B], each row's chain slot localized into [0, n)
-    by np.unique, padding rows singleton chains at arange(n, B). Mirrors
-    gubernator_tpu/parallel/sharded.py:684-761 on its flat layout."""
-    if n_shards != 1:
-        raise ValueError(
-            f"quota chains over {n_shards} shards need the mesh policy, "
-            "which is not ported to gubernator_tpu_torch yet"
-        )
+    Returns (req, order, take_idx, groups, chain_local), numpy. On one
+    shard the layout is flat: req [B], take_idx None, chain_local int32[B]
+    (each row's chain slot localized into [0, n) by np.unique, padding
+    rows singleton chains at arange(n, B)). Over shards every field is
+    [n_shards, B_sub] with the slots localized per shard. Mirrors
+    gubernator_tpu/parallel/sharded.py:684-761."""
     kh = np.ascontiguousarray(key_hash, np.uint64)
     n = kh.shape[0]
-    skey = group_sort_key_np(kh, store_buckets)
-    order = np.argsort(skey, kind="stable").astype(np.int32)
+    if n_shards > 1:
+        owner = owner_of_np(np.ascontiguousarray(route_hash, np.uint64), n_shards)
+        comp = _owner_sort_keys(owner, kh, store_buckets)
+    else:
+        comp = group_sort_key_np(kh, store_buckets)
+    order = np.argsort(comp, kind="stable").astype(np.int32)
+    s = comp[order]
     sorted_fields = _gather_clip_sorted(
         dict(
             key_hash=kh, hits=hits, limit=limit, duration=duration,
@@ -145,12 +536,32 @@ def pad_request_chained(
         order,
         n,
     )
-    req, groups, B = build_presorted_request(buckets, sorted_fields, skey[order], n)
-    chain_local = np.arange(B, dtype=np.int32)
-    if n:
-        _, inv = np.unique(np.asarray(chain_ids, np.int64)[order], return_inverse=True)
-        chain_local[:n] = inv.reshape(-1)  # values < n <= B
-    return req, order, None, groups, chain_local
+    chain_sorted = np.asarray(chain_ids, np.int64)[order]
+    if n_shards == 1:
+        req, groups, B = build_presorted_request(buckets, sorted_fields, s, n)
+        chain_local = np.arange(B, dtype=np.int32)
+        if n:
+            _, inv = np.unique(chain_sorted, return_inverse=True)
+            chain_local[:n] = inv.reshape(-1)  # values < n <= B
+        return req, order, None, groups, chain_local
+
+    counts = np.bincount(owner, minlength=n_shards).astype(np.int64)
+    req, take_idx, groups, B_sub = build_presorted_sharded(
+        buckets, store_buckets, n_shards, sorted_fields, s, counts
+    )
+    starts = np.zeros(n_shards + 1, np.int64)
+    np.cumsum(counts, out=starts[1:])
+    chain_local = np.broadcast_to(
+        np.arange(B_sub, dtype=np.int32), (n_shards, B_sub)
+    ).copy()
+    for sh in range(n_shards):
+        c = int(counts[sh])
+        if c:
+            _, inv = np.unique(
+                chain_sorted[starts[sh] : starts[sh] + c], return_inverse=True
+            )
+            chain_local[sh, :c] = inv.reshape(-1)  # values < c <= B_sub
+    return req, order, take_idx, groups, chain_local
 
 
 class TorchEngine:
@@ -165,9 +576,19 @@ class TorchEngine:
         device: DeviceLike = None,
         sketch: Optional[SketchConfig] = None,
     ):
+        self._init_host(config, buckets, sketch)
+        self.device = resolve_device(device)
+        self.policy = ShardingPolicy.single(self.device)
+        self.store = new_store(config, self.device)
+        self.sketch = None if sketch is None else new_sketch(sketch, self.device)
+
+    def _init_host(self, config: StoreConfig, buckets: Sequence[int], sketch) -> None:
+        """The host-side state every engine carries, whatever its policy."""
         self.config = config
         self.buckets = sorted(buckets)
-        self.device = resolve_device(device)
+        # shards: writeback launches a decide, install chunk or gossip
+        # chunk make on a GPU (one each on the flat engine)
+        self.n = 1
         self.clock = EpochClock()
         self.stats = EngineStats()
         # the writebacks no decide batch counts: each window-install chunk
@@ -186,23 +607,51 @@ class TorchEngine:
         # every dispatched numpy BatchRequest, before it goes to the
         # device; must never fail a dispatch
         self.observe_hook = None
-        self.store = new_store(config, self.device)
         # `sketch_on` flips between the two-tier and the exact-only
         # decide at run time (the reference's A/B flag)
         self.sketch_config = sketch
-        self.sketch = None if sketch is None else new_sketch(sketch, self.device)
         self.sketch_on = sketch is not None
         # the last export_windows: its wall ms, split into the live-entry
         # mask on the device (through the sync its count needs) and the
         # copy to the host; the bytes copied off the device; the windows
         self.last_export = dict(ms=0.0, mask_ms=0.0, copy_ms=0.0, bytes=0, windows=0)
 
+    # -- per-shard state (one shard here; MeshEngine has n) --------------------
+
+    def _shard_stores(self) -> list:
+        return [self.store]
+
+    def _shard_sketches(self) -> list:
+        return [] if self.sketch is None else [self.sketch]
+
+    def _state_lead(self) -> tuple:
+        """The leading axes of the state arrays load_state and
+        store_numpy speak: none flat, (n_shards,) on a mesh."""
+        return ()
+
+    def store_numpy(self) -> np.ndarray:
+        """The store's bytes on the host: int32[buckets, W] flat,
+        [n_shards, buckets, W] on a mesh (the reference's
+        `np.asarray(store.data)`)."""
+        out = np.stack([s.data.cpu().numpy() for s in self._shard_stores()])
+        return out.reshape(self._state_lead() + out.shape[1:])
+
+    def sketch_numpy(self) -> Optional[np.ndarray]:
+        """The sketch counters on the host, laid out as store_numpy's
+        (None without the tier)."""
+        sks = self._shard_sketches()
+        if not sks:
+            return None
+        out = np.stack([s.data.cpu().numpy() for s in sks])
+        return out.reshape(self._state_lead() + out.shape[1:])
+
     def reset(self) -> None:
         """Wipe the store and the sketch in place (the clock keeps its
         epoch)."""
-        self.store.data.zero_()
-        if self.sketch is not None:
-            self.sketch.data.zero_()
+        for st in self._shard_stores():
+            st.data.zero_()
+        for sk in self._shard_sketches():
+            sk.data.zero_()
         self.reset_generation += 1
 
     def _engine_now(self, now: int) -> np.int32:
@@ -210,11 +659,12 @@ class TorchEngine:
         if reset_required:
             self.reset()
         elif delta is not None:
-            rebase(self.store, delta)
-            if self.sketch is not None:
-                # sketch windows are keyed by engine-ms // duration: a
-                # rebase moves every window id, so the counts are cleared
-                self.sketch.data.zero_()
+            for st in self._shard_stores():
+                rebase(st, delta)
+            # sketch windows are keyed by engine-ms // duration: a rebase
+            # moves every window id, so the counts are cleared
+            for sk in self._shard_sketches():
+                sk.data.zero_()
         return e
 
     def load_state(
@@ -223,36 +673,46 @@ class TorchEngine:
         epoch: Optional[int],
         sketch_np: Optional[np.ndarray] = None,
     ) -> None:
-        """Carry another engine's state across: the int32[buckets, W]
-        store bytes (e.g. a JAX TpuEngine's `np.asarray(store.data)`),
-        its clock epoch (`clock.epoch`) and, for a two-tier engine, its
-        sketch counters (`np.asarray(sketch.data)`, int32 or int64
-        [rows, width]); a two-tier engine given no sketch starts with an
-        empty one."""
-        want = tuple(self.store.data.shape)
+        """Carry another engine's state across: the store bytes (a JAX
+        TpuEngine's `np.asarray(store.data)`, int32[buckets, W]; a JAX
+        MeshEngine's, [n_shards, buckets, W]), its clock epoch
+        (`clock.epoch`) and, for a two-tier engine, its sketch counters
+        (`np.asarray(sketch.data)`, int32 or int64 [rows, width], with the
+        shard axis in front on a mesh); a two-tier engine given no sketch
+        starts with an empty one."""
+        stores, sketches = self._shard_stores(), self._shard_sketches()
+        lead = self._state_lead()
+        want = lead + tuple(stores[0].data.shape)
         if store_np.dtype != np.int32 or tuple(store_np.shape) != want:
             raise ValueError(
                 f"store {store_np.dtype}{list(store_np.shape)} does not "
                 f"match this engine's int32{list(want)}"
             )
         if sketch_np is not None:
-            if self.sketch is None:
+            if not sketches:
                 raise ValueError("this engine has no sketch tier to load into")
-            sk = self.sketch.data
+            sk = sketches[0].data
             want_dtype = np.int32 if sk.dtype == torch.int32 else np.int64
-            if sketch_np.dtype != want_dtype or tuple(sketch_np.shape) != tuple(sk.shape):
+            want_sk = lead + tuple(sk.shape)
+            if sketch_np.dtype != want_dtype or tuple(sketch_np.shape) != want_sk:
                 raise ValueError(
                     f"sketch {sketch_np.dtype}{list(sketch_np.shape)} does not "
-                    f"match this engine's {sk.dtype}{list(sk.shape)}"
+                    f"match this engine's {sk.dtype}{list(want_sk)}"
                 )
-        arr = np.require(store_np, requirements=["C", "W"])
-        self.store.data.copy_(torch.from_numpy(arr))
-        if self.sketch is not None:
-            if sketch_np is None:
-                self.sketch.data.zero_()
-            else:
-                sk_arr = np.require(sketch_np, requirements=["C", "W"])
-                self.sketch.data.copy_(torch.from_numpy(sk_arr))
+        arr = np.require(store_np, requirements=["C", "W"]).reshape(
+            (len(stores),) + tuple(stores[0].data.shape)
+        )
+        for st, a in zip(stores, arr):
+            st.data.copy_(torch.from_numpy(a))
+        if sketch_np is None:
+            for sk in sketches:
+                sk.data.zero_()
+        elif sketches:
+            sk_arr = np.require(sketch_np, requirements=["C", "W"]).reshape(
+                (len(sketches),) + tuple(sketches[0].data.shape)
+            )
+            for sk, a in zip(sketches, sk_arr):
+                sk.data.copy_(torch.from_numpy(a))
         self.clock.epoch = None if epoch is None else int(epoch)
 
     # -- request-object API --------------------------------------------------
@@ -657,11 +1117,13 @@ class TorchEngine:
             now = api_types.millisecond_now()
         e_now = int(self.clock.to_engine(now))
         t0 = time.perf_counter()
-        ent = self.store.data.view(-1, LANES)
-        live = (ent[:, L_TAG] != 0) & (ent[:, L_EXPIRE] >= e_now)
-        ent = ent[live]  # the count of live entries syncs with the device
+        lives = []
+        for st in self._shard_stores():  # shard order, as the reference's
+            ent = st.data.view(-1, LANES)
+            live = (ent[:, L_TAG] != 0) & (ent[:, L_EXPIRE] >= e_now)
+            lives.append(ent[live])  # the live count syncs with the device
         t1 = time.perf_counter()
-        ent = ent.cpu().numpy()
+        ent = np.concatenate([x.cpu().numpy() for x in lives])
         t2 = time.perf_counter()
         self.last_export = dict(
             ms=(t2 - t0) * 1e3,
@@ -686,25 +1148,30 @@ class TorchEngine:
             flags=ent[:, L_FLAGS].astype(np.int64),
         )
 
-    def repartition(self, shards: int = 1, now: Optional[int] = None) -> "TorchEngine":
-        """A NEW engine on the same device, geometry, ladder and sketch
+    def repartition(
+        self, policy: Optional[ShardingPolicy] = None, now: Optional[int] = None
+    ) -> "TorchEngine":
+        """A NEW engine under `policy` (the flat policy on this engine's
+        device when None) with this one's geometry, ladder and sketch
         config, carrying every live window of this one (export_windows ->
-        install_windows with the full lanes): the store re-partition path,
-        flat to flat. Sketch counts do not migrate (window-keyed and
-        transient, as in the reference). More than one shard needs the
-        mesh policy, which is not ported, and raises. Call with the
+        install_windows with the full lanes, routed by hash under the new
+        policy): the store re-partition path a GUBER_SHARDS change drives,
+        and a checkpoint restore across a shard-count change. A flat
+        policy gives a TorchEngine (on `policy.device`, else this engine's
+        device), a mesh policy a MeshEngine. Sketch counts do not migrate
+        (window-keyed and transient, as in the reference). Call with the
         batcher idle or on its submit thread."""
-        if shards != 1:
-            raise ValueError(
-                f"repartition to {shards} shards needs the mesh policy, "
-                "which is not ported to gubernator_tpu_torch yet"
-            )
         if now is None:
             now = api_types.millisecond_now()
-        eng = TorchEngine(
-            self.config, buckets=self.buckets, device=self.device,
-            sketch=self.sketch_config,
-        )
+        if policy is None or policy.flat:
+            dev = self.device if policy is None or policy.device is None else policy.device
+            eng = TorchEngine(
+                self.config, buckets=self.buckets, device=dev, sketch=self.sketch_config,
+            )
+        else:
+            eng = MeshEngine(
+                self.config, buckets=self.buckets, sketch=self.sketch_config, policy=policy,
+            )
         w = self.export_windows(now)
         if w["key_hash"].shape[0]:
             eng.install_windows(
@@ -769,11 +1236,19 @@ class TorchEngine:
                     (_sat_i32(ts[s:e]), np.int32),
                     (_sat_i32(flags[s:e]), np.int32),
                 )
-                kh_t, *rest = self._cols_to_device(cols)
-                upsert_windows(self.store, kh_t, *rest)
             else:
                 cols = pad_to_bucket(self.buckets, e - s, *head, (is_over[s:e], bool))
-                upsert_globals(self.store, *self._cols_to_device(cols))
+            self._install_chunk(cols, full)
+
+    def _install_chunk(self, cols, full: bool) -> None:
+        """One padded install: upsert_windows (`full`: key, limit,
+        remaining, reset, duration, ts, flags, valid) or upsert_globals
+        (key, limit, remaining, reset, is_over, valid) on the store."""
+        tensors = self._cols_to_device(cols)
+        if full:
+            upsert_windows(self.store, *tensors)
+        else:
+            upsert_globals(self.store, *tensors)
 
     def update_globals(self, *args, now: Optional[int] = None, **kw):
         """Install owner-broadcast GLOBAL statuses (the UpdatePeerGlobals
@@ -851,10 +1326,30 @@ class TorchEngine:
                 c.append(v)
         return tuple(c[0] if len(c) == 1 else np.concatenate(c) for c in cols)
 
-    def _cols_to_device(self, cols):
+    def sync_globals(
+        self,
+        key_hash: np.ndarray,
+        limit: np.ndarray,
+        duration: np.ndarray,
+        now: int,
+        algo: Optional[np.ndarray] = None,
+    ) -> None:
+        """One gossip step for these GLOBAL keys: the owner peeks its
+        authoritative status (hits=0) and every other shard installs it.
+        On one device the owner is this store and there is no replica, so
+        it is apply_global_hits with no hits. `algo` must carry each key's
+        algorithm (default token bucket)."""
+        n = key_hash.shape[0]
+        if n:
+            self.apply_global_hits(
+                key_hash, np.zeros(n, np.int64), limit, duration, now, algo=algo
+            )
+
+    def _cols_to_device(self, cols, device: Optional[torch.device] = None):
+        dev = self.device if device is None else device
         kh, *rest = cols
-        return [key_hash_tensor(kh, self.device)] + [
-            torch.from_numpy(np.ascontiguousarray(c)).to(self.device) for c in rest
+        return [key_hash_tensor(kh, dev)] + [
+            torch.from_numpy(np.ascontiguousarray(c)).to(dev) for c in rest
         ]
 
     # -- sketch cold tier ----------------------------------------------------
@@ -882,9 +1377,13 @@ class TorchEngine:
             np.ascontiguousarray(key_hash, np.uint64), np.asarray(durations, np.int64)
         )
         wid, _ = self._sketch_windows(dur, now)
-        idx = torch.from_numpy(sketch_indices_np(kh, wid, self.sketch_config))
-        est = sketch_min(self.sketch.data, idx.to(self.device))
-        return est.cpu().numpy().astype(np.int64)[:n]
+        idx = sketch_indices_np(kh, wid, self.sketch_config)
+        return self._sketch_min(kh, idx).cpu().numpy().astype(np.int64)[:n]
+
+    def _sketch_min(self, kh: np.ndarray, idx: np.ndarray) -> torch.Tensor:
+        """The count-min read of sketch_estimates: the min over rows r of
+        the counters at idx[r] (int32[rows, n] indices)."""
+        return sketch_min(self.sketch.data, torch.from_numpy(idx).to(self.device))
 
     def promote_from_sketch(
         self,
@@ -949,6 +1448,501 @@ class TorchEngine:
         self._warmup_sketch_reads(now)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        # the writebacks this warmup made on a GPU (one decide and one
+        # install a rung), before its counters are zeroed
+        self.warmup_launches = self.stats.batches + self.install_chunks + self.gossip_chunks
         self.reset()
         self.stats = EngineStats()
         self.install_chunks = self.gossip_chunks = 0
+
+
+# -- the mesh policy -----------------------------------------------------------
+
+
+def _on(device: torch.device):
+    """The device guard of a per-shard step: a launch through ctypes (the
+    writeback kernel) and every allocation land on the shard's own GPU."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+def _row(batch, s: int):
+    """Shard s's sub-batch: row s of every [n_shards, ...] field."""
+    return type(batch)(*(x[s] for x in batch))
+
+
+def _hier_psum(parts: Sequence[torch.Tensor], policy: ShardingPolicy,
+               leader: torch.Tensor) -> torch.Tensor:
+    """The reference's psum over the shard axis, in one process: the sum
+    of per-shard tensors, on the device of `leader` (a tensor there). On
+    a 2-D ("host", "chip") policy each host's chips combine first (on the
+    host's first shard's device), then the hosts: the reference's
+    hierarchical staging. Elementwise adds of one dtype, so int32 wraps
+    as psum does (a torch.sum would widen to int64)."""
+
+    def add(xs, dev):
+        with _on(dev):
+            acc = xs[0].to(dev)
+            for x in xs[1:]:
+                acc = acc + x.to(dev)
+        return acc
+
+    partial = [add([parts[i] for i in grp], parts[grp[0]].device)
+               for grp in policy.host_groups()]
+    return add(partial, leader.device)
+
+
+class MeshEngine(TorchEngine):
+    """Key-space sharding over a list of devices (the reference's
+    MeshEngine, PartitionedEngine under ShardingPolicy.over_mesh), in one
+    process. Shard s owns the keys with owner_of(key) == s: its slot
+    store (and sub-sketch) live on devices[s]; a batch is presorted by
+    (owner, bucket, fingerprint) and split into [n_shards, B_sub]
+    sub-batches, and every shard runs the single-device decide on its own
+    sub-batch (every shard runs every batch, as shard_map does). The
+    cross-shard steps (GLOBAL sync, the promoter's reads) are owner-masked
+    sums over the shard list on the leader, devices[0] (_hier_psum). A
+    device may repeat: on one GPU or the CPU, N shards share it.
+
+    Each shard's writeback is one launch, so on a GPU a decide, an install
+    chunk and a gossip chunk launch `n` writebacks each, and a GLOBAL sync
+    step counts one gossip chunk (the owner charge) and one install chunk
+    (the replica install)."""
+
+    def __init__(
+        self,
+        config: StoreConfig = StoreConfig(),
+        devices: Optional[Sequence[DeviceLike]] = None,
+        buckets: Sequence[int] = (64, 256, 1024, 4096),
+        mesh_shape: Optional[Tuple[int, int]] = None,
+        sketch: Optional[SketchConfig] = None,
+        policy: Optional[ShardingPolicy] = None,
+    ):
+        self._init_host(config, buckets, sketch)
+        self.policy = (
+            policy if policy is not None else ShardingPolicy.over_mesh(devices, mesh_shape)
+        )
+        if self.policy.flat:
+            raise ValueError("MeshEngine needs a mesh policy; the flat one is TorchEngine's")
+        self.devices = self.policy.devices
+        self.n = self.policy.n_shards
+        self.axes = self.policy.axes
+        self.device = self.devices[0]  # the leader: host reads combine here
+        self.sub_buckets = sub_batch_ladder(self.buckets)
+        self.stores = [new_store(config, d) for d in self.devices]
+        self.sketches = (
+            None if sketch is None else [new_sketch(sketch, d) for d in self.devices]
+        )
+        # the tier gate every shared surface reads (None: exact only)
+        self.sketch = self.sketches
+
+    def _shard_stores(self) -> list:
+        return self.stores
+
+    def _shard_sketches(self) -> list:
+        return self.sketches or []
+
+    def _state_lead(self) -> tuple:
+        return (self.n,)
+
+    def _per_device(self, fn):
+        """fn(device) once per distinct device, as {device: result}: a
+        batch goes up to each device once and its shards take row views."""
+        out = {}
+        for dev in self.devices:
+            if dev not in out:
+                with _on(dev):
+                    out[dev] = fn(dev)
+        return out
+
+    # -- decide ----------------------------------------------------------------
+
+    def _dispatch(self, req, groups, e_now, observe: bool = True, chain_id=None):
+        """The mesh's dispatch funnel: feed the observer the numpy
+        [n_shards, B_sub] batch (it masks by `valid`), upload it once per
+        device and run each shard's decide on its own store (and
+        sub-sketch) and row. Returns (the packed output of each shard,
+        {device: CUDA event recorded before its upload})."""
+        hook = self.observe_hook if observe else None
+        if hook is not None:
+            try:
+                hook(req)
+            except Exception:  # pragma: no cover - defensive
+                pass  # observability must never fail a dispatch
+        starts = {}
+
+        def upload(dev):
+            if dev.type == "cuda":
+                starts[dev] = torch.cuda.Event(enable_timing=True)
+                starts[dev].record()
+            chain_t = None if chain_id is None else torch.from_numpy(chain_id).to(dev)
+            return to_device(req, dev), to_device(groups, dev), chain_t
+
+        up = self._per_device(upload)
+        two_tier = self.sketches is not None and self.sketch_on
+        packed = []
+        for s, dev in enumerate(self.devices):
+            req_t, groups_t, chain_t = up[dev]
+            with _on(dev):
+                r, g = _row(req_t, s), _row(groups_t, s)
+                if chain_t is not None:
+                    _st, p = decide_packed_chain(self.stores[s], r, e_now, g, chain_t[s])
+                elif two_tier:
+                    _st, _sk, p = decide_packed_sketch(
+                        self.stores[s], self.sketches[s], r, e_now, g
+                    )
+                else:
+                    _st, p = decide_packed(self.stores[s], r, e_now, g)
+            packed.append(p)
+        return packed, starts
+
+    def _mesh_handle(self, packed, starts, order, take_idx, n: int, B_sub: int):
+        """decide_wait's handle: (packed host int32[n_shards, 4*B_sub+4],
+        {device: event after its last copy}, {device: start event}, order,
+        take_idx, n, B_sub, epoch). On CUDA each shard's row starts
+        copying into one pinned host array at once."""
+        ends = {}
+        if self.devices[0].type == "cuda":
+            host = torch.empty((self.n, packed[0].shape[0]), dtype=torch.int32,
+                               pin_memory=True)
+            for s, (dev, p) in enumerate(zip(self.devices, packed)):
+                with _on(dev):
+                    host[s].copy_(p, non_blocking=True)
+                    ends[dev] = torch.cuda.Event(enable_timing=True)
+                    ends[dev].record()
+        else:
+            host = torch.stack(packed)
+        return host, ends, starts, order, take_idx, n, B_sub, self.clock.epoch
+
+    def decide_submit(
+        self,
+        key_hash: np.ndarray,
+        hits: np.ndarray,
+        limit: np.ndarray,
+        duration: np.ndarray,
+        algo: np.ndarray,
+        gnp: np.ndarray,
+        now: int,
+        observe: bool = True,
+    ):
+        """Shard + dispatch one batch WITHOUT waiting (the handle captures
+        the submit-time epoch)."""
+        n = key_hash.shape[0]
+        e_now = self._engine_now(now)
+        req, order, take_idx, groups = pad_request_sharded(
+            self.sub_buckets, self.config.slots, self.n, key_hash, hits,
+            limit, duration, algo, gnp, with_groups=True,
+        )
+        packed, starts = self._dispatch(req, groups, e_now, observe)
+        # the native prep's order/take_idx are views into a buffer ring
+        # that a handle can outlive under the batcher's fetch pipeline
+        return self._mesh_handle(
+            packed, starts, np.array(order), np.array(take_idx), n,
+            req.key_hash.shape[1],
+        )
+
+    def prep_run(self, fields: dict) -> dict:
+        """Arrival-time prep of one caller group, sorted by (owner,
+        bucket, fingerprint) so runs merge without re-sorting."""
+        return prep_run_sharded(fields, self.config.slots, self.n)
+
+    def merge_prepped(self, runs) -> dict:
+        """Merge pre-sorted runs into one dispatch-ready sharded batch."""
+        from gubernator_tpu_torch.serve.prep import merge_runs
+
+        m = merge_runs(runs)
+        req, take_idx, groups, B_sub = build_presorted_sharded(
+            self.sub_buckets, self.config.slots, self.n, m["fields"], m["skey"],
+            m["counts"],
+        )
+        return dict(req=req, groups=groups, order=m["order"], take_idx=take_idx,
+                    n=m["order"].shape[0], B_sub=B_sub)
+
+    def decide_submit_merged(self, merged: dict, now: int):
+        e_now = self._engine_now(now)
+        packed, starts = self._dispatch(merged["req"], merged["groups"], e_now)
+        return self._mesh_handle(packed, starts, merged["order"], merged["take_idx"],
+                                 merged["n"], merged["B_sub"])
+
+    def decide_submit_presorted(
+        self,
+        fields: dict,
+        skey: np.ndarray,
+        order: Optional[np.ndarray],
+        counts: np.ndarray,
+        now: int,
+    ):
+        """Dispatch a batch presorted by (owner, bucket, fingerprint):
+        `counts` are its per-shard row counts."""
+        n = skey.shape[0]
+        if n == 0:
+            return None
+        e_now = self._engine_now(now)
+        req, take_idx, groups, B_sub = build_presorted_sharded(
+            self.sub_buckets, self.config.slots, self.n, fields, skey, counts,
+        )
+        if order is None:
+            order = np.arange(n, dtype=np.int32)
+        packed, starts = self._dispatch(req, groups, e_now)
+        return self._mesh_handle(packed, starts, order, take_idx, n, B_sub)
+
+    def decide_wait(
+        self, handle, count: bool = True
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """Fetch + unpermute one sharded batch: (status, limit, remaining,
+        reset_time int64 unix-ms) in caller order. Waits on this batch's
+        own copy events; the stats land once for the batch, summed over
+        its shards."""
+        host, ends, starts, order, take_idx, n, B_sub, epoch = handle
+        for ev in ends.values():
+            ev.synchronize()
+        if count and ends:
+            self.device_span_ms += max(starts[d].elapsed_time(ends[d]) for d in ends)
+        packed = host.numpy()
+        if count:
+            self.stats.add_batch(
+                int(packed[:, 4 * B_sub].sum()),
+                int(packed[:, 4 * B_sub + 1].sum()),
+                int(packed[:, 4 * B_sub + 2].sum()),
+                int(packed[:, 4 * B_sub + 3].sum()),
+            )
+        hn = _native()
+        if hn is not None and n > 0:
+            # one native pass over the four response columns
+            bounds = np.searchsorted(take_idx, np.arange(1, self.n + 1) * B_sub, side="left")
+            counts = np.diff(np.concatenate(([0], bounds))).astype(np.int64)
+            status, rlimit, remaining, reset = hn.unflatten_resp(
+                packed, order, counts, n, B_sub
+            )
+        else:
+            def unflatten(col):
+                flat = packed[:, col * B_sub : (col + 1) * B_sub].reshape(-1)
+                out = np.empty(n, flat.dtype)
+                out[order] = flat[take_idx]
+                return out
+
+            status, rlimit, remaining, reset = (unflatten(c) for c in range(4))
+        r = np.asarray(reset, np.int64)
+        return status, rlimit, remaining, np.where(r == 0, 0, r + epoch)
+
+    def decide_chain_submit(
+        self,
+        key_hash: np.ndarray,
+        hits: np.ndarray,
+        limit: np.ndarray,
+        duration: np.ndarray,
+        algo: np.ndarray,
+        chain_ids: np.ndarray,
+        route_hash: np.ndarray,
+        now: int,
+    ):
+        """Dispatch one CHAINED batch without waiting: each chain goes
+        whole to its head's owner (`route_hash`), so the no-partial-debit
+        reduction stays shard-local. Exact-only; the handle is
+        decide_wait's."""
+        n = key_hash.shape[0]
+        e_now = self._engine_now(now)
+        req, order, take_idx, groups, chain_local = pad_request_chained(
+            self.sub_buckets, self.config.slots, self.n, key_hash, hits, limit,
+            duration, algo, chain_ids, route_hash,
+        )
+        if self.n == 1:  # the flat layout: one shard holds the batch
+            req = BatchRequest(*(x[None] for x in req))
+            groups = BatchGroups(*(x[None] for x in groups))
+            chain_local = chain_local[None]
+            take_idx = np.arange(n, dtype=np.int64)
+        packed, starts = self._dispatch(req, groups, e_now, chain_id=chain_local)
+        return self._mesh_handle(packed, starts, order, take_idx, n, req.key_hash.shape[1])
+
+    # -- host-side state reads (owner-masked sums on the leader) --------------
+
+    def _gather_entries(self, kh_padded: np.ndarray):
+        """Each key's bucket row gathered from its OWNER's store: every
+        shard gathers the rows, zeroes the keys it does not own, and the
+        sum on the leader leaves the owner's (the reference's
+        _shard_rows; one shard contributes per key, so it equals its
+        direct _rows_sharded read)."""
+        owner = owner_of_np(kh_padded, self.n)
+        kh = self._per_device(lambda dev: key_hash_tensor(kh_padded, dev))
+        own = self._per_device(lambda dev: torch.from_numpy(owner).to(dev))
+        parts = []
+        for s, dev in enumerate(self.devices):
+            with _on(dev):
+                rows = self.stores[s].data.index_select(
+                    0, bucket_index(kh[dev], self.config.slots)
+                )
+                parts.append(torch.where((own[dev] == s)[:, None], rows, 0))
+        rows = _hier_psum(parts, self.policy, kh[self.device])
+        return (
+            rows.cpu().numpy().reshape(kh_padded.shape[0], -1, LANES),
+            fingerprints(kh[self.device]).cpu().numpy(),
+        )
+
+    def _sketch_min(self, kh: np.ndarray, idx: np.ndarray) -> torch.Tensor:
+        """Each key's count-min estimate from its OWNER's sub-sketch: the
+        owner-masked row-min summed on the leader (the reference's
+        _shard_sketch_min)."""
+        owner = owner_of_np(kh, self.n)
+        idx_t = self._per_device(lambda dev: torch.from_numpy(idx).to(dev))
+        own = self._per_device(lambda dev: torch.from_numpy(owner).to(dev))
+        parts = []
+        for s, dev in enumerate(self.devices):
+            with _on(dev):
+                est = sketch_min(self.sketches[s].data, idx_t[dev])
+                parts.append(torch.where(own[dev] == s, est, 0))
+        return _hier_psum(parts, self.policy, idx_t[self.device])
+
+    # -- owner-masked installs and the GLOBAL sync ----------------------------
+
+    def _install_chunk(self, cols, full: bool) -> None:
+        """One padded install on every shard, each keeping only the keys
+        it owns (the reference's _shard_upsert / _shard_upsert_full): one
+        writeback launch a shard."""
+        up = self._per_device(lambda dev: self._cols_to_device(cols, dev))
+        for s, dev in enumerate(self.devices):
+            *tensors, valid = up[dev]
+            with _on(dev):
+                mine = valid & (owner_of(tensors[0], self.n) == s)
+                if full:
+                    upsert_windows(self.stores[s], *tensors, mine)
+                else:
+                    upsert_globals(self.stores[s], *tensors, mine)
+
+    def _sync_padded(self, key_hash, hits, limit, duration, algo, now):
+        """One owner-charge + combine + replica-install step (the
+        reference's _shard_sync_globals): each shard charges `hits` on the
+        keys it owns (hits 0: a peek) and keeps its answers for them, the
+        owner-masked sum on the leader gives every key its owner's
+        post-charge window, and every other shard installs it as a
+        replica. Returns (status, limit, remaining, reset) tensors in the
+        padded sorted order, and that order. Neither the observer nor the
+        stats see it (gossip is not traffic)."""
+        n = key_hash.shape[0]
+        if algo is None:
+            algo = np.zeros(n, np.int32)
+        e_now = self._engine_now(now)
+        if n > max(self.buckets):
+            _warn_ladder_overflow(max(self.buckets), n)
+        req, order = pad_request_sorted(
+            extend_ladder(self.buckets, n), self.config.slots, key_hash, hits,
+            limit, duration, algo, np.zeros(n, bool),
+        )
+        self.gossip_chunks += 1  # the owner charge: one writeback a shard
+        self.install_chunks += 1  # the replica install: one a shard
+        up = self._per_device(lambda dev: to_device(req, dev))
+        mine, parts = [], []
+        for s, dev in enumerate(self.devices):
+            r = up[dev]
+            with _on(dev):
+                m = owner_of(r.key_hash, self.n) == s
+                peek = r._replace(valid=r.valid & m)
+                _st, resp, _stats = decide_presorted(self.stores[s], peek, e_now)
+                keep = m & r.valid
+                parts.append([torch.where(keep, x, 0) for x in resp])
+            mine.append(m)
+        lead = up[self.device].key_hash
+        status, r_limit, remaining, reset = (
+            _hier_psum([p[i] for p in parts], self.policy, lead) for i in range(4)
+        )
+        for s, dev in enumerate(self.devices):
+            r = up[dev]
+            with _on(dev):
+                upsert_globals(
+                    self.stores[s], r.key_hash, r_limit.to(dev), remaining.to(dev),
+                    reset.to(dev), (status == 1).to(dev), r.valid & ~mine[s],
+                )
+        return (status, r_limit, remaining, reset), order
+
+    def sync_globals(
+        self,
+        key_hash: np.ndarray,
+        limit: np.ndarray,
+        duration: np.ndarray,
+        now: int,
+        algo: Optional[np.ndarray] = None,
+    ) -> None:
+        """One gossip step for these GLOBAL keys: owners peek their
+        authoritative status (hits=0) and every other shard installs it.
+        `algo` must carry each key's algorithm (default token bucket)."""
+        n = key_hash.shape[0]
+        if n:
+            self._sync_padded(key_hash, np.zeros(n, np.int64), limit, duration, algo, now)
+
+    def apply_global_hits(
+        self,
+        key_hash: np.ndarray,
+        hits: np.ndarray,
+        limit: np.ndarray,
+        duration: np.ndarray,
+        now: int,
+        algo: Optional[np.ndarray] = None,
+    ):
+        """Charge aggregated GLOBAL hits on each key's owner shard and
+        install the post-charge window on every other shard, in one step
+        (the owner -> replica gossip collapsed). Returns (status, limit,
+        remaining, reset_time unix-ms) in caller order."""
+        n = key_hash.shape[0]
+        if n == 0:
+            z = np.empty(0, np.int64)
+            return z, z, z, z
+        resp, order = self._sync_padded(key_hash, hits, limit, duration, algo, now)
+        epoch = self.clock.epoch
+
+        def unpad(t):
+            a = t.cpu().numpy()
+            out = np.empty(a.shape[0], a.dtype)
+            out[order] = a
+            return out[:n]
+
+        status, rlimit, remaining, reset = (unpad(t) for t in resp)
+        r = reset.astype(np.int64)
+        return status, rlimit, remaining, np.where(r == 0, 0, r + epoch)
+
+    # -- warmup --------------------------------------------------------------
+
+    def warmup(self, now: Optional[int] = None) -> None:
+        warmup_public(self, now)
+
+
+def warmup_public(engine: MeshEngine, now: Optional[int] = None) -> None:
+    """Mesh warmup through the engine's public surface: one decide a
+    sub-batch rung (crafted so every shard hits the rung), one replica
+    install and one GLOBAL sync a host rung, and the sketch reads (first
+    launches, allocator pools, the kernel's build and load), then wipe the
+    state and zero the counters the warmup dirtied. `warmup_launches`
+    keeps the writebacks it made on a GPU: n_shards x (decides + install
+    chunks + gossip chunks)."""
+    if now is None:
+        now = api_types.millisecond_now()
+    n = engine.n
+    rungs = engine.sub_buckets
+    rng = np.random.default_rng(0xB007)
+    pool = rng.integers(1, 2**63, 4 * n * max(rungs), np.int64).astype(np.uint64)
+    owners = owner_of_np(pool, n)
+    per_shard = [pool[owners == s] for s in range(n)]
+    for r in rungs:
+        k = np.concatenate([p[:r] for p in per_shard])
+        ones = np.ones(k.shape[0], np.int64)
+        engine.decide_arrays(
+            k, ones, ones * 10, ones * 1000, np.zeros(k.shape[0], np.int32),
+            np.zeros(k.shape[0], bool), now,
+        )
+    for b in engine.buckets:
+        k = np.arange(1, b + 1, dtype=np.uint64) << np.uint64(32)
+        ones = np.ones(b, np.int64)
+        engine.update_globals(
+            key_hash=k, limit=ones, remaining=ones, reset_time=ones * now,
+            is_over=np.zeros(b, bool), now=now,
+        )
+        engine.sync_globals(k, ones, ones * 1000, now=now)
+    engine._warmup_sketch_reads(now)
+    for dev in dict.fromkeys(engine.devices):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    engine.warmup_launches = n * (
+        engine.stats.batches + engine.install_chunks + engine.gossip_chunks
+    )
+    engine.reset()
+    engine.stats = EngineStats()
+    engine.install_chunks = engine.gossip_chunks = 0

@@ -3,21 +3,22 @@ gubernator_tpu/serve/backends.py, with `make_backend` from
 gubernator_tpu/serve/server.py:38-158).
 
 The serving layer (serve/instance.py) speaks one small interface. The
-port has two backends:
+port has three backends:
 
 - `ExactBackend`, the reference's host LRU + exact oracle algorithms
   (core/cache.py, core/oracle.py), copied: no device state at all, chosen
   only by GUBER_BACKEND=exact. Its decide runs inline on the event loop.
 - `TorchBackend`, the single-device slot store (+ count-min cold tier) of
   `TorchEngine`, in place of the reference's TpuBackend.
+- `MeshBackend`, the same store sharded by key over a list of devices
+  (`MeshEngine`, GUBER_BACKEND=mesh with GUBER_SHARDS).
 
 `_ArrayOps` is the reference's array-level surface shared by its device
 backends, copied: the object<->array seam the batcher's arrival prep and
 merged submit run through, the GLOBAL hit apply, the replication
 snapshot read, the promoter's engine surfaces, and the quota-chain
 expansion (`decide_chain`, with `chain_level_keys` and
-`collapse_chain_responses`). Not ported yet: the mesh and multi-host
-backends.
+`collapse_chain_responses`). Not ported yet: the multi-host backend.
 
 Concurrency contract (the reference's): decide_submit calls are strictly
 serialized on the batcher's one submit thread, while up to fetch_depth
@@ -54,7 +55,7 @@ from gubernator_tpu_torch.core.store import DeviceLike, StoreConfig
 log = logging.getLogger("gubernator_tpu_torch.backends")
 
 #: the reference's backends that the port does not carry yet
-NOT_PORTED_BACKENDS = ("mesh", "multihost")
+NOT_PORTED_BACKENDS = ("multihost",)
 
 #: rough host footprint of one replication standby row (a small dataclass
 #: + dict node, the reference's measure), for the boot-time tier split
@@ -447,21 +448,143 @@ class TorchBackend(_ArrayOps):
         return self.engine.stats.snapshot()
 
 
-def make_backend(conf, device: DeviceLike = None):
+class MeshBackend(_ArrayOps):
+    """Key-space sharded slot-store backend (the reference's MeshBackend):
+    `MeshEngine` over a list of shard devices (every CUDA device unless
+    the caller passes a list; a list may name one device more than once,
+    so one GPU, or the CPU, holds several shards). The same surface as
+    TorchBackend: the sketch cold tier (a sub-sketch a shard), the
+    replication snapshot reads, the arrival-prep pipeline, quota chains
+    and the one-step GLOBAL hit apply."""
+
+    def __init__(
+        self,
+        store: StoreConfig = StoreConfig(),
+        devices: Optional[Sequence[DeviceLike]] = None,
+        buckets: Sequence[int] = (64, 256, 1024, 4096),
+        sketch=None,
+        mesh_shape: Optional[Tuple[int, int]] = None,
+    ):
+        from gubernator_tpu_torch.parallel.sharded import MeshEngine
+
+        self.engine = MeshEngine(
+            store, devices=devices, buckets=buckets, mesh_shape=mesh_shape,
+            sketch=sketch,
+        )
+
+    @property
+    def device(self):
+        """The leader shard's device (where the host reads combine)."""
+        return self.engine.device
+
+    def decide(self, reqs, gnp, now=None):
+        if len(reqs) == 0:
+            return []
+        if now is None:
+            now = api_types.millisecond_now()
+        return self.resps_from_arrays(
+            *self.engine.decide_arrays(now=now, **self.arrays_from_reqs(reqs, gnp))
+        )
+
+    def decide_submit(self, reqs, gnp, now=None):
+        """Shard + dispatch without waiting: the batcher preps batch N+1
+        while the shards decide batch N."""
+        if len(reqs) == 0:
+            return None
+        if now is None:
+            now = api_types.millisecond_now()
+        return self.engine.decide_submit(now=now, **self.arrays_from_reqs(reqs, gnp))
+
+    def decide_wait(self, handle):
+        if handle is None:
+            return []
+        return self.resps_from_arrays(*self.engine.decide_wait(handle))
+
+    def update_globals(self, updates, now=None):
+        n = len(updates)
+        if n == 0:
+            return
+        self.engine.update_globals(
+            key_hash=slot_hash_batch([k for k, _ in updates]),
+            limit=np.fromiter((s.limit for _, s in updates), np.int64, n),
+            remaining=np.fromiter((s.remaining for _, s in updates), np.int64, n),
+            reset_time=np.fromiter((s.reset_time for _, s in updates), np.int64, n),
+            is_over=np.fromiter(
+                (s.status == Status.OVER_LIMIT for _, s in updates), bool, n
+            ),
+            now=now,
+        )
+
+    def repartition(self, devices: Optional[Sequence[DeviceLike]] = None, now=None) -> None:
+        """Re-shard the live store over another device list (every local
+        device of the leader's kind by default; the GUBER_SHARDS-change
+        path): every live window exports and
+        reinstalls under the new ShardingPolicy, then the new engine
+        replaces the old. One device degenerates to the flat TorchEngine.
+        Run with the batcher idle or on its submit thread
+        (DeviceBatcher.run_serialized), and warm up before serving."""
+        from gubernator_tpu_torch.parallel.policy import ShardingPolicy, local_devices
+
+        if devices is None:
+            devices = local_devices(self.engine.device)
+        devices = list(devices)
+        policy = (
+            ShardingPolicy.single(devices[0])
+            if len(devices) == 1
+            else ShardingPolicy.over_mesh(devices)
+        )
+        self.engine = self.engine.repartition(policy, now=now)
+
+    def warmup(self) -> None:
+        """Every sub-batch rung once, and the install and sync at each
+        host rung (MeshEngine.warmup), so no request pays for them."""
+        self.engine.warmup()
+
+    def load_state(self, store_np, epoch, sketch_np=None) -> None:
+        """Carry another mesh's [n_shards, ...] store, clock epoch and
+        sketch across (MeshEngine.load_state)."""
+        self.engine.load_state(store_np, epoch, sketch_np)
+
+    def stats(self) -> dict:
+        return self.engine.stats.snapshot()
+
+
+def mesh_devices(shards: int, device: DeviceLike = None) -> list:
+    """The shard list GUBER_BACKEND=mesh serves on: the first
+    GUBER_SHARDS CUDA devices (all of them at 0; more than there are is
+    refused), or on the CPU GUBER_SHARDS shards of the one CPU (1 at 0),
+    the port's counterpart of the reference's simulated host devices."""
+    from gubernator_tpu_torch.parallel.policy import local_devices
+
+    avail = local_devices(device)
+    if avail[0].type == "cpu":
+        return [avail[0]] * max(shards, 1)
+    if shards > len(avail):
+        raise ValueError(
+            f"GUBER_SHARDS={shards} exceeds the {len(avail)} visible CUDA "
+            "devices; pass make_backend an explicit devices= list to hold "
+            "several shards on one device"
+        )
+    return list(avail[:shards] if shards else avail)
+
+
+def make_backend(conf, device: DeviceLike = None, devices: Optional[Sequence] = None):
     """The backend a ServerConfig asks for, on `device` (cuda unless the
-    caller passes another). Resolves the store sizing knobs, logs the
-    per-tier footprint and runs the whole-host budget lint, as the
-    reference's make_backend does."""
+    caller passes another). GUBER_BACKEND=mesh shards over `devices` when
+    the caller passes a list, else over mesh_devices(GUBER_SHARDS,
+    device). Resolves the store sizing knobs, logs the per-tier footprint
+    and runs the whole-host budget lint, as the reference's make_backend
+    does."""
     if conf.backend in NOT_PORTED_BACKENDS:
         raise ValueError(
             f"GUBER_BACKEND={conf.backend} is not ported to "
             f"gubernator_tpu_torch yet (only 'tpu', the single-device "
-            f"backend, and 'exact', the host LRU, are); not ported: "
-            f"{', '.join(NOT_PORTED_BACKENDS)}"
+            f"backend, 'mesh', the key-space sharded one, and 'exact', the "
+            f"host LRU, are); not ported: {', '.join(NOT_PORTED_BACKENDS)}"
         )
     if conf.backend == "exact":
         return ExactBackend(conf.cache_size)
-    if conf.backend != "tpu":
+    if conf.backend not in ("tpu", "mesh"):
         raise ValueError(f"unknown backend '{conf.backend}'")
     from gubernator_tpu_torch.core.engine import buckets_for_limit
     from gubernator_tpu_torch.core.sketches import sketch_footprint_bytes
@@ -525,4 +648,11 @@ def make_backend(conf, device: DeviceLike = None):
             "throughput mode: deep-batch accumulation toward %d (ladder %s)",
             conf.device_batch_limit, buckets,
         )
-    return TorchBackend(store, buckets=buckets, sketch=sketch, device=device)
+    if conf.backend == "tpu":
+        return TorchBackend(store, buckets=buckets, sketch=sketch, device=device)
+    if devices is None:
+        devices = mesh_devices(conf.shards, device)
+    backend = MeshBackend(store, devices=devices, buckets=buckets, sketch=sketch)
+    # the operator's confirmation that GUBER_SHARDS took effect
+    log.info("partitioned engine: %s", backend.engine.policy.describe())
+    return backend

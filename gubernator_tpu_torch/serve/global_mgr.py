@@ -2,10 +2,11 @@
 
 The port's copy of gubernator_tpu/serve/global_mgr.py with its imports
 rewritten. Hit flushes and status broadcasts reach the other ring members
-over PeersV1 (serve/peers.PeerClient); self-destined hits apply locally.
-The port has no mesh, so no peer is mesh_local and the mesh-local
-install path stays idle. File references below are the reference
-package's.
+over PeersV1 (serve/peers.PeerClient); self-destined hits apply locally
+(on a MeshBackend in one owner-charge + replica-install step). No peer is
+mesh_local (the flag marks the multi-host mesh's lockstep followers,
+which the port does not carry yet), so the mesh-local install path stays
+idle. File references below are the reference package's.
 
 The host-level twin of the reference's globalManager (reference
 global.go:29-232), on asyncio instead of goroutines:

@@ -22,8 +22,8 @@ rescale handoff, replication flush and final checkpoint.
 
 Not ported yet, and refused when the server is built rather than
 ignored (`refuse_not_ported`): the multi-host mesh
-(GUBER_DIST_COORDINATOR); `make_backend` refuses the backends that are
-not ported (mesh, multihost).
+(GUBER_DIST_COORDINATOR); `make_backend` refuses the backend that is
+not ported (multihost).
 """
 
 from __future__ import annotations
@@ -814,8 +814,9 @@ class Server:
         """Traffic observability: HLL cardinality + top hot keys + backend
         counters, the launch count of each hand-written kernel in this
         process (core/writeback.py), and the engine's writebacks that no
-        decide batch counts (window-install and gossip-charge chunks):
-        launches = backend batches + install_chunks + gossip_chunks."""
+        decide batch counts (window-install and gossip-charge chunks) with
+        the engine's shard count: launches = n_shards x (backend batches
+        + install_chunks + gossip_chunks)."""
         from gubernator_tpu_torch.core.writeback import writeback_add
 
         try:
@@ -832,6 +833,7 @@ class Server:
             body["engine_chunks"] = {
                 "install_chunks": eng.install_chunks,
                 "gossip_chunks": eng.gossip_chunks,
+                "n_shards": eng.n,
             }
             # the card's time inside counted decides (CUDA events around
             # each; 0 on the CPU): 1 - its growth over a window's wall time

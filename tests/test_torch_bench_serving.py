@@ -12,9 +12,9 @@ package's, on the CPU.
   nested dict. The JAX rows come from the JAX scenario code run at the
   same flags, its stack's backend handed over to the port's CPU backend
   (so no XLA ladder compiles; the rows are built by the JAX code).
-- The `shard` scenario and `--backend mesh` are refused, naming the
-  roadmap item, and `--device cuda` without a GPU fails with the
-  engine's message.
+- The `shard` scenario (flat, 2 and 8 shards on the one CPU) prints the
+  JAX scenario's keys, `--backend mesh` serves the reference suite, and
+  `--device cuda` without a GPU fails with the engine's message.
 """
 
 import contextlib
@@ -210,12 +210,36 @@ def test_cluster_suite_on_the_cpu_device_backend_with_the_edge(monkeypatch):
     assert "decisions_per_sec" in got["results"][EDGE_ROWS.index("edge_grpc_batched_concurrent")]
 
 
-@pytest.mark.parametrize("argv", [["--scenario", "shard"], ["--backend", "mesh"]],
-                         ids=["shard", "mesh"])
-def test_multi_gpu_paths_are_refused(argv):
-    rc, doc, err = _run(tb.main, argv + ["--device", "cpu"])
-    assert rc == 2 and doc is None
-    assert "not ported" in err and "ROADMAP Queue 2 item 6" in err
+#: the JAX shard scenario's document keys (gubernator_tpu/cli/bench_serving.py
+#: run_shard; its rungs spawn one process each, so it is not run here) and
+#: the row keys it adds to _drive_pool's
+SHARD_DOC_KEYS = {"scenario", "scope", "host_cpus", "shards_ladder", "served_via",
+                  "env_knobs", "key_space", "notes", "rows"}
+SHARD_ROW_KEYS = {"shards", "policy", "vs_flat", "decisions_per_sec", "mean_device_batch"}
+
+
+@pytest.mark.parametrize("argv", [
+    ["--scenario", "shard", "--shards", "2,8", "--shard-depth", "1024",
+     "--shard-slots", "256", "--keys", "2000", "--group", "256"],
+    ["--backend", "mesh", "--nodes", "2"],
+], ids=["shard", "mesh"])
+def test_multi_gpu_paths_are_refused(argv, monkeypatch):
+    """Once refused, now served on the CPU: the shard ladder (a flat row,
+    then 2 and 8 shards on the one CPU) with the JAX scenario's document
+    and row keys, and the reference suite over --backend mesh nodes."""
+    _cluster_ports(monkeypatch, 2)
+    monkeypatch.setenv("GUBER_DEVICE_BATCH_LIMIT", "1024")
+    rc, doc, err = _run(tb.main, argv + ["--device", "cpu"] + SECONDS)
+    assert rc == 0, err[-3000:]
+    if argv[1] == "shard":
+        assert SHARD_DOC_KEYS <= set(doc) and doc["scope"] == "cpu"
+        assert [(r["policy"], r["shards"]) for r in doc["rows"]] == [
+            ("flat", 1), ("mesh", 2), ("mesh", 8)]
+        assert all(SHARD_ROW_KEYS <= set(r) and r["decisions_per_sec"] > 0
+                   for r in doc["rows"])
+        assert doc["rows"][2]["shard_devices"] == ["cpu"] * 8
+    else:
+        assert all(r["errors"] == 0 and r["ops"] > 0 for r in doc["results"]), doc
 
 
 def test_cuda_without_a_gpu_fails_with_the_engines_message(monkeypatch):

@@ -171,7 +171,9 @@ def test_decide_presorted_chain_matches_jax(seed, slots, rows, use_groups):
 
 def test_pad_request_chained_localizes_chain_slots():
     """Chain slots are dense in the sorted order, padding rows are
-    singleton chains, and a request over shards is refused."""
+    singleton chains, and over shards (once refused) each chain lands
+    whole on its head's owner with its slots localized per shard, the
+    JAX package's layout array for array."""
     kh = np.array([9, 3, 9, 5, 3], np.uint64) << np.uint64(40)
     cols = [np.ones(5, np.int64), np.full(5, 10, np.int64), np.full(5, 1000, np.int64),
             np.zeros(5, np.int32)]
@@ -184,8 +186,30 @@ def test_pad_request_chained_localizes_chain_slots():
                                   np.unique(chains[order], return_inverse=True)[1])
     assert local[:5].max() == 2
     np.testing.assert_array_equal(local[5:], np.arange(5, 8))
-    with pytest.raises(ValueError, match="mesh"):
-        pad_request_chained((8,), 16, 2, kh, *cols, chains, kh)
+    from gubernator_tpu.parallel.sharded import pad_request_chained as j_pad_request_chained
+    from gubernator_tpu_torch.parallel.sharded import owner_of_np
+
+    # a chain's rows share its head's hash; heads on both shards
+    cand = np.arange(1, 64, dtype=np.uint64) << np.uint64(40)
+    h0, h1 = (cand[owner_of_np(cand, 2) == s][0] for s in (0, 1))
+    route = np.array([h0, h1, h0, h1, h0], np.uint64)
+    got = pad_request_chained((8,), 16, 2, kh, *cols, chains, route)
+    want = j_pad_request_chained((8,), 16, 2, kh, *cols, chains, route)
+    for g, w in zip(got[:3] + got[4:], want[:3] + want[4:]):
+        np.testing.assert_array_equal(g, w)
+    for g, w in zip(got[3], want[3]):
+        np.testing.assert_array_equal(g, w)
+    sreq, sorder, stake, _g, slocal = got
+    B_sub = sreq.key_hash.shape[1]
+    assert sreq.key_hash.shape[0] == 2 and slocal.shape == sreq.key_hash.shape
+    owner = owner_of_np(route, 2)
+    assert sreq.valid.sum() == 5 and len(set(owner.tolist())) == 2
+    # sorted row k (caller row sorder[k]) sits on shard stake[k] // B_sub:
+    # every row with its chain head
+    np.testing.assert_array_equal(owner[sorder], stake // B_sub)
+    for s in range(2):
+        v = sreq.valid[s]
+        assert slocal[s][v].max() < v.sum()
 
 
 def test_all_singleton_chains_equal_the_plain_decide():

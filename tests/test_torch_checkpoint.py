@@ -1,6 +1,6 @@
 """The port's checkpoint/restore (serve/checkpoint.py) on the CPU: the
 cases of tests/test_checkpoint.py with the port in place of the JAX
-package (less its mesh cases, which wait for the port's mesh policy), the
+package (its mesh cases on the port's MeshEngine, 8 or 4 CPU shards), the
 JAX package as the twin in each differential.
 
 The torn-write-safe file format, boot-time warm restore with its
@@ -662,6 +662,82 @@ def test_restore_all_algorithms_at_least_as_restrictive(tmp_path, monkeypatch):
     asyncio.run(run())
 
 
+def _port_mesh_backend(n=8):
+    from gubernator_tpu_torch.serve.backends import MeshBackend
+
+    return MeshBackend(StoreConfig(rows=4, slots=256), devices=["cpu"] * n, buckets=(16, 64))
+
+
+def test_restore_all_algorithms_at_least_as_restrictive_on_the_mesh(tmp_path, monkeypatch):
+    """The mesh case of the same property (8 shards on the CPU): every
+    restored window of every algorithm answers exactly what it answered
+    before the kill, and no restored remaining exceeds the oracle's."""
+    clock = FakeClock()
+    _pin(monkeypatch, clock)
+
+    async def run():
+        a = await _instance(_device_conf(tmp_path), backend=_port_mesh_backend())
+        b = None
+        try:
+            reqs = _mixed_reqs()
+            await a.get_rate_limits(reqs)
+            clock.t += 500
+            await a.get_rate_limits(reqs)
+            peeks = [
+                RateLimitReq(name="ckpt", unique_key=r.unique_key, hits=0, limit=r.limit,
+                             duration=r.duration, algorithm=r.algorithm)
+                for r in reqs
+            ]
+            oracle = await a.get_rate_limits(peeks)
+            await a.checkpoint.flush_once()
+            b = await _instance(_device_conf(tmp_path), backend=_port_mesh_backend())
+            assert await b.checkpoint.restore() >= len(reqs) * 3 // 4
+            got = await b.get_rate_limits(peeks)
+            for r, x, y in zip(reqs, oracle, got):
+                _assert_same(x, y, r)
+                assert y.remaining <= x.remaining
+        finally:
+            await a.stop()
+            if b is not None:
+                await b.stop()
+
+    asyncio.run(run())
+
+
+def test_restore_across_shard_count_change(tmp_path, monkeypatch):
+    """Restore is also a re-partition: a checkpoint taken under an 8-shard
+    mesh restores byte-exact into a 4-shard mesh (the lanes install routes
+    by hash under the current policy)."""
+    clock = FakeClock()
+    _pin(monkeypatch, clock)
+
+    async def run():
+        a = await _instance(_device_conf(tmp_path), backend=_port_mesh_backend(8))
+        b = None
+        try:
+            reqs = _mixed_reqs()
+            await a.get_rate_limits(reqs)
+            peeks = [
+                RateLimitReq(name="ckpt", unique_key=r.unique_key, hits=0, limit=r.limit,
+                             duration=r.duration, algorithm=r.algorithm)
+                for r in reqs
+            ]
+            oracle = await a.get_rate_limits(peeks)
+            await a.checkpoint.flush_once()
+            b = await _instance(_device_conf(tmp_path), backend=_port_mesh_backend(4))
+            assert b.backend.engine.n == 4
+            assert await b.checkpoint.restore() >= len(reqs) * 3 // 4
+            got = await b.get_rate_limits(peeks)
+            for r, x, y in zip(reqs, oracle, got):
+                _assert_same(x, y, r)
+        finally:
+            await a.stop()
+            if b is not None:
+                await b.stop()
+
+    asyncio.run(run())
+
+
 # -- differential identity: checkpoint ON == OFF -----------------------------
 
 
@@ -777,6 +853,24 @@ def test_differential_identity_fuzz_device(tmp_path, monkeypatch):
     _pin(monkeypatch, clock)
     asyncio.run(_ckpt_fuzz_pair(
         _port_device_backend, _jax_device_backend, clock, 100, 5, tmp_path
+    ))
+
+
+def test_differential_identity_fuzz_mesh(tmp_path, monkeypatch):
+    """ON == OFF through the 8-shard port mesh, answering and writing
+    checkpoint files byte for byte as the JAX package's 8-device mesh."""
+    import jax
+
+    from gubernator_tpu.core.store import StoreConfig as JStoreConfig
+    from gubernator_tpu.serve.backends import MeshBackend as JMeshBackend
+
+    clock = FakeClock()
+    _pin(monkeypatch, clock)
+    asyncio.run(_ckpt_fuzz_pair(
+        _port_mesh_backend,
+        lambda: JMeshBackend(JStoreConfig(rows=4, slots=256), devices=jax.devices(),
+                             buckets=(16, 64)),
+        clock, 60, 7, tmp_path,
     ))
 
 

@@ -543,3 +543,89 @@ def test_tail_error_on_card_matches_cpu(case):
     assert writeback_add.launches - before == 16 + 1  # the fillers' decide, then 16
     assert card == measure_tail_error(batches=16, device="cpu", **case)
     assert card["under_counts"] == 0 and card["within_bound"]
+
+
+# -- the mesh policy: shards on the one card ----------------------------------------
+
+
+def test_owner_of_on_card_matches_owner_of_np():
+    """owner_of's unsigned remainder (32-bit halves of int64 bit patterns)
+    on the card equals the numpy twin, hashes at and above 2^63 included."""
+    _need_card()
+    from gubernator_tpu_torch.parallel.sharded import owner_of, owner_of_np
+
+    rng = np.random.default_rng(0x5EED)
+    kh = rng.integers(0, 2**64 - 1, 1 << 16, dtype=np.uint64, endpoint=True)
+    kh[: 1 << 15] |= np.uint64(1 << 63)
+    kh[:4] = [1 << 63, 2**64 - 1, 0, (1 << 63) - 1]
+    for n in (1, 2, 3, 4, 7, 8):
+        got = owner_of(torch.from_numpy(kh.view(np.int64)).cuda(), n)
+        np.testing.assert_array_equal(got.cpu().numpy(), owner_of_np(kh, n))
+
+
+def _mesh_pair(n: int, sketch: bool):
+    from gubernator_tpu_torch.core.sketches import SketchConfig
+    from gubernator_tpu_torch.parallel.sharded import MeshEngine
+
+    kw = dict(buckets=(64, 256, 1024),
+              sketch=SketchConfig(rows=2, width=1 << 12) if sketch else None)
+    cfg = StoreConfig(rows=4, slots=1 << 10)
+    return (MeshEngine(cfg, devices=["cuda:0"] * n, **kw),
+            MeshEngine(cfg, devices=["cpu"] * n, **kw))
+
+
+def test_four_shard_two_tier_mesh_on_card_matches_cpu():
+    """Four shards of the two-tier engine on the one card decide, charge
+    their sub-sketches and count byte for byte as on the CPU, with one
+    writeback launch a shard a decide."""
+    _need_card()
+    card, cpu = _mesh_pair(4, sketch=True)
+    rng = np.random.default_rng(21)
+    pool = rng.integers(1, 2**63, 5000).astype(np.uint64)
+    before = writeback_add.launches
+    for step in range(8):
+        n = int(rng.integers(200, 3000))
+        args = (pool[rng.integers(0, 5000, n)], rng.integers(0, 3, n).astype(np.int64),
+                np.full(n, 20, np.int64), np.full(n, 60_000, np.int64),
+                rng.integers(0, 4, n).astype(np.int32), np.zeros(n, bool),
+                1_700_000_000_000 + 10 * step)
+        for x, y in zip(card.decide_arrays(*args), cpu.decide_arrays(*args)):
+            np.testing.assert_array_equal(x, y)
+    assert writeback_add.launches - before == 4 * 8
+    np.testing.assert_array_equal(card.store_numpy(), cpu.store_numpy())
+    np.testing.assert_array_equal(card.sketch_numpy(), cpu.sketch_numpy())
+    assert card.stats.snapshot() == cpu.stats.snapshot()
+
+
+def test_owner_masked_reads_on_card_match_the_flat_engine():
+    """On the card, the mesh's owner-masked reads (snapshot_read,
+    live_mask, sketch_estimates) and a GLOBAL sync answer as the flat
+    engine's over the same traffic; a sync launches two writebacks a
+    shard (the owner charge and the replica install)."""
+    _need_card()
+    from gubernator_tpu_torch.core.sketches import SketchConfig
+
+    card, _cpu = _mesh_pair(4, sketch=True)
+    flat = TorchEngine(StoreConfig(rows=4, slots=1 << 12), buckets=(64, 256, 1024),
+                       device="cuda", sketch=SketchConfig(rows=2, width=1 << 12))
+    rng = np.random.default_rng(5)
+    kh = rng.integers(1, 2**63, 600).astype(np.uint64)
+    n = kh.shape[0]
+    args = (kh, np.ones(n, np.int64), np.full(n, 9, np.int64),
+            np.full(n, 60_000, np.int64), np.zeros(n, np.int32), np.zeros(n, bool))
+    now = 1_700_000_000_000
+    for e in (card, flat):
+        e.decide_arrays(*args, now)
+    assert card.snapshot_read(kh, now + 1) == flat.snapshot_read(kh, now + 1)
+    np.testing.assert_array_equal(card.live_mask(kh, now + 1), flat.live_mask(kh, now + 1))
+    durs = np.full(n, 60_000, np.int64)
+    np.testing.assert_array_equal(card.sketch_estimates(kh, durs, now + 1),
+                                  flat.sketch_estimates(kh, durs, now + 1))
+    before = writeback_add.launches
+    a = card.apply_global_hits(kh[:100], np.ones(100, np.int64), np.full(100, 9, np.int64),
+                               np.full(100, 60_000, np.int64), now + 2)
+    assert writeback_add.launches - before == 2 * 4
+    b = flat.apply_global_hits(kh[:100], np.ones(100, np.int64), np.full(100, 9, np.int64),
+                               np.full(100, 60_000, np.int64), now + 2)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(np.asarray(x, np.int64), np.asarray(y, np.int64))

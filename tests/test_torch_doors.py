@@ -474,6 +474,11 @@ def test_daemon_without_a_gpu_exits_nonzero_with_the_engines_message():
     "GUBER_BACKEND=mesh", "GUBER_BACKEND=multihost",
 ])
 def test_unported_doors_and_managers_are_refused_at_boot(knob):
+    """The multi-host mesh and backend are refused when the server is
+    built; GUBER_BACKEND=mesh, once refused, builds a Server over a
+    MeshBackend (GUBER_SHARDS=2 on the CPU; the doors open at start(),
+    which this does not call)."""
+    from gubernator_tpu_torch.serve.backends import MeshBackend
     from gubernator_tpu_torch.serve.config import config_from_env
     from gubernator_tpu_torch.serve.server import Server
 
@@ -481,6 +486,10 @@ def test_unported_doors_and_managers_are_refused_at_boot(knob):
     env = {"GUBER_GRPC_ADDRESS": "127.0.0.1:7003", "GUBER_STORE_MIB": "8", key: value}
     if key == "GUBER_DIST_COORDINATOR":
         env.update(GUBER_BACKEND="tpu", GUBER_DIST_NUM_PROCESSES="2")
+    if value == "mesh":
+        server = Server(config_from_env(dict(env, GUBER_SHARDS="2")), device="cpu")
+        assert isinstance(server.backend, MeshBackend) and server.backend.engine.n == 2
+        return
     with pytest.raises(ValueError, match="not ported"):
         Server(config_from_env(env), device="cpu")
 

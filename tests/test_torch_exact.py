@@ -375,9 +375,14 @@ def test_make_backend_exact_holds_no_device_state():
     assert isinstance(be, t_backends.ExactBackend)
     assert be.cache.max_size == 123
     assert be.inline_decide and not hasattr(be, "engine")
-    for name in ("mesh", "multihost"):
-        with pytest.raises(ValueError, match=f"GUBER_BACKEND={name} is not ported"):
-            t_backends.make_backend(t_config.ServerConfig(backend=name))
+    with pytest.raises(ValueError, match="GUBER_BACKEND=multihost is not ported"):
+        t_backends.make_backend(t_config.ServerConfig(backend="multihost"))
+    # mesh, once refused, is the sharded device backend, not the host LRU
+    mesh = t_backends.make_backend(
+        t_config.ServerConfig(backend="mesh", shards=2, store_mib=1), device="cpu"
+    )
+    assert isinstance(mesh, t_backends.MeshBackend) and mesh.engine.n == 2
+    assert not getattr(mesh, "inline_decide", False)
 
 
 # -- Instance(ExactBackend) through the batcher's inline path ---------------------

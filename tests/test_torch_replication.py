@@ -670,7 +670,9 @@ def _jax_conf(**kw):
 def _final_state(inst):
     be = inst.backend
     if hasattr(be, "engine"):
-        return np.asarray(be.engine.store.data).tobytes()
+        eng = be.engine  # the port's engines (flat or mesh) or a JAX one
+        data = eng.store_numpy() if hasattr(eng, "store_numpy") else eng.store.data
+        return np.asarray(data).tobytes()
     return [(k, rec.expire_at, repr(rec.value)) for k, rec in be.cache._data.items()]
 
 

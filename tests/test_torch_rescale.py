@@ -1,7 +1,8 @@
 """The port's elastic ring rescale (serve/rescale.py) on the CPU: the
 cases of tests/test_rescale.py with the port in place of the JAX package
-(less its three mesh cases, which wait for the port's mesh policy), the
-JAX package as the twin in each differential.
+with its three mesh cases on the port's MeshEngine (8 CPU shards against
+the JAX package's 8 simulated devices), the JAX package as the twin in
+each differential.
 
 ownership_diff ring semantics, the tracked/pending tables, double-serve
 routing, the ON == OFF identity through the real serving pipeline (the
@@ -871,10 +872,141 @@ def test_repartition_flat_preserves_every_window(monkeypatch):
         np.testing.assert_array_equal(np.asarray(x, np.int64), np.asarray(z, np.int64))
 
 
-def test_repartition_refuses_more_than_one_shard():
-    flat = TorchBackend(StoreConfig(rows=4, slots=256), buckets=(64,), device="cpu")
-    with pytest.raises(ValueError, match="mesh policy"):
-        flat.engine.repartition(shards=2, now=T0)
+def test_repartition_refuses_more_than_one_shard(monkeypatch):
+    """Once refused, now served: a flat engine repartitions onto 2 shards
+    with every live window preserved, its store bytes equal to the JAX
+    engine's repartition onto 2 devices."""
+    import jax
+
+    from gubernator_tpu.parallel.policy import ShardingPolicy as JShardingPolicy
+    from gubernator_tpu_torch.core.hashing import slot_hash_batch
+    from gubernator_tpu_torch.parallel.policy import ShardingPolicy
+    from gubernator_tpu_torch.parallel.sharded import MeshEngine
+
+    t, j = _twin_backends(monkeypatch)
+    keys = _drive_windows(t)
+    _drive_windows(j)
+    two = t.engine.repartition(ShardingPolicy.over_mesh(["cpu"] * 2), now=T0 + 5)
+    jtwo = j.engine.repartition(JShardingPolicy.over_mesh(jax.devices()[:2]), now=T0 + 5)
+    assert isinstance(two, MeshEngine) and two.n == 2
+    want = t.snapshot_read(keys, now=T0 + 5)
+    assert two.snapshot_read(slot_hash_batch(keys), now=T0 + 5) == want
+    assert len([r for r in want if r is not None]) == 48  # leaky out of scope
+    np.testing.assert_array_equal(two.store_numpy(), np.asarray(jtwo.store.data))
+    _assert_exports_equal(
+        _sorted_export(two.export_windows(now=T0 + 5)),
+        _sorted_export(t.engine.export_windows(now=T0 + 5)),
+    )
+
+
+def _sorted_export(w: dict) -> dict:
+    """An export's columns in key order (a mesh exports in shard order)."""
+    o = np.argsort(w["key_hash"], kind="stable")
+    return {k: v[o] for k, v in w.items()}
+
+
+def _mesh_twins(monkeypatch, n=8, rows=4, slots=256):
+    """The port's MeshBackend on n CPU shards and the JAX MeshBackend on n
+    simulated devices, one slot hash, same geometry and ladder."""
+    import jax
+
+    from gubernator_tpu.core.store import StoreConfig as JStoreConfig
+    from gubernator_tpu.serve.backends import MeshBackend as JMeshBackend
+    from gubernator_tpu_torch.serve.backends import MeshBackend
+
+    pin_hash(monkeypatch, "blake2b")
+    return (
+        MeshBackend(StoreConfig(rows=rows, slots=slots), devices=["cpu"] * n, buckets=(64,)),
+        JMeshBackend(JStoreConfig(rows=rows, slots=slots), devices=jax.devices()[:n],
+                     buckets=(64,)),
+    )
+
+
+def test_repartition_flat_to_mesh_preserves_every_window(monkeypatch):
+    """Flat to an 8-shard mesh: every live window (full rows, duration
+    included) answers the same snapshot, the store bytes equal the JAX
+    engine's repartition onto 8 devices, and decisions continue
+    identically on the flat engine, the mesh and the JAX mesh."""
+    import jax
+
+    from gubernator_tpu.parallel.policy import ShardingPolicy as JShardingPolicy
+    from gubernator_tpu_torch.core.hashing import slot_hash_batch
+    from gubernator_tpu_torch.parallel.policy import ShardingPolicy
+
+    t, j = _twin_backends(monkeypatch)
+    keys = _drive_windows(t)
+    _drive_windows(j)
+    mesh = t.engine.repartition(ShardingPolicy.over_mesh(["cpu"] * 8), now=T0 + 5)
+    jmesh = j.engine.repartition(JShardingPolicy.over_mesh(jax.devices()), now=T0 + 5)
+    kh = slot_hash_batch(keys)
+    a = t.snapshot_read(keys, now=T0 + 5)
+    assert a == mesh.snapshot_read(kh, now=T0 + 5) == jmesh.snapshot_read(kh, now=T0 + 5)
+    assert len([r for r in a if r is not None]) == 48
+    np.testing.assert_array_equal(mesh.store_numpy(), np.asarray(jmesh.store.data))
+    token = [i for i in range(len(keys)) if i % 4 != 3]
+    n = len(token)
+    args = (kh[token], np.ones(n, np.int64), np.full(n, 5, np.int64),
+            np.full(n, 60_000, np.int64), np.zeros(n, np.int32), np.zeros(n, bool), T0 + 10)
+    ra = t.engine.decide_arrays(*args)
+    for other in (mesh.decide_arrays(*args), jmesh.decide_arrays(*args)):
+        for x, y in zip(ra, other):
+            np.testing.assert_array_equal(np.asarray(x, np.int64), np.asarray(y, np.int64))
+
+
+def test_mesh_backend_repartition_shard_count_change(monkeypatch):
+    """MeshBackend.repartition: 8 shards -> 2 -> flat, every live window
+    preserved at each step and each store equal to the JAX backend's after
+    the same steps; sticky and exhausted windows still peek OVER."""
+    import jax
+
+    be, jbe = _mesh_twins(monkeypatch)
+    keys = _drive_windows(be)
+    _drive_windows(jbe)
+    want = be.snapshot_read(keys, now=T0 + 5)
+    assert want == jbe.snapshot_read(keys, now=T0 + 5)
+    assert be.engine.n == 8
+    be.repartition(devices=["cpu"] * 2, now=T0 + 5)
+    jbe.repartition(devices=jax.devices()[:2], now=T0 + 5)
+    assert be.engine.n == 2
+    assert be.snapshot_read(keys, now=T0 + 5) == want
+    np.testing.assert_array_equal(be.engine.store_numpy(), np.asarray(jbe.engine.store.data))
+    be.repartition(devices=["cpu"], now=T0 + 5)
+    jbe.repartition(devices=jax.devices()[:1], now=T0 + 5)
+    assert be.engine.policy.flat and jbe.engine.flat
+    assert be.snapshot_read(keys, now=T0 + 5) == want
+    np.testing.assert_array_equal(be.engine.store_numpy(), np.asarray(jbe.engine.store.data))
+    peek = [RateLimitReq(name="rp", unique_key=f"rp{i}", hits=0, limit=5, duration=60_000)
+            for i in range(64) if i % 4 in (1, 2)]
+    for r, x in zip(peek, be.decide(peek, [False] * len(peek), now=T0 + 6)):
+        assert x.status == Status.OVER_LIMIT
+        assert x.remaining == (5 if int(r.unique_key[2:]) % 4 == 2 else 0)
+
+
+def test_differential_identity_fuzz_mesh(monkeypatch):
+    """The ON == OFF identity through the 8-shard mesh (instance ->
+    batcher -> arrival prep -> merged submit -> the per-shard decides),
+    and the port's ON Instance answering as the JAX package's on 8
+    simulated devices: the tracked set is host state only and the
+    snapshot reads are non-mutating on the sharded store too."""
+    import jax
+
+    from gubernator_tpu.core.store import StoreConfig as JStoreConfig
+    from gubernator_tpu.serve.backends import MeshBackend as JMeshBackend
+    from gubernator_tpu_torch.serve.backends import MeshBackend
+
+    clock = FakeClock()
+    _pin_clock(monkeypatch, clock)
+    pin_hash(monkeypatch, "blake2b")
+
+    def be():
+        return MeshBackend(StoreConfig(rows=4, slots=256), devices=["cpu"] * 8,
+                           buckets=(16, 64))
+
+    def jbe():
+        return JMeshBackend(JStoreConfig(rows=4, slots=256), devices=jax.devices(),
+                            buckets=(16, 64))
+
+    asyncio.run(_fuzz_pair(be, jbe, clock, 60, 7))
 
 
 def test_export_windows_empty_and_scope():

@@ -18,6 +18,7 @@ the JAX package's, on the CPU.
 import dataclasses
 
 import pytest
+import torch
 
 from gubernator_tpu.serve import config as jconfig
 from gubernator_tpu.serve import metrics as jmetrics
@@ -160,9 +161,29 @@ def test_make_backend_builds_torch_backend_on_the_given_device():
 
 @pytest.mark.parametrize("backend", ["mesh", "multihost"])
 def test_make_backend_refuses_backends_not_ported(backend):
-    conf = tconfig.config_from_env({"GUBER_BACKEND": backend})
-    with pytest.raises(ValueError, match=f"GUBER_BACKEND={backend} is not ported"):
-        make_backend(conf, device="cpu")
+    """multihost is still refused; mesh, once refused, builds a MeshBackend
+    on the CPU: GUBER_SHARDS shards of the one CPU (1 at 0), an explicit
+    devices= list winning, with the JAX make_backend's geometry."""
+    from gubernator_tpu_torch.serve.backends import MeshBackend
+
+    if backend == "multihost":
+        conf = tconfig.config_from_env({"GUBER_BACKEND": backend})
+        with pytest.raises(ValueError, match=f"GUBER_BACKEND={backend} is not ported"):
+            make_backend(conf, device="cpu")
+        return
+    env = {"GUBER_BACKEND": "mesh", "GUBER_STORE_MIB": "8", "GUBER_SHARDS": "4"}
+    conf = tconfig.config_from_env(env)
+    b = make_backend(conf, device="cpu")
+    assert isinstance(b, MeshBackend) and b.engine.n == 4
+    assert b.engine.devices == (torch.device("cpu"),) * 4 and b.device.type == "cpu"
+    assert b.sketch_enabled
+    assert _geometry(b.engine.config, b.engine.sketch_config) == _geometry(
+        conf.store_config(), conf.sketch_config()
+    )
+    one = make_backend(tconfig.config_from_env(dict(env, GUBER_SHARDS="0")), device="cpu")
+    assert one.engine.n == 1
+    two = make_backend(conf, device="cpu", devices=["cpu", "cpu"])
+    assert two.engine.n == 2
 
 
 def test_make_backend_builds_the_exact_backend():
