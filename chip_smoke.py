@@ -9,8 +9,9 @@ edge in front, hierarchical quota chains, durability: checkpoint and
 restore, bucket replication and ring rescale, the workloads: the
 serving benchmarks' scenarios and three daemons driven by the load
 generator, discovery: daemons finding each other through etcd and the
-chaos soak's three modes, and the mesh policy: the key space sharded over
-1-8 shards of the card), at two of the repo's deployments:
+chaos soak's three modes, the mesh policy: the key space sharded over
+1-8 shards of the card, and the multi-host mesh: one mesh over two
+processes sharing the card), at two of the repo's deployments:
 
 - exact tier, "Zipfian 10M keys, 1 GiB store" (GUBER_SKETCH=0): a slot
   store of int32[2^21, 128] (GUBER_STORE_MIB=1024), zipf(a=1.2) ids over
@@ -266,7 +267,35 @@ Phases, one JSON line each:
              memory; its writeback launches must equal n_shards x (decides
              + install and gossip chunks) of the engines it built (a GLOBAL
              sync step is one gossip and one install chunk);
-15. kernels  the contract line over every kernel of the path.
+15. multihost  the multi-host mesh on the one card, both processes on
+             cuda:0 in one torch.distributed group over gloo: (a)
+             BASELINE config 5's (hosts, chips) layout cut to 2 processes
+             x 4 shards (this script with --multihost-engine, a leader and
+             a follower in lockstep over the step pipe), each shard the
+             two-tier deployment (3 GiB a process): 16 zipf100m batches of
+             32,768 (half token, half leaky), 16 more timed, a GLOBAL
+             sync_globals and apply_global_hits of 4,096 keys, fillers
+             that way-saturate 64 (shard, bucket) cells and 1,024 keys the
+             sketch then serves, and their promote; every output, and each
+             shard's store and sketch (sha256), identical to the
+             in-process (2, 4) MeshEngine on the card running the same
+             script after the processes exit; decisions/s and batch ms
+             beside it, the step pipe's broadcast-to-ack and ack-wait ms a
+             step, the gather's wait a batch, the GLOBAL steps' all_reduce
+             ms, peak memory a process; (b) two daemons on the card, a
+             leader (GUBER_BACKEND=multihost, GUBER_DIST_*) and a follower
+             (GUBER_DIST_STEP_LISTEN), the serving deployment a shard:
+             boot, a gRPC walk to OVER_LIMIT, 5 s of the doors phase's
+             gRPC traffic with no error answer, then the leader's SIGTERM,
+             after which both exit 0. Launches balance in each process:
+             n_local x (decides + install and gossip chunks), the
+             follower's from the JSON line it prints at exit (its decides
+             are the steps it ran), the leader's over the window from
+             /v1/debug/stats; in (a) the two processes' sum equals the
+             in-process mesh's. Two CUDA contexts time-slice the card
+             without MPS: the phase measures the choreography's cost, not
+             chip scaling;
+16. kernels  the contract line over every kernel of the path.
 
 The writeback kernel's launch count is set to 0 before each in-process
 path (each durability leg, each workloads scenario) and read after it (the copy floor's and the ablation's are set to 0
@@ -4418,6 +4447,423 @@ def mesh_path(card: str, ladder, writeback, serving_rate: float) -> dict:
     return out
 
 
+# -- the multihost phase: one mesh over two processes sharing the card ----------
+
+MH_PROCS, MH_PER = 2, 4  # leg (a): BASELINE config 5's (hosts, chips) cut to one card
+MH_DEVICE = "cuda:0"  # every shard of every process
+MH_STORE_MIB = 1024  # each shard: the two-tier zipf100m deployment's geometry
+MH_CHECKED = 16  # batches of 32,768 held byte for byte against the in-process mesh
+MH_TIMED = 16  # then timed (and held too)
+MH_GLOBAL_KEYS = 4096  # the GLOBAL sync and hit apply
+MH_CELLS = 64  # way-saturated (shard, bucket) cells: 16 fillers and 16 keys each
+MH_DAEMON_S = 5.0  # leg (b)'s gRPC window
+MH_LEG_S = 600  # each leg's processes must end within
+
+
+def unmix64(y: np.ndarray) -> np.ndarray:
+    """The inverse of the splitmix64 finalizer (core/hashing.py mix64): a
+    key hash whose bucket is chosen, for way-saturating one bucket."""
+    m = np.uint64((1 << 64) - 1)
+    y = np.asarray(y, np.uint64)
+    y = y ^ (y >> np.uint64(31)) ^ (y >> np.uint64(62))
+    y = (y * np.uint64(pow(0x94D049BB133111EB, -1, 1 << 64))) & m
+    y = y ^ (y >> np.uint64(27)) ^ (y >> np.uint64(54))
+    y = (y * np.uint64(pow(0xBF58476D1CE4E5B9, -1, 1 << 64))) & m
+    return y ^ (y >> np.uint64(30)) ^ (y >> np.uint64(60))
+
+
+def saturated_cells(slots: int, ways: int, n_shards: int) -> tuple:
+    """(fillers, keys): MH_CELLS (shard, bucket) cells, each given `ways`
+    filler keys that fill its ways and `ways` more keys that then find no
+    free way, so the sketch serves them."""
+    from gubernator_tpu_torch.core import hashing
+    from gubernator_tpu_torch.core.store import _BUCKET_SALT
+    from gubernator_tpu_torch.parallel.sharded import owner_of_np
+
+    rng = np.random.default_rng(0xCE11)
+    salt = np.uint64(_BUCKET_SALT)
+    fillers, keys = [], []
+    for c in range(MH_CELLS):
+        shard, bucket = c % n_shards, int(rng.integers(0, slots))
+        hi = rng.integers(1, 1 << 40, 64 * n_shards * ways).astype(np.uint64)
+        kh = unmix64((hi << np.uint64(slots.bit_length() - 1)) | np.uint64(bucket)) ^ salt
+        kh = kh[owner_of_np(kh, n_shards) == shard][: 2 * ways]
+        if kh.shape[0] < 2 * ways or np.unique(kh >> np.uint64(32)).shape[0] != 2 * ways:
+            fail(f"multihost: cell {c} drew {kh.shape[0]} keys")
+        if (hashing.mix64(kh ^ salt) & np.uint64(slots - 1) != bucket).any():
+            fail("multihost: unmix64 is not mix64's inverse")
+        fillers.append(kh[:ways])
+        keys.append(kh[ways:])
+    return np.concatenate(fillers), np.concatenate(keys)
+
+
+def multihost_script(eng) -> tuple:
+    """The engine leg's traffic, the same on the multi-process mesh's
+    leader and on the in-process mesh: MH_CHECKED + MH_TIMED batches of
+    32,768 zipf(1.2) keys over 100M, half token half leaky; a GLOBAL
+    sync_globals and apply_global_hits of 4,096 keys; fillers that
+    way-saturate MH_CELLS cells, 1,024 keys the sketch then serves, and
+    their promote. Returns (every output, timings: each batch's ms with
+    the card drained before it, the GLOBAL steps' ms and all_reduce ms,
+    the gathers' wait ms, the sketch-served creates)."""
+    from gubernator_tpu_torch.core.sketches import derive_two_tier_config
+
+    config, _skc = derive_two_tier_config(MH_STORE_MIB)
+    pool = zipf_hashes((MH_CHECKED + MH_TIMED) * DEPTH, seed=91,
+                       key_space=KEY_SPACE_100M).reshape(-1, DEPTH)
+    fields = (np.full(DEPTH, HITS, np.int64), np.full(DEPTH, LIMIT, np.int64),
+              np.full(DEPTH, DURATION_100M, np.int64), (np.arange(DEPTH) % 2).astype(np.int32),
+              np.zeros(DEPTH, bool))
+    outs, ms, now = [], [], T0
+    c0 = dict(eng.collective_stats)
+    for kh in pool:
+        now += 2
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.extend(eng.decide_arrays(kh, *fields, now))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    c1 = dict(eng.collective_stats)
+    gk = np.unique(pool[0])[:MH_GLOBAL_KEYS]
+    g = gk.shape[0]
+    ones = np.ones(g, np.int64)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    now += 2
+    _, sync_ms = timed(lambda: eng.sync_globals(gk, ones * LIMIT, ones * DURATION_100M, now,
+                                                 algo=np.zeros(g, np.int32)))
+    c2 = dict(eng.collective_stats)
+    now += 2
+    ghits, ghits_ms = timed(lambda: eng.apply_global_hits(gk, ones, ones * LIMIT,
+                                                          ones * DURATION_100M, now))
+    outs.extend(ghits)
+    c3 = dict(eng.collective_stats)
+    fillers, keys = saturated_cells(config.slots, config.rows, MH_PROCS * MH_PER)
+    k = keys.shape[0]
+    onek = np.ones(k, np.int64)
+    now += 2
+    outs.extend(eng.decide_arrays(fillers, onek, onek * 1000, onek * 1_000_000_000,
+                                  np.zeros(k, np.int32), np.zeros(k, bool), now))
+    d0 = eng.stats.snapshot()["dropped"]
+    now += 2
+    outs.extend(eng.decide_arrays(keys, onek, onek * LIMIT, onek * DURATION_100M,
+                                  np.zeros(k, np.int32), np.zeros(k, bool), now))
+    dropped = eng.stats.snapshot()["dropped"] - d0
+    now += 2
+    promoted, promote_ms = timed(lambda: eng.promote_from_sketch(
+        keys, onek * LIMIT, onek * DURATION_100M, now))
+    outs.extend(promoted)
+    timings = dict(
+        batch_ms=ms, sync_ms=sync_ms, ghits_ms=ghits_ms, promote_ms=promote_ms,
+        sync_all_reduce_ms=c2["all_reduce_ms"] - c1["all_reduce_ms"],
+        ghits_all_reduce_ms=c3["all_reduce_ms"] - c2["all_reduce_ms"],
+        all_reduces_per_global_step=c3["all_reduces"] - c2["all_reduces"],
+        gather_wait_ms_per_batch=(c1["gather_wait_ms"] - c0["gather_wait_ms"]) / len(ms),
+        gathers=c1["gathers"] - c0["gathers"], sketch_served_creates=dropped,
+        promoted=int(np.asarray(promoted[0]).sum()), global_keys=g, promote_keys=k)
+    return outs, timings
+
+
+def _shard_digests(eng) -> list:
+    """sha256 of each shard's store bytes and sub-sketch bytes, in shard
+    order (the in-process comparison of 6 GiB without holding two copies)."""
+    import hashlib
+
+    mesh = getattr(eng, "inner", eng)  # the multi-process wrapper's engine
+    return [[hashlib.sha256(st.data.cpu().numpy()).hexdigest(),
+             hashlib.sha256(sk.data.cpu().numpy()).hexdigest()]
+            for st, sk in zip(mesh.stores, mesh.sketches)]
+
+
+def multihost_engine_main(argv: list) -> int:
+    """`chip_smoke.py --multihost-engine ROLE COORDINATOR STEP_PORT OUTDIR`:
+    one process of leg (a), MH_PER shards of cuda:0 in a 2-process group
+    over gloo. The leader runs multihost_script and writes its outputs
+    (outs.npz) and a JSON of its timings, step-pipe and collective
+    counters, shard digests, launches and peak memory; the follower runs
+    the lockstep loop until the leader shuts it, then writes its report,
+    digests and peak memory."""
+    import os
+
+    from gubernator_tpu_torch.cli.daemon import follower_report
+    from gubernator_tpu_torch.core.engine import buckets_for_limit
+    from gubernator_tpu_torch.core.sketches import derive_two_tier_config
+    from gubernator_tpu_torch.core.writeback import writeback_add
+    from gubernator_tpu_torch.parallel.multihost import (
+        MultiHostMeshEngine,
+        initialize_distributed,
+        shutdown_distributed,
+    )
+
+    role, coord, step_port, outdir = argv
+    leader = role == "leader"
+    t0 = time.monotonic()
+    initialize_distributed(coord, MH_PROCS, 0 if leader else 1)
+    config, skc = derive_two_tier_config(MH_STORE_MIB)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        eng = MultiHostMeshEngine(
+            config, followers=[f"127.0.0.1:{step_port}"] if leader else None,
+            buckets=buckets_for_limit(DEPTH), sketch=skc, devices=[MH_DEVICE] * MH_PER)
+        ready_s = time.monotonic() - t0
+        if leader:
+            outs, timings = multihost_script(eng)
+            np.savez(os.path.join(outdir, "outs.npz"), *outs)
+            rec = dict(timings=timings, pipe=dict(eng.pipe_stats),
+                       collectives=dict(eng.collective_stats), policy=eng.policy.describe(),
+                       stats=eng.stats.snapshot(), n_local=eng.n_local,
+                       decides=eng.stats.batches, install_chunks=eng.install_chunks,
+                       gossip_chunks=eng.gossip_chunks, launches=writeback_add.launches)
+            eng.close()
+        else:
+            eng.follower_loop(f"127.0.0.1:{step_port}")
+            rec = follower_report(eng)
+        rec.update(digests=_shard_digests(eng), ready_s=ready_s,
+                   max_memory_allocated=torch.cuda.max_memory_allocated())
+        with open(os.path.join(outdir, f"{role}.json"), "w") as f:
+            json.dump(rec, f)
+    finally:
+        shutdown_distributed()
+    return 0
+
+
+def _process_balance(rec: dict, what: str) -> int:
+    """A process's launches held against n_local x (decides + chunks)."""
+    owed = rec["n_local"] * (rec["decides"] + rec["install_chunks"] + rec["gossip_chunks"])
+    if rec["launches"] != owed or rec["launches"] == 0:
+        fail(f"multihost {what}: writeback launched {rec['launches']} times, its steps owe "
+             f"{owed} (n_local x (decides + install and gossip chunks))")
+    return rec["launches"]
+
+
+def multihost_engine_leg(card: str, ladder, writeback) -> dict:
+    """(a) BASELINE config 5's shape cut to one card: 2 processes x 4
+    shards of cuda:0 over gloo, each shard the two-tier zipf100m geometry
+    (3 GiB a process). multihost_script on the leader, its outputs and
+    every shard's store and sketch held against the in-process 8-shard
+    (2, 4) MeshEngine on the same card running the same script after the
+    processes exit; the rates, the step pipe's and the collectives' ms
+    beside it; launches balanced in each process."""
+    import os
+    import tempfile
+
+    from gubernator_tpu_torch.core.sketches import derive_two_tier_config
+    from gubernator_tpu_torch.parallel.sharded import MeshEngine
+
+    here = os.path.abspath(__file__)
+    coord, step = free_ports(2)
+    with tempfile.TemporaryDirectory() as outdir:
+        procs = {role: subprocess.Popen(
+            [sys.executable, here, "--multihost-engine", role, f"127.0.0.1:{coord}", str(step),
+             outdir], cwd=os.path.dirname(here), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for role in ("follower", "leader")}
+        t0 = time.monotonic()
+        logs = {}
+        try:
+            for role, p in procs.items():
+                logs[role] = p.communicate(timeout=max(MH_LEG_S - (time.monotonic() - t0), 1))[0]
+        except subprocess.TimeoutExpired:
+            for p in procs.values():
+                p.kill()
+            for role, p in procs.items():
+                sys.stderr.write(f"{role}:\n{p.communicate()[0][-4000:]}\n")
+            fail("multihost engine leg: the processes did not end in time")
+        seconds = time.monotonic() - t0
+        for role, p in procs.items():
+            if p.returncode != 0:
+                for r, log in logs.items():
+                    sys.stderr.write(f"{r}:\n{log[-4000:]}\n")
+                fail(f"multihost engine leg: the {role} exited {p.returncode}")
+        with open(os.path.join(outdir, "leader.json")) as f:
+            lead = json.load(f)
+        with open(os.path.join(outdir, "follower.json")) as f:
+            foll = json.load(f)
+        with np.load(os.path.join(outdir, "outs.npz")) as npz:
+            got = [npz[f"arr_{i}"] for i in range(len(npz.files))]
+    launches = {"leader": _process_balance(lead, "leader"),
+                "follower": _process_balance(foll, "follower")}
+    if foll["decides"] != lead["decides"]:
+        fail(f"multihost: the follower ran {foll['decides']} decides, the leader "
+             f"{lead['decides']}")
+    if lead["timings"]["sketch_served_creates"] < lead["timings"]["promote_keys"]:
+        fail(f"multihost: only {lead['timings']['sketch_served_creates']} creates were "
+             "sketch-served before the promote")
+
+    config, skc = derive_two_tier_config(MH_STORE_MIB)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = MeshEngine(config, devices=[MH_DEVICE] * (MH_PROCS * MH_PER), buckets=ladder,
+                      mesh_shape=(MH_PROCS, MH_PER), sketch=skc)
+    writeback.writeback_add.launches = 0
+    want, mesh_t = multihost_script(mesh)
+    in_process_launches = _mesh_launches(writeback, [mesh], "in-process (2, 4)")
+    peak = torch.cuda.max_memory_allocated()
+    if len(got) != len(want):
+        fail(f"multihost: {len(got)} outputs from the leader, {len(want)} in process")
+    for i, (x, y) in enumerate(zip(got, want)):
+        if not np.array_equal(np.asarray(x).astype(np.int64), np.asarray(y).astype(np.int64)):
+            fail(f"multihost: output {i} differs from the in-process mesh")
+    digests = _shard_digests(mesh)
+    if lead["digests"] + foll["digests"] != digests:
+        fail("multihost: a shard's store or sketch differs from the in-process mesh")
+    if sum(launches.values()) != in_process_launches:
+        fail(f"multihost: the processes launched {launches}, the in-process mesh "
+             f"{in_process_launches}")
+    del mesh
+    torch.cuda.empty_cache()
+    lt, mt = lead["timings"], mesh_t
+    timed_ms = lt["batch_ms"][MH_CHECKED:]
+    mesh_ms = mt["batch_ms"][MH_CHECKED:]
+    rec = dict(
+        phase="multihost", leg="engine", card=card, policy=lead["policy"],
+        collective_backend="gloo", processes=MH_PROCS, shards_per_process=MH_PER,
+        reduced=["2 processes, not 4 hosts", "8 shards, not 32", "one card: both processes "
+                 "time-slice it (no MPS), so this is the choreography's cost, not chip scaling"],
+        batches=MH_CHECKED + MH_TIMED, batch=DEPTH, checked_batches=MH_CHECKED,
+        in_process_identical=True, digests_identical=True, **_rate(timed_ms),
+        in_process=_rate(mesh_ms),
+        global_keys=lt["global_keys"], sync_ms=lt["sync_ms"], ghits_ms=lt["ghits_ms"],
+        sync_all_reduce_ms=lt["sync_all_reduce_ms"], ghits_all_reduce_ms=lt["ghits_all_reduce_ms"],
+        all_reduces_per_global_step=lt["all_reduces_per_global_step"],
+        in_process_sync_ms=mt["sync_ms"], in_process_ghits_ms=mt["ghits_ms"],
+        promote_keys=lt["promote_keys"], promoted=lt["promoted"],
+        sketch_served_creates=lt["sketch_served_creates"], promote_ms=lt["promote_ms"],
+        in_process_promote_ms=mt["promote_ms"],
+        pipe_steps=lead["pipe"]["steps"],
+        pipe_broadcast_to_ack_ms=lead["pipe"]["broadcast_to_ack_ms"] / lead["pipe"]["steps"],
+        pipe_ack_wait_ms=lead["pipe"]["ack_wait_ms"] / lead["pipe"]["steps"],
+        gather_wait_ms_per_batch=lt["gather_wait_ms_per_batch"], gathers=lt["gathers"],
+        launches=launches, in_process_launches=in_process_launches,
+        follower_steps=foll["steps"], ready_s={"leader": lead["ready_s"],
+                                                "follower": foll["ready_s"]},
+        max_memory_allocated={"leader": lead["max_memory_allocated"],
+                              "follower": foll["max_memory_allocated"],
+                              "in_process": peak},
+        processes_seconds=seconds)
+    rec["vs_in_process"] = rec["decisions_per_s"] / rec["in_process"]["decisions_per_s"]
+    emit(rec)
+    return rec
+
+
+def multihost_daemons(card: str) -> dict:
+    """(b) Two `python -m gubernator_tpu_torch.cli.daemon` processes on
+    cuda:0 at the serving deployment: a leader (GUBER_BACKEND=multihost,
+    GUBER_DIST_*) and a follower (GUBER_DIST_STEP_LISTEN), one shard each:
+    boot, a gRPC walk to OVER_LIMIT, 5 s of 16 callers x 1,000 zipf100m
+    items from a client process with no error answer, the leader's
+    launches over the window and the follower's over its life balanced,
+    then the leader's SIGTERM, after which both exit 0."""
+    import os
+    import signal
+
+    from gubernator_tpu_torch.api.types import RateLimitReq, Status
+    from gubernator_tpu_torch.client import V1Client
+
+    coord, step, g, h = free_ports(4)
+    target, base = f"127.0.0.1:{g}", f"http://127.0.0.1:{h}"
+    root = os.path.dirname(os.path.abspath(__file__))
+    common = dict(os.environ, **SERVING_ENV)
+    common.update(GUBER_DIST_COORDINATOR=f"127.0.0.1:{coord}", GUBER_DIST_NUM_PROCESSES="2",
+                  PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.monotonic()
+    follower, f_log, f_reader = spawn_daemon(
+        dict(common, GUBER_DIST_PROCESS_ID="1", GUBER_DIST_STEP_LISTEN=f"127.0.0.1:{step}"),
+        root)
+    leader, l_log, l_reader = spawn_daemon(
+        dict(common, GUBER_BACKEND="multihost", GUBER_DIST_PROCESS_ID="0",
+             GUBER_DIST_FOLLOWERS=f"127.0.0.1:{step}", GUBER_GRPC_ADDRESS=target,
+             GUBER_HTTP_ADDRESS=f"127.0.0.1:{h}"), root)
+
+    def died(what):
+        for p in (leader, follower):
+            p.kill()
+        for r in (l_reader, f_reader):
+            r.join(5)
+        sys.stderr.write("leader:\n" + "".join(l_log[-60:]) + "follower:\n"
+                         + "".join(f_log[-30:]))
+        fail(f"multihost daemons: {what}")
+
+    try:
+        while not any("HTTP listening" in ln for ln in l_log):
+            if leader.poll() is not None or follower.poll() is not None:
+                died(f"a daemon exited during boot ({leader.returncode}, {follower.returncode})")
+            if time.monotonic() - t0 > BOOT_S:
+                died("the leader did not open its doors in time")
+            time.sleep(0.2)
+        boot_s = time.monotonic() - t0
+        policy = next((ln.split("partitioned engine:", 1)[1].strip() for ln in l_log
+                       if "partitioned engine:" in ln), "")
+        if "multi-process over gloo" not in policy:
+            died(f"the boot log names no multi-process mesh: {policy!r}")
+        client = V1Client(target)
+        walk = [client.get_rate_limits([RateLimitReq(
+            name="multihost", unique_key="walk", hits=1, limit=2, duration=60_000)],
+            timeout=30)[0] for _ in range(3)]
+        client.close()
+        if ([r.remaining for r in walk] != [1, 0, 0]
+                or [r.status for r in walk] != [Status.UNDER_LIMIT] * 2 + [Status.OVER_LIMIT]
+                or len({r.reset_time for r in walk}) != 1):
+            died(f"the walk: {walk}")
+        s0 = quiet_stats(base, "multihost leader")
+        window = client_window(target, 13, "multihost", MH_DAEMON_S)
+        s1 = quiet_stats(base, "multihost leader")
+        launches = (s1["kernel_launches"]["writeback_add"]
+                    - s0["kernel_launches"]["writeback_add"])
+        decides = s1["backend"]["batches"] - s0["backend"]["batches"]
+        chunks = sum(s1["engine_chunks"][k] - s0["engine_chunks"][k]
+                     for k in ("install_chunks", "gossip_chunks"))
+        n_local = s1["engine_chunks"]["n_local_shards"]
+        if decides <= 0 or launches != n_local * (decides + chunks):
+            died(f"the leader's window: writeback launched {launches} times for {n_local} x "
+                 f"({decides} decides + {chunks} chunks)")
+        leader.send_signal(signal.SIGTERM)
+        l_rc = leader.wait(timeout=120)
+        f_rc = follower.wait(timeout=60)
+        for r in (l_reader, f_reader):
+            r.join(10)
+        if l_rc != 0 or f_rc != 0:
+            died(f"after the leader's SIGTERM: leader exit {l_rc}, follower exit {f_rc}")
+        report = next((json.loads(ln)["multihost_follower"] for ln in f_log
+                       if ln.startswith('{"multihost_follower"')), None)
+        if report is None:
+            died("the follower printed no report")
+        follower_launches = _process_balance(report, "follower daemon")
+        if report["decides"] < decides:
+            died(f"the follower ran {report['decides']} decides, the window alone {decides}")
+    finally:
+        for p in (leader, follower):
+            if p.poll() is None:
+                p.kill()
+                p.wait(30)
+    rec = dict(phase="multihost", leg="daemons", card=card, policy=policy, boot_s=boot_s,
+               walk=[[r.remaining, int(r.status), r.reset_time] for r in walk],
+               leader_launches=launches, decides=decides, chunks=chunks, n_local=n_local,
+               follower=report, follower_launches=follower_launches,
+               exit_codes=[l_rc, f_rc], **window)
+    emit(rec)
+    return rec
+
+
+def multihost_path(card: str, ladder, writeback) -> dict:
+    """The multi-process mesh on the one card, legs (a) and (b), one after
+    the other (no two legs' processes hold the card at once)."""
+    t0 = time.monotonic()
+    engine = multihost_engine_leg(card, ladder, writeback)
+    daemons = multihost_daemons(card)
+    launches = (sum(engine["launches"].values()) + daemons["leader_launches"]
+                + daemons["follower_launches"])
+    out = dict(launches=launches, engine_vs_in_process=engine["vs_in_process"],
+               daemons_decisions_per_s=daemons["decisions_per_s"],
+               seconds=time.monotonic() - t0)
+    emit(dict(phase="multihost", leg="summary", card=card, **out))
+    return out
+
+
 def balanced_addresses(ring_hash, n: int, lo: float = 0.2, hi: float = 0.5) -> list:
     """n free localhost addresses whose ring arcs each own between `lo`
     and `hi` of the key space. The ring has one crc32 point per address,
@@ -4600,6 +5046,7 @@ def main() -> int:
                                cluster["window"]["decisions_per_s"])
     discovery = discovery_path(card)
     mesh = mesh_path(card, ladder, writeback, serving["decisions_per_s"])
+    multihost = multihost_path(card, ladder, writeback)
     floor_launches = writeback.add_one.launches
     if floor_launches:
         fail(f"the copy floor's kernel launched {floor_launches} times on the paths")
@@ -4628,7 +5075,7 @@ def main() -> int:
                           "workloads": workloads["launches"],
                           "daemons": workloads["daemon_launches"],
                           "discovery": discovery["launches"],
-                          "mesh": mesh["launches"]},
+                          "mesh": mesh["launches"], "multihost": multihost["launches"]},
     ), dict(
         # the copy floor runs on no serving path: it measures the pass
         # over the store that bounds the writeback from below
@@ -4655,4 +5102,6 @@ if __name__ == "__main__":
         sys.exit(rpc_window_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--geb-window"]:
         sys.exit(geb_window_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--multihost-engine"]:
+        sys.exit(multihost_engine_main(sys.argv[2:]))
     sys.exit(main())

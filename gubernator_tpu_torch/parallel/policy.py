@@ -3,11 +3,14 @@ state and batches over devices (PyTorch port of
 gubernator_tpu/parallel/policy.py).
 
 The reference carries a jax Mesh and the NamedSharding specs of its
-shard_map programs. The port's shards live in ONE process: shard `s`'s
-store, sketch and sub-batch live on `devices[s]`, and a "collective" is
-a loop over the shard list (parallel/sharded.py). A device may appear
-more than once, the port's counterpart of XLA's simulated host devices:
-on one GPU, or on the CPU, N shards share one device.
+shard_map programs. In the port a process holds a list of shards: shard
+`s`'s store, sketch and sub-batch live on `devices[s]`, and a
+"collective" within the process is a loop over the shard list
+(parallel/sharded.py). A device may appear more than once, the port's
+counterpart of XLA's simulated host devices: on one GPU, or on the CPU,
+N shards share one device. A policy that spans processes
+(`over_processes`, parallel/multihost.py) adds one torch.distributed
+step over CROSS_PROCESS_BACKEND to each of those loops.
 """
 
 from __future__ import annotations
@@ -18,6 +21,11 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from gubernator_tpu_torch.core.store import DeviceLike, resolve_device
+
+#: the torch.distributed backend of a policy that spans processes: gloo,
+#: on host buffers (NCCL refuses two ranks on one GPU, and a one-card
+#: host is where the port runs today)
+CROSS_PROCESS_BACKEND = "gloo"
 
 
 def local_devices(device: DeviceLike = None) -> Tuple[torch.device, ...]:
@@ -34,14 +42,17 @@ def local_devices(device: DeviceLike = None) -> Tuple[torch.device, ...]:
 class ShardingPolicy:
     """How one engine's state and batches map onto devices.
 
-    - `devices`: the shards, in shard-index order (None on the flat
-      single-device policy, whose one device is `device`).
+    - `devices`: this process's shards, in shard-index order (None on
+      the flat single-device policy, whose one device is `device`).
     - `axes`: mesh axis names, host-major: ("shard",) flat 1-D, or
       ("host", "chip") when the reductions stage within a host first
       (BASELINE config 5's hierarchical psum). Empty for single.
     - `shape`: the size of each axis (empty for single).
-    - `spans_processes`: always False in the port (multi-host is not
-      ported); kept so callers read the reference's field.
+    - `spans_processes`: the mesh crosses processes (multi-controller):
+      process `process_index` of `process_count` holds the global shards
+      `local_shards`, one "host" of the 2-D mesh; responses gather to the
+      serving leader, process 0, and the owner-masked sums add one
+      cross-process step.
     """
 
     device: Optional[torch.device] = None
@@ -49,6 +60,8 @@ class ShardingPolicy:
     axes: Tuple[str, ...] = ()
     shape: Tuple[int, ...] = ()
     spans_processes: bool = False
+    process_index: int = 0
+    process_count: int = 1
 
     # -- factories ----------------------------------------------------------
 
@@ -82,6 +95,23 @@ class ShardingPolicy:
             return cls(devices=devs, axes=("host", "chip"), shape=(n_hosts, per_host))
         return cls(devices=devs, axes=("shard",), shape=(n,))
 
+    @classmethod
+    def over_processes(
+        cls, devices: Sequence[DeviceLike], process_index: int, process_count: int
+    ) -> "ShardingPolicy":
+        """This process's part of a mesh over `process_count` processes
+        with len(devices) shards each: always the 2-D ("host", "chip")
+        layout of shape (process_count, per), process-major, so process p
+        holds the global shards [p * per, (p + 1) * per)."""
+        devs = tuple(resolve_device(d) for d in devices)
+        if not devs:
+            raise ValueError("a mesh policy needs at least one device")
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process {process_index} is not one of {process_count}")
+        return cls(devices=devs, axes=("host", "chip"), shape=(process_count, len(devs)),
+                   spans_processes=True, process_index=process_index,
+                   process_count=process_count)
+
     # -- derived properties -------------------------------------------------
 
     @property
@@ -91,7 +121,14 @@ class ShardingPolicy:
 
     @property
     def n_shards(self) -> int:
-        return 1 if self.flat else len(self.devices)
+        """The GLOBAL shard count (every process's shards)."""
+        return 1 if self.flat else len(self.devices) * self.process_count
+
+    @property
+    def local_shards(self) -> range:
+        """The global indices of the shards this process holds."""
+        per = 1 if self.flat else len(self.devices)
+        return range(self.process_index * per, (self.process_index + 1) * per)
 
     @property
     def hierarchical(self) -> bool:
@@ -100,7 +137,11 @@ class ShardingPolicy:
 
     def host_groups(self) -> Tuple[Tuple[int, ...], ...]:
         """The shard indices of each host, host-major (one group holding
-        every shard on a 1-D mesh): the stages of _hier_psum."""
+        every shard on a 1-D mesh): the in-process stages of _hier_psum.
+        A process of a mesh that spans processes is one host: one group,
+        its own shards by their positions in `devices`."""
+        if self.spans_processes:
+            return (tuple(range(len(self.devices))),)
         if not self.hierarchical:
             return (tuple(range(self.n_shards)),)
         n_hosts, per_host = self.shape
@@ -112,8 +153,8 @@ class ShardingPolicy:
         if self.flat:
             return "single-device (flat, degenerate policy)"
         shape = dict(zip(self.axes, self.shape))
+        spans = f" multi-process over {CROSS_PROCESS_BACKEND}" if self.spans_processes else ""
         return (
             f"{self.n_shards}-shard mesh {shape} axes={self.axes} "
-            f"collective={'hierarchical' if self.hierarchical else 'flat'}"
-            f"{' multi-process' if self.spans_processes else ''}"
+            f"collective={'hierarchical' if self.hierarchical else 'flat'}{spans}"
         )

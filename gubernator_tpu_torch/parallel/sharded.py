@@ -20,8 +20,12 @@ each shard's decide run on its own rows, the packed rows of all shards
 fetched together and unpermuted on the host. The reference's collectives
 (the GLOBAL sync, the owner-masked row and sketch reads, the owner-masked
 installs) are loops over the shard list whose sums land on the leader,
-devices[0] (`_hier_psum`). The shards live in one process; a device may
-repeat, so one GPU (or the CPU) holds any number of shards.
+devices[0] (`_hier_psum`). A device may repeat, so one GPU (or the CPU)
+holds any number of shards. Under a policy that spans processes
+(parallel/multihost.py) each process holds its own contiguous run of the
+global shards and decides its rows of every batch; the packed rows gather
+to process 0 over torch.distributed, and each owner-masked sum adds one
+all_reduce across processes.
 
 Ported surfaces, on both: construction (optionally with a SketchConfig),
 reset (bumping `reset_generation`, the shed cache's store-wipe epoch) and
@@ -38,8 +42,8 @@ a JAX engine's store, sketch and clock across, the quota-chain surface
 batches decide exact-only, the sketch untouched; over shards a chain goes
 whole to its head's owner), and the durability surfaces: export_windows
 (the full-store read of every live window that a checkpoint writes) and
-repartition (export + install under another ShardingPolicy). Not ported
-yet: the reference's multi-process mesh (parallel/multihost.py).
+repartition (export + install under another ShardingPolicy). The
+multi-process mesh's lockstep wrapper is parallel/multihost.py.
 
 Every submit path ends in `_dispatch`, which feeds `observe_hook` the
 host-side numpy BatchRequest ([B] flat, [n_shards, B_sub] on a mesh) and
@@ -56,6 +60,7 @@ from __future__ import annotations
 
 import contextlib
 import logging
+import threading
 import time
 from typing import Optional, Sequence, Tuple
 
@@ -615,6 +620,12 @@ class TorchEngine:
         # mask on the device (through the sync its count needs) and the
         # copy to the host; the bytes copied off the device; the windows
         self.last_export = dict(ms=0.0, mask_ms=0.0, copy_ms=0.0, bytes=0, windows=0)
+
+    @property
+    def n_local(self) -> int:
+        """The shards this process holds: its writeback launches a
+        decide, an install chunk or a gossip chunk on a GPU."""
+        return self.n
 
     # -- per-shard state (one shard here; MeshEngine has n) --------------------
 
@@ -1472,6 +1483,12 @@ def _row(batch, s: int):
     return type(batch)(*(x[s] for x in batch))
 
 
+def _rows(batch, rows: slice):
+    """Rows `rows` of every [n_shards, ...] field (the shards this process
+    holds)."""
+    return type(batch)(*(x[rows] for x in batch))
+
+
 def _hier_psum(parts: Sequence[torch.Tensor], policy: ShardingPolicy,
                leader: torch.Tensor) -> torch.Tensor:
     """The reference's psum over the shard axis, in one process: the sum
@@ -1506,9 +1523,19 @@ class MeshEngine(TorchEngine):
     device may repeat: on one GPU or the CPU, N shards share it.
 
     Each shard's writeback is one launch, so on a GPU a decide, an install
-    chunk and a gossip chunk launch `n` writebacks each, and a GLOBAL sync
-    step counts one gossip chunk (the owner charge) and one install chunk
-    (the replica install)."""
+    chunk and a gossip chunk launch `n_local` writebacks each, and a GLOBAL
+    sync step counts one gossip chunk (the owner charge) and one install
+    chunk (the replica install).
+
+    Under a policy that spans processes (ShardingPolicy.over_processes)
+    `n` is the GLOBAL shard count and this process holds the shards
+    `policy.local_shards` on `devices`: it decides its rows of every
+    batch, posts the gather of its packed rows to process 0 at submit
+    (decide_wait on process 0 waits on it), and every owner-masked sum
+    ends in one all_reduce across processes (_psum). Every process must
+    run the same steps in the same order (parallel/multihost.py).
+    `collective_stats` counts those collectives and the ms spent in
+    them: the gathers the leader waited on, and each all_reduce."""
 
     def __init__(
         self,
@@ -1527,6 +1554,11 @@ class MeshEngine(TorchEngine):
             raise ValueError("MeshEngine needs a mesh policy; the flat one is TorchEngine's")
         self.devices = self.policy.devices
         self.n = self.policy.n_shards
+        local = self.policy.local_shards
+        self._local = slice(local.start, local.stop)
+        self.collective_stats = dict(gathers=0, gather_wait_ms=0.0,
+                                     all_reduces=0, all_reduce_ms=0.0)
+        self._collective_lock = threading.Lock()
         self.axes = self.policy.axes
         self.device = self.devices[0]  # the leader: host reads combine here
         self.sub_buckets = sub_batch_ladder(self.buckets)
@@ -1544,7 +1576,11 @@ class MeshEngine(TorchEngine):
         return self.sketches or []
 
     def _state_lead(self) -> tuple:
-        return (self.n,)
+        return (len(self.devices),)
+
+    @property
+    def n_local(self) -> int:
+        return len(self.devices)
 
     def _per_device(self, fn):
         """fn(device) once per distinct device, as {device: result}: a
@@ -1560,10 +1596,11 @@ class MeshEngine(TorchEngine):
 
     def _dispatch(self, req, groups, e_now, observe: bool = True, chain_id=None):
         """The mesh's dispatch funnel: feed the observer the numpy
-        [n_shards, B_sub] batch (it masks by `valid`), upload it once per
-        device and run each shard's decide on its own store (and
-        sub-sketch) and row. Returns (the packed output of each shard,
-        {device: CUDA event recorded before its upload})."""
+        [n_shards, B_sub] batch (it masks by `valid`), upload this
+        process's rows of it once per device and run each shard's decide
+        on its own store (and sub-sketch) and row. Returns (the packed
+        output of each local shard, {device: CUDA event recorded before
+        its upload})."""
         hook = self.observe_hook if observe else None
         if hook is not None:
             try:
@@ -1571,6 +1608,9 @@ class MeshEngine(TorchEngine):
             except Exception:  # pragma: no cover - defensive
                 pass  # observability must never fail a dispatch
         starts = {}
+        req, groups = _rows(req, self._local), _rows(groups, self._local)
+        if chain_id is not None:
+            chain_id = chain_id[self._local]
 
         def upload(dev):
             if dev.type == "cuda":
@@ -1600,11 +1640,13 @@ class MeshEngine(TorchEngine):
     def _mesh_handle(self, packed, starts, order, take_idx, n: int, B_sub: int):
         """decide_wait's handle: (packed host int32[n_shards, 4*B_sub+4],
         {device: event after its last copy}, {device: start event}, order,
-        take_idx, n, B_sub, epoch). On CUDA each shard's row starts
-        copying into one pinned host array at once."""
+        take_idx, n, B_sub, epoch, the gather's Work or None). On CUDA each
+        shard's row starts copying into one pinned host array at once. On
+        a mesh that spans processes the first item is, on process 0, the
+        list of every process's rows that the posted gather fills."""
         ends = {}
         if self.devices[0].type == "cuda":
-            host = torch.empty((self.n, packed[0].shape[0]), dtype=torch.int32,
+            host = torch.empty((len(self.devices), packed[0].shape[0]), dtype=torch.int32,
                                pin_memory=True)
             for s, (dev, p) in enumerate(zip(self.devices, packed)):
                 with _on(dev):
@@ -1613,7 +1655,61 @@ class MeshEngine(TorchEngine):
                     ends[dev].record()
         else:
             host = torch.stack(packed)
-        return host, ends, starts, order, take_idx, n, B_sub, self.clock.epoch
+        work = None
+        if self.policy.spans_processes:
+            host, work = self._post_gather(host, ends)
+        return host, ends, starts, order, take_idx, n, B_sub, self.clock.epoch, work
+
+    def _post_gather(self, rows: torch.Tensor, ends: dict):
+        """Post the gather of this process's packed rows to process 0,
+        without waiting on it. gloo reads `rows` from its own thread, so
+        the card must have written them first: the copies' events are
+        waited on here. Returns (process 0's list of every process's
+        rows, else `rows`; the Work)."""
+        import torch.distributed as dist
+
+        for ev in ends.values():
+            ev.synchronize()
+        out = None
+        if self.policy.process_index == 0:
+            out = [torch.empty_like(rows) for _ in range(self.policy.process_count)]
+        work = dist.gather(rows, out, dst=0, async_op=True)
+        return (rows if out is None else out), work
+
+    def _count_collective(self, kind: str, t0: float) -> None:
+        ms = (time.perf_counter() - t0) * 1e3
+        with self._collective_lock:
+            if kind == "gather":
+                self.collective_stats["gathers"] += 1
+                self.collective_stats["gather_wait_ms"] += ms
+            else:
+                self.collective_stats["all_reduces"] += 1
+                self.collective_stats["all_reduce_ms"] += ms
+
+    def _psum(self, parts: Sequence[torch.Tensor], leader: torch.Tensor) -> torch.Tensor:
+        """The owner-masked sum of every shard's part: _hier_psum over
+        this process's shards onto the leader tensor's device, then, on a
+        mesh that spans processes, one all_reduce(SUM) of that pre-reduced
+        tensor across processes, staged through host memory (gloo), its
+        result back on that device in every process. Elementwise in the
+        dtype, so int32 wraps as psum does."""
+        total = _hier_psum(parts, self.policy, leader)
+        if not self.policy.spans_processes:
+            return total
+        import torch.distributed as dist
+
+        t0 = time.perf_counter()
+        if total.device.type == "cuda":
+            host = torch.empty(total.shape, dtype=total.dtype, pin_memory=True)
+            host.copy_(total, non_blocking=True)
+            # gloo reads the buffer from its own thread
+            torch.cuda.current_stream(total.device).synchronize()
+            dist.all_reduce(host)
+            total = host.to(total.device)
+        else:
+            dist.all_reduce(total)  # a fresh sum: nothing else holds it
+        self._count_collective("all_reduce", t0)
+        return total
 
     def decide_submit(
         self,
@@ -1694,11 +1790,16 @@ class MeshEngine(TorchEngine):
         reset_time int64 unix-ms) in caller order. Waits on this batch's
         own copy events; the stats land once for the batch, summed over
         its shards."""
-        host, ends, starts, order, take_idx, n, B_sub, epoch = handle
+        host, ends, starts, order, take_idx, n, B_sub, epoch, work = handle
         for ev in ends.values():
             ev.synchronize()
         if count and ends:
             self.device_span_ms += max(starts[d].elapsed_time(ends[d]) for d in ends)
+        if work is not None:
+            t0 = time.perf_counter()
+            work.wait()
+            self._count_collective("gather", t0)
+            host = torch.cat(host)
         packed = host.numpy()
         if count:
             self.stats.add_batch(
@@ -1740,7 +1841,14 @@ class MeshEngine(TorchEngine):
         """Dispatch one CHAINED batch without waiting: each chain goes
         whole to its head's owner (`route_hash`), so the no-partial-debit
         reduction stays shard-local. Exact-only; the handle is
-        decide_wait's."""
+        decide_wait's. Refused on a mesh that spans processes: the step
+        pipe has no chain message."""
+        if self.policy.spans_processes:
+            raise ValueError(
+                "quota chains are not supported on the multihost "
+                "lockstep engine (no chain step message); route chains "
+                "to single-host backends"
+            )
         n = key_hash.shape[0]
         e_now = self._engine_now(now)
         req, order, take_idx, groups, chain_local = pad_request_chained(
@@ -1772,8 +1880,9 @@ class MeshEngine(TorchEngine):
                 rows = self.stores[s].data.index_select(
                     0, bucket_index(kh[dev], self.config.slots)
                 )
-                parts.append(torch.where((own[dev] == s)[:, None], rows, 0))
-        rows = _hier_psum(parts, self.policy, kh[self.device])
+                mine = own[dev] == self._local.start + s
+                parts.append(torch.where(mine[:, None], rows, 0))
+        rows = self._psum(parts, kh[self.device])
         return (
             rows.cpu().numpy().reshape(kh_padded.shape[0], -1, LANES),
             fingerprints(kh[self.device]).cpu().numpy(),
@@ -1790,8 +1899,8 @@ class MeshEngine(TorchEngine):
         for s, dev in enumerate(self.devices):
             with _on(dev):
                 est = sketch_min(self.sketches[s].data, idx_t[dev])
-                parts.append(torch.where(own[dev] == s, est, 0))
-        return _hier_psum(parts, self.policy, idx_t[self.device])
+                parts.append(torch.where(own[dev] == self._local.start + s, est, 0))
+        return self._psum(parts, idx_t[self.device])
 
     # -- owner-masked installs and the GLOBAL sync ----------------------------
 
@@ -1803,7 +1912,7 @@ class MeshEngine(TorchEngine):
         for s, dev in enumerate(self.devices):
             *tensors, valid = up[dev]
             with _on(dev):
-                mine = valid & (owner_of(tensors[0], self.n) == s)
+                mine = valid & (owner_of(tensors[0], self.n) == self._local.start + s)
                 if full:
                     upsert_windows(self.stores[s], *tensors, mine)
                 else:
@@ -1835,16 +1944,14 @@ class MeshEngine(TorchEngine):
         for s, dev in enumerate(self.devices):
             r = up[dev]
             with _on(dev):
-                m = owner_of(r.key_hash, self.n) == s
+                m = owner_of(r.key_hash, self.n) == self._local.start + s
                 peek = r._replace(valid=r.valid & m)
                 _st, resp, _stats = decide_presorted(self.stores[s], peek, e_now)
                 keep = m & r.valid
-                parts.append([torch.where(keep, x, 0) for x in resp])
+                parts.append(torch.stack([torch.where(keep, x, 0) for x in resp]))
             mine.append(m)
-        lead = up[self.device].key_hash
-        status, r_limit, remaining, reset = (
-            _hier_psum([p[i] for p in parts], self.policy, lead) for i in range(4)
-        )
+        # the four int32 columns in one sum (one all_reduce across processes)
+        status, r_limit, remaining, reset = self._psum(parts, up[self.device].key_hash)
         for s, dev in enumerate(self.devices):
             r = up[dev]
             with _on(dev):
@@ -1912,7 +2019,7 @@ def warmup_public(engine: MeshEngine, now: Optional[int] = None) -> None:
     launches, allocator pools, the kernel's build and load), then wipe the
     state and zero the counters the warmup dirtied. `warmup_launches`
     keeps the writebacks it made on a GPU: n_shards x (decides + install
-    chunks + gossip chunks)."""
+    chunks + gossip chunks), n_shards being this process's."""
     if now is None:
         now = api_types.millisecond_now()
     n = engine.n
@@ -1940,7 +2047,7 @@ def warmup_public(engine: MeshEngine, now: Optional[int] = None) -> None:
     for dev in dict.fromkeys(engine.devices):
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-    engine.warmup_launches = n * (
+    engine.warmup_launches = engine.n_local * (
         engine.stats.batches + engine.install_chunks + engine.gossip_chunks
     )
     engine.reset()

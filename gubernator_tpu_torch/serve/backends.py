@@ -3,7 +3,7 @@ gubernator_tpu/serve/backends.py, with `make_backend` from
 gubernator_tpu/serve/server.py:38-158).
 
 The serving layer (serve/instance.py) speaks one small interface. The
-port has three backends:
+port has four backends:
 
 - `ExactBackend`, the reference's host LRU + exact oracle algorithms
   (core/cache.py, core/oracle.py), copied: no device state at all, chosen
@@ -12,13 +12,16 @@ port has three backends:
   `TorchEngine`, in place of the reference's TpuBackend.
 - `MeshBackend`, the same store sharded by key over a list of devices
   (`MeshEngine`, GUBER_BACKEND=mesh with GUBER_SHARDS).
+- `MultiHostBackend`, the leader's backend over a mesh that spans
+  processes (`MultiHostMeshEngine`, GUBER_BACKEND=multihost with the
+  GUBER_DIST_* knobs; cli/daemon.py runs the followers).
 
 `_ArrayOps` is the reference's array-level surface shared by its device
 backends, copied: the object<->array seam the batcher's arrival prep and
 merged submit run through, the GLOBAL hit apply, the replication
 snapshot read, the promoter's engine surfaces, and the quota-chain
 expansion (`decide_chain`, with `chain_level_keys` and
-`collapse_chain_responses`). Not ported yet: the multi-host backend.
+`collapse_chain_responses`).
 
 Concurrency contract (the reference's): decide_submit calls are strictly
 serialized on the batcher's one submit thread, while up to fetch_depth
@@ -53,9 +56,6 @@ from gubernator_tpu_torch.core.oracle import get_rate_limit
 from gubernator_tpu_torch.core.store import DeviceLike, StoreConfig
 
 log = logging.getLogger("gubernator_tpu_torch.backends")
-
-#: the reference's backends that the port does not carry yet
-NOT_PORTED_BACKENDS = ("multihost",)
 
 #: rough host footprint of one replication standby row (a small dataclass
 #: + dict node, the reference's measure), for the boot-time tier split
@@ -549,6 +549,38 @@ class MeshBackend(_ArrayOps):
         return self.engine.stats.snapshot()
 
 
+class MultiHostBackend(MeshBackend):
+    """The leader's backend over a mesh that spans processes: construct
+    it only on process 0, after initialize_distributed; every other
+    process runs MultiHostMeshEngine.follower_loop instead of serving
+    (cli/daemon.py wires both roles from the GUBER_DIST_* knobs). The
+    lockstep wrapper keeps the submit/wait split (followers dispatch and
+    move on; the gather of their rows is waited on at fetch), so the
+    fetch-depth pipeline and the arrival-prep merge work across
+    processes too. Without a process group the engine is a one-process
+    mesh over `devices` (every local device of the default kind when
+    None) with no step pipe."""
+
+    def __init__(
+        self,
+        store: StoreConfig = StoreConfig(),
+        followers: Sequence[str] = (),
+        buckets: Sequence[int] = (64, 256, 1024, 4096),
+        sketch=None,
+        devices: Optional[Sequence[DeviceLike]] = None,
+    ):
+        from gubernator_tpu_torch.parallel.multihost import MultiHostMeshEngine
+
+        self.engine = MultiHostMeshEngine(
+            store, followers=list(followers), buckets=buckets, sketch=sketch,
+            devices=devices,
+        )
+
+    def close(self) -> None:
+        """Shut the step pipe (each follower's loop ends)."""
+        self.engine.close()
+
+
 def mesh_devices(shards: int, device: DeviceLike = None) -> list:
     """The shard list GUBER_BACKEND=mesh serves on: the first
     GUBER_SHARDS CUDA devices (all of them at 0; more than there are is
@@ -572,19 +604,13 @@ def make_backend(conf, device: DeviceLike = None, devices: Optional[Sequence] = 
     """The backend a ServerConfig asks for, on `device` (cuda unless the
     caller passes another). GUBER_BACKEND=mesh shards over `devices` when
     the caller passes a list, else over mesh_devices(GUBER_SHARDS,
-    device). Resolves the store sizing knobs, logs the per-tier footprint
-    and runs the whole-host budget lint, as the reference's make_backend
-    does."""
-    if conf.backend in NOT_PORTED_BACKENDS:
-        raise ValueError(
-            f"GUBER_BACKEND={conf.backend} is not ported to "
-            f"gubernator_tpu_torch yet (only 'tpu', the single-device "
-            f"backend, 'mesh', the key-space sharded one, and 'exact', the "
-            f"host LRU, are); not ported: {', '.join(NOT_PORTED_BACKENDS)}"
-        )
+    device); GUBER_BACKEND=multihost holds `devices`, else every local
+    device of `device`'s kind, and follows GUBER_DIST_FOLLOWERS. Resolves
+    the store sizing knobs, logs the per-tier footprint and runs the
+    whole-host budget lint, as the reference's make_backend does."""
     if conf.backend == "exact":
         return ExactBackend(conf.cache_size)
-    if conf.backend not in ("tpu", "mesh"):
+    if conf.backend not in ("tpu", "mesh", "multihost"):
         raise ValueError(f"unknown backend '{conf.backend}'")
     from gubernator_tpu_torch.core.engine import buckets_for_limit
     from gubernator_tpu_torch.core.sketches import sketch_footprint_bytes
@@ -650,6 +676,15 @@ def make_backend(conf, device: DeviceLike = None, devices: Optional[Sequence] = 
         )
     if conf.backend == "tpu":
         return TorchBackend(store, buckets=buckets, sketch=sketch, device=device)
+    if conf.backend == "multihost":
+        from gubernator_tpu_torch.parallel.policy import local_devices
+
+        backend = MultiHostBackend(
+            store, followers=conf.dist_followers, buckets=buckets, sketch=sketch,
+            devices=devices if devices is not None else local_devices(device),
+        )
+        log.info("partitioned engine: %s", backend.engine.policy.describe())
+        return backend
     if devices is None:
         devices = mesh_devices(conf.shards, device)
     backend = MeshBackend(store, devices=devices, buckets=buckets, sketch=sketch)

@@ -20,10 +20,11 @@ their receive path, a checkpoint restore runs at boot right after the
 Instance starts and before any door opens, and the drain runs their
 rescale handoff, replication flush and final checkpoint.
 
-Not ported yet, and refused when the server is built rather than
-ignored (`refuse_not_ported`): the multi-host mesh
-(GUBER_DIST_COORDINATOR); `make_backend` refuses the backend that is
-not ported (multihost).
+On a multi-host mesh (GUBER_DIST_COORDINATOR) this server is process 0's
+role over GUBER_BACKEND=multihost; cli/daemon.py joins the process group
+first and runs every other process as a lockstep follower. `stop()`
+closes the backend, which shuts the step pipe and so releases the
+followers.
 """
 
 from __future__ import annotations
@@ -52,17 +53,6 @@ from gubernator_tpu_torch.serve.instance import BatchTooLargeError, Instance
 from gubernator_tpu_torch.serve.stages import STAGES
 
 log = logging.getLogger("gubernator_tpu_torch.server")
-
-
-def refuse_not_ported(conf: ServerConfig) -> None:
-    """Raise ValueError if the config selects the multi-host mesh
-    (GUBER_DIST_COORDINATOR), the one server knob the port does not
-    carry yet."""
-    if conf.dist_coordinator:
-        raise ValueError(
-            "not ported to gubernator_tpu_torch yet: "
-            "GUBER_DIST_COORDINATOR (the multi-host mesh)"
-        )
 
 
 class _Timed:
@@ -260,7 +250,6 @@ class Server:
     def __init__(
         self, conf: ServerConfig, backend=None, device: DeviceLike = None
     ):
-        refuse_not_ported(conf)
         self.conf = conf
         self.backend = (
             backend if backend is not None else make_backend(conf, device=device)
@@ -554,6 +543,9 @@ class Server:
             await self.grpc_server.stop(grace=1.0)
             self.grpc_server = None
         await self.instance.stop()
+        close = getattr(self.backend, "close", None)
+        if close is not None:
+            close()  # MultiHostBackend: shut the step pipe
 
     # -- HTTP gateway -------------------------------------------------------
 
@@ -815,8 +807,10 @@ class Server:
         counters, the launch count of each hand-written kernel in this
         process (core/writeback.py), and the engine's writebacks that no
         decide batch counts (window-install and gossip-charge chunks) with
-        the engine's shard count: launches = n_shards x (backend batches
-        + install_chunks + gossip_chunks)."""
+        the engine's shard counts: launches = n_local_shards x (backend
+        batches + install_chunks + gossip_chunks), n_local_shards being the
+        shards this process holds (n_shards, unless the mesh spans
+        processes)."""
         from gubernator_tpu_torch.core.writeback import writeback_add
 
         try:
@@ -834,6 +828,7 @@ class Server:
                 "install_chunks": eng.install_chunks,
                 "gossip_chunks": eng.gossip_chunks,
                 "n_shards": eng.n,
+                "n_local_shards": eng.n_local,
             }
             # the card's time inside counted decides (CUDA events around
             # each; 0 on the CPU): 1 - its growth over a window's wall time
@@ -1001,8 +996,9 @@ def _enum_val(enum_pb, v):
     return int(v)
 
 
-async def run_daemon(conf: ServerConfig) -> None:
-    """Start a server and run until SIGINT/SIGTERM (reference
+async def run_daemon(conf: ServerConfig, device: DeviceLike = None) -> None:
+    """Start a server on `device` (cuda unless the caller asks for
+    another) and run until SIGINT/SIGTERM (reference
     cmd/gubernator/main.go:127-139). SIGTERM (the orchestrated-shutdown
     signal) drains gracefully — deregister, finish in-flight work, flush
     GLOBAL + batcher queues — bounded by GUBER_DRAIN_TIMEOUT_MS; SIGINT
@@ -1010,7 +1006,7 @@ async def run_daemon(conf: ServerConfig) -> None:
     import signal
     import threading
 
-    server = Server(conf)
+    server = Server(conf, device=device)
     await server.start()
     stop = asyncio.Event()
     graceful: list = []

@@ -629,3 +629,43 @@ def test_owner_masked_reads_on_card_match_the_flat_engine():
                                np.full(100, 60_000, np.int64), now + 2)
     for x, y in zip(a, b):
         np.testing.assert_array_equal(np.asarray(x, np.int64), np.asarray(y, np.int64))
+
+
+# -- the multi-process mesh: two processes sharing the card over gloo --------------
+
+
+def test_two_processes_on_card_match_the_in_process_mesh(tmp_path):
+    """Two processes of two shards each on cuda:0, joined over gloo: the
+    runner's legs pass in the leader (decides, a sync, an upsert, two
+    batches in flight, GLOBAL hits and promotes against the flat engine,
+    the window ring), and its seeded script (decides, a sync, GLOBAL hit
+    applies, a promote) answers, and leaves the store and sketch bytes
+    (the processes' shards stacked), exactly as the in-process (2, 2)
+    MeshEngine on the card."""
+    _need_card()
+    import _torch_multihost_runner as runner
+    from gubernator_tpu_torch.core.sketches import SketchConfig
+    from gubernator_tpu_torch.parallel.sharded import MeshEngine
+
+    runner.assert_ok(*runner.run_group(2, 2, "cuda:0", tmp_path, 300))
+    eng = MeshEngine(StoreConfig(**runner.STORE), devices=["cuda:0"] * 4,
+                     buckets=runner.BUCKETS, mesh_shape=(2, 2),
+                     sketch=SketchConfig(**runner.SKETCH))
+    eng._engine_now(runner.T0)
+    want = runner.traffic_script(eng, 4)
+    got, store, sketch = runner.load_outputs(tmp_path, 2)
+    runner.assert_same_outputs(got, want)
+    np.testing.assert_array_equal(store, eng.store_numpy())
+    np.testing.assert_array_equal(sketch, eng.sketch_numpy())
+
+
+def test_mismatched_follower_is_nacked_on_card(tmp_path):
+    """A follower on the card built with another ladder: the hello is
+    nacked and both processes fail loudly with the diagnostic."""
+    _need_card()
+    import _torch_multihost_runner as runner
+
+    runner.assert_mismatch_ok(*runner.run_group(
+        2, 1, "cuda:0", tmp_path, 120, leader_role="leader-mismatch",
+        follower_role="follower-mismatch",
+    ))

@@ -473,12 +473,16 @@ def test_daemon_without_a_gpu_exits_nonzero_with_the_engines_message():
     "GUBER_DIST_COORDINATOR=127.0.0.1:7002",
     "GUBER_BACKEND=mesh", "GUBER_BACKEND=multihost",
 ])
-def test_unported_doors_and_managers_are_refused_at_boot(knob):
-    """The multi-host mesh and backend are refused when the server is
-    built; GUBER_BACKEND=mesh, once refused, builds a Server over a
-    MeshBackend (GUBER_SHARDS=2 on the CPU; the doors open at start(),
-    which this does not call)."""
-    from gubernator_tpu_torch.serve.backends import MeshBackend
+def test_mesh_and_multihost_knobs_build_a_server(knob):
+    """The knobs once refused build a Server, as the JAX package's do (the
+    doors open at start(), which this does not call):
+    GUBER_DIST_COORDINATOR is the daemon's to act on (cli/daemon.py joins
+    the process group before it builds the Server), so the Server builds
+    its configured backend; GUBER_BACKEND=mesh a MeshBackend
+    (GUBER_SHARDS=2 on the CPU); GUBER_BACKEND=multihost, with no process
+    group joined, a MultiHostBackend over a one-process mesh of the CPU
+    with no step pipe."""
+    from gubernator_tpu_torch.serve.backends import MeshBackend, MultiHostBackend, TorchBackend
     from gubernator_tpu_torch.serve.config import config_from_env
     from gubernator_tpu_torch.serve.server import Server
 
@@ -486,12 +490,18 @@ def test_unported_doors_and_managers_are_refused_at_boot(knob):
     env = {"GUBER_GRPC_ADDRESS": "127.0.0.1:7003", "GUBER_STORE_MIB": "8", key: value}
     if key == "GUBER_DIST_COORDINATOR":
         env.update(GUBER_BACKEND="tpu", GUBER_DIST_NUM_PROCESSES="2")
+        server = Server(config_from_env(env), device="cpu")
+        assert isinstance(server.backend, TorchBackend)
+        assert server.conf.dist_coordinator == "127.0.0.1:7002"
+        return
     if value == "mesh":
         server = Server(config_from_env(dict(env, GUBER_SHARDS="2")), device="cpu")
         assert isinstance(server.backend, MeshBackend) and server.backend.engine.n == 2
         return
-    with pytest.raises(ValueError, match="not ported"):
-        Server(config_from_env(env), device="cpu")
+    server = Server(config_from_env(env), device="cpu")
+    assert isinstance(server.backend, MultiHostBackend)
+    assert server.backend.engine.pipe is None and server.backend.engine.n == 1
+    server.backend.close()  # no pipe: nothing to shut
 
 
 @pytest.mark.parametrize("knob", [
@@ -502,13 +512,12 @@ def test_frame_doors_are_no_longer_refused_at_boot(knob):
     """The GEB door and the edge bridge are ported: their knobs build a
     Server (the doors open at start(), which this does not call)."""
     from gubernator_tpu_torch.serve.config import config_from_env
-    from gubernator_tpu_torch.serve.server import Server, refuse_not_ported
+    from gubernator_tpu_torch.serve.server import Server
 
     key, _, value = knob.partition("=")
     conf = config_from_env(
         {"GUBER_GRPC_ADDRESS": "127.0.0.1:7003", "GUBER_STORE_MIB": "8", key: value}
     )
-    refuse_not_ported(conf)
     Server(conf, device="cpu")
 
 
@@ -519,16 +528,15 @@ def test_discovery_knobs_are_no_longer_refused_at_boot(knob):
     """etcd and Kubernetes discovery are ported: a Server builds with
     either knob and contacts neither etcd nor the API server before
     start() (the pool is made there; a dead etcd endpoint costs nothing
-    here), and `refuse_not_ported` passes the config."""
+    here)."""
     from gubernator_tpu_torch.serve.config import config_from_env
-    from gubernator_tpu_torch.serve.server import Server, refuse_not_ported
+    from gubernator_tpu_torch.serve.server import Server
 
     (dead,) = free_ports(1)
     key, _, value = knob.partition("=")
     conf = config_from_env({"GUBER_GRPC_ADDRESS": "127.0.0.1:7003", "GUBER_STORE_MIB": "8",
                             key: value.replace("<dead>", str(dead))})
     assert conf.etcd_endpoints or conf.k8s_endpoints_selector
-    refuse_not_ported(conf)
     server = Server(conf, device="cpu")
     assert server._pool is None
 

@@ -154,6 +154,7 @@ def test_import_loads_no_jax_and_nothing_of_the_jax_package():
         "from gubernator_tpu_torch.core import (\n"
         "    algorithms, cache, engine, kernels, oracle, sketches, store, writeback)\n"
         "from gubernator_tpu_torch.parallel.sharded import TorchEngine\n"
+        "from gubernator_tpu_torch.parallel import multihost, policy\n"
         "from gubernator_tpu_torch.serve import (\n"
         "    aio, backends, batcher, breaker, checkpoint, config, discovery,\n"
         "    edge_bridge, etcd_client, faults, global_mgr, instance, k8s_client,\n"
@@ -191,6 +192,11 @@ def test_import_loads_no_jax_and_nothing_of_the_jax_package():
         "assert w['key_hash'].shape[0] > 0\n"
         "s.repartition(now=1_700_000_000_002)\n"
         "x = backends.make_backend(config.config_from_env({'GUBER_BACKEND': 'exact'}))\n"
+        "m = backends.make_backend(config.config_from_env("
+        "{'GUBER_BACKEND': 'multihost', 'GUBER_STORE_MIB': '8'}), device='cpu')\n"
+        "m.decide([gubernator_tpu_torch.RateLimitReq("
+        "name='a', unique_key='b', hits=1, limit=1, duration=1000)], [False])\n"
+        "assert multihost._encode_msg({'kind': 'ack'})[:4] == b'GMH2'\n"
         "x.decide([gubernator_tpu_torch.RateLimitReq("
         "name='a', unique_key='b', hits=1, limit=1, duration=1000)], [False])\n"
         "etcd = fake_etcd.FakeEtcd().start()\n"

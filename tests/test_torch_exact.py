@@ -375,8 +375,12 @@ def test_make_backend_exact_holds_no_device_state():
     assert isinstance(be, t_backends.ExactBackend)
     assert be.cache.max_size == 123
     assert be.inline_decide and not hasattr(be, "engine")
-    with pytest.raises(ValueError, match="GUBER_BACKEND=multihost is not ported"):
-        t_backends.make_backend(t_config.ServerConfig(backend="multihost"))
+    # multihost with no process group: a one-process mesh, no step pipe
+    multi = t_backends.make_backend(
+        t_config.ServerConfig(backend="multihost", store_mib=1), device="cpu"
+    )
+    assert isinstance(multi, t_backends.MultiHostBackend) and multi.engine.pipe is None
+    assert multi.engine.n == 1 and not multi.engine.policy.spans_processes
     # mesh, once refused, is the sharded device backend, not the host LRU
     mesh = t_backends.make_backend(
         t_config.ServerConfig(backend="mesh", shards=2, store_mib=1), device="cpu"

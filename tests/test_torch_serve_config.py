@@ -8,8 +8,8 @@ the JAX package's, on the CPU.
   `store_config()` / `sketch_config()` geometry, and refuses the same
   environments;
 - `make_backend` builds the TorchBackend for GUBER_BACKEND=tpu on the
-  device it is given and the host ExactBackend for GUBER_BACKEND=exact,
-  and refuses the backends not ported yet (mesh, multihost); an Instance
+  device it is given, the host ExactBackend for GUBER_BACKEND=exact, the
+  MeshBackend for mesh and the MultiHostBackend for multihost; an Instance
   builds the replication, rescale and checkpoint managers from the env;
 - the port's metrics registry has the JAX registry's metric names, types,
   label sets and help texts, and renders the same exposition headers.
@@ -17,6 +17,7 @@ the JAX package's, on the CPU.
 
 import dataclasses
 
+import jax
 import pytest
 import torch
 
@@ -160,16 +161,34 @@ def test_make_backend_builds_torch_backend_on_the_given_device():
 
 
 @pytest.mark.parametrize("backend", ["mesh", "multihost"])
-def test_make_backend_refuses_backends_not_ported(backend):
-    """multihost is still refused; mesh, once refused, builds a MeshBackend
-    on the CPU: GUBER_SHARDS shards of the one CPU (1 at 0), an explicit
-    devices= list winning, with the JAX make_backend's geometry."""
-    from gubernator_tpu_torch.serve.backends import MeshBackend
+def test_make_backend_builds_the_mesh_backends(backend):
+    """mesh builds a MeshBackend on the CPU: GUBER_SHARDS shards of the one
+    CPU (1 at 0), an explicit devices= list winning, with the JAX
+    make_backend's geometry. multihost, with no process group joined,
+    builds a MultiHostBackend whose engine is a one-process mesh over the
+    local devices with no step pipe, as the JAX make_backend's is; its
+    hello config is the JAX engine's but for the shard count (the JAX
+    engine holds conftest's 8 simulated devices, the port the one CPU)."""
+    from gubernator_tpu_torch.serve.backends import MeshBackend, MultiHostBackend
 
     if backend == "multihost":
-        conf = tconfig.config_from_env({"GUBER_BACKEND": backend})
-        with pytest.raises(ValueError, match=f"GUBER_BACKEND={backend} is not ported"):
-            make_backend(conf, device="cpu")
+        from gubernator_tpu.serve.server import make_backend as j_make_backend
+
+        env = {"GUBER_BACKEND": "multihost", "GUBER_STORE_MIB": "8"}
+        conf = tconfig.config_from_env(env)
+        b = make_backend(conf, device="cpu")
+        j = j_make_backend(jconfig.config_from_env(env))
+        assert isinstance(b, MultiHostBackend) and type(j).__name__ == "MultiHostBackend"
+        assert b.engine.pipe is None and j.engine.pipe is None
+        assert b.engine.is_leader and j.engine.is_leader
+        assert not b.engine.policy.spans_processes and b.engine.n == 1
+        assert b.engine.devices == (torch.device("cpu"),)
+        t_cfg, j_cfg = b.engine._config(), j.engine._config()
+        assert t_cfg.pop("n_shards") == 1 and j_cfg.pop("n_shards") == len(jax.devices())
+        assert t_cfg == j_cfg
+        assert b.sketch_enabled and j.sketch_enabled
+        two = make_backend(conf, device="cpu", devices=["cpu", "cpu"])
+        assert isinstance(two, MultiHostBackend) and two.engine.n == 2
         return
     env = {"GUBER_BACKEND": "mesh", "GUBER_STORE_MIB": "8", "GUBER_SHARDS": "4"}
     conf = tconfig.config_from_env(env)
