@@ -64,6 +64,14 @@ Phases, one JSON line each:
              (16 MiB, in the L2) and the two-tier path's, where each step
              at kRows 8 is also timed on one batch repeated, in the L2
              (one_set_vs_all);
+   card_tests  the card tests of the captured decide (tests/test_torch_cuda.py,
+             GRAPH_CARD_TESTS, in a pytest process of their own): graph
+             replays byte for byte against the eager decide over every
+             (B, G) of a small ladder for the exact, two-tier and chain
+             programs, launches counted from replays, decide_wait not
+             waiting for later work, a failed capture raising, a capture
+             not aborted by the collector, a synchronize or a second
+             capture in other threads;
 3. walk      get_rate_limits: a limit-2 key goes 1 -> 0 -> OVER_LIMIT;
 4. main      exact tier: 3 batches held against the same port on the CPU
              (identical outputs and store bytes), 50 timed, then a profile;
@@ -73,6 +81,19 @@ Phases, one JSON line each:
              sketch-served keys held against the CPU, a profile, then one
              batch after the first 32 prefill batches expired (dead token
              victims fold into the sketch), held against the CPU;
+   graphs    the decide as one CUDA graph per (program, B, G), captured at
+             warmup (core/graphs.py), against the eager decide
+             (TorchEngine(cuda_graphs=False)) at both deployments, on the
+             same 24 batches in turns (the two-tier store prefilled on the
+             graphed engine and copied): answers, stats, store and sketch
+             bytes identical, one batch identical to the CPU too; each
+             kind's dispatch ms a batch, batch ms and decisions/s, the
+             replay's device ms from CUDA events around it alone, the idle
+             share without the profiler, the graphs, capture seconds and
+             the pool's bytes. Every flat engine of every phase decides by
+             replaying its graphs (the main, two_tier and serving lines and
+             the doors daemon's /v1/debug/stats carry graph_count and
+             graph_captures, which must stay 0 after warmup);
 6. serving   the serving core booted as cli/bench_serving.py boots the
              JAX one (config_from_env -> make_backend -> warmup ->
              Instance -> start, this node alone on the ring): the same
@@ -298,13 +319,16 @@ Phases, one JSON line each:
 16. kernels  the contract line over every kernel of the path.
 
 The writeback kernel's launch count is set to 0 before each in-process
-path (each durability leg, each workloads scenario) and read after it (the copy floor's and the ablation's are set to 0
+path (each durability leg, each workloads scenario) and read after it; a
+replay of a captured decide adds the launch its capture recorded, and a
+shape's first decide (the capture's eager run) launches as any eager one (the copy floor's and the ablation's are set to 0
 before the first path and read after the last: they run on none, so they
 must stay 0); each must equal that path's decides plus
 window-install (and, in the cluster, gossip-charge) chunks, times the
 engine's shards on the mesh legs, plus, in the durability legs (b) and
 (c) and the workloads scenarios, each engine warmup's own (the flat
-engine's: one decide and one install a ladder rung). A
+engine's: one decide a (request rung, group rung) pair and program and
+one install a ladder rung). A
 daemon's count lives in its own process: it is read from /v1/debug/stats
 just before and just after the doors window (and each workloads leg), and
 the difference must equal
@@ -352,10 +376,25 @@ PROFILED_BATCHES = 10
 PROMOTED_KEYS = 1024
 EXPIRED_PREFILL = 32  # prefill batches dead at the two-tier eviction batch
 KERNEL_SETS = 8  # batches cycled per kernel timing run
+GRAPH_AB_BATCHES = 24  # batches each deployment's graphs phase decides eager and graphed
+#: the card tests of the captured decide (tests/test_torch_cuda.py) the
+#: card_tests phase runs: 3 replay-vs-eager, the decide_wait, the failed capture
+#: and the capture beside a collector, a synchronize and a second capture
+GRAPH_CARD_TESTS = ("graph_replays or decide_wait_does_not_wait or failing_capture "
+                    "or capture_survives", 6)
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def device_sync() -> None:
+    """torch.cuda.synchronize() through the port's capture lock: a
+    device-wide sync aborts a decide capture running in another thread
+    (an in-process server's first-use capture)."""
+    from gubernator_tpu_torch.core.graphs import synchronize
+
+    synchronize()
 
 
 def fail(msg: str) -> None:
@@ -372,7 +411,7 @@ def single_call_ms(fn, reps: int = 15) -> float:
     queued ahead keeps the host's launch gap out). For one ~4 us launch
     this includes the event records' own cost: kept under its own name."""
     fn()
-    torch.cuda.synchronize()
+    device_sync()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -388,12 +427,12 @@ def single_call_ms(fn, reps: int = 15) -> float:
 
 def host_us(fn, n: int = 200) -> float:
     """Mean host time (us) to launch one call, device drained after."""
-    torch.cuda.synchronize()
+    device_sync()
     t0 = time.perf_counter()
     for _ in range(n):
         fn()
     dt = (time.perf_counter() - t0) / n * 1e6
-    torch.cuda.synchronize()
+    device_sync()
     return dt
 
 
@@ -448,7 +487,7 @@ def kernel_case(name: str, buckets: int, bkts: list, seed: int, cyc: float) -> d
     bkt, drow, _u = sets[0]
     want = writeback_add_plain(data.clone(), bkt, drow)
     got = writeback_add(data.clone(), bkt, drow)
-    torch.cuda.synchronize()
+    device_sync()
     touched = torch.unique(bkt).long()
     max_abs_err = int((got[touched].long() - want[touched].long()).abs().max().item())
     if not torch.equal(got, want) or max_abs_err != 0:
@@ -510,7 +549,7 @@ def copy_floor_cases(cyc: float) -> dict:
                           device="cuda", generator=gen)
         want = add_one_plain(x.clone())
         got = add_one(x.clone())
-        torch.cuda.synchronize()
+        device_sync()
         max_abs_err = int((got.long() - want.long()).abs().max().item())
         if not torch.equal(got, want):
             fail(f"copy floor {key}: add_one disagrees with add_one_plain")
@@ -647,12 +686,12 @@ def profile_batches(eng, pool, fields, now: int, step: int):
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
+        device_sync()
         t0 = time.perf_counter()
         for kh in pool:
             now += step
             eng.decide_arrays(kh, *fields, now)
-        torch.cuda.synchronize()
+        device_sync()
         wall_us = (time.perf_counter() - t0) * 1e6
     return device_profile(prof, wall_us, len(pool)), now
 
@@ -735,7 +774,7 @@ def timed_batches(eng, pool, fields, now: int, step: int, what: str):
     for i, kh in enumerate(pool):
         now += step
         before = eng.stats.snapshot()
-        torch.cuda.synchronize()
+        device_sync()
         t0 = time.perf_counter()
         out = eng.decide_wait(eng.decide_submit(kh, *fields, now))
         batch_ms.append((time.perf_counter() - t0) * 1e3)
@@ -828,9 +867,11 @@ def exact_path(card: str, ladder, writeback) -> dict:
         store_bytes=eng.store.data.numel() * 4, batch=DEPTH, warmup_s=warm_s,
         **rate_fields(ladder, config.slots, timed, fields, batch_ms, per_batch),
         decides=decides, kernel_launches=launches,
-        stats=eng.stats.snapshot(),
+        stats=eng.stats.snapshot(), **graph_fields(eng),
         max_memory_allocated=torch.cuda.max_memory_allocated(),
     ))
+    if eng.graph_captures:
+        fail(f"exact path: {eng.graph_captures} decide graphs captured after warmup")
     prof, now = profile_batches(
         eng, pool[CHECKED_BATCHES:CHECKED_BATCHES + PROFILED_BATCHES], fields, now, 2
     )
@@ -872,7 +913,7 @@ def two_tier_path(card: str, ladder, writeback) -> dict:
         now += 1
         eng.decide_arrays(keystreams.hash_ids(np.arange(c * DEPTH, (c + 1) * DEPTH)), *tok, now)
         decides += 1
-    torch.cuda.synchronize()
+    device_sync()
     prefill = dict(ids=n_ids, batches=n_ids // DEPTH, seconds=time.monotonic() - t0,
                    stats=eng.stats.snapshot())
     emit(dict(phase="prefill", path="two_tier", card=card, **prefill))
@@ -1008,11 +1049,229 @@ def two_tier_path(card: str, ladder, writeback) -> dict:
     if launches != decides + install_chunks or launches == 0:
         fail(f"two-tier path: writeback kernel launched {launches} times for "
              f"{decides} decides + {install_chunks} install chunks")
-    emit(dict(main, decides=decides, install_chunks=install_chunks, kernel_launches=launches))
+    if eng.graph_captures:
+        fail(f"two-tier path: {eng.graph_captures} decide graphs captured after warmup")
+    emit(dict(main, decides=decides, install_chunks=install_chunks, kernel_launches=launches,
+              **graph_fields(eng)))
     del eng
     torch.cuda.empty_cache()
     return dict(launches=launches, decides=decides, install_chunks=install_chunks,
                 decisions_per_s=main["decisions_per_s"])
+
+
+def graph_fields(eng) -> dict:
+    """A flat engine's captured decides for a phase's line: the graphs,
+    the first-use captures since warmup (0 where warmup walked every
+    shape the phase sends) and the warmup's capture seconds."""
+    return dict(graph_count=eng.graph_count, graph_captures=eng.graph_captures,
+                capture_s=eng.capture_s)
+
+
+def card_tests_phase() -> dict:
+    """The card tests of the captured decide, in a pytest process of
+    their own (tests/test_torch_cuda.py, no conftest: it imports no JAX):
+    graph replays byte for byte against the eager decide, launches
+    counted from replays, decide_wait not waiting on later work, a
+    failed capture raising with no fallback."""
+    expr, want = GRAPH_CARD_TESTS
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider", "-q",
+         "tests/test_torch_cuda.py", "-m", "cuda", "-k", expr],
+        cwd=root, capture_output=True, text=True, timeout=600,
+    )
+    tail = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    rec = dict(phase="card_tests", selected=expr, seconds=time.monotonic() - t0,
+               exit_code=proc.returncode, summary=tail)
+    emit(rec)
+    if proc.returncode != 0 or f"{want} passed" not in tail or "skipped" in tail:
+        fail(f"card tests: {tail}\n{proc.stdout[-4000:]}\n{proc.stderr[-2000:]}")
+    return rec
+
+
+def graphs_path(card: str, ladder, writeback) -> dict:
+    """The decide as one CUDA graph per (program, B, G) against the eager
+    decide, at both deployments (the exact 1 GiB zipf10m store; the
+    two-tier zipf100m store and sketch, its exact tier prefilled past
+    capacity on the graphed engine and copied to the eager one): the
+    same batches through an engine of each kind, in turns, every answer,
+    the stats and the store and sketch bytes identical, and one batch
+    identical to a CPU engine started from the same state. Prints each
+    kind's dispatch ms a batch (TorchEngine._dispatch on the host),
+    batch ms and decisions/s (submit to answers, the card drained before
+    each), the graphed replay's device ms (CUDA events around the replay
+    alone), the idle share read without the profiler (1 - replay device
+    ms / batch ms; the eager side's busy time is taken as the graphed
+    replay's of the same batches), the graphs, the warmup's capture
+    seconds and the graph pool's bytes."""
+    from gubernator_tpu_torch.core.engine import TorchEngine, group_rungs
+    from gubernator_tpu_torch.core.sketches import derive_two_tier_config
+    from gubernator_tpu_torch.core.store import derive_store_config
+
+    pairs = sum(len(group_rungs(b)) for b in ladder)
+    out = dict(launches=0, decides=0)
+    for name in ("exact", "two_tier"):
+        if name == "exact":
+            config, skc, dur, space = derive_store_config(mib=1024), None, DURATION, KEY_SPACE
+        else:
+            (config, skc), dur, space = derive_two_tier_config(1024), DURATION_100M, KEY_SPACE_100M
+        torch.cuda.empty_cache()
+        reserved0 = torch.cuda.memory_reserved()
+        graphed = TorchEngine(config, buckets=ladder, sketch=skc)
+        eager = TorchEngine(config, buckets=ladder, sketch=skc, cuda_graphs=False)
+        warm_s = {}
+        for label, eng in (("graphed", graphed), ("eager", eager)):
+            t0 = time.monotonic()
+            eng.warmup(now=T0)
+            warm_s[label] = time.monotonic() - t0
+        programs = 1 if skc is None else 2
+        if graphed.graph_count != pairs * programs or graphed.graph_captures:
+            fail(f"graphs {name}: warmup left {graphed.graph_count} graphs "
+                 f"({graphed.graph_captures} first-use captures), not {pairs} (B, G) "
+                 f"pairs x {programs} programs")
+        pool_bytes = graphed.graph_pool_bytes
+        reserved_warm = torch.cuda.memory_reserved()
+        writeback.writeback_add.launches = 0  # count this phase only
+        decides = 0
+        ones = np.ones(DEPTH, np.int64)
+        tok = (ones * HITS, ones * LIMIT, ones * dur, np.zeros(DEPTH, np.int32),
+               np.zeros(DEPTH, bool))
+        now = T0
+        prefill_s = None
+        if skc is not None:
+            n_fill = int(config.slots * config.rows * 1.25) // DEPTH
+            t0 = time.monotonic()
+            for c in range(n_fill):
+                now += 1
+                graphed.decide_arrays(
+                    keystreams.hash_ids(np.arange(c * DEPTH, (c + 1) * DEPTH)), *tok, now)
+            device_sync()
+            prefill_s = time.monotonic() - t0
+            decides += n_fill
+            eager.load_state(graphed.store_numpy(), graphed.clock.epoch,
+                             graphed.sketch_numpy())
+        pool = zipf_hashes((GRAPH_AB_BATCHES + 1) * DEPTH, seed=99,
+                           key_space=space).reshape(-1, DEPTH)
+
+        # one batch on the graphed, the eager and a CPU engine, one state
+        cpu = TorchEngine(config, buckets=ladder, sketch=skc, device="cpu")
+        cpu.load_state(graphed.store_numpy(), graphed.clock.epoch, graphed.sketch_numpy())
+        now += 1
+        engines = (graphed, eager, cpu)
+        before = [e.stats.snapshot() for e in engines]
+        outs = [e.decide_arrays(pool[0], *tok, now) for e in engines]
+        decides += 2
+        ds = [delta(e.stats.snapshot(), b) for e, b in zip(engines, before)]
+        same_as_cpu(graphed, cpu, outs[0], outs[2], f"graphs {name}: graphed vs CPU",
+                    stats=(ds[0], ds[2]))
+        same_as_cpu(eager, cpu, outs[1], outs[2], f"graphs {name}: eager vs CPU",
+                    stats=(ds[1], ds[2]))
+        del cpu, engines
+        if skc is not None and ds[0]["dropped"] <= 0:
+            fail(f"graphs {name}: the checked batch had no sketch-served groups")
+
+        # the A/B: the same batches through both, eager first on even ones
+        dispatch_ms = {"graphed": [], "eager": []}
+        batch_ms = {"graphed": [], "eager": []}
+        replay_ev = []
+
+        def timed(fn, into):
+            def call(*a, **kw):
+                t = time.perf_counter()
+                r = fn(*a, **kw)
+                into.append((time.perf_counter() - t) * 1e3)
+                return r
+            return call
+
+        def replay_timed(fn):
+            def call(g):
+                ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                r = fn(g)
+                ev[1].record()
+                replay_ev.append(ev)
+                return r
+            return call
+
+        graphed._dispatch = timed(graphed._dispatch, dispatch_ms["graphed"])
+        eager._dispatch = timed(eager._dispatch, dispatch_ms["eager"])
+        graphed.graphs.replay = replay_timed(graphed.graphs.replay)
+        span0 = {"graphed": graphed.device_span_ms, "eager": eager.device_span_ms}
+        s0 = {"graphed": graphed.stats.snapshot(), "eager": eager.stats.snapshot()}
+        for i in range(GRAPH_AB_BATCHES):
+            now += 1
+            turn = (("eager", eager), ("graphed", graphed))
+            res = {}
+            for label, eng in (turn if i % 2 == 0 else turn[::-1]):
+                device_sync()
+                t0 = time.perf_counter()
+                res[label] = eng.decide_wait(eng.decide_submit(pool[i + 1], *tok, now))
+                batch_ms[label].append((time.perf_counter() - t0) * 1e3)
+            for a, b, col in zip(res["graphed"], res["eager"],
+                                 ("status", "limit", "remaining", "reset")):
+                if not np.array_equal(a, b):
+                    fail(f"graphs {name} batch {i}: graphed {col} differs from eager")
+            check_responses(res["graphed"], LIMIT, now, f"graphs {name} batch {i}")
+            decides += 2
+        device_sync()
+        st = {k: delta(e.stats.snapshot(), s0[k]) for k, e in (("graphed", graphed),
+                                                               ("eager", eager))}
+        if st["graphed"] != st["eager"]:
+            fail(f"graphs {name}: stats differ: {st}")
+        if not torch.equal(graphed.store.data, eager.store.data):
+            fail(f"graphs {name}: store bytes differ between graphed and eager")
+        if skc is not None and not torch.equal(graphed.sketch.data, eager.sketch.data):
+            fail(f"graphs {name}: sketch bytes differ between graphed and eager")
+        launches = writeback.writeback_add.launches
+        if launches != decides or graphed.graph_captures:
+            fail(f"graphs {name}: writeback kernel launched {launches} times for {decides} "
+                 f"decides, {graphed.graph_captures} first-use captures")
+        replay_ms = [a.elapsed_time(b) for a, b in replay_ev]
+        if len(replay_ms) != GRAPH_AB_BATCHES:
+            fail(f"graphs {name}: {len(replay_ms)} timed replays, not {GRAPH_AB_BATCHES}")
+        n = GRAPH_AB_BATCHES
+        busy = sum(replay_ms)
+        kinds = {}
+        for label, eng in (("graphed", graphed), ("eager", eager)):
+            kinds[label] = dict(
+                dispatch_ms_median=statistics.median(dispatch_ms[label]),
+                dispatch_ms_mean=statistics.fmean(dispatch_ms[label]),
+                batch_ms_median=statistics.median(batch_ms[label]),
+                batch_ms_p99=float(np.percentile(batch_ms[label], 99)),
+                decisions_per_s=n * DEPTH / (sum(batch_ms[label]) / 1e3),
+                device_span_ms_per_batch=(eng.device_span_ms - span0[label]) / n,
+                idle_share_unprofiled=1 - busy / sum(batch_ms[label]),
+                warmup_s=warm_s[label],
+            )
+        kinds["graphed"].update(
+            replay_device_ms_median=statistics.median(replay_ms),
+            replay_device_ms_mean=statistics.fmean(replay_ms),
+            ring_depth=graphed.graphs.ring.depth, ring_waits=graphed.graphs.ring.waits,
+        )
+        rec = dict(
+            phase="graphs", path=name, card=card, store_shape=list(graphed.store.data.shape),
+            sketch_shape=None if skc is None else list(graphed.sketch.data.shape),
+            batch=DEPTH, batches=n, ladder=list(ladder), prefill_s=prefill_s,
+            graph_count=graphed.graph_count, graph_pairs=pairs, programs=programs,
+            graph_captures=graphed.graph_captures, capture_s=graphed.capture_s,
+            graph_pool_bytes=pool_bytes, memory_reserved_before=reserved0,
+            memory_reserved_after_warmups=reserved_warm,
+            max_memory_allocated=torch.cuda.max_memory_allocated(),
+            cpu_identical=True, graphed_identical_to_eager=True, stats=st["graphed"],
+            decides=decides, kernel_launches=launches,
+            graphed=kinds["graphed"], eager=kinds["eager"],
+            dispatch_speedup=kinds["eager"]["dispatch_ms_median"]
+            / kinds["graphed"]["dispatch_ms_median"],
+            rate_ratio=kinds["graphed"]["decisions_per_s"] / kinds["eager"]["decisions_per_s"],
+        )
+        emit(rec)
+        out[name] = rec
+        out["launches"] += launches
+        out["decides"] += decides
+        del graphed, eager
+        torch.cuda.empty_cache()
+    return out
 
 
 # -- the serving phase: the port's serving core at the zipf100m deployment --
@@ -1142,10 +1401,10 @@ async def _serving(card, writeback, engine_rate):
 
     b0 = backend.stats()["batches"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tp:
-        torch.cuda.synchronize()
+        device_sync()
         t0 = time.perf_counter()
         await serving_window(inst, backend, pool, PROFILE_S)
-        torch.cuda.synchronize()
+        device_sync()
         wall_us = (time.perf_counter() - t0) * 1e6
     emit(dict(phase="profile", path="serving", card=card,
               **device_profile(tp, wall_us, backend.stats()["batches"] - b0)))
@@ -1159,7 +1418,10 @@ async def _serving(card, writeback, engine_rate):
     if launches != decides + chunks or launches == 0:
         fail(f"serving path: writeback kernel launched {launches} times for "
              f"{decides} decides + {chunks} install chunks")
+    if eng.graph_captures:
+        fail(f"serving path: {eng.graph_captures} decide graphs captured after warmup")
     emit(dict(phase="main", path="serving", card=card, **geometry, warmup_s=warm_s,
+              **graph_fields(eng), graph_pool_bytes=eng.graph_pool_bytes,
               batch=DEPTH, group_rows=GROUP, **window,
               prefill_seconds=prefill["seconds"], checked=checked,
               decides=decides, install_chunks=chunks, kernel_launches=launches,
@@ -1266,7 +1528,7 @@ def serving_stages_alone(backend, pool, reps: int = 5) -> dict:
         t0 = time.perf_counter()
         merged = backend.merge_prepped(runs)
         out["merge"].append((time.perf_counter() - t0) * 1e3)
-        torch.cuda.synchronize()
+        device_sync()
         t0 = time.perf_counter()
         handle = backend.decide_submit_merged(merged)
         out["dispatch"].append((time.perf_counter() - t0) * 1e3)
@@ -1332,7 +1594,7 @@ async def serving_checked_leg(inst, conf, backend) -> dict:
     await inst.promoter.stop()
     await inst.global_mgr.stop()
     await inst.batcher.drain()
-    torch.cuda.synchronize()
+    device_sync()
     cpu_backend = TorchBackend(eng.config, buckets=eng.buckets, sketch=eng.sketch_config,
                                device="cpu")
     cpu_backend.load_state(eng.store.data.cpu().numpy(), eng.clock.epoch,
@@ -1711,10 +1973,13 @@ def doors_path(card: str) -> dict:
             died(f"the window: writeback kernel launched {launches} times for {decides} "
                  f"decides + {chunks} install and gossip chunks ({nb} device batches "
                  f"in /metrics)")
+        if s1["decide_graphs"]["captures"] or not s1["decide_graphs"]["count"]:
+            died(f"the window: the daemon's decide graphs {s1['decide_graphs']}")
         window.update(device_batches=nb, mean_device_batch=rows / nb,
                       stages=stages["stages"],
                       shed=stages.get("shed_cache"),
-                      kernel_launches=launches, decides=decides, chunks=chunks)
+                      kernel_launches=launches, decides=decides, chunks=chunks,
+                      decide_graphs=s1["decide_graphs"])
         emit(dict(phase="window", path="doors", card=card, **window))
 
         # a profiled stretch of the same traffic: the device's idle share
@@ -2765,7 +3030,7 @@ def chain_path(card: str, ladder, writeback) -> dict:
     batch_ms, span0 = [], eng.device_span_ms
     for rows in timed:
         now += 1
-        torch.cuda.synchronize()
+        device_sync()
         t0 = time.perf_counter()
         out = eng.decide_chain_arrays(*rows, now)
         batch_ms.append((time.perf_counter() - t0) * 1e3)
@@ -2919,8 +3184,9 @@ CKPT_INTERVAL_MS = 250
 def _warmup_launches(engine) -> int:
     """writeback launches of an engine's last warmup, which the warmup
     records before it zeroes the counts: n_shards x (its decides + install
-    and gossip chunks); on the flat engine one decide and one one-chunk
-    window install a ladder rung (TorchEngine.warmup)."""
+    and gossip chunks); on the flat engine one decide a (request rung,
+    group rung) pair and program (each its graph's capture run) and one
+    one-chunk window install a ladder rung (TorchEngine.warmup)."""
     return engine.warmup_launches
 
 
@@ -2954,7 +3220,7 @@ async def _lane_restore(config, skc, ladder, lanes, now, ckpt_dir, device):
     try:
         t = time.monotonic()
         n = await inst.checkpoint._restore_lanes(lanes, now)
-        torch.cuda.synchronize()
+        device_sync()
         return backend.engine, n, time.monotonic() - t
     finally:
         await inst.stop()
@@ -3007,7 +3273,7 @@ def durability_engine_leg(card: str, ladder, writeback) -> dict:
             eng.decide_arrays(kh[sl], one * hits, one * DUR_LIMIT, one * DURATION_100M,
                               algo[sl], no_gnp, now)
             decides += 1
-    torch.cuda.synchronize()
+    device_sync()
     fill_s = time.monotonic() - t0
 
     # export on the device against a CPU engine given the same store
@@ -3044,7 +3310,7 @@ def durability_engine_leg(card: str, ladder, writeback) -> dict:
                  f"{restored.install_chunks} chunks")
         t0 = time.monotonic()
         moved = eng.repartition(now=now)
-        torch.cuda.synchronize()
+        device_sync()
         repartition_s = time.monotonic() - t0
         ref = _by_key(w)
         _same_export(_by_key(restored.export_windows(now)), ref,
@@ -3987,7 +4253,7 @@ def _timed_decides(eng, pool, fields, now: int, step: int):
     outs, ms = [], []
     for kh in pool:
         now += step
-        torch.cuda.synchronize()
+        device_sync()
         t0 = time.perf_counter()
         outs.append(eng.decide_arrays(kh, *fields, now))
         ms.append((time.perf_counter() - t0) * 1e3)
@@ -4155,7 +4421,7 @@ def mesh_exact_leg(card: str, ladder, writeback) -> dict:
     now += 2
     t0 = time.perf_counter()
     mesh.sync_globals(kh, g[1], g[2], now)
-    torch.cuda.synchronize()
+    device_sync()
     sync_ms = (time.perf_counter() - t0) * 1e3
     flat.sync_globals(kh, g[1], g[2], now)
     now += 2
@@ -4357,16 +4623,21 @@ def mesh_repartition_leg(card: str, ladder, writeback) -> dict:
     for label, policy in (("4", ShardingPolicy.over_mesh(["cuda:0"] * 4)),
                           ("2", ShardingPolicy.over_mesh(["cuda:0"] * 2)),
                           ("flat", ShardingPolicy.single("cuda"))):
-        torch.cuda.synchronize()
+        device_sync()
+        reserved0 = torch.cuda.memory_reserved()
         t0 = time.perf_counter()
         nxt = eng.repartition(policy, now=now)
-        torch.cuda.synchronize()
+        device_sync()
         sec = time.perf_counter() - t0
         _same_export(_by_key(nxt.export_windows(now)), want, f"mesh repartition to {label}")
         if nxt.snapshot_read(sample, now) != snap:
             fail(f"mesh repartition to {label}: the snapshot of the sample differs")
+        if eng is not first:
+            eng.close()  # the replaced engine's decide graphs and their pool
         steps.append(dict(to=label, shards=nxt.n, seconds=sec,
-                          install_chunks=nxt.install_chunks))
+                          install_chunks=nxt.install_chunks,
+                          memory_reserved_before=reserved0,
+                          memory_reserved_after=torch.cuda.memory_reserved()))
         engines.append(nxt)
         if eng is not first:
             del eng
@@ -4378,9 +4649,16 @@ def mesh_repartition_leg(card: str, ladder, writeback) -> dict:
     _same_outs([eng.decide_arrays(*check)], [first.decide_arrays(*check)],
                "repartition: the checked batch")
     launches = _mesh_launches(writeback, engines, "repartition")
+    # the two flat engines' graphs: what close() hands back
+    device_sync()
+    reserved0, graphs0 = torch.cuda.memory_reserved(), first.graph_count + eng.graph_count
+    first.close()
+    eng.close()
     rec = dict(phase="mesh", leg="repartition", card=card, windows=windows, steps=steps,
                every_window_preserved=True, launches=launches,
-               max_memory_allocated=torch.cuda.max_memory_allocated())
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               flat_graphs_closed=graphs0, memory_reserved_before_close=reserved0,
+               memory_reserved_after_close=torch.cuda.memory_reserved())
     del engines, eng, first
     torch.cuda.empty_cache()
     emit(rec)
@@ -4518,7 +4796,7 @@ def multihost_script(eng) -> tuple:
     c0 = dict(eng.collective_stats)
     for kh in pool:
         now += 2
-        torch.cuda.synchronize()
+        device_sync()
         t0 = time.perf_counter()
         outs.extend(eng.decide_arrays(kh, *fields, now))
         ms.append((time.perf_counter() - t0) * 1e3)
@@ -4528,10 +4806,10 @@ def multihost_script(eng) -> tuple:
     ones = np.ones(g, np.int64)
 
     def timed(fn):
-        torch.cuda.synchronize()
+        device_sync()
         t0 = time.perf_counter()
         out = fn()
-        torch.cuda.synchronize()
+        device_sync()
         return out, (time.perf_counter() - t0) * 1e3
 
     now += 2
@@ -5032,8 +5310,10 @@ def main() -> int:
     writeback.add_one.launches = 0
     writeback.writeback_rows.launches = writeback.writeback_deltas.launches = 0
     writeback.writeback_full.launches = 0
+    card_tests_phase()
     exact = exact_path(card, ladder, writeback)
     two = two_tier_path(card, ladder, writeback)
+    graphs = graphs_path(card, ladder, writeback)
     serving = serving_path(card, writeback, two["decisions_per_s"])
     doors = doors_path(card)
     cluster = cluster_path(card, writeback)
@@ -5068,6 +5348,7 @@ def main() -> int:
         library_ms=main_case["library_ms"],
         share_of_floor=main_case["share_of_floor"], floor_by=main_case["floor_by"],
         launches_by_path={"exact": exact["launches"], "two_tier": two["launches"],
+                          "graphs": graphs["launches"],
                           "serving": serving["launches"], "doors": doors["launches"],
                           "cluster": cluster["launches"], "geb": geb["launches"],
                           "geb_checked": geb_checked["launches"], "chain": chain["launches"],

@@ -1897,7 +1897,9 @@ def main(argv=None) -> int:
                  "--grpc-listen", str(edge_grpc_port),
                  "--backend", sock, "--workers",
                  str(args.edge_workers)],
-                stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
+                # the edge's stderr is ours: it names any lane or credit
+                # wait that outlasts a second (native/edge/edge.cc)
+                stdout=subprocess.DEVNULL,
             )
             # poll for readiness instead of hoping a fixed sleep suffices
             import socket as _socket

@@ -332,7 +332,9 @@ def decide_presorted(
     """Exact-only decide of one PRESORTED padded batch; updates
     `store.data` in place and returns (store, responses, stats).
     Responses come back in the (sorted) row order. `now` is int32
-    engine-ms. See _decide_presorted for the caller contract."""
+    engine-ms: a 0-d int32 tensor on the store's device (what a captured
+    graph reads, core/graphs.py) or an int. See _decide_presorted for
+    the caller contract."""
     store, _sketch, resp, stats = _decide_presorted(store, req, now, groups, None)
     return store, resp, stats
 
@@ -393,14 +395,20 @@ def _decide_presorted(
     rung, else it is derived here at G == B. Mirrors
     gubernator_tpu/core/kernels.py:563; `sketch` is None (exact only) or
     the cold tier's Sketch, `chain_id` None or the chain slots of
-    decide_presorted_chain (never both)."""
+    decide_presorted_chain (never both); `now` a 0-d int32 tensor on
+    the store's device or an int (decide_presorted)."""
     data = store.data
     dev = data.device
     buckets, _W = data.shape
     ways = _W // LANES
     B = req.key_hash.shape[0]
-    now = int(now)
-    now64 = now
+    # `now` is read on the device, so a captured graph replays with the
+    # value its static input holds; an int becomes that 0-d int32 here.
+    # A 0-d tensor never promotes a dimensioned one, so every `now + x`
+    # keeps the type the reference's int gives it.
+    if not torch.is_tensor(now):
+        now = torch.full((), int(now), dtype=_i32, device=dev)
+    now64 = now.to(_i64)
 
     h = req.hits
     lim_q = req.limit

@@ -214,7 +214,10 @@ def writeback_add(
 
     CPU tensors take writeback_add_plain. CUDA tensors launch the
     csrc/writeback.cu kernel on the current stream and count the launch
-    in `writeback_add.launches`; a refused launch raises."""
+    in `writeback_add.launches`; a refused launch raises. Under a CUDA
+    graph capture the launch is only recorded, so it is counted in
+    `writeback_add.captured` instead, and each replay of the graph adds
+    its recorded launches to `launches` (count_replay)."""
     _check(data, bkt, drow)
     if _device_of("writeback_add", data) == "cpu":
         return writeback_add_plain(data, bkt, drow)
@@ -225,11 +228,21 @@ def writeback_add(
         _launch("writeback_add", lambda lib, s: lib.guber_writeback_add(
             data.data_ptr(), bkt.data_ptr(), drow.data_ptr(), G, data.shape[1],
             data.shape[0], s))
-    writeback_add.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        writeback_add.captured += 1
+    else:
+        writeback_add.launches += 1
     return data
 
 
 writeback_add.launches = 0
+writeback_add.captured = 0
+
+
+def count_replay(n: int) -> None:
+    """A replay of a captured graph that recorded `n` writeback_add
+    launches has launched them (core/graphs.py DecideGraphs.replay)."""
+    writeback_add.launches += n
 
 
 def writeback_full(

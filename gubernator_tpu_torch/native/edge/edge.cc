@@ -611,6 +611,20 @@ void finish_shard(Shard* s, RtStatus st) {
   if (--p->shards_left == 0) p->cv.notify_one();
 }
 
+// A condition wait that names itself once it has lasted over a second:
+// one stderr line "guber-edge: wait '<name>' over 1 s: <what()>" a
+// wait, then it goes on waiting exactly as cv.wait(lk, pred) does. The
+// lane and credit waits use it, so a wait that never ends is named by
+// the log (the stall a host can hide from every other tool).
+template <class Pred, class What>
+void wait_logged(std::condition_variable& cv, std::unique_lock<std::mutex>& lk,
+                 Pred pred, const char* name, What what) {
+  if (cv.wait_for(lk, std::chrono::seconds(1), pred)) return;
+  std::string why = what();
+  fprintf(stderr, "guber-edge: wait '%s' over 1 s: %s\n", name, why.c_str());
+  cv.wait(lk, pred);
+}
+
 // Bridge endpoint: a unix path (the co-located daemon) or host:port (a
 // peer's TCP bridge listener).
 struct Endpoint {
@@ -841,6 +855,19 @@ class Lane : public std::enable_shared_from_this<Lane> {
   }
 
   bool backend_ok() const { return connected_.load() > 0; }
+
+  // The lane's state for a wait's log line: its endpoint, the items
+  // queued, and its workers waiting for work (idle) or holding a batch
+  // (busy: sending, in a round-trip, or at the credit gate).
+  std::string describe() {
+    std::lock_guard<std::mutex> lk(m_);
+    return "lane " + ep_.spec + " queued_items=" + std::to_string(queued_items_) +
+           " shards=" + std::to_string(queue_.size() + fast_queue_.size()) +
+           " workers_idle=" + std::to_string(n_idle_) +
+           " workers_busy=" + std::to_string(n_busy_) +
+           " connected=" + std::to_string(connected_.load()) +
+           (stopping_ ? " stopping" : "");
+  }
   // last hello's fast-path capability; false until the first connect
   bool fast_advertised() const { return fast_ok_.load(); }
 
@@ -1220,9 +1247,13 @@ class Lane : public std::enable_shared_from_this<Lane> {
       // credit gate: at most `window` frames in flight per connection
       // (the bridge advertises the window it is willing to serve
       // concurrently; beyond it frames would only queue in its socket)
-      st->cv.wait(lk, [&] {
-        return st->dead || st->inflight.size() < window;
-      });
+      wait_logged(
+          st->cv, lk,
+          [&] { return st->dead || st->inflight.size() < window; }, "credit",
+          [&] {
+            return describe() + " inflight=" + std::to_string(st->inflight.size()) +
+                   " window=" + std::to_string(window);
+          });
       if (st->dead) {
         lk.unlock();
         for (Shard* s : batch) finish_shard(s, RtStatus::kFail);
@@ -1293,9 +1324,17 @@ class Lane : public std::enable_shared_from_this<Lane> {
     };
     adopt_windowed();
     started_.fetch_add(1);
+    int* where = nullptr;  // the worker-state count this worker is in
+    auto set_state = [&](int* to) {
+      std::lock_guard<std::mutex> lk(m_);
+      if (where) --*where;
+      if (to) ++*to;
+      where = to;
+    };
     while (true) {
       std::vector<Shard*> batch;
       bool fast = false;
+      set_state(&n_idle_);
       {
         std::unique_lock<std::mutex> lk(m_);
         cv_.wait(lk, [this] {
@@ -1330,6 +1369,7 @@ class Lane : public std::enable_shared_from_this<Lane> {
         queued_items_ -= take_items;
       }
       if (batch.empty()) continue;
+      set_state(&n_busy_);
       if (fd < 0) {
         fd = connect_backend();
         if (fd >= 0) {
@@ -1364,6 +1404,7 @@ class Lane : public std::enable_shared_from_this<Lane> {
       }
       for (Shard* s : batch) finish_shard(s, rst);
     }
+    set_state(nullptr);
     if (st) {
       // bounded drain: let in-flight windowed frames finish before the
       // kill, preserving shutdown()'s in-flight-completes contract
@@ -1392,6 +1433,8 @@ class Lane : public std::enable_shared_from_this<Lane> {
   std::deque<Shard*> queue_;
   std::deque<Shard*> fast_queue_;
   size_t queued_items_ = 0;
+  int n_idle_ = 0;  // workers by state, guarded by m_
+  int n_busy_ = 0;
 };
 
 class Router {
@@ -1556,7 +1599,15 @@ class Router {
     }
     {
       std::unique_lock<std::mutex> lk(p.m);
-      p.cv.wait(lk, [&p] { return p.shards_left == 0; });
+      wait_logged(
+          p.cv, lk, [&p] { return p.shards_left == 0; }, "shards", [&] {
+            std::string why = std::to_string(p.shards_left) + " of " +
+                              std::to_string(n_shards) + " shards open; " +
+                              primary_->describe();
+            for (auto& [node, lane] : lane_by_node)
+              if (lane) why += "; " + lane->describe();
+            return why;
+          });
     }
 
     bool any_ok = false, saw_stale = false;

@@ -91,6 +91,7 @@ from gubernator_tpu_torch.core.engine import (
     to_device,
     unpermute_responses,
 )
+from gubernator_tpu_torch.core.graphs import PROGRAMS, DecideGraphs, synchronize
 from gubernator_tpu_torch.core.kernels import (
     BatchGroups,
     BatchRequest,
@@ -572,7 +573,15 @@ def pad_request_chained(
 class TorchEngine:
     """Single-device engine over a slot store on `device` (cuda unless
     the caller passes another; see core.store.resolve_device), with the
-    count-min cold tier beside it when `sketch` is a SketchConfig."""
+    count-min cold tier beside it when `sketch` is a SketchConfig.
+
+    On a GPU every decide is a replay of a captured CUDA graph, one per
+    (program, request rung, group rung) (core/graphs.py), captured by
+    `warmup` or on a shape's first use. `cuda_graphs=False` decides
+    eagerly instead: the A/B leg of chip_smoke.py and the card tests
+    set it, no serving path does. The store and sketch tensors are
+    updated in place and never rebound, because the graphs hold their
+    pointers."""
 
     def __init__(
         self,
@@ -580,12 +589,16 @@ class TorchEngine:
         buckets: Sequence[int] = (64, 256, 1024, 4096),
         device: DeviceLike = None,
         sketch: Optional[SketchConfig] = None,
+        cuda_graphs: bool = True,
     ):
         self._init_host(config, buckets, sketch)
         self.device = resolve_device(device)
         self.policy = ShardingPolicy.single(self.device)
         self.store = new_store(config, self.device)
         self.sketch = None if sketch is None else new_sketch(sketch, self.device)
+        self.cuda_graphs = cuda_graphs
+        if cuda_graphs and self.device.type == "cuda":
+            self.graphs = DecideGraphs(self.device, max(self.buckets))
 
     def _init_host(self, config: StoreConfig, buckets: Sequence[int], sketch) -> None:
         """The host-side state every engine carries, whatever its policy."""
@@ -620,12 +633,42 @@ class TorchEngine:
         # mask on the device (through the sync its count needs) and the
         # copy to the host; the bytes copied off the device; the windows
         self.last_export = dict(ms=0.0, mask_ms=0.0, copy_ms=0.0, bytes=0, windows=0)
+        # the captured decides (core/graphs.py; flat engine on a GPU only)
+        # and the seconds the last warmup spent capturing them
+        self.cuda_graphs = True
+        self.graphs = None
+        self.capture_s = 0.0
 
     @property
     def n_local(self) -> int:
         """The shards this process holds: its writeback launches a
         decide, an install chunk or a gossip chunk on a GPU."""
         return self.n
+
+    @property
+    def graph_count(self) -> int:
+        """Captured decide graphs, one per (program, B, G) used so far."""
+        return 0 if self.graphs is None else len(self.graphs.graphs)
+
+    @property
+    def graph_captures(self) -> int:
+        """Graphs captured on first use since the last warmup (a shape
+        the warmup did not reach, or the chain program): the
+        counterpart of a JAX recompile."""
+        return 0 if self.graphs is None else self.graphs.captures
+
+    @property
+    def graph_pool_bytes(self) -> int:
+        """Bytes the card holds in the graphs' shared memory pool."""
+        return 0 if self.graphs is None else self.graphs.pool_bytes()
+
+    def close(self) -> None:
+        """Release the captured graphs and their memory pool (an engine
+        replaced by repartition); the engine may still decide, capturing
+        again."""
+        if self.graphs is not None:
+            self.graphs.close()
+            self.graphs = DecideGraphs(self.device, max(self.buckets))
 
     # -- per-shard state (one shard here; MeshEngine has n) --------------------
 
@@ -776,29 +819,34 @@ class TorchEngine:
         the device and run the exact-only or the two-tier decide there,
         or with `chain_id` (numpy int32[B]) the quota-chain decide, which
         is exact-only; returns (the packed output tensor, the CUDA event
-        recorded before the upload, or None off the card)."""
+        recorded before the upload, or None off the card). On a GPU with
+        graphs the copy is one staged upload and the decide a replay
+        (core/graphs.py); a capture or replay that fails raises."""
         hook = self.observe_hook if observe else None
         if hook is not None:
             try:
                 hook(req)
             except Exception:  # pragma: no cover - defensive
                 pass  # observability must never fail a dispatch
+        if chain_id is not None:
+            program = "chain"
+        elif self.sketch is not None and self.sketch_on:
+            program = "sketch"
+        else:
+            program = "exact"
         start = None
         if self.device.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
             start.record()
+            if self.graphs is not None:
+                packed = self.graphs.run(
+                    program, self.store, self.sketch, req, groups, e_now, chain_id
+                )
+                return packed, start
         req_t = to_device(req, self.device)
         groups_t = to_device(groups, self.device)
-        if chain_id is not None:
-            chain_t = torch.from_numpy(chain_id).to(self.device)
-            _store, packed = decide_packed_chain(self.store, req_t, e_now, groups_t, chain_t)
-            return packed, start
-        if self.sketch is not None and self.sketch_on:
-            _store, _sketch, packed = decide_packed_sketch(
-                self.store, self.sketch, req_t, e_now, groups_t
-            )
-            return packed, start
-        _store, packed = decide_packed(self.store, req_t, e_now, groups_t)
+        chain_t = None if chain_id is None else torch.from_numpy(chain_id).to(self.device)
+        packed = PROGRAMS[program](self.store, self.sketch, req_t, groups_t, e_now, chain_t)
         return packed, start
 
     def decide_submit(
@@ -1178,6 +1226,7 @@ class TorchEngine:
             dev = self.device if policy is None or policy.device is None else policy.device
             eng = TorchEngine(
                 self.config, buckets=self.buckets, device=dev, sketch=self.sketch_config,
+                cuda_graphs=self.cuda_graphs,
             )
         else:
             eng = MeshEngine(
@@ -1441,30 +1490,50 @@ class TorchEngine:
             self.live_mask(kh, now)
 
     def warmup(self, now: Optional[int] = None) -> None:
-        """Run one decide (two-tier when the sketch is on) and one window
-        install per ladder rung, plus the sketch reads (first launches,
-        allocator pools, the kernel's build and load) so none of it lands
-        inside a serving deadline; then wipe the state and counters the
-        warmup traffic dirtied."""
+        """Decide once at every (request rung b, group rung g) pair, as
+        the reference's warmup compiles one program a pair: batches of b
+        rows over g distinct fingerprints, with the exact program and,
+        when a sketch is configured, the two-tier one too (`sketch_on`
+        flips at run time). On a GPU each such decide captures its CUDA
+        graph (`graph_count` pairs x programs; `capture_s` their
+        seconds). One window install a ladder rung, and the sketch reads,
+        so that none of it lands inside a serving deadline; then wipe the
+        state and counters the warmup traffic dirtied. The chain program
+        is captured on first use (the reference's warmup does not compile
+        it either)."""
         if now is None:
             now = api_types.millisecond_now()
-        for b in self.buckets:
-            k = np.arange(1, b + 1, dtype=np.uint64) << np.uint64(32)
-            ones = np.ones(b, np.int64)
-            self.decide_arrays(
-                k, ones, ones * 10, ones * 1000,
-                np.zeros(b, np.int32), np.zeros(b, bool), now,
-            )
-            self.install_windows(k, ones, ones, ones * now, np.zeros(b, bool), now)
+        sketch_on = self.sketch_on
+        tiers = (False, True) if self.sketch is not None else (False,)
+        try:
+            for b in self.buckets:
+                ones = np.ones(b, np.int64)
+                for g in group_rungs(b):
+                    k = np.resize(np.arange(1, g + 1, dtype=np.uint64) << np.uint64(32), b)
+                    for on in tiers:
+                        self.sketch_on = on
+                        self.decide_arrays(
+                            k, ones, ones * 10, ones * 1000,
+                            np.zeros(b, np.int32), np.zeros(b, bool), now,
+                        )
+                k = np.arange(1, b + 1, dtype=np.uint64) << np.uint64(32)
+                self.install_windows(k, ones, ones, ones * now, np.zeros(b, bool), now)
+        finally:
+            self.sketch_on = sketch_on
         self._warmup_sketch_reads(now)
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        # the writebacks this warmup made on a GPU (one decide and one
-        # install a rung), before its counters are zeroed
+            synchronize(self.device)
+        # the writebacks this warmup made on a GPU (one a decide, each a
+        # capture's eager run or a replay, and one an install chunk),
+        # before its counters are zeroed
         self.warmup_launches = self.stats.batches + self.install_chunks + self.gossip_chunks
         self.reset()
         self.stats = EngineStats()
         self.install_chunks = self.gossip_chunks = 0
+        if self.graphs is not None:
+            self.capture_s = self.graphs.capture_s
+            self.graphs.captures = self.graphs.replays = 0
+            self.graphs.capture_s = 0.0
 
 
 # -- the mesh policy -----------------------------------------------------------
@@ -2046,7 +2115,7 @@ def warmup_public(engine: MeshEngine, now: Optional[int] = None) -> None:
     engine._warmup_sketch_reads(now)
     for dev in dict.fromkeys(engine.devices):
         if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+            synchronize(dev)
     engine.warmup_launches = engine.n_local * (
         engine.stats.batches + engine.install_chunks + engine.gossip_chunks
     )

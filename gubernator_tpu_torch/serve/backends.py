@@ -533,7 +533,9 @@ class MeshBackend(_ArrayOps):
             if len(devices) == 1
             else ShardingPolicy.over_mesh(devices)
         )
-        self.engine = self.engine.repartition(policy, now=now)
+        old = self.engine
+        self.engine = old.repartition(policy, now=now)
+        old.close()  # a flat engine's graphs and their pool
 
     def warmup(self) -> None:
         """Every sub-batch rung once, and the install and sync at each

@@ -834,6 +834,14 @@ class Server:
             # each; 0 on the CPU): 1 - its growth over a window's wall time
             # bounds the device's idle share from below
             body["device_span_ms"] = eng.device_span_ms
+            # the flat engine's captured decides (core/graphs.py): how many,
+            # how many were captured on first use since the boot's warmup
+            # (0 once every shape was warmed), and the warmup's capture s
+            body["decide_graphs"] = {
+                "count": getattr(eng, "graph_count", 0),
+                "captures": getattr(eng, "graph_captures", 0),
+                "capture_s": getattr(eng, "capture_s", 0.0),
+            }
         return web.json_response(body)
 
     async def _http_debug_stages(self, request: web.Request):

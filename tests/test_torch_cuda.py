@@ -433,20 +433,221 @@ def test_instance_on_card_matches_cpu(monkeypatch):
 
 def test_decide_wait_does_not_wait_for_later_work():
     """decide_wait returns once its own batch's copy is done, while work
-    queued after that batch still runs on the stream."""
+    queued after that batch still runs on the stream: for a batch whose
+    shape is captured at its submit (the graph's first use) and for one
+    that replays the graph."""
     _need_card()
     eng = TorchEngine(StoreConfig(rows=16, slots=64), buckets=(256,))
     rng = np.random.default_rng(8)
     n = 200
     kh = rng.integers(0, 2**64, n, dtype=np.uint64)
     ones = np.ones(n, np.int64)
-    h = eng.decide_submit(kh, ones, ones * 5, ones * 60_000, np.zeros(n, np.int32),
-                          np.zeros(n, bool), 1_700_000_000_000)
-    torch.cuda._sleep(2_000_000_000)  # ~1 s of later work on the same stream
-    status, *_ = eng.decide_wait(h)
-    assert not torch.cuda.current_stream().query(), "decide_wait waited for later work"
-    assert (status == 0).all()
+    for i in range(2):
+        h = eng.decide_submit(kh, ones, ones * 5, ones * 60_000, np.zeros(n, np.int32),
+                              np.zeros(n, bool), 1_700_000_000_000 + i)
+        torch.cuda._sleep(2_000_000_000)  # ~1 s of later work on the same stream
+        status, *_ = eng.decide_wait(h)
+        assert not torch.cuda.current_stream().query(), "decide_wait waited for later work"
+        assert (status == 0).all()
+        torch.cuda.synchronize()
+    assert (eng.graph_count, eng.graphs.captures, eng.graphs.replays) == (1, 1, 1)
+
+
+_GRAPH_LADDER = (64, 256)  # (B, G) pairs (64, 64), (256, 64), (256, 96), (256, 256)
+
+
+def _graph_batch(rng, pool, step: int, chain: bool):
+    """A batch of step's (B, G) pair of _GRAPH_LADDER: n rows over a
+    number of distinct keys that lands on that group rung (chains: rows
+    in chains of up to 3, a chain routed by its head)."""
+    n, distinct = ((48, 40), (200, 60), (250, 90), (256, 180))[step % 4]
+    keys = pool[rng.choice(pool.shape[0], distinct, replace=False)]
+    kh = keys[np.r_[np.arange(distinct), rng.integers(0, distinct, n - distinct)]]
+    rng.shuffle(kh)
+    fields = [kh, rng.choice([0, 1, 1, 2, 40], n), rng.choice([0, 3, 10, 1000], n),
+              rng.choice([1, 1000, 60_000, (1 << 30) - 1], n),
+              rng.integers(0, 4, n).astype(np.int32)]
+    if chain:
+        cid = np.arange(n) // 3
+        return fields + [cid, kh[cid * 3]]
+    return fields + [rng.random(n) < 0.05]
+
+
+@pytest.mark.parametrize("program", ["exact", "sketch", "chain"])
+def test_graph_replays_match_the_eager_decide_on_card(program):
+    """The graphed engine (warmup captures every (B, G) pair of a small
+    ladder; chains capture on first use) against the eager one
+    (cuda_graphs=False) on the same batches, byte for byte: answers,
+    stats, store and sketch, with `now` advancing and, between batches,
+    a reset, a load_state, a forced rebase and an install_windows (the
+    graphs keep pointing at the live tensors). writeback_add's count
+    moves by one a decide (an eager warm run or a replay) and one an
+    install chunk, and the graphed engine ran no other eager decide."""
+    _need_card()
+    sk = derive_sketch_config(1) if program == "sketch" else None
+    cfg = StoreConfig(rows=4, slots=64)  # small: drops and evictions
+    g_eng = TorchEngine(cfg, buckets=_GRAPH_LADDER, sketch=sk)
+    e_eng = TorchEngine(cfg, buckets=_GRAPH_LADDER, sketch=sk, cuda_graphs=False)
+    now = 1_700_000_000_000
+    for eng in (g_eng, e_eng):
+        eng.warmup(now=now)
+    pairs = 4 * (2 if sk is not None else 1)
+    assert (g_eng.graph_count, g_eng.graph_captures, e_eng.graph_count) == (pairs, 0, 0)
+    assert g_eng.capture_s > 0 and g_eng.graph_pool_bytes > 0
+    rng = np.random.default_rng(12)
+    pool = rng.integers(0, 2**64, 600, dtype=np.uint64)
+    before = writeback_add.launches
+    saved = None
+    for step in range(32):
+        now += int(rng.choice([1, 50, 1000, 70_000]))
+        if step == 8:
+            saved = (e_eng.store_numpy(), e_eng.clock.epoch, e_eng.sketch_numpy())
+        elif step == 12:
+            for eng in (g_eng, e_eng):
+                eng.reset()
+        elif step == 16:
+            for eng in (g_eng, e_eng):
+                eng.load_state(*saved)
+        elif step == 20:
+            now += 1 << 30  # past the epoch's envelope: the store rebases in place
+        elif step == 24:
+            kh = pool[:100]
+            one = np.ones(100, np.int64)
+            for eng in (g_eng, e_eng):
+                eng.install_windows(kh, one * 9, one * 4, one * (now + 60_000),
+                                    np.zeros(100, bool), now)
+        fields = _graph_batch(rng, pool, step, program == "chain")
+        if program == "chain":
+            got, want = (eng.decide_chain_arrays(*fields, now) for eng in (g_eng, e_eng))
+        else:
+            got, want = (eng.decide_arrays(*fields, now) for eng in (g_eng, e_eng))
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b, err_msg=f"step {step}")
+        assert g_eng.stats.snapshot() == e_eng.stats.snapshot(), step
+        assert torch.equal(g_eng.store.data, e_eng.store.data), f"step {step}"
+        if sk is not None:
+            assert torch.equal(g_eng.sketch.data, e_eng.sketch.data), f"step {step}"
     torch.cuda.synchronize()
+    stats = g_eng.stats.snapshot()
+    assert stats["dropped"] > 0 and stats["evictions"] > 0
+    chunks = g_eng.install_chunks + e_eng.install_chunks
+    assert writeback_add.launches - before == 2 * stats["batches"] + chunks
+    gr = g_eng.graphs
+    assert gr.replays + gr.captures == stats["batches"]
+    assert g_eng.graph_captures == (4 if program == "chain" else 0)
+    assert g_eng.graph_count == pairs + g_eng.graph_captures
+    reserved = torch.cuda.memory_reserved()
+    g_eng.close()
+    assert g_eng.graph_count == 0 and torch.cuda.memory_reserved() < reserved
+
+
+def test_a_failing_capture_raises_on_card(monkeypatch):
+    """A capture whose decide records other than one writeback launch, or
+    that syncs the stream it captures, raises; the engine keeps no graph
+    and does not fall back to the eager decide on the next batch of that
+    shape. With the program restored the shape captures and replays."""
+    _need_card()
+    from gubernator_tpu_torch.core import graphs
+
+    eng = TorchEngine(StoreConfig(rows=4, slots=64), buckets=(64,))
+    kh = np.arange(1, 65, dtype=np.uint64) << np.uint64(32)
+    one = np.ones(64, np.int64)
+    args = (kh, one, one * 5, one * 60_000, np.zeros(64, np.int32), np.zeros(64, bool))
+    real = graphs.PROGRAMS["exact"]
+
+    def twice(*a):
+        real(*a)
+        return real(*a)
+
+    def syncs(*a):
+        out = real(*a)
+        torch.cuda.current_stream().synchronize()
+        return out
+
+    monkeypatch.setitem(graphs.PROGRAMS, "exact", twice)
+    for i in range(2):
+        with pytest.raises(RuntimeError, match="recorded 2 writeback launches"):
+            eng.decide_arrays(*args, 1_700_000_000_000 + i)
+        assert eng.graph_count == 0
+    monkeypatch.setitem(graphs.PROGRAMS, "exact", syncs)
+    with pytest.raises(RuntimeError):
+        eng.decide_arrays(*args, 1_700_000_000_002)
+    assert eng.graph_count == 0
+    monkeypatch.setitem(graphs.PROGRAMS, "exact", real)
+    for i in range(2):
+        eng.decide_arrays(*args, 1_700_000_000_003 + i)
+    torch.cuda.synchronize()
+    assert (eng.graph_count, eng.graphs.captures, eng.graphs.replays) == (1, 1, 1)
+
+
+def test_a_capture_survives_the_rest_of_the_process_on_card(monkeypatch):
+    """What other code of the process does while a decide is captured
+    does not abort the capture: an older engine's graphs dropped by the
+    collector inside the capture (retired, reset at the next safe
+    point), the port's device-wide synchronize looping in another thread
+    (it waits for the capture lock), and a second engine warming up
+    (capturing) in a third thread (captures take turns, each recording
+    its own one writeback launch). Each engine ends with every pair of
+    its ladder captured and answers as the eager engine does."""
+    import gc
+    import threading
+
+    _need_card()
+    from gubernator_tpu_torch.core import graphs, kernels
+
+    cfg = StoreConfig(rows=4, slots=64)
+    now = 1_700_000_000_000
+    old = TorchEngine(cfg, buckets=_GRAPH_LADDER)
+    old.warmup(now=now)
+    old.cycle = old  # freed by the collector only
+    keep = [old]
+    del old
+    real = kernels.writeback_add
+    collected = []
+
+    def collect_inside_capture(*a):
+        if torch.cuda.is_current_stream_capturing() and keep:
+            keep.clear()
+            collected.append(gc.collect())
+        return real(*a)
+
+    monkeypatch.setattr(kernels, "writeback_add", collect_inside_capture)
+    stop, errors = threading.Event(), []
+
+    def run(fn):
+        try:
+            fn()
+        except Exception as e:  # surfaced below
+            errors.append(repr(e))
+
+    def syncs():
+        while not stop.is_set():
+            graphs.synchronize()
+
+    second = TorchEngine(cfg, buckets=_GRAPH_LADDER)
+    threads = [threading.Thread(target=run, args=(syncs,)),
+               threading.Thread(target=run, args=(lambda: second.warmup(now=now),))]
+    for t in threads:
+        t.start()
+    eng = TorchEngine(cfg, buckets=_GRAPH_LADDER)
+    try:
+        run(lambda: eng.warmup(now=now))
+    finally:
+        stop.set()
+        for t in threads:
+            t.join()
+    assert errors == [] and collected and collected[0] > 0
+    assert (eng.graph_count, second.graph_count) == (4, 4)
+    ref = TorchEngine(cfg, buckets=_GRAPH_LADDER, cuda_graphs=False)
+    ref.warmup(now=now)
+    rng = np.random.default_rng(21)
+    pool = rng.integers(0, 2**64, 600, dtype=np.uint64)
+    for step in range(8):
+        fields = _graph_batch(rng, pool, step, False)
+        got, want = (e.decide_arrays(*fields, now + step) for e in (eng, ref))
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    assert eng.graph_captures == 0
 
 
 def test_device_topk_on_card_matches_cpu():

@@ -270,8 +270,23 @@ def test_edge_builds_from_the_ports_sources_into_build(edge_bin):
     assert edge_build.SOURCE_DIR.parent.parent.name == "gubernator_tpu_torch"
     assert edge_build.build() == edge_bin  # up to date: no second build
     ref = edge_build._PKG.parent / "gubernator_tpu" / "native" / "edge"
-    for name in edge_build.SOURCES:  # a byte-for-byte copy
-        assert (edge_build.SOURCE_DIR / name).read_bytes() == (ref / name).read_bytes()
+    for name in edge_build.SOURCES:  # a byte-for-byte copy, but for the wait log
+        ours, theirs = (edge_build.SOURCE_DIR / name).read_text(), (ref / name).read_text()
+        if name != "edge.cc":
+            assert ours == theirs, name
+            continue
+        # edge.cc logs a lane or credit wait over a second: the reference's
+        # two waits became wait_logged calls, and nothing else of it went
+        import difflib
+
+        removed = [ln[1:].strip() for ln in difflib.unified_diff(
+            theirs.splitlines(), ours.splitlines(), lineterm="", n=0)
+            if ln.startswith("-") and not ln.startswith("---")]
+        assert removed == [
+            "st->cv.wait(lk, [&] {", "return st->dead || st->inflight.size() < window;",
+            "});", "p.cv.wait(lk, [&p] { return p.shards_left == 0; });",
+        ]
+        assert ours.count("wait_logged(") == 3  # its definition and the two waits
 
 
 def test_failed_edge_build_raises(tmp_path, monkeypatch):
@@ -355,3 +370,61 @@ def test_edge_bridge_hello_withholds_fast_from_the_edge(slot_hash, monkeypatch):
     xxh64 = slot_hash == "xxh64"
     assert flags & teb.HELLO_WINDOWED
     assert bool(flags & teb.HELLO_FAST) == bool(flags & teb.HELLO_XXH64) == xxh64
+
+
+def test_edge_names_a_wait_over_one_second(edge_bin, tmp_path):
+    """A bridge that says hello (windowed, a credit window of one frame)
+    and then never answers: the edge's first request waits on its shard
+    and the second on the lane's credit gate; each wait names itself on
+    stderr once it has lasted a second, with the lane's state."""
+    import struct
+    import threading
+
+    sock_path = str(tmp_path / "bridge.sock")
+    srv = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+    srv.bind(sock_path)
+    srv.listen(8)
+    conns = []
+
+    def serve():
+        while True:
+            try:
+                c, _ = srv.accept()
+            except OSError:
+                return
+            conns.append(c)
+            c.sendall(struct.pack("<IIII", 0x49424547, 2 | (1 << 16), 0, 0))
+
+    threading.Thread(target=serve, daemon=True).start()
+    eh, eg = free_ports(2)
+    edge = subprocess.Popen(
+        [str(edge_bin), "--listen", str(eh), "--grpc-listen", str(eg), "--backend",
+         sock_path, "--workers", "1"],
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    try:
+        _wait_port(eh, edge)
+        body = {"requests": [{"name": "w", "uniqueKey": "k", "hits": 1, "limit": 5,
+                              "duration": 60000}]}
+        def call():
+            try:
+                _post(eh, body)
+            except OSError:  # the edge is killed with the call in flight
+                pass
+
+        callers = [threading.Thread(target=call, daemon=True) for _ in range(2)]
+        for t in callers:
+            t.start()
+            time.sleep(0.2)
+        time.sleep(2.0)
+    finally:
+        edge.kill()
+        err = edge.communicate(timeout=10)[1]
+        srv.close()
+        for c in conns:
+            c.close()
+    lines = [ln for ln in err.splitlines() if ln.startswith("guber-edge: wait '")]
+    shards = [ln for ln in lines if "wait 'shards' over 1 s: 1 of 1 shards open" in ln]
+    credit = [ln for ln in lines if "wait 'credit' over 1 s" in ln]
+    assert len(shards) == 2 and len(credit) == 1, err
+    assert f"lane {sock_path} " in credit[0] and "inflight=1 window=1" in credit[0], err
+    assert "workers_busy=1" in shards[-1], err

@@ -152,7 +152,8 @@ def test_import_loads_no_jax_and_nothing_of_the_jax_package():
         "import gubernator_tpu_torch\n"
         "import numpy as np\n"
         "from gubernator_tpu_torch.core import (\n"
-        "    algorithms, cache, engine, kernels, oracle, sketches, store, writeback)\n"
+        "    algorithms, cache, engine, graphs, kernels, oracle, sketches, store,\n"
+        "    writeback)\n"
         "from gubernator_tpu_torch.parallel.sharded import TorchEngine\n"
         "from gubernator_tpu_torch.parallel import multihost, policy\n"
         "from gubernator_tpu_torch.serve import (\n"
@@ -187,6 +188,12 @@ def test_import_loads_no_jax_and_nothing_of_the_jax_package():
         "s.decide_arrays(kh, one, one * 5, one * 1000, np.zeros(64, np.int32),"
         " np.zeros(64, bool), 1_700_000_000_000)\n"
         "assert s.stats.snapshot()['dropped'] > 0\n"
+        "lay = graphs.DecideLayout(64, 64, True)\n"
+        "buf = __import__('torch').zeros(lay.nbytes, dtype=__import__('torch').uint8)\n"
+        "graphs.StagingRing(lay.nbytes, pin=False).upload(lay, buf,"
+        " *engine.pad_request_sorted((64,), 16, kh, one, one, one, np.zeros(64, np.int32),"
+        " np.zeros(64, bool), with_groups=True)[::2], 7, np.arange(64, dtype=np.int32))\n"
+        "assert int(lay.views(buf)[2]) == 7\n"
         "s.promote_from_sketch(kh, one * 5, one * 1000, 1_700_000_000_001)\n"
         "w = s.export_windows(1_700_000_000_002)\n"
         "assert w['key_hash'].shape[0] > 0\n"
