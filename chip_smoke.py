@@ -71,7 +71,11 @@ Phases, one JSON line each:
              programs, launches counted from replays, decide_wait not
              waiting for later work, a failed capture raising, a capture
              not aborted by the collector, a synchronize or a second
-             capture in other threads;
+             capture in other threads; the mesh's graphs (one a device
+             for its 4 shards) byte for byte against the eager mesh and
+             the CPU mesh for the three programs, and a failed mesh
+             capture raising (the multihost phase runs graphed
+             processes);
 3. walk      get_rate_limits: a limit-2 key goes 1 -> 0 -> OVER_LIMIT;
 4. main      exact tier: 3 batches held against the same port on the CPU
              (identical outputs and store bytes), 50 timed, then a profile;
@@ -283,7 +287,18 @@ Phases, one JSON line each:
              algorithms, an eighth OVER) moved at each step with every
              column preserved; (f) `bench_serving --scenario shard --shards
              1,2,4` (a flat row, then 1, 2, 4 shards of the card: routing
-             and per-shard dispatch, not chip scaling). Each leg prints
+             and per-shard dispatch, not chip scaling); (g) the graphs: 4
+             two-tier and 8 exact shards, each graphed and warmed (every
+             (B_sub, G_sub) pair of the sub-batch ladder captured, one
+             graph a device decides every shard) and eager
+             (cuda_graphs=False), one batch identical to the CPU mesh,
+             then 24 batches of 32,768 through both in turns, identical
+             answers, shards, sketches and stats: dispatch ms, batch ms,
+             decisions/s, replay device ms, the unprofiled idle share,
+             graph_count, graph_captures (0), capture_s and pool bytes.
+             Every mesh decides graphed: legs (a)-(c) capture their own
+             batches' shapes in an untimed pass first, (d) and (f) warm
+             up and must capture nothing after. Each leg prints
              decisions/s and batch ms beside the flat engine's, and peak
              memory; its writeback launches must equal n_shards x (decides
              + install and gossip chunks) of the engines it built (a GLOBAL
@@ -308,7 +323,11 @@ Phases, one JSON line each:
              (GUBER_DIST_STEP_LISTEN), the serving deployment a shard:
              boot, a gRPC walk to OVER_LIMIT, 5 s of the doors phase's
              gRPC traffic with no error answer, then the leader's SIGTERM,
-             after which both exit 0. Launches balance in each process:
+             after which both exit 0, the leader's decide graphs captured
+             at warmup only and the follower holding as many. Both legs
+             decide graphed: (a) captures on first use in its checked
+             batches (`graph_captures_timed` reports the timed ones).
+             Launches balance in each process:
              n_local x (decides + install and gossip chunks), the
              follower's from the JSON line it prints at exit (its decides
              are the steps it ran), the leader's over the window from
@@ -381,7 +400,7 @@ GRAPH_AB_BATCHES = 24  # batches each deployment's graphs phase decides eager an
 #: card_tests phase runs: 3 replay-vs-eager, the decide_wait, the failed capture
 #: and the capture beside a collector, a synchronize and a second capture
 GRAPH_CARD_TESTS = ("graph_replays or decide_wait_does_not_wait or failing_capture "
-                    "or capture_survives", 6)
+                    "or failing_mesh_capture or capture_survives", 10)
 
 
 def emit(obj) -> None:
@@ -4228,6 +4247,7 @@ MESH_REPART_BATCHES = 2  # leg (e): 65,536 live windows moved flat -> 4 -> 2 -> 
 MESH_REPART_ID_BASE = 1 << 41  # key ids no other phase uses
 MESH_DAEMON_S = 5.0  # leg (d)'s gRPC window through the one-shard mesh daemon
 MESH_SHARD_SECONDS = 2.0  # leg (f): each rung's window of the shard scenario
+MESH_GRAPH_BATCHES = 24  # leg (g): batches of 32,768 decided eager and graphed
 
 
 def _owed(engines) -> int:
@@ -4245,6 +4265,25 @@ def _mesh_launches(writeback, engines, what: str) -> int:
         fail(f"mesh {what}: writeback launched {launches} times, the engines owe {owed} "
              "(n_shards x (decides + install and gossip chunks))")
     return launches
+
+
+def _capture_shapes(eng, pool, fields, step: int) -> dict:
+    """A leg that does not serve warms no ladder: its engine decides the
+    leg's own batches once, untimed, so that each shape they take is
+    captured (core/graphs.py) outside the timed window, then the state,
+    the epoch and every count that pass moved are wiped. Returns its
+    seconds and the graphs it captured."""
+    from gubernator_tpu_torch.core.engine import EngineStats
+
+    t0 = time.monotonic()
+    _timed_decides(eng, pool, fields, T0, step)
+    device_sync()
+    eng.reset()
+    eng.clock.epoch = None
+    eng.stats = EngineStats()
+    eng.install_chunks = eng.gossip_chunks = 0
+    eng._graphs_warmed()
+    return dict(seconds=time.monotonic() - t0, graphs=eng.graph_count)
 
 
 def _timed_decides(eng, pool, fields, now: int, step: int):
@@ -4310,9 +4349,12 @@ def mesh_two_tier_leg(card: str, ladder, writeback) -> dict:
     if shapes != dict(store=[4, 1 << 20, 128], sketch=[4, 2, 1 << 25]):
         fail(f"mesh two-tier: shapes {shapes}")
     cpu = MeshEngine(config, devices=["cpu"] * MESH_SHARDS, buckets=ladder, sketch=skc)
+    captured = _capture_shapes(mesh, pool, fields, 2)
     writeback.writeback_add.launches = 0
     outs, ms, _ = _timed_decides(mesh, pool, fields, T0, 2)
     launches = _mesh_launches(writeback, [mesh], "two-tier")
+    if mesh.graph_captures:
+        fail(f"mesh two-tier: {mesh.graph_captures} captures in the timed window")
     peak = torch.cuda.max_memory_allocated()
     t0 = time.monotonic()
     now = T0
@@ -4327,13 +4369,14 @@ def mesh_two_tier_leg(card: str, ladder, writeback) -> dict:
     del cpu, mesh
     torch.cuda.empty_cache()
     flat = TorchEngine(config, buckets=ladder, sketch=skc)
+    _capture_shapes(flat, pool, fields, 2)
     flat_outs, flat_ms, _ = _timed_decides(flat, pool, fields, T0, 2)
     _same_outs(outs, flat_outs, "two-tier vs the flat engine")
     del flat
     torch.cuda.empty_cache()
     rec = dict(phase="mesh", leg="two_tier", card=card, shards=MESH_SHARDS, shapes=shapes,
                bytes_on_card=on_card, batches=MESH_BATCHES, batch=DEPTH, **_rate(ms),
-               flat=_rate(flat_ms), launches=launches,
+               flat=_rate(flat_ms), launches=launches, captured_untimed=captured,
                stats=stats, cpu_identical=True,
                flat_identical=True, cpu_seconds=cpu_s, max_memory_allocated=peak)
     rec["mesh_over_flat"] = rec["decisions_per_s"] / rec["flat"]["decisions_per_s"]
@@ -4358,6 +4401,8 @@ def mesh_one_shard_leg(card: str, ladder, writeback) -> dict:
     torch.cuda.reset_peak_memory_stats()
     one = MeshEngine(config, devices=["cuda:0"], buckets=ladder, sketch=skc)
     flat = TorchEngine(config, buckets=ladder, sketch=skc)
+    captured = {k: _capture_shapes(e, pool, fields, 2)["graphs"]
+                for k, e in (("mesh", one), ("flat", flat))}
     writeback.writeback_add.launches = 0
     outs, ms, _ = _timed_decides(one, pool, fields, T0, 2)
     flat_outs, flat_ms, _ = _timed_decides(flat, pool, fields, T0, 2)
@@ -4367,8 +4412,10 @@ def mesh_one_shard_leg(card: str, ladder, writeback) -> dict:
             and torch.equal(one.sketches[0].data, flat.sketch.data)
             and one.stats.snapshot() == flat.stats.snapshot()):
         fail("mesh one shard: store, sketch or stats differ from the flat engine's")
+    if one.graph_captures or flat.graph_captures:
+        fail("mesh one shard: captures in the timed window")
     rec = dict(phase="mesh", leg="one_shard", card=card, batches=MESH_ONE_BATCHES,
-               **_rate(ms), flat=_rate(flat_ms), launches=launches,
+               **_rate(ms), flat=_rate(flat_ms), launches=launches, graphs=captured,
                stats=one.stats.snapshot(), flat_identical=True,
                max_memory_allocated=torch.cuda.max_memory_allocated())
     del one, flat
@@ -4401,9 +4448,13 @@ def mesh_exact_leg(card: str, ladder, writeback) -> dict:
     mesh = MeshEngine(config, devices=["cuda:0"] * MESH_EXACT_SHARDS, buckets=ladder)
     flat = TorchEngine(config, buckets=ladder)
     on_card = mesh.n * mesh.stores[0].data.numel() * 4
+    captured = {k: _capture_shapes(e, pool, fields, 2)["graphs"]
+                for k, e in (("mesh", mesh), ("flat", flat))}
     writeback.writeback_add.launches = 0
     outs, ms, now = _timed_decides(mesh, pool, fields, T0, 2)
     flat_outs, flat_ms, _ = _timed_decides(flat, pool, fields, T0, 2)
+    if mesh.graph_captures or flat.graph_captures:
+        fail("mesh exact: captures in the timed window")
     _same_outs(outs, flat_outs, "exact vs flat")
     for e, name in ((mesh, "mesh"), (flat, "flat")):
         st = e.stats.snapshot()
@@ -4441,7 +4492,7 @@ def mesh_exact_leg(card: str, ladder, writeback) -> dict:
                bytes_on_card=on_card, batches=MESH_BATCHES, batch=DEPTH, **_rate(ms),
                flat=_rate(flat_ms), global_keys=n, apply_global_hits_ms=apply_ms,
                sync_globals_ms=sync_ms, replicas_on_every_shard=True, flat_identical=True,
-               launches=launches,
+               launches=launches, graphs=captured,
                stats=mesh.stats.snapshot(), gossip_chunks=mesh.gossip_chunks,
                install_chunks=mesh.install_chunks,
                max_memory_allocated=torch.cuda.max_memory_allocated())
@@ -4450,6 +4501,175 @@ def mesh_exact_leg(card: str, ladder, writeback) -> dict:
     torch.cuda.empty_cache()
     emit(rec)
     return rec
+
+
+def mesh_graphs_leg(card: str, ladder, writeback) -> dict:
+    """(g) The mesh's decide as one CUDA graph a device (core/graphs.py,
+    MeshEngine.device_graphs) against the eager decide (cuda_graphs=False,
+    a decide a shard), at 4 two-tier shards (legs (a)'s [4, 2^20, 128]
+    store and [4, 2, 2^25] sketch) and 8 exact shards (leg (c)'s 8 x
+    int32[2^21, 128]): the graphed one warmed (every (B_sub, G_sub) pair
+    of the sub-batch ladder captured, once a program), then
+    one batch on each and on the port's CPU mesh (answers, every shard,
+    sub-sketch and the stats identical), then the same batches of 32,768
+    zipf keys through each, in turns, every answer identical and the
+    shards, sketches and stats at the end. Prints each kind's dispatch ms
+    a batch (MeshEngine._dispatch on the host), batch ms (median, p99) and
+    decisions/s (submit to answers, the card drained before each), the
+    graphed replay's device ms (CUDA events around the replay alone; one
+    device, so one replay a batch), the idle share read without the
+    profiler (1 - replay device ms / batch ms; the eager side's busy time
+    taken as the graphed replay's of the same batches), the graphs, the
+    captures after warmup (0), the warmup's capture seconds and the pool's
+    bytes."""
+    from gubernator_tpu_torch.core.sketches import derive_two_tier_config
+    from gubernator_tpu_torch.core.store import derive_store_config
+    from gubernator_tpu_torch.parallel.sharded import MeshEngine, group_rungs, sub_batch_ladder
+
+    pairs = sum(len(group_rungs(r)) for r in sub_batch_ladder(ladder))
+    out = dict(launches=0)
+    for name in ("two_tier", "exact"):
+        if name == "two_tier":
+            (config, skc), n = derive_two_tier_config(1024), MESH_SHARDS
+            dur, space = DURATION_100M, KEY_SPACE_100M
+        else:
+            config, skc, n = derive_store_config(mib=1024), None, MESH_EXACT_SHARDS
+            dur, space = DURATION, KEY_SPACE
+        torch.cuda.empty_cache()
+        reserved0 = torch.cuda.memory_reserved()
+        graphed = MeshEngine(config, devices=["cuda:0"] * n, buckets=ladder, sketch=skc)
+        eager = MeshEngine(config, devices=["cuda:0"] * n, buckets=ladder, sketch=skc,
+                           cuda_graphs=False)
+        t0 = time.monotonic()
+        graphed.warmup(now=T0)
+        warm_s = time.monotonic() - t0
+        eager._engine_now(T0)  # nothing to capture: the warmed mesh's epoch
+        programs = 1 if skc is None else 2
+        if graphed.graph_count != pairs * programs or graphed.graph_captures:
+            fail(f"mesh graphs {name}: warmup left {graphed.graph_count} graphs "
+                 f"({graphed.graph_captures} first-use captures), not {pairs} (B_sub, G_sub) "
+                 f"pairs x {programs} programs")
+        pool_bytes = graphed.graph_pool_bytes
+        reserved_warm = torch.cuda.memory_reserved()
+        writeback.writeback_add.launches = 0  # count this leg only
+        ones = np.ones(DEPTH, np.int64)
+        tok = (ones * HITS, ones * LIMIT, ones * dur, np.zeros(DEPTH, np.int32),
+               np.zeros(DEPTH, bool))
+        pool = zipf_hashes((MESH_GRAPH_BATCHES + 1) * DEPTH, seed=101,
+                           key_space=space).reshape(-1, DEPTH)
+
+        # one batch on the graphed, the eager and a CPU mesh, one state
+        # (empty, the epoch at T0)
+        cpu = MeshEngine(config, devices=["cpu"] * n, buckets=ladder, sketch=skc)
+        cpu._engine_now(T0)
+        now = T0 + 1
+        engines = (graphed, eager, cpu)
+        outs = [e.decide_arrays(pool[0], *tok, now) for e in engines]
+        for label, i in (("graphed", 0), ("eager", 1)):
+            _same_outs([outs[i]], [outs[2]], f"graphs {name}: {label} vs the CPU")
+            _same_shards(engines[i], cpu, f"graphs {name}: {label} vs the CPU")
+        del cpu, engines
+        decides = 2
+
+        # the A/B: the same batches through both, eager first on even ones
+        dispatch_ms = {"graphed": [], "eager": []}
+        batch_ms = {"graphed": [], "eager": []}
+        replay_ev = []
+
+        def timed(fn, into):
+            def call(*a, **kw):
+                t = time.perf_counter()
+                r = fn(*a, **kw)
+                into.append((time.perf_counter() - t) * 1e3)
+                return r
+            return call
+
+        def replay_timed(fn):
+            def call(g):
+                ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                r = fn(g)
+                ev[1].record()
+                replay_ev.append(ev)
+                return r
+            return call
+
+        graphed._dispatch = timed(graphed._dispatch, dispatch_ms["graphed"])
+        eager._dispatch = timed(eager._dispatch, dispatch_ms["eager"])
+        for dg in graphed.device_graphs.values():
+            dg.replay = replay_timed(dg.replay)
+        s0 = {"graphed": graphed.stats.snapshot(), "eager": eager.stats.snapshot()}
+        for i in range(MESH_GRAPH_BATCHES):
+            now += 1
+            turn = (("eager", eager), ("graphed", graphed))
+            res = {}
+            for label, eng in (turn if i % 2 == 0 else turn[::-1]):
+                device_sync()
+                t0 = time.perf_counter()
+                res[label] = eng.decide_wait(eng.decide_submit(pool[i + 1], *tok, now))
+                batch_ms[label].append((time.perf_counter() - t0) * 1e3)
+            _same_outs([res["graphed"]], [res["eager"]], f"graphs {name} batch {i}: graphed "
+                       "vs eager")
+            check_responses(res["graphed"], LIMIT, now, f"mesh graphs {name} batch {i}")
+            decides += 2
+        device_sync()
+        st = {k: delta(e.stats.snapshot(), s0[k]) for k, e in (("graphed", graphed),
+                                                               ("eager", eager))}
+        if st["graphed"] != st["eager"]:
+            fail(f"mesh graphs {name}: stats differ: {st}")
+        for s in range(n):
+            if not torch.equal(graphed.stores[s].data, eager.stores[s].data):
+                fail(f"mesh graphs {name}: shard {s}'s store differs between graphed and eager")
+            if skc is not None and not torch.equal(graphed.sketches[s].data,
+                                                   eager.sketches[s].data):
+                fail(f"mesh graphs {name}: shard {s}'s sketch differs between graphed and "
+                     "eager")
+        launches = writeback.writeback_add.launches
+        if launches != n * decides or graphed.graph_captures:
+            fail(f"mesh graphs {name}: writeback launched {launches} times for {n} x "
+                 f"{decides} decides, {graphed.graph_captures} first-use captures")
+        replay_ms = [a.elapsed_time(b) for a, b in replay_ev]
+        if len(replay_ms) != MESH_GRAPH_BATCHES:
+            fail(f"mesh graphs {name}: {len(replay_ms)} timed replays, not one a batch")
+        busy = sum(replay_ms)
+        kinds = {label: dict(
+            dispatch_ms_median=statistics.median(dispatch_ms[label]),
+            dispatch_ms_mean=statistics.fmean(dispatch_ms[label]),
+            batch_ms_median=statistics.median(batch_ms[label]),
+            batch_ms_p99=float(np.percentile(batch_ms[label], 99)),
+            decisions_per_s=MESH_GRAPH_BATCHES * DEPTH / (sum(batch_ms[label]) / 1e3),
+            idle_share_unprofiled=1 - busy / sum(batch_ms[label]),
+        ) for label in ("graphed", "eager")}
+        (dg,) = graphed.device_graphs.values()
+        kinds["graphed"].update(
+            warmup_s=warm_s, warmup_launches=graphed.warmup_launches,
+            replay_device_ms_median=statistics.median(replay_ms),
+            replay_device_ms_mean=statistics.fmean(replay_ms),
+            ring_depth=dg.ring.depth, ring_waits=dg.ring.waits,
+        )
+        rec = dict(
+            phase="mesh", leg="graphs", path=name, card=card, shards=n,
+            store_shape=[n] + list(graphed.stores[0].data.shape),
+            sketch_shape=None if skc is None else [n] + list(graphed.sketches[0].data.shape),
+            batch=DEPTH, batches=MESH_GRAPH_BATCHES, sub_buckets=list(graphed.sub_buckets),
+            graph_count=graphed.graph_count, graph_pairs=pairs, programs=programs,
+            graph_captures=graphed.graph_captures, capture_s=graphed.capture_s,
+            graph_pool_bytes=pool_bytes, memory_reserved_before=reserved0,
+            memory_reserved_after_warmups=reserved_warm,
+            cpu_identical=True, graphed_identical_to_eager=True, stats=st["graphed"],
+            decides=decides, kernel_launches=launches, launches=launches,
+            graphed=kinds["graphed"], eager=kinds["eager"],
+            dispatch_speedup=kinds["eager"]["dispatch_ms_median"]
+            / kinds["graphed"]["dispatch_ms_median"],
+            rate_ratio=kinds["graphed"]["decisions_per_s"] / kinds["eager"]["decisions_per_s"],
+        )
+        emit(rec)
+        out[name] = rec
+        out["launches"] += launches
+        graphed.close()
+        del graphed, eager
+        torch.cuda.empty_cache()
+    return out
 
 
 async def _mesh_serving_window(card, writeback, devices) -> dict:
@@ -4489,7 +4709,11 @@ async def _mesh_serving_window(card, writeback, devices) -> dict:
     launches = writeback.writeback_add.launches
     if launches != owed or launches == 0:
         fail(f"mesh serving: writeback launched {launches} times, owed {owed}")
+    if eng.graph_captures:
+        fail(f"mesh serving: {eng.graph_captures} decide graphs captured after warmup")
     out = dict(shards=eng.n, warmup_s=warm_s, warmup_launches=eng.warmup_launches,
+               graph_count=eng.graph_count, graph_captures=eng.graph_captures,
+               capture_s=eng.capture_s, graph_pool_bytes=eng.graph_pool_bytes,
                launches=launches, max_memory_allocated=torch.cuda.max_memory_allocated(),
                **{k: window[k] for k in ("decisions_per_s", "mean_device_batch",
                                           "device_batches", "seconds")})
@@ -4547,6 +4771,9 @@ def mesh_daemon(card: str) -> dict:
         if decides <= 0 or launches != n_shards * (decides + chunks):
             died(f"writeback launched {launches} times for {n_shards} x ({decides} decides "
                  f"+ {chunks} chunks)")
+        graphs = s1["decide_graphs"]
+        if graphs["captures"] or not graphs["count"]:
+            died(f"decide graphs after warmup: {graphs}")
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=120)
         reader.join(10)
@@ -4557,7 +4784,7 @@ def mesh_daemon(card: str) -> dict:
             proc.kill()
             proc.wait(30)
     return dict(boot_s=boot_s, policy=policy, launches=launches, decides=decides,
-                chunks=chunks, n_shards=n_shards, **window)
+                chunks=chunks, n_shards=n_shards, decide_graphs=graphs, **window)
 
 
 def mesh_serving_leg(card: str, writeback, serving_rate: float) -> dict:
@@ -4710,12 +4937,14 @@ def mesh_shard_scenario(card: str, writeback) -> dict:
 
 
 def mesh_path(card: str, ladder, writeback, serving_rate: float) -> dict:
-    """The mesh policy on the one card, legs (a)-(f); each leg's writeback
-    launches held against n_shards x (decides + chunks) of its engines."""
+    """The mesh policy on the one card, legs (a)-(c), (g), (d)-(f); each
+    leg's writeback launches held against n_shards x (decides + chunks)
+    of its engines."""
     t0 = time.monotonic()
     legs = dict(two_tier=mesh_two_tier_leg(card, ladder, writeback),
                 one_shard=mesh_one_shard_leg(card, ladder, writeback),
                 exact=mesh_exact_leg(card, ladder, writeback),
+                graphs=mesh_graphs_leg(card, ladder, writeback),
                 serving=mesh_serving_leg(card, writeback, serving_rate),
                 repartition=mesh_repartition_leg(card, ladder, writeback),
                 shard_scenario=mesh_shard_scenario(card, writeback))
@@ -4794,7 +5023,11 @@ def multihost_script(eng) -> tuple:
               np.zeros(DEPTH, bool))
     outs, ms, now = [], [], T0
     c0 = dict(eng.collective_stats)
-    for kh in pool:
+    for i, kh in enumerate(pool):
+        if i == MH_CHECKED:
+            # the leg warms no ladder: shapes capture on first use, in the
+            # checked batches; the timed ones should replay only
+            cap0 = eng.graph_captures
         now += 2
         device_sync()
         t0 = time.perf_counter()
@@ -4843,6 +5076,7 @@ def multihost_script(eng) -> tuple:
         all_reduces_per_global_step=c3["all_reduces"] - c2["all_reduces"],
         gather_wait_ms_per_batch=(c1["gather_wait_ms"] - c0["gather_wait_ms"]) / len(ms),
         gathers=c1["gathers"] - c0["gathers"], sketch_served_creates=dropped,
+        graph_count=eng.graph_count, graph_captures_timed=eng.graph_captures - cap0,
         promoted=int(np.asarray(promoted[0]).sum()), global_keys=g, promote_keys=k)
     return outs, timings
 
@@ -5012,6 +5246,9 @@ def multihost_engine_leg(card: str, ladder, writeback) -> dict:
         promote_keys=lt["promote_keys"], promoted=lt["promoted"],
         sketch_served_creates=lt["sketch_served_creates"], promote_ms=lt["promote_ms"],
         in_process_promote_ms=mt["promote_ms"],
+        graph_count=lt["graph_count"], graph_captures_timed=lt["graph_captures_timed"],
+        in_process_graph_count=mt["graph_count"],
+        in_process_graph_captures_timed=mt["graph_captures_timed"],
         pipe_steps=lead["pipe"]["steps"],
         pipe_broadcast_to_ack_ms=lead["pipe"]["broadcast_to_ack_ms"] / lead["pipe"]["steps"],
         pipe_ack_wait_ms=lead["pipe"]["ack_wait_ms"] / lead["pipe"]["steps"],
@@ -5099,6 +5336,9 @@ def multihost_daemons(card: str) -> dict:
         if decides <= 0 or launches != n_local * (decides + chunks):
             died(f"the leader's window: writeback launched {launches} times for {n_local} x "
                  f"({decides} decides + {chunks} chunks)")
+        graphs = s1["decide_graphs"]
+        if graphs["captures"] or not graphs["count"]:
+            died(f"the leader's decide graphs after warmup: {graphs}")
         leader.send_signal(signal.SIGTERM)
         l_rc = leader.wait(timeout=120)
         f_rc = follower.wait(timeout=60)
@@ -5111,6 +5351,9 @@ def multihost_daemons(card: str) -> dict:
         if report is None:
             died("the follower printed no report")
         follower_launches = _process_balance(report, "follower daemon")
+        if report["graph_count"] != graphs["count"]:
+            died(f"the follower holds {report['graph_count']} decide graphs, the leader "
+                 f"{graphs['count']}: a shape captured on one side only")
         if report["decides"] < decides:
             died(f"the follower ran {report['decides']} decides, the window alone {decides}")
     finally:
@@ -5121,7 +5364,7 @@ def multihost_daemons(card: str) -> dict:
     rec = dict(phase="multihost", leg="daemons", card=card, policy=policy, boot_s=boot_s,
                walk=[[r.remaining, int(r.status), r.reset_time] for r in walk],
                leader_launches=launches, decides=decides, chunks=chunks, n_local=n_local,
-               follower=report, follower_launches=follower_launches,
+               decide_graphs=graphs, follower=report, follower_launches=follower_launches,
                exit_codes=[l_rc, f_rc], **window)
     emit(rec)
     return rec

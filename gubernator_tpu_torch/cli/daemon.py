@@ -90,15 +90,16 @@ def run_role(conf: ServerConfig, device: DeviceLike = None) -> int:
 
 def follower_report(eng) -> dict:
     """A follower's count of what it ran: steps by kind, the decides
-    among them, its chunks and shards, and its writeback launches (on a
-    GPU launches = n_local x (decides + install + gossip chunks))."""
+    among them, its chunks and shards, its writeback launches (on a
+    GPU launches = n_local x (decides + install + gossip chunks)) and
+    its captured decide graphs."""
     from gubernator_tpu_torch.core.writeback import writeback_add
 
     return dict(
         process=eng.policy.process_index, n_local=eng.n_local, steps=dict(eng.steps),
         decides=eng.decides,
         install_chunks=eng.install_chunks, gossip_chunks=eng.gossip_chunks,
-        launches=writeback_add.launches,
+        launches=writeback_add.launches, graph_count=eng.graph_count,
     )
 
 

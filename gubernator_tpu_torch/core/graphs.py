@@ -2,17 +2,26 @@
 package's jitted decide programs (gubernator_tpu/core/engine.py:72-101,
 `_decide_packed_jit`, `_decide_packed_sketch_jit` and
 `_decide_packed_chain_jit`), compiled there at warmup
-(gubernator_tpu/parallel/sharded.py:2270-2284).
+(gubernator_tpu/parallel/sharded.py:2270-2284), and of its mesh's
+jitted shard_map programs `_step`, `_step_sketch` and `_step_chain`
+(gubernator_tpu/parallel/sharded.py:990-1043, compiled by its
+`warmup_public`, :2302-2350).
 
 Eager, one decide is ~870 torch launches whose Python dispatch keeps
 the card idle most of a batch (PERF.md §5). Here each (program, request
 rung B, group rung G) is captured ONCE into a `torch.cuda.CUDAGraph`
 and every later batch of that shape is one replay:
 
+- **Rows.** One graph decides `k` rows, each on its own store (and
+  sketch), in row order: the flat engine is k = 1; a mesh holds one
+  `DecideGraphs` a device whose k rows are the shards on that device,
+  so a batch is one replay a device, as the reference's mesh is one
+  shard_map program for all its shards.
 - **Static inputs.** A graph reads its batch from one device byte
-  buffer laid out by `DecideLayout`: the BatchRequest [B], the
-  BatchGroups [G], `now` (a 0-d int32 the decide reads on the device)
-  and, for chains, `chain_id` [B]. A batch is packed on the host into
+  buffer laid out by `DecideLayout`: the BatchRequest [k, B], the
+  BatchGroups [k, G], `now` (one 0-d int32 the decide reads on the
+  device) and, for chains, `chain_id` [k, B]; it writes one packed
+  output [k, 4*B+4]. A batch is packed on the host into
   one pinned slot of a `StagingRing` and goes up in ONE non-blocking
   copy into that buffer, on the engine's stream, in order before the
   replay.
@@ -27,14 +36,18 @@ and every later batch of that shape is one replay:
   and never rebinds them (reset, rebase, load_state and the installs
   all write in place).
 - **Capture** (`DecideGraphs._capture`, on a shape's first use): the
-  batch is staged, then decided ONCE eagerly on the capture's side
-  stream (that run is the batch's answer, and puts the allocator's
-  blocks and the kernel library in place, as torch.cuda.graphs asks),
-  then the same decide is captured on that stream into the engine's
-  one memory pool with `capture_error_mode="thread_local"` (another
-  thread's pinned allocation or event wait does not abort it). A
-  capture that fails, or whose decide did not record exactly one
-  `writeback_add`, raises: nothing falls back to the eager decide.
+  batch is staged and the decide captured on the capture's side stream
+  into the engine's one memory pool with
+  `capture_error_mode="thread_local"` (another thread's pinned
+  allocation or event wait does not abort it), then replayed once: that
+  run is the batch's answer. A program's first capture on a device is
+  preceded by one eager decide of the batch on that stream instead (it
+  is then the answer), which loads the program's kernels and puts the
+  allocator's blocks in place before anything records, as
+  torch.cuda.graphs asks. A
+  capture that fails, or whose decide did not record exactly k
+  `writeback_add` launches (one a row), raises: nothing falls back to
+  the eager decide.
 - **One capture at a time.** A capture is invalidated by a device-wide
   synchronize, or by the destruction of another CUDA graph, anywhere in
   the process while it runs, even with "thread_local" (measured on an
@@ -47,11 +60,12 @@ and every later batch of that shape is one replay:
   graph records, and the graphs of a `DecideGraphs` dropped without
   `close()` are not destroyed by the collector but retired and reset
   at the next safe point under the lock.
-- **Replays** of all of an engine's graphs share one memory pool
-  (`torch.cuda.graph_pool_handle()`). That is safe because every replay
-  and every read of a graph's output (the packed D2H copy the engine
-  enqueues right after the replay) run in order on one stream: the next
-  replay of any graph may overwrite that output only after the copy.
+- **Replays** of all of an engine's graphs on one device share one
+  memory pool (`torch.cuda.graph_pool_handle()`). That is safe because
+  every replay and every read of a graph's output (the packed D2H copy
+  the engine enqueues right after the replay) run in order on that
+  device's current stream: the next replay of any graph may overwrite
+  that output only after the copy.
 - **Counting.** A replay runs no Python, so `writeback_add`'s launch
   count does not move by itself: each replay adds the launches its
   capture recorded (`writeback.count_replay`), in `DecideGraphs.replay`.
@@ -81,7 +95,7 @@ from gubernator_tpu_torch.core.engine import (
 from gubernator_tpu_torch.core.kernels import BatchGroups, BatchRequest
 
 #: the decide programs, each (store, sketch, req, groups, now, chain_id)
-#: -> the packed int32[4*B+4] output (core.engine.pack_outputs)
+#: -> the packed int32[4*B+4] output of one row (core.engine.pack_outputs)
 PROGRAMS = {
     "exact": lambda store, sketch, req, groups, now, chain_id: decide_packed(
         store, req, now, groups)[1],
@@ -90,6 +104,17 @@ PROGRAMS = {
     "chain": lambda store, sketch, req, groups, now, chain_id: decide_packed_chain(
         store, req, now, groups, chain_id)[1],
 }
+
+
+def decide_rows(program: str, stores, sketches, rows) -> torch.Tensor:
+    """`program` on each row, in order: row r's inputs (req, groups, now,
+    chain_id) on stores[r] and sketches[r]. Returns the packed outputs
+    as one int32[k, 4*B+4] (for k = 1 a view of the one output: the flat
+    engine's graph records no copy)."""
+    fn = PROGRAMS[program]
+    outs = [fn(st, sk, *inp) for st, sk, inp in zip(stores, sketches, rows)]
+    return outs[0][None] if len(outs) == 1 else torch.stack(outs)
+
 
 #: the most slots a StagingRing grows to
 MAX_RING = 16
@@ -146,11 +171,13 @@ _TORCH_OF = {
 
 class DecideLayout:
     """Where each input of one decide lives in a graph's static byte
-    buffer, for request rung B, group rung G and (chains) a chain_id
-    column: every field at an 8-byte-aligned offset, int64 first."""
+    buffer, for `k` rows of request rung B, group rung G and (chains) a
+    chain_id column: every field [k, n] row-major at an 8-byte-aligned
+    offset, int64 first, `now` once. k = 1 is the flat engine's
+    layout."""
 
-    def __init__(self, B: int, G: int, chain: bool):
-        self.B, self.G, self.chain = B, G, chain
+    def __init__(self, B: int, G: int, chain: bool, k: int = 1):
+        self.B, self.G, self.chain, self.k = B, G, chain, k
         fields = [
             ("req", "key_hash", np.uint64, B),
             ("groups", "key_hash", np.uint64, G),
@@ -175,33 +202,39 @@ class DecideLayout:
         for part, name, dtype, n in fields:
             dtype = np.dtype(dtype)
             self.fields.append((part, name, dtype, n, off))
-            off += -(-(n * dtype.itemsize) // 8) * 8
+            rows = 1 if part == "now" else k
+            off += -(-(rows * n * dtype.itemsize) // 8) * 8
         self.nbytes = off
 
     def pack(self, out: np.ndarray, req, groups, now, chain_id=None) -> None:
         """Write one batch (numpy BatchRequest and BatchGroups of this
-        layout's shapes, `now` an int32 engine-ms, chain_id int32[B] for
-        chains) into the uint8 array `out`."""
+        layout's shapes, [k, n] or, for k = 1, [n]; `now` an int32
+        engine-ms; chain_id int32 of the request's shape for chains)
+        into the uint8 array `out`."""
         parts = {"req": req, "groups": groups}
         for part, name, dtype, n, off in self.fields:
+            rows = self.k
             if part == "now":
-                src = np.asarray([now], dtype)
+                src, rows = np.asarray([now], dtype), 1
             elif part == "chain":
                 src = chain_id
             else:
                 src = getattr(parts[part], name)
-            if src.shape != (n,) or src.dtype != dtype:
+            shaped = src.shape == (rows, n) or (rows == 1 and src.shape == (n,))
+            if not shaped or src.dtype != dtype:
                 raise ValueError(f"{part}.{name}: {src.dtype}{list(src.shape)}, the layout "
-                                 f"wants {dtype}[{n}]")
-            out[off:off + n * dtype.itemsize].view(dtype)[:] = src
+                                 f"wants {dtype}[{rows}, {n}]")
+            out[off:off + rows * n * dtype.itemsize].view(dtype).reshape(rows, n)[:] = src
 
-    def views(self, buf: torch.Tensor):
-        """(BatchRequest, BatchGroups, now 0-d int32, chain_id or None):
-        tensor views into the byte buffer `buf`, what a graph reads."""
+    def views(self, buf: torch.Tensor, row: int = 0):
+        """(BatchRequest, BatchGroups, now 0-d int32, chain_id or None)
+        of row `row`: tensor views into the byte buffer `buf`, what a
+        graph reads."""
         got = {"req": {}, "groups": {}}
         now = chain_id = None
         for part, name, dtype, n, off in self.fields:
-            t = buf[off:off + n * dtype.itemsize].view(_TORCH_OF[dtype])
+            start = off if part == "now" else off + row * n * dtype.itemsize
+            t = buf[start:start + n * dtype.itemsize].view(_TORCH_OF[dtype])
             if part == "now":
                 now = t[0]
             elif part == "chain":
@@ -209,6 +242,10 @@ class DecideLayout:
             else:
                 got[part][name] = t
         return BatchRequest(**got["req"]), BatchGroups(**got["groups"]), now, chain_id
+
+    def rows(self, buf: torch.Tensor) -> list:
+        """Every row's views (`views`), in order."""
+        return [self.views(buf, r) for r in range(self.k)]
 
 
 class StagingRing:
@@ -267,8 +304,8 @@ class StagingRing:
 
 class DecideGraph(NamedTuple):
     """One captured decide: its static byte buffer (the graph reads it
-    through the layout's views), the graph, its static packed output,
-    and the writeback launches one replay makes (1)."""
+    through the layout's views), the graph, its static packed output
+    [k, 4*B+4], and the writeback launches one replay makes (k)."""
 
     layout: DecideLayout
     static: torch.Tensor
@@ -278,35 +315,42 @@ class DecideGraph(NamedTuple):
 
 
 class DecideGraphs:
-    """An engine's captured decides, one per (program, B, G), sharing
-    one memory pool, captured on the device's capture stream;
-    `max_batch` is the ladder's top rung (the staging slots' size)."""
+    """The captured decides of `rows` stores on one device (an engine's
+    one store, or a mesh's shards on that device), one per (program, B,
+    G), sharing one memory pool, captured on the device's capture
+    stream; `max_batch` is the ladder's top rung (the staging slots'
+    size)."""
 
-    def __init__(self, device: torch.device, max_batch: int):
+    def __init__(self, device: torch.device, max_batch: int, rows: int = 1):
         self.device = device
+        self.rows = rows
         self.pool = torch.cuda.graph_pool_handle()
         with _LOCK:
             if device not in _STREAMS:
                 _STREAMS[device] = torch.cuda.Stream(device, priority=-1)
             self.stream = _STREAMS[device]
-        self.ring = StagingRing(DecideLayout(max_batch, max_batch, True).nbytes, pin=True)
+        self.ring = StagingRing(DecideLayout(max_batch, max_batch, True, rows).nbytes, pin=True)
         self.graphs: dict = {}
         _retire_on_collect(self, self.graphs)
+        self.warm: set = set()  # programs decided eagerly on this device's capture stream
         self.captures = 0  # captures (each one eager decide) since the counts were zeroed
         self.capture_s = 0.0  # their host seconds
         self.replays = 0
 
-    def run(self, program: str, store, sketch, req, groups, now, chain_id=None) -> torch.Tensor:
-        """Decide one batch (numpy BatchRequest / BatchGroups, `now` the
-        int32 engine-ms, chain_id numpy int32[B] for "chain") on the
-        current stream: replay its shape's graph, or on the shape's
-        first use decide it eagerly and capture the graph. Returns the
-        packed output on the card; the caller reads it on the same
-        stream before the next run."""
-        key = (program, int(req.key_hash.shape[0]), int(groups.key_hash.shape[0]))
+    def run(self, program: str, stores, sketches, req, groups, now,
+            chain_id=None) -> torch.Tensor:
+        """Decide one batch of `rows` rows (numpy BatchRequest /
+        BatchGroups [rows, n], or [n] for one row; `now` the int32
+        engine-ms; chain_id numpy int32 of the request's shape for
+        "chain"), row r on stores[r] and sketches[r], on the current
+        stream: replay its shape's graph, or on the shape's first use
+        decide it eagerly and capture the graph. Returns the packed
+        output [rows, 4*B+4] on the card; the caller reads it on the
+        same stream before the next run."""
+        key = (program, int(req.key_hash.shape[-1]), int(groups.key_hash.shape[-1]))
         g = self.graphs.get(key)
         if g is None:
-            return self._capture(key, store, sketch, req, groups, now, chain_id)
+            return self._capture(key, stores, sketches, req, groups, now, chain_id)
         self.ring.upload(g.layout, g.static, req, groups, now, chain_id)
         return self.replay(g)
 
@@ -318,40 +362,52 @@ class DecideGraphs:
         self.replays += 1
         return g.out
 
-    def _capture(self, key, store, sketch, req, groups, now, chain_id) -> torch.Tensor:
-        with _LOCK:
+    def _capture(self, key, stores, sketches, req, groups, now, chain_id) -> torch.Tensor:
+        with _LOCK, torch.cuda.device(self.device):
             _reset_retired()
-            return self._capture_locked(key, store, sketch, req, groups, now, chain_id)
+            return self._capture_locked(key, stores, sketches, req, groups, now, chain_id)
 
-    def _capture_locked(self, key, store, sketch, req, groups, now, chain_id) -> torch.Tensor:
+    def _capture_locked(self, key, stores, sketches, req, groups, now,
+                        chain_id) -> torch.Tensor:
         program, B, G = key
-        fn = PROGRAMS[program]
         t0 = time.perf_counter()
-        layout = DecideLayout(B, G, program == "chain")
+        layout = DecideLayout(B, G, program == "chain", self.rows)
         static = torch.empty(layout.nbytes, dtype=torch.uint8, device=self.device)
-        inputs = layout.views(static)
+        inputs = layout.rows(static)
         cur = torch.cuda.current_stream(self.device)
+        if layout.nbytes > self.ring.nbytes:
+            # a rung past the ladder's top (a mesh extends its sub-batch
+            # ladder on overflow): a ring of bigger slots from here on;
+            # the old slots' copies keep their pinned blocks alive
+            self.ring = StagingRing(layout.nbytes, pin=True)
         self.ring.upload(layout, static, req, groups, now, chain_id)
         s = self.stream
         s.wait_stream(cur)
         graph = torch.cuda.CUDAGraph()
+        warm = program not in self.warm
         try:
             with torch.cuda.stream(s):
-                # this batch's answer, and the capture's warm run
-                answer = fn(store, sketch, *inputs)
+                if warm:
+                    # the program's warm run here, and this batch's answer
+                    answer = decide_rows(program, stores, sketches, inputs)
+                    self.warm.add(program)
                 before = writeback.writeback_add.captured
                 with _collector_off():
                     graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
                     try:
-                        out = fn(store, sketch, *inputs)
+                        out = decide_rows(program, stores, sketches, inputs)
                     finally:
                         graph.capture_end()
                 recorded = writeback.writeback_add.captured - before
-            if recorded != 1:
-                raise RuntimeError(
-                    f"decide graph {key}: its capture recorded {recorded} writeback "
-                    "launches, not 1"
-                )
+                if recorded != self.rows:
+                    raise RuntimeError(
+                        f"decide graph {key}: its capture recorded {recorded} writeback "
+                        f"launches, not {self.rows}"
+                    )
+                if not warm:
+                    graph.replay()  # this batch's answer
+                    writeback.count_replay(recorded)
+                    answer = out
         except BaseException:
             # destroyed here, under the lock, not wherever the traceback
             # is dropped; a pool no graph uses may not be captured into
@@ -362,8 +418,9 @@ class DecideGraphs:
                 self.pool = torch.cuda.graph_pool_handle()
             raise
         finally:
-            cur.wait_stream(s)  # later work on the store waits for the warm run
-        answer.record_stream(cur)
+            cur.wait_stream(s)  # later work on the store waits for the decide
+        if warm:
+            answer.record_stream(cur)
         self.graphs[key] = DecideGraph(layout, static, graph, out, recorded)
         self.captures += 1
         self.capture_s += time.perf_counter() - t0

@@ -336,6 +336,11 @@ class MultiHostMeshEngine:
     device of the default kind when None; a list may name one device
     more than once). Without one it is a one-process mesh over `devices`
     with no pipe, as the reference's is without jax.distributed.
+
+    On a GPU each process decides its shards as one captured graph
+    replay a device (MeshEngine, `cuda_graphs`): the lockstep warmup
+    makes every process capture the same shapes in the same order, and
+    a follower's decide steps replay them.
     """
 
     def __init__(
@@ -345,6 +350,7 @@ class MultiHostMeshEngine:
         buckets: Sequence[int] = (64, 256, 1024, 4096),
         sketch=None,
         devices: Optional[Sequence] = None,
+        cuda_graphs: bool = True,
     ):
         import torch.distributed as dist
 
@@ -360,7 +366,8 @@ class MultiHostMeshEngine:
             rank = 0
             policy = ShardingPolicy.over_mesh(devices)
         self.is_leader = rank == 0
-        self.inner = MeshEngine(store_config, buckets=buckets, sketch=sketch, policy=policy)
+        self.inner = MeshEngine(store_config, buckets=buckets, sketch=sketch, policy=policy,
+                                cuda_graphs=cuda_graphs)
         # the steps a follower ran, by kind, and the decides among them
         # that dispatched (follower_loop counts both)
         self.steps = collections.Counter()
@@ -441,6 +448,28 @@ class MultiHostMeshEngine:
     @property
     def device_span_ms(self):
         return self.inner.device_span_ms
+
+    # this process's captured decides (MeshEngine.device_graphs)
+    @property
+    def graph_count(self):
+        return self.inner.graph_count
+
+    @property
+    def graph_captures(self):
+        return self.inner.graph_captures
+
+    @property
+    def graph_pool_bytes(self):
+        return self.inner.graph_pool_bytes
+
+    @property
+    def capture_s(self):
+        return self.inner.capture_s
+
+    def _graphs_warmed(self) -> None:
+        """warmup_public's last step, on this process's graphs only (a
+        follower's counts keep the warmup's captures)."""
+        self.inner._graphs_warmed()
 
     # the counters warmup_public zeroes through the engine it is given
     stats = _inner("stats", "EngineStats of the decides the leader fetched")
@@ -720,8 +749,11 @@ class MultiHostMeshEngine:
         warmup_public(self, now)
 
     def close(self) -> None:
+        """Shut the step pipe and release this process's captured
+        decides."""
         if self.pipe:
             self.pipe.close()
+        self.inner.close()
 
     # -- follower API -------------------------------------------------------
 

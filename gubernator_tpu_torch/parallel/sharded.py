@@ -597,8 +597,7 @@ class TorchEngine:
         self.store = new_store(config, self.device)
         self.sketch = None if sketch is None else new_sketch(sketch, self.device)
         self.cuda_graphs = cuda_graphs
-        if cuda_graphs and self.device.type == "cuda":
-            self.graphs = DecideGraphs(self.device, max(self.buckets))
+        self._new_graphs()
 
     def _init_host(self, config: StoreConfig, buckets: Sequence[int], sketch) -> None:
         """The host-side state every engine carries, whatever its policy."""
@@ -633,7 +632,8 @@ class TorchEngine:
         # mask on the device (through the sync its count needs) and the
         # copy to the host; the bytes copied off the device; the windows
         self.last_export = dict(ms=0.0, mask_ms=0.0, copy_ms=0.0, bytes=0, windows=0)
-        # the captured decides (core/graphs.py; flat engine on a GPU only)
+        # the flat engine's captured decides (core/graphs.py; on a GPU
+        # only; a mesh holds one set a device, MeshEngine.device_graphs)
         # and the seconds the last warmup spent capturing them
         self.cuda_graphs = True
         self.graphs = None
@@ -645,30 +645,50 @@ class TorchEngine:
         decide, an install chunk or a gossip chunk on a GPU."""
         return self.n
 
+    def _new_graphs(self) -> None:
+        """An empty set of captured decides (on a GPU with graphs on)."""
+        if self.cuda_graphs and self.device.type == "cuda":
+            self.graphs = DecideGraphs(self.device, max(self.buckets))
+
+    def _graph_sets(self) -> list:
+        """Every DecideGraphs of the engine (one flat, one a device on a
+        mesh; none on the CPU or with cuda_graphs=False)."""
+        return [] if self.graphs is None else [self.graphs]
+
     @property
     def graph_count(self) -> int:
-        """Captured decide graphs, one per (program, B, G) used so far."""
-        return 0 if self.graphs is None else len(self.graphs.graphs)
+        """Captured decide graphs, one per (program, B, G) used so far (a
+        device)."""
+        return sum(len(g.graphs) for g in self._graph_sets())
 
     @property
     def graph_captures(self) -> int:
         """Graphs captured on first use since the last warmup (a shape
         the warmup did not reach, or the chain program): the
         counterpart of a JAX recompile."""
-        return 0 if self.graphs is None else self.graphs.captures
+        return sum(g.captures for g in self._graph_sets())
 
     @property
     def graph_pool_bytes(self) -> int:
-        """Bytes the card holds in the graphs' shared memory pool."""
-        return 0 if self.graphs is None else self.graphs.pool_bytes()
+        """Bytes the card holds in the graphs' shared memory pools."""
+        return sum(g.pool_bytes() for g in self._graph_sets())
+
+    def _graphs_warmed(self) -> None:
+        """The end of a warmup: keep its capture seconds, zero the
+        graphs' capture and replay counts."""
+        sets = self._graph_sets()
+        self.capture_s = sum(g.capture_s for g in sets)
+        for g in sets:
+            g.captures = g.replays = 0
+            g.capture_s = 0.0
 
     def close(self) -> None:
-        """Release the captured graphs and their memory pool (an engine
+        """Release the captured graphs and their memory pools (an engine
         replaced by repartition); the engine may still decide, capturing
         again."""
-        if self.graphs is not None:
-            self.graphs.close()
-            self.graphs = DecideGraphs(self.device, max(self.buckets))
+        for g in self._graph_sets():
+            g.close()
+        self._new_graphs()
 
     # -- per-shard state (one shard here; MeshEngine has n) --------------------
 
@@ -840,9 +860,9 @@ class TorchEngine:
             start.record()
             if self.graphs is not None:
                 packed = self.graphs.run(
-                    program, self.store, self.sketch, req, groups, e_now, chain_id
+                    program, [self.store], [self.sketch], req, groups, e_now, chain_id
                 )
-                return packed, start
+                return packed[0], start
         req_t = to_device(req, self.device)
         groups_t = to_device(groups, self.device)
         chain_t = None if chain_id is None else torch.from_numpy(chain_id).to(self.device)
@@ -1231,6 +1251,7 @@ class TorchEngine:
         else:
             eng = MeshEngine(
                 self.config, buckets=self.buckets, sketch=self.sketch_config, policy=policy,
+                cuda_graphs=self.cuda_graphs,
             )
         w = self.export_windows(now)
         if w["key_hash"].shape[0]:
@@ -1530,10 +1551,7 @@ class TorchEngine:
         self.reset()
         self.stats = EngineStats()
         self.install_chunks = self.gossip_chunks = 0
-        if self.graphs is not None:
-            self.capture_s = self.graphs.capture_s
-            self.graphs.captures = self.graphs.replays = 0
-            self.graphs.capture_s = 0.0
+        self._graphs_warmed()
 
 
 # -- the mesh policy -----------------------------------------------------------
@@ -1596,6 +1614,15 @@ class MeshEngine(TorchEngine):
     sync step counts one gossip chunk (the owner charge) and one install
     chunk (the replica install).
 
+    On a GPU the decide is captured (core/graphs.py): one DecideGraphs a
+    distinct device (`device_graphs`), whose graph for a (program,
+    B_sub, G_sub) decides every local shard on that device in shard
+    order, so a batch is one staged upload and one replay a device, the
+    counterpart of the reference's one jitted shard_map program over
+    every shard. `warmup` captures every pair; the chain program captures
+    on first use. `cuda_graphs=False` decides eagerly, a shard at a time
+    (the A/B leg and the card tests; no serving path).
+
     Under a policy that spans processes (ShardingPolicy.over_processes)
     `n` is the GLOBAL shard count and this process holds the shards
     `policy.local_shards` on `devices`: it decides its rows of every
@@ -1614,6 +1641,7 @@ class MeshEngine(TorchEngine):
         mesh_shape: Optional[Tuple[int, int]] = None,
         sketch: Optional[SketchConfig] = None,
         policy: Optional[ShardingPolicy] = None,
+        cuda_graphs: bool = True,
     ):
         self._init_host(config, buckets, sketch)
         self.policy = (
@@ -1637,6 +1665,29 @@ class MeshEngine(TorchEngine):
         )
         # the tier gate every shared surface reads (None: exact only)
         self.sketch = self.sketches
+        # each distinct device's local shards, in shard order, and the
+        # index that takes their rows of a [n_local, ...] array (a slice
+        # when they are contiguous)
+        shards_of: dict = {}
+        for s, dev in enumerate(self.devices):
+            shards_of.setdefault(dev, []).append(s)
+        self._device_rows = {
+            dev: (rows, slice(rows[0], rows[-1] + 1) if rows[-1] - rows[0] == len(rows) - 1
+                  else rows)
+            for dev, rows in shards_of.items()
+        }
+        self.cuda_graphs = cuda_graphs
+        self._new_graphs()
+
+    def _new_graphs(self) -> None:
+        self.device_graphs = {}
+        if self.cuda_graphs and self.device.type == "cuda":
+            top = max(self.sub_buckets)
+            for dev, (rows, _idx) in self._device_rows.items():
+                self.device_graphs[dev] = DecideGraphs(dev, top, len(rows))
+
+    def _graph_sets(self) -> list:
+        return list(self.device_graphs.values())
 
     def _shard_stores(self) -> list:
         return self.stores
@@ -1665,11 +1716,14 @@ class MeshEngine(TorchEngine):
 
     def _dispatch(self, req, groups, e_now, observe: bool = True, chain_id=None):
         """The mesh's dispatch funnel: feed the observer the numpy
-        [n_shards, B_sub] batch (it masks by `valid`), upload this
-        process's rows of it once per device and run each shard's decide
-        on its own store (and sub-sketch) and row. Returns (the packed
-        output of each local shard, {device: CUDA event recorded before
-        its upload})."""
+        [n_shards, B_sub] batch (it masks by `valid`) and decide this
+        process's rows of it, each shard on its own store (and
+        sub-sketch) and row. With graphs, each device's rows go up in one
+        staged upload and are decided by one replay; eagerly, the rows go
+        up once a device and each shard runs its decide. Returns (blocks:
+        (the index of their local shards, a slice or a list; their packed
+        outputs [k, 4*B_sub+4]) in shard order, {device: CUDA event
+        recorded before its upload})."""
         hook = self.observe_hook if observe else None
         if hook is not None:
             try:
@@ -1680,6 +1734,22 @@ class MeshEngine(TorchEngine):
         req, groups = _rows(req, self._local), _rows(groups, self._local)
         if chain_id is not None:
             chain_id = chain_id[self._local]
+        two_tier = self.sketches is not None and self.sketch_on
+        if self.device_graphs:
+            program = "chain" if chain_id is not None else "sketch" if two_tier else "exact"
+            blocks = []
+            for dev, (rows, idx) in self._device_rows.items():
+                with _on(dev):
+                    starts[dev] = torch.cuda.Event(enable_timing=True)
+                    starts[dev].record()
+                    out = self.device_graphs[dev].run(
+                        program, [self.stores[s] for s in rows],
+                        [self.sketches[s] if two_tier else None for s in rows],
+                        _rows(req, idx), _rows(groups, idx), e_now,
+                        None if chain_id is None else chain_id[idx],
+                    )
+                blocks.append((idx, out))
+            return blocks, starts
 
         def upload(dev):
             if dev.type == "cuda":
@@ -1689,8 +1759,7 @@ class MeshEngine(TorchEngine):
             return to_device(req, dev), to_device(groups, dev), chain_t
 
         up = self._per_device(upload)
-        two_tier = self.sketches is not None and self.sketch_on
-        packed = []
+        blocks = []
         for s, dev in enumerate(self.devices):
             req_t, groups_t, chain_t = up[dev]
             with _on(dev):
@@ -1703,27 +1772,32 @@ class MeshEngine(TorchEngine):
                     )
                 else:
                     _st, p = decide_packed(self.stores[s], r, e_now, g)
-            packed.append(p)
-        return packed, starts
+            blocks.append((slice(s, s + 1), p[None]))
+        return blocks, starts
 
-    def _mesh_handle(self, packed, starts, order, take_idx, n: int, B_sub: int):
+    def _mesh_handle(self, blocks, starts, order, take_idx, n: int, B_sub: int):
         """decide_wait's handle: (packed host int32[n_shards, 4*B_sub+4],
         {device: event after its last copy}, {device: start event}, order,
         take_idx, n, B_sub, epoch, the gather's Work or None). On CUDA each
-        shard's row starts copying into one pinned host array at once. On
-        a mesh that spans processes the first item is, on process 0, the
-        list of every process's rows that the posted gather fills."""
+        block of shard rows starts copying into one pinned host array at
+        once (one copy a device when its shards are contiguous). On a mesh
+        that spans processes the first item is, on process 0, the list of
+        every process's rows that the posted gather fills."""
         ends = {}
         if self.devices[0].type == "cuda":
-            host = torch.empty((len(self.devices), packed[0].shape[0]), dtype=torch.int32,
+            host = torch.empty((len(self.devices), blocks[0][1].shape[1]), dtype=torch.int32,
                                pin_memory=True)
-            for s, (dev, p) in enumerate(zip(self.devices, packed)):
-                with _on(dev):
-                    host[s].copy_(p, non_blocking=True)
-                    ends[dev] = torch.cuda.Event(enable_timing=True)
-                    ends[dev].record()
+            for idx, block in blocks:
+                with _on(block.device):
+                    if isinstance(idx, slice):
+                        host[idx].copy_(block, non_blocking=True)
+                    else:
+                        for j, s in enumerate(idx):
+                            host[s].copy_(block[j], non_blocking=True)
+                    ends[block.device] = torch.cuda.Event(enable_timing=True)
+                    ends[block.device].record()
         else:
-            host = torch.stack(packed)
+            host = torch.cat([block for _idx, block in blocks])
         work = None
         if self.policy.spans_processes:
             host, work = self._post_gather(host, ends)
@@ -1799,11 +1873,11 @@ class MeshEngine(TorchEngine):
             self.sub_buckets, self.config.slots, self.n, key_hash, hits,
             limit, duration, algo, gnp, with_groups=True,
         )
-        packed, starts = self._dispatch(req, groups, e_now, observe)
+        blocks, starts = self._dispatch(req, groups, e_now, observe)
         # the native prep's order/take_idx are views into a buffer ring
         # that a handle can outlive under the batcher's fetch pipeline
         return self._mesh_handle(
-            packed, starts, np.array(order), np.array(take_idx), n,
+            blocks, starts, np.array(order), np.array(take_idx), n,
             req.key_hash.shape[1],
         )
 
@@ -1826,8 +1900,8 @@ class MeshEngine(TorchEngine):
 
     def decide_submit_merged(self, merged: dict, now: int):
         e_now = self._engine_now(now)
-        packed, starts = self._dispatch(merged["req"], merged["groups"], e_now)
-        return self._mesh_handle(packed, starts, merged["order"], merged["take_idx"],
+        blocks, starts = self._dispatch(merged["req"], merged["groups"], e_now)
+        return self._mesh_handle(blocks, starts, merged["order"], merged["take_idx"],
                                  merged["n"], merged["B_sub"])
 
     def decide_submit_presorted(
@@ -1849,8 +1923,8 @@ class MeshEngine(TorchEngine):
         )
         if order is None:
             order = np.arange(n, dtype=np.int32)
-        packed, starts = self._dispatch(req, groups, e_now)
-        return self._mesh_handle(packed, starts, order, take_idx, n, B_sub)
+        blocks, starts = self._dispatch(req, groups, e_now)
+        return self._mesh_handle(blocks, starts, order, take_idx, n, B_sub)
 
     def decide_wait(
         self, handle, count: bool = True
@@ -1929,8 +2003,8 @@ class MeshEngine(TorchEngine):
             groups = BatchGroups(*(x[None] for x in groups))
             chain_local = chain_local[None]
             take_idx = np.arange(n, dtype=np.int64)
-        packed, starts = self._dispatch(req, groups, e_now, chain_id=chain_local)
-        return self._mesh_handle(packed, starts, order, take_idx, n, req.key_hash.shape[1])
+        blocks, starts = self._dispatch(req, groups, e_now, chain_id=chain_local)
+        return self._mesh_handle(blocks, starts, order, take_idx, n, req.key_hash.shape[1])
 
     # -- host-side state reads (owner-masked sums on the leader) --------------
 
@@ -2082,13 +2156,20 @@ class MeshEngine(TorchEngine):
 
 
 def warmup_public(engine: MeshEngine, now: Optional[int] = None) -> None:
-    """Mesh warmup through the engine's public surface: one decide a
-    sub-batch rung (crafted so every shard hits the rung), one replica
-    install and one GLOBAL sync a host rung, and the sketch reads (first
-    launches, allocator pools, the kernel's build and load), then wipe the
-    state and zero the counters the warmup dirtied. `warmup_launches`
+    """Mesh warmup through the engine's public surface, as the
+    reference's warmup_public walks it: one decide at every (sub-batch
+    rung r, group rung g in group_rungs(r)) pair, crafted so every shard
+    holds r rows over g distinct keys (`np.resize(p[:g], r)` of its own
+    keys), with the exact program and, when a sketch is configured, the
+    two-tier one too (`sketch_on` flips at run time); on a GPU each
+    captures that pair's graph on every device. Then one replica install
+    and one GLOBAL sync a host rung, and the sketch reads (first
+    launches, allocator pools, the kernel's build and load), then wipe
+    the state and zero the counters the warmup dirtied. `warmup_launches`
     keeps the writebacks it made on a GPU: n_shards x (decides + install
-    chunks + gossip chunks), n_shards being this process's."""
+    chunks + gossip chunks), n_shards being this process's. Driving only
+    the public surface keeps it lockstep-safe for the multihost wrapper:
+    every process walks, and captures, the same shapes in one order."""
     if now is None:
         now = api_types.millisecond_now()
     n = engine.n
@@ -2097,13 +2178,21 @@ def warmup_public(engine: MeshEngine, now: Optional[int] = None) -> None:
     pool = rng.integers(1, 2**63, 4 * n * max(rungs), np.int64).astype(np.uint64)
     owners = owner_of_np(pool, n)
     per_shard = [pool[owners == s] for s in range(n)]
-    for r in rungs:
-        k = np.concatenate([p[:r] for p in per_shard])
-        ones = np.ones(k.shape[0], np.int64)
-        engine.decide_arrays(
-            k, ones, ones * 10, ones * 1000, np.zeros(k.shape[0], np.int32),
-            np.zeros(k.shape[0], bool), now,
-        )
+    sketch_on = engine.sketch_on
+    tiers = (False, True) if engine.sketch is not None else (False,)
+    try:
+        for r in rungs:
+            for g in group_rungs(r):
+                k = np.concatenate([np.resize(p[:g], r) for p in per_shard])
+                ones = np.ones(k.shape[0], np.int64)
+                for on in tiers:
+                    engine.sketch_on = on
+                    engine.decide_arrays(
+                        k, ones, ones * 10, ones * 1000, np.zeros(k.shape[0], np.int32),
+                        np.zeros(k.shape[0], bool), now,
+                    )
+    finally:
+        engine.sketch_on = sketch_on
     for b in engine.buckets:
         k = np.arange(1, b + 1, dtype=np.uint64) << np.uint64(32)
         ones = np.ones(b, np.int64)
@@ -2122,3 +2211,4 @@ def warmup_public(engine: MeshEngine, now: Optional[int] = None) -> None:
     engine.reset()
     engine.stats = EngineStats()
     engine.install_chunks = engine.gossip_chunks = 0
+    engine._graphs_warmed()

@@ -464,12 +464,13 @@ class MeshBackend(_ArrayOps):
         buckets: Sequence[int] = (64, 256, 1024, 4096),
         sketch=None,
         mesh_shape: Optional[Tuple[int, int]] = None,
+        cuda_graphs: bool = True,
     ):
         from gubernator_tpu_torch.parallel.sharded import MeshEngine
 
         self.engine = MeshEngine(
             store, devices=devices, buckets=buckets, mesh_shape=mesh_shape,
-            sketch=sketch,
+            sketch=sketch, cuda_graphs=cuda_graphs,
         )
 
     @property
@@ -535,11 +536,12 @@ class MeshBackend(_ArrayOps):
         )
         old = self.engine
         self.engine = old.repartition(policy, now=now)
-        old.close()  # a flat engine's graphs and their pool
+        old.close()  # the old engine's graphs and their pools
 
     def warmup(self) -> None:
-        """Every sub-batch rung once, and the install and sync at each
-        host rung (MeshEngine.warmup), so no request pays for them."""
+        """Every (sub-batch rung, group rung) pair once a program (each
+        captured on a GPU), and the install and sync at each host rung
+        (MeshEngine.warmup), so no request pays for them."""
         self.engine.warmup()
 
     def load_state(self, store_np, epoch, sketch_np=None) -> None:
@@ -579,7 +581,8 @@ class MultiHostBackend(MeshBackend):
         )
 
     def close(self) -> None:
-        """Shut the step pipe (each follower's loop ends)."""
+        """Shut the step pipe (each follower's loop ends) and release
+        this process's captured decides."""
         self.engine.close()
 
 

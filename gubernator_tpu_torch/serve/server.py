@@ -834,9 +834,10 @@ class Server:
             # each; 0 on the CPU): 1 - its growth over a window's wall time
             # bounds the device's idle share from below
             body["device_span_ms"] = eng.device_span_ms
-            # the flat engine's captured decides (core/graphs.py): how many,
-            # how many were captured on first use since the boot's warmup
-            # (0 once every shape was warmed), and the warmup's capture s
+            # the engine's captured decides (core/graphs.py; a mesh's summed
+            # over its devices, this process's): how many, how many were
+            # captured on first use since the boot's warmup (0 once every
+            # shape was warmed), and the warmup's capture s
             body["decide_graphs"] = {
                 "count": getattr(eng, "graph_count", 0),
                 "captures": getattr(eng, "graph_captures", 0),

@@ -19,7 +19,11 @@ b_sub=<B>` work line, then runs `traffic_script` after a reset and writes
 its outputs to <outdir>/responses.npz. Every process writes its local
 shards' store and sketch to <outdir>/state-<process_id>.npz at shutdown.
 Roles "leader-mismatch"/"follower-mismatch" exercise the connect-time
-config handshake.
+config handshake. Roles "leader-graphs"/"follower-graphs" (on the card)
+run the lockstep warmup, which captures every decide graph in both
+processes, then the traffic script, while a side thread in each process
+keeps capturing a flat engine's warmup; they print LEADER-GRAPHS-OK and
+FOLLOWER-GRAPHS-OK.
 
 `traffic_script` is importable without JAX (tests import this file by
 bare name), and runs against any engine with the mesh surface: the
@@ -390,6 +394,58 @@ def _legs(eng, cfg, SK, n_shards, T0, ref_device):
     print("RING-OK", flush=True)
 
 
+class _SideCaptures:
+    """A thread that warms up (and so captures the decide graphs of) a
+    flat engine on `device`, closes it and starts again, until stopped:
+    captures that must survive whatever the rest of the process and the
+    other processes do meanwhile. `stop()` returns the rounds it
+    finished, after holding its last engine against an eager one."""
+
+    def __init__(self, device: str, cfg):
+        import threading
+
+        self.device, self.cfg = device, cfg
+        self.rounds, self.errors = 0, []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _engine(self, **kw):
+        from gubernator_tpu_torch.core.engine import TorchEngine
+
+        return TorchEngine(self.cfg, buckets=(64, 256), device=self.device, **kw)
+
+    def _run(self):
+        try:
+            while True:
+                eng = self._engine()
+                eng.warmup(now=T0)
+                assert (eng.graph_count, eng.graph_captures) == (4, 0), eng.graph_count
+                if self._stop.is_set():
+                    break
+                eng.close()
+                self.rounds += 1
+            ref = self._engine(cuda_graphs=False)
+            rng = np.random.default_rng(5)
+            for step in range(4):
+                m = 60 * (step + 1)
+                args = (rng.integers(1, 2**63, m).astype(np.uint64), np.ones(m, np.int64),
+                        np.full(m, 3, np.int64), np.full(m, 60_000, np.int64),
+                        rng.integers(0, 4, m).astype(np.int32), np.zeros(m, bool), T0 + step)
+                for a, b in zip(eng.decide_arrays(*args), ref.decide_arrays(*args)):
+                    assert np.array_equal(a, b), step
+            assert eng.graph_captures == 0
+        except Exception as e:  # reported by stop()
+            self.errors.append(repr(e))
+
+    def stop(self) -> int:
+        self._stop.set()
+        self._thread.join(120)
+        assert not self._thread.is_alive() and not self.errors, self.errors
+        assert self.rounds > 0, "the side thread finished no capture round"
+        return self.rounds
+
+
 def _save_state(eng, outdir: str, pid: int) -> None:
     np.savez(os.path.join(outdir, f"state-{pid}.npz"), store=eng.inner.store_numpy(),
              sketch=eng.inner.sketch_numpy())
@@ -432,8 +488,9 @@ def main():
                 return
             raise SystemExit("leader handshake accepted a mismatched follower")
 
+        leader = role in ("leader", "leader-graphs")
         eng = MultiHostMeshEngine(
-            cfg, followers=followers if role == "leader" else None, buckets=BUCKETS,
+            cfg, followers=followers if leader else None, buckets=BUCKETS,
             sketch=SK, devices=devices,
         )
         # the 2-D ("host", "chip") form, process-major: this process holds
@@ -448,6 +505,29 @@ def main():
             eng.follower_loop(f"127.0.0.1:{step_ports}")
             _save_state(eng, outdir, pid)
             print("FOLLOWER-OK", flush=True)
+            return
+
+        if role in ("leader-graphs", "follower-graphs"):
+            from gubernator_tpu_torch.core.engine import group_rungs
+
+            side = _SideCaptures(device, cfg)
+            if role == "follower-graphs":
+                eng.follower_loop(f"127.0.0.1:{step_ports}")
+            else:
+                eng.warmup(now=T0)
+                assert eng.graph_captures == 0, eng.graph_captures
+                warmed = eng.graph_count
+                outs = traffic_script(eng, eng.n)
+                np.savez(os.path.join(outdir, "responses.npz"), *outs)
+                print("GRAPHS", warmed, eng.graph_count, eng.graph_captures, flush=True)
+            rounds = side.stop()
+            pairs = sum(len(group_rungs(r)) for r in eng.sub_buckets)
+            # both processes captured the warmup's pairs, once a program
+            assert eng.inner.graph_count >= 2 * pairs, eng.inner.graph_count
+            _save_state(eng, outdir, pid)
+            if role == "leader-graphs":
+                eng.close()
+            print(f"{role.upper()}-OK side_rounds={rounds}", flush=True)
             return
 
         _legs(eng, cfg, SK, eng.n, T0, device)

@@ -798,6 +798,142 @@ def test_four_shard_two_tier_mesh_on_card_matches_cpu():
     assert card.stats.snapshot() == cpu.stats.snapshot()
 
 
+_MESH_LADDER = (64, 256)  # sub-batch rungs 64, 96, 128, 192, 256
+
+
+def _mesh_graph_batch(rng, pool, step: int, chain: bool, n_shards: int):
+    """A batch that lands each step on another (B_sub, G_sub) pair of
+    _MESH_LADDER's sub-batch ladder over `n_shards` shards, and on step
+    21 on a rung past its top (chains: rows in chains of up to 3, a
+    chain routed by its head)."""
+    n = n_shards * ((40, 80, 150, 200)[step % 4] if step != 21 else 400)
+    distinct = max(8, n // (1 + step % 3))
+    keys = pool[rng.choice(pool.shape[0], min(distinct, pool.shape[0]), replace=False)]
+    kh = keys[rng.integers(0, keys.shape[0], n)]
+    fields = [kh, rng.choice([0, 1, 1, 2, 40], n), rng.choice([0, 3, 10, 1000], n),
+              rng.choice([1, 1000, 60_000, (1 << 30) - 1], n),
+              rng.integers(0, 4, n).astype(np.int32)]
+    if chain:
+        cid = np.arange(n) // 3
+        return fields + [cid, kh[cid * 3]]
+    return fields + [rng.random(n) < 0.05]
+
+
+@pytest.mark.parametrize("program", ["exact", "sketch", "chain"])
+def test_mesh_graph_replays_match_the_eager_mesh_on_card(program):
+    """A graphed 4-shard mesh on cuda:0 (warmup captures every (B_sub,
+    G_sub) pair of a small ladder, once a program; chains capture on
+    first use) against the eager one (cuda_graphs=False) and a CPU mesh
+    on the same batches, byte for byte: answers, stats, every shard's
+    store and sub-sketch, with `now` advancing and, between batches, a
+    reset, a load_state, a forced rebase, a GLOBAL sync and an
+    install_windows (the graphs keep pointing at the live tensors), and
+    one batch past the ladder's top (captured on first use, its staging
+    slots grown). One device holds the 4 shards, so each batch is one
+    replay that counts 4 writeback launches; close() hands the pool
+    back."""
+    _need_card()
+    from gubernator_tpu_torch.core.sketches import SketchConfig
+    from gubernator_tpu_torch.parallel.sharded import MeshEngine, group_rungs
+
+    sk = SketchConfig(rows=2, width=1 << 10) if program == "sketch" else None
+    cfg = StoreConfig(rows=4, slots=64)  # small: drops and evictions
+    mk = lambda dev, **kw: MeshEngine(cfg, devices=[dev] * 4, buckets=_MESH_LADDER,  # noqa: E731
+                                      sketch=sk, **kw)
+    g_eng, e_eng, c_eng = mk("cuda:0"), mk("cuda:0", cuda_graphs=False), mk("cpu")
+    now = 1_700_000_000_000
+    for eng in (g_eng, e_eng, c_eng):
+        eng.warmup(now=now)
+    pairs = sum(len(group_rungs(r)) for r in g_eng.sub_buckets) * (2 if sk else 1)
+    assert (g_eng.graph_count, g_eng.graph_captures, e_eng.graph_count) == (pairs, 0, 0)
+    assert len(g_eng.device_graphs) == 1 and g_eng.capture_s > 0
+    assert g_eng.graph_pool_bytes > 0 and g_eng.warmup_launches == e_eng.warmup_launches
+    rng = np.random.default_rng(31)
+    pool = rng.integers(0, 2**64, 3000, dtype=np.uint64)
+    engines = (g_eng, e_eng, c_eng)
+    before = writeback_add.launches
+    saved = None
+    for step in range(24):
+        now += int(rng.choice([1, 50, 1000, 70_000]))
+        if step == 6:
+            saved = (c_eng.store_numpy(), c_eng.clock.epoch, c_eng.sketch_numpy())
+        elif step == 9:
+            for eng in engines:
+                eng.reset()
+        elif step == 12:
+            for eng in engines:
+                eng.load_state(*saved)
+        elif step == 15:
+            now += 1 << 30  # past the epoch's envelope: every shard rebases in place
+        elif step == 18:
+            kh, one = pool[:100], np.ones(100, np.int64)
+            for eng in engines:
+                eng.install_windows(kh, one * 9, one * 4, one * (now + 60_000),
+                                    np.zeros(100, bool), now)
+                eng.sync_globals(pool[100:164], np.full(64, 9, np.int64),
+                                 np.full(64, 60_000, np.int64), now)
+        fields = _mesh_graph_batch(rng, pool, step, program == "chain", 4)
+        if program == "chain":
+            outs = [eng.decide_chain_arrays(*fields, now) for eng in engines]
+        else:
+            outs = [eng.decide_arrays(*fields, now) for eng in engines]
+        for other in outs[1:]:
+            for a, b in zip(outs[0], other):
+                np.testing.assert_array_equal(a, b, err_msg=f"step {step}")
+        snaps = [eng.stats.snapshot() for eng in engines]
+        assert snaps[0] == snaps[1] == snaps[2], step
+        np.testing.assert_array_equal(g_eng.store_numpy(), e_eng.store_numpy(), f"step {step}")
+        np.testing.assert_array_equal(g_eng.store_numpy(), c_eng.store_numpy(), f"step {step}")
+        if sk is not None:
+            np.testing.assert_array_equal(g_eng.sketch_numpy(), c_eng.sketch_numpy())
+            np.testing.assert_array_equal(e_eng.sketch_numpy(), c_eng.sketch_numpy())
+    torch.cuda.synchronize()
+    stats = g_eng.stats.snapshot()
+    assert stats["dropped"] > 0 and stats["evictions"] > 0
+    chunks = sum(e.install_chunks + e.gossip_chunks for e in (g_eng, e_eng))
+    assert writeback_add.launches - before == 4 * (2 * stats["batches"] + chunks)
+    (gr,) = g_eng.device_graphs.values()
+    assert gr.replays + gr.captures == stats["batches"]
+    # the rung past the top, and the chain program's shapes: on first use
+    assert g_eng.graph_captures > 1 if program == "chain" else g_eng.graph_captures == 1
+    assert g_eng.graph_count == pairs + g_eng.graph_captures
+    reserved = torch.cuda.memory_reserved()
+    g_eng.close()
+    assert g_eng.graph_count == 0 and torch.cuda.memory_reserved() < reserved
+
+
+def test_a_failing_mesh_capture_raises_on_card(monkeypatch):
+    """A mesh capture whose decides record other than one writeback launch
+    a shard raises; the engine keeps no graph and does not fall back to
+    the eager decide on the next batch of that shape. With the program
+    restored the shape captures and replays."""
+    _need_card()
+    from gubernator_tpu_torch.core import graphs
+    from gubernator_tpu_torch.parallel.sharded import MeshEngine
+
+    eng = MeshEngine(StoreConfig(rows=4, slots=64), devices=["cuda:0"] * 4, buckets=(64,))
+    kh = np.arange(1, 129, dtype=np.uint64) << np.uint64(32)
+    one = np.ones(128, np.int64)
+    args = (kh, one, one * 5, one * 60_000, np.zeros(128, np.int32), np.zeros(128, bool))
+    real = graphs.PROGRAMS["exact"]
+
+    def twice(*a):
+        real(*a)
+        return real(*a)
+
+    monkeypatch.setitem(graphs.PROGRAMS, "exact", twice)
+    for i in range(2):
+        with pytest.raises(RuntimeError, match="recorded 8 writeback launches, not 4"):
+            eng.decide_arrays(*args, 1_700_000_000_000 + i)
+        assert eng.graph_count == 0
+    monkeypatch.setitem(graphs.PROGRAMS, "exact", real)
+    for i in range(2):
+        eng.decide_arrays(*args, 1_700_000_000_002 + i)
+    torch.cuda.synchronize()
+    (gr,) = eng.device_graphs.values()
+    assert (eng.graph_count, gr.captures, gr.replays) == (1, 1, 1)
+
+
 def test_owner_masked_reads_on_card_match_the_flat_engine():
     """On the card, the mesh's owner-masked reads (snapshot_read,
     live_mask, sketch_estimates) and a GLOBAL sync answer as the flat
@@ -854,6 +990,37 @@ def test_two_processes_on_card_match_the_in_process_mesh(tmp_path):
                      sketch=SketchConfig(**runner.SKETCH))
     eng._engine_now(runner.T0)
     want = runner.traffic_script(eng, 4)
+    got, store, sketch = runner.load_outputs(tmp_path, 2)
+    runner.assert_same_outputs(got, want)
+    np.testing.assert_array_equal(store, eng.store_numpy())
+    np.testing.assert_array_equal(sketch, eng.sketch_numpy())
+
+
+def test_two_graphed_processes_on_card_match_the_in_process_mesh(tmp_path):
+    """Two processes of four shards each on cuda:0, each deciding its
+    shards as one graph replay a batch: the lockstep warmup captures the
+    same shapes in both (graph_captures 0 after it), while in each
+    process a side thread keeps capturing a flat engine's warmup, which
+    survives that process's replays, gathers, all_reduces and syncs and
+    the other process's; then the seeded script answers, and leaves the
+    store and sketch bytes, exactly as the eager in-process (2, 4) mesh
+    on the card."""
+    _need_card()
+    import _torch_multihost_runner as runner
+    from gubernator_tpu_torch.core.sketches import SketchConfig
+    from gubernator_tpu_torch.parallel.sharded import MeshEngine
+
+    l_rc, l_out, f_rcs, f_outs = runner.run_group(
+        2, 4, "cuda:0", tmp_path, 400, leader_role="leader-graphs",
+        follower_role="follower-graphs")
+    assert l_rc == 0 and "LEADER-GRAPHS-OK" in l_out, (
+        f"leader failed:\n{l_out}\nfollower:\n" + "\n".join(f_outs))
+    assert f_rcs == [0] and "FOLLOWER-GRAPHS-OK" in f_outs[0], f_outs[0]
+    eng = MeshEngine(StoreConfig(**runner.STORE), devices=["cuda:0"] * 8,
+                     buckets=runner.BUCKETS, mesh_shape=(2, 4),
+                     sketch=SketchConfig(**runner.SKETCH), cuda_graphs=False)
+    eng._engine_now(runner.T0)
+    want = runner.traffic_script(eng, 8)
     got, store, sketch = runner.load_outputs(tmp_path, 2)
     runner.assert_same_outputs(got, want)
     np.testing.assert_array_equal(store, eng.store_numpy())
