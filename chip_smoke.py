@@ -102,7 +102,7 @@ Phases, one JSON line each:
              JAX one (config_from_env -> make_backend -> warmup ->
              Instance -> start, this node alone on the ring): the same
              prefill through batcher.decide_arrays in groups of 4,096
-             from 8 fillers, a timed window of >= 10 s of zipf groups
+             from 8 fillers, a timed window of >= 5 s of zipf groups
              from 16 workers (decisions/s, mean device batch, promoter,
              shed cache, queue stats, stage times, beside the two-tier
              engine phase's decisions/s), a profiled 1 s window, and a
@@ -113,7 +113,7 @@ Phases, one JSON line each:
              with the serving phase's env on free ports: the boot log's
              store tiers (805,306,368 bytes) and HealthCheck, a limit-2
              walk through gRPC (the port's V1Client) and through the HTTP
-             JSON gateway, a timed window of >= 10 s of 16 AsyncV1Client
+             JSON gateway, a timed window of >= 5 s of 16 AsyncV1Client
              callers sending GetRateLimits of 1,000 zipf keys (decisions/s,
              RPC p50/p99, mean device batch from /metrics, stage means
              from /v1/debug/stages, the daemon's kernel launches, decides
@@ -146,7 +146,7 @@ Phases, one JSON line each:
              /v1/geb, the shm lane, the edge's HTTP JSON and its gRPC,
              one key counted by the fast door and the edge's fast frames
              in turn; six
-             windows of >= 5 s, their callers in a client process (this
+             windows of >= 3 s, their callers in a client process (this
              script with --geb-window): geb_1000 (16 connections, fast
              frames of 1,000), geb_deep (fast frames of 4,096, 8 in flight
              a connection), shm_deep (string frames of 4,096 over the shm
@@ -175,7 +175,7 @@ Phases, one JSON line each:
              after (snapshot_read), every key's remaining down by exactly
              its admitted chains' hits, refusals at the tenant and the
              leaf; then an in-process node (the daemon's build) and a
-             10 s window of GEBC frames of 256 chains from 8 callers in a
+             5 s window of GEBC frames of 256 chains from 8 callers in a
              client process (--geb-window chain) into its GEB door:
              Instance -> chain lane -> TorchBackend.decide_chain, no error
              answer, launches balanced, chains/s, host ms a flush outside
@@ -255,7 +255,8 @@ Phases, one JSON line each:
              daemon's launches over each pass equal its decides and chunks
              (/v1/debug/stats); (b) the port's chaos soak
              (cli/chaos_soak.py --backend tpu) in its three modes at the
-             JAX tests' lengths (kill 15 s, rolling 12 s, restore 12 s),
+             JAX tests' lengths (kill 15 s, rolling 12 s) and restore at 9 s
+             (one restore cycle, where 12 s makes two),
              each three such daemons in processes of their own, each mode's
              JSON on a line, held to tests/test_chaos_soak.py's gates
              (error rate < 0.05, no in-flight loss, recovery within 2
@@ -279,7 +280,7 @@ Phases, one JSON line each:
              4,096 keys equal to the flat engine's, a replica of each
              sampled key on every shard, and non-owner peeks answered from
              them; (d) the serving core over MeshBackend at 4 shards, then
-             the flat backend, 10 s each of zipf groups of 4,096 (arrival
+             the flat backend, 5 s each of zipf groups of 4,096 (arrival
              prep), and a `GUBER_BACKEND=mesh` daemon (GUBER_SHARDS=0: the
              one card, one shard) answering 5 s of the doors phase's gRPC
              traffic with no error, launches balanced, SIGTERM exit 0; (e)
@@ -288,16 +289,16 @@ Phases, one JSON line each:
              column preserved; (f) `bench_serving --scenario shard --shards
              1,2,4` (a flat row, then 1, 2, 4 shards of the card: routing
              and per-shard dispatch, not chip scaling); (g) the graphs: 4
-             two-tier and 8 exact shards, each graphed and warmed (every
-             (B_sub, G_sub) pair of the sub-batch ladder captured, one
-             graph a device decides every shard) and eager
-             (cuda_graphs=False), one batch identical to the CPU mesh,
-             then 24 batches of 32,768 through both in turns, identical
-             answers, shards, sketches and stats: dispatch ms, batch ms,
-             decisions/s, replay device ms, the unprofiled idle share,
-             graph_count, graph_captures (0), capture_s and pool bytes.
-             Every mesh decides graphed: legs (a)-(c) capture their own
-             batches' shapes in an untimed pass first, (d) and (f) warm
+             two-tier and 8 exact shards, each graphed (one graph a device
+             decides every shard) and eager (cuda_graphs=False), one batch
+             identical to the CPU mesh, then 24 batches of 32,768 through
+             both in turns, identical answers, shards, sketches and stats:
+             dispatch ms, batch ms, decisions/s, device span, replay
+             device ms, the idle share (the eager one derived from the
+             graphed replay), graph_count, graph_captures (0), capture_s
+             and pool bytes. Every mesh decides graphed: legs (a)-(c) and
+             (g) capture their own batches' shapes in an untimed pass
+             first (the full warmup walk is (d)'s), (d) and (f) warm
              up and must capture nothing after. Each leg prints
              decisions/s and batch ms beside the flat engine's, and peak
              memory; its writeback launches must equal n_shards x (decides
@@ -403,7 +404,14 @@ GRAPH_CARD_TESTS = ("graph_replays or decide_wait_does_not_wait or failing_captu
                     "or failing_mesh_capture or capture_survives", 10)
 
 
+_STARTED = time.monotonic()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries `t`, the script's
+    seconds so far when it was printed (where a run's time went)."""
+    if "phase" in obj:
+        obj = dict(obj, t=time.monotonic() - _STARTED)
     print(json.dumps(obj), flush=True)
 
 
@@ -1308,7 +1316,7 @@ SERVING_ENV = {  # cli/bench_serving.py run_zipf100m's conf_for (both packages)
 SERVING_BYTES = 805_306_368  # int32[2^20, 128] store + int32[2, 2^25] sketch
 GROUP = 4096  # rows per caller group (bench_serving's --group)
 FILLERS = 8  # concurrent prefill callers (_prefill_sequential)
-WINDOW_S = 10.0  # the timed window (_measure_window)
+WINDOW_S = 5.0  # the timed window (_measure_window; 10 s before the mesh graphs)
 PROFILE_S = 1.0  # the profiled window
 ZIPF_POOL = 1 << 22  # pre-hashed zipf pool the window's workers slide over
 CHECKED_GROUPS = 24  # request-object groups held against the CPU
@@ -2307,7 +2315,7 @@ GEB_DEEP_INFLIGHT = 8  # frames in flight per connection in the deep windows
 GEB_POOL = 24  # prebuilt frames (or JSON bodies) the callers cycle through
 GEB_CHECKED_FRAMES = 24
 GEB_WINDOWS = ("geb_1000", "geb_deep", "shm_deep", "unix_deep", "shm_fast", "edge_http")
-GEB_WINDOW_S = 5.0  # each geb window (10 s before the chain phase took its time)
+GEB_WINDOW_S = 3.0  # each geb window (10 s before the chain phase, 5 s before the mesh graphs)
 SHM_WINDOWS = ("shm_deep", "shm_fast")  # the windows over the shm lane
 STRING_WINDOWS = ("shm_deep", "unix_deep")  # string frames, folded in the server
 
@@ -3976,7 +3984,7 @@ DISCOVERY_KEYS = 4096  # keys sent through each node of leg (a), owners compared
 #: every ring (from its HTTP door opening), each within this many seconds
 MEMBERSHIP_BOUND_S = 10.0
 #: leg (b): the soak's modes at tests/test_chaos_soak.py's lengths
-SOAK_MODES = (("kill", 15.0), ("rolling", 12.0), ("restore", 12.0))
+SOAK_MODES = (("kill", 15.0), ("rolling", 12.0), ("restore", 9.0))  # restore: one cycle
 DISCOVERY_BUDGET_S = 300.0  # the phase's planned length (reported, not a gate)
 
 
@@ -4508,25 +4516,27 @@ def mesh_graphs_leg(card: str, ladder, writeback) -> dict:
     MeshEngine.device_graphs) against the eager decide (cuda_graphs=False,
     a decide a shard), at 4 two-tier shards (legs (a)'s [4, 2^20, 128]
     store and [4, 2, 2^25] sketch) and 8 exact shards (leg (c)'s 8 x
-    int32[2^21, 128]): the graphed one warmed (every (B_sub, G_sub) pair
-    of the sub-batch ladder captured, once a program), then
+    int32[2^21, 128]): the graphed one captures the shapes of the leg's
+    own batches in an untimed pass first, as legs (a)-(c) do (the full
+    warmup walk is the serving leg's and the multihost daemons'), then
     one batch on each and on the port's CPU mesh (answers, every shard,
     sub-sketch and the stats identical), then the same batches of 32,768
     zipf keys through each, in turns, every answer identical and the
-    shards, sketches and stats at the end. Prints each kind's dispatch ms
-    a batch (MeshEngine._dispatch on the host), batch ms (median, p99) and
-    decisions/s (submit to answers, the card drained before each), the
-    graphed replay's device ms (CUDA events around the replay alone; one
-    device, so one replay a batch), the idle share read without the
-    profiler (1 - replay device ms / batch ms; the eager side's busy time
-    taken as the graphed replay's of the same batches), the graphs, the
-    captures after warmup (0), the warmup's capture seconds and the pool's
-    bytes."""
+    shards, sketches and stats at the end, no capture among them. Prints
+    each kind's dispatch ms a batch (MeshEngine._dispatch on the host),
+    batch ms (median, p99), decisions/s (submit to answers, the card
+    drained before each) and device span a batch (the engine's own
+    events, upload start to download end), the graphed replay's device
+    ms (CUDA events around the replay alone; one device, so one replay a
+    batch), the graphed idle share read without the profiler (1 - replay
+    device ms / batch ms) and the eager one derived from it (the same
+    batches' replay device ms over the eager batch ms: the eager side's
+    busy time is not measured), the graphs, the captures in the A/B (0),
+    the capture seconds and the pool's bytes."""
     from gubernator_tpu_torch.core.sketches import derive_two_tier_config
     from gubernator_tpu_torch.core.store import derive_store_config
-    from gubernator_tpu_torch.parallel.sharded import MeshEngine, group_rungs, sub_batch_ladder
+    from gubernator_tpu_torch.parallel.sharded import MeshEngine
 
-    pairs = sum(len(group_rungs(r)) for r in sub_batch_ladder(ladder))
     out = dict(launches=0)
     for name in ("two_tier", "exact"):
         if name == "two_tier":
@@ -4540,23 +4550,22 @@ def mesh_graphs_leg(card: str, ladder, writeback) -> dict:
         graphed = MeshEngine(config, devices=["cuda:0"] * n, buckets=ladder, sketch=skc)
         eager = MeshEngine(config, devices=["cuda:0"] * n, buckets=ladder, sketch=skc,
                            cuda_graphs=False)
-        t0 = time.monotonic()
-        graphed.warmup(now=T0)
-        warm_s = time.monotonic() - t0
-        eager._engine_now(T0)  # nothing to capture: the warmed mesh's epoch
-        programs = 1 if skc is None else 2
-        if graphed.graph_count != pairs * programs or graphed.graph_captures:
-            fail(f"mesh graphs {name}: warmup left {graphed.graph_count} graphs "
-                 f"({graphed.graph_captures} first-use captures), not {pairs} (B_sub, G_sub) "
-                 f"pairs x {programs} programs")
-        pool_bytes = graphed.graph_pool_bytes
-        reserved_warm = torch.cuda.memory_reserved()
-        writeback.writeback_add.launches = 0  # count this leg only
         ones = np.ones(DEPTH, np.int64)
         tok = (ones * HITS, ones * LIMIT, ones * dur, np.zeros(DEPTH, np.int32),
                np.zeros(DEPTH, bool))
         pool = zipf_hashes((MESH_GRAPH_BATCHES + 1) * DEPTH, seed=101,
                            key_space=space).reshape(-1, DEPTH)
+        captured = _capture_shapes(graphed, pool, tok, 1)
+        for eng in (graphed, eager):
+            eng._engine_now(T0)  # one epoch: the capture pass wiped the graphed one's
+        (dg,) = graphed.device_graphs.values()
+        programs = sorted({key[0] for key in dg.graphs})
+        if programs != (["exact"] if skc is None else ["sketch"]) or graphed.graph_captures:
+            fail(f"mesh graphs {name}: the capture pass left programs {programs}, "
+                 f"{graphed.graph_captures} captures")
+        pool_bytes = graphed.graph_pool_bytes
+        reserved_warm = torch.cuda.memory_reserved()
+        writeback.writeback_add.launches = 0  # count this leg only
 
         # one batch on the graphed, the eager and a CPU mesh, one state
         # (empty, the epoch at T0)
@@ -4598,6 +4607,7 @@ def mesh_graphs_leg(card: str, ladder, writeback) -> dict:
         eager._dispatch = timed(eager._dispatch, dispatch_ms["eager"])
         for dg in graphed.device_graphs.values():
             dg.replay = replay_timed(dg.replay)
+        span0 = {"graphed": graphed.device_span_ms, "eager": eager.device_span_ms}
         s0 = {"graphed": graphed.stats.snapshot(), "eager": eager.stats.snapshot()}
         for i in range(MESH_GRAPH_BATCHES):
             now += 1
@@ -4638,11 +4648,13 @@ def mesh_graphs_leg(card: str, ladder, writeback) -> dict:
             batch_ms_median=statistics.median(batch_ms[label]),
             batch_ms_p99=float(np.percentile(batch_ms[label], 99)),
             decisions_per_s=MESH_GRAPH_BATCHES * DEPTH / (sum(batch_ms[label]) / 1e3),
-            idle_share_unprofiled=1 - busy / sum(batch_ms[label]),
-        ) for label in ("graphed", "eager")}
-        (dg,) = graphed.device_graphs.values()
+            device_span_ms_per_batch=(eng.device_span_ms - span0[label]) / MESH_GRAPH_BATCHES,
+        ) for label, eng in (("graphed", graphed), ("eager", eager))}
+        kinds["graphed"]["idle_share_unprofiled"] = 1 - busy / sum(batch_ms["graphed"])
+        kinds["eager"]["idle_share_unprofiled_derived_from_graphed_replay"] = (
+            1 - busy / sum(batch_ms["eager"]))
         kinds["graphed"].update(
-            warmup_s=warm_s, warmup_launches=graphed.warmup_launches,
+            capture_pass_s=captured["seconds"],
             replay_device_ms_median=statistics.median(replay_ms),
             replay_device_ms_mean=statistics.fmean(replay_ms),
             ring_depth=dg.ring.depth, ring_waits=dg.ring.waits,
@@ -4652,10 +4664,10 @@ def mesh_graphs_leg(card: str, ladder, writeback) -> dict:
             store_shape=[n] + list(graphed.stores[0].data.shape),
             sketch_shape=None if skc is None else [n] + list(graphed.sketches[0].data.shape),
             batch=DEPTH, batches=MESH_GRAPH_BATCHES, sub_buckets=list(graphed.sub_buckets),
-            graph_count=graphed.graph_count, graph_pairs=pairs, programs=programs,
+            graph_count=graphed.graph_count, programs=programs,
             graph_captures=graphed.graph_captures, capture_s=graphed.capture_s,
             graph_pool_bytes=pool_bytes, memory_reserved_before=reserved0,
-            memory_reserved_after_warmups=reserved_warm,
+            memory_reserved_after_captures=reserved_warm,
             cpu_identical=True, graphed_identical_to_eager=True, stats=st["graphed"],
             decides=decides, kernel_launches=launches, launches=launches,
             graphed=kinds["graphed"], eager=kinds["eager"],
@@ -4789,7 +4801,7 @@ def mesh_daemon(card: str) -> dict:
 
 def mesh_serving_leg(card: str, writeback, serving_rate: float) -> dict:
     """(d) The serving core over MeshBackend at 4 shards of the card, then
-    the flat TorchBackend, each a 10 s window of the serving phase's zipf
+    the flat TorchBackend, each a 5 s window of the serving phase's zipf
     groups (no prefill: both from an empty store); then the one-shard
     GUBER_BACKEND=mesh daemon."""
     import asyncio

@@ -44,8 +44,16 @@ and every later batch of that shape is one replay:
   preceded by one eager decide of the batch on that stream instead (it
   is then the answer), which loads the program's kernels and puts the
   allocator's blocks in place before anything records, as
-  torch.cuda.graphs asks. A
-  capture that fails, or whose decide did not record exactly k
+  torch.cuda.graphs asks. Later shapes skip that run: a mesh's is k
+  eager decides (~12-18 ms of host dispatch each on an H100) at each of
+  up to 134 captures a warmup, and with it a mesh's captures took
+  1.5-1.8x as long (PERF.md §6). A cold capture risks a first use
+  inside the capture (a kernel variant only a larger size picks, a lazy
+  initialisation), which raises rather than record a wrong graph;
+  tests/test_torch_cuda.py's
+  test_every_serving_rung_captured_cold_replays_the_eager_decide_on_card
+  replays every such pair of the serving ladder against the eager
+  decide. A capture that fails, or whose decide did not record exactly k
   `writeback_add` launches (one a row), raises: nothing falls back to
   the eager decide.
 - **One capture at a time.** A capture is invalidated by a device-wide

@@ -338,7 +338,7 @@ class MultiHostMeshEngine:
     with no pipe, as the reference's is without jax.distributed.
 
     On a GPU each process decides its shards as one captured graph
-    replay a device (MeshEngine, `cuda_graphs`): the lockstep warmup
+    replay a device (MeshEngine's default): the lockstep warmup
     makes every process capture the same shapes in the same order, and
     a follower's decide steps replay them.
     """
@@ -350,7 +350,6 @@ class MultiHostMeshEngine:
         buckets: Sequence[int] = (64, 256, 1024, 4096),
         sketch=None,
         devices: Optional[Sequence] = None,
-        cuda_graphs: bool = True,
     ):
         import torch.distributed as dist
 
@@ -366,8 +365,7 @@ class MultiHostMeshEngine:
             rank = 0
             policy = ShardingPolicy.over_mesh(devices)
         self.is_leader = rank == 0
-        self.inner = MeshEngine(store_config, buckets=buckets, sketch=sketch, policy=policy,
-                                cuda_graphs=cuda_graphs)
+        self.inner = MeshEngine(store_config, buckets=buckets, sketch=sketch, policy=policy)
         # the steps a follower ran, by kind, and the decides among them
         # that dispatched (follower_loop counts both)
         self.steps = collections.Counter()

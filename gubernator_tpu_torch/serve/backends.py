@@ -464,13 +464,12 @@ class MeshBackend(_ArrayOps):
         buckets: Sequence[int] = (64, 256, 1024, 4096),
         sketch=None,
         mesh_shape: Optional[Tuple[int, int]] = None,
-        cuda_graphs: bool = True,
     ):
         from gubernator_tpu_torch.parallel.sharded import MeshEngine
 
         self.engine = MeshEngine(
             store, devices=devices, buckets=buckets, mesh_shape=mesh_shape,
-            sketch=sketch, cuda_graphs=cuda_graphs,
+            sketch=sketch,
         )
 
     @property

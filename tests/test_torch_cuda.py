@@ -934,6 +934,73 @@ def test_a_failing_mesh_capture_raises_on_card(monkeypatch):
     assert (eng.graph_count, gr.captures, gr.replays) == (1, 1, 1)
 
 
+@pytest.mark.parametrize("shards", [0, 4])  # 0: the flat engine
+@pytest.mark.parametrize("sketch", [False, True])
+def test_every_serving_rung_captured_cold_replays_the_eager_decide_on_card(shards, sketch):
+    """Warmup runs a program eagerly only before its first capture on a
+    device; every later (B, G) pair of the serving ladder
+    (buckets_for_limit(32768): 20 flat pairs, 67 sub-batch pairs) is
+    captured with no warm run of its own, so a kernel variant its sizes
+    pick (the sorts' tiling, a larger grid) is first met inside the
+    capture. Each such graph, replayed on a batch that lands on its
+    pair, answers as the eager engine (cuda_graphs=False) does, with
+    every program of the engine; at the end the stats, stores and
+    sketches are identical, and no batch captured."""
+    _need_card()
+    from gubernator_tpu_torch.core.engine import buckets_for_limit, group_rungs
+    from gubernator_tpu_torch.core.sketches import SketchConfig
+    from gubernator_tpu_torch.parallel.sharded import MeshEngine, owner_of_np
+
+    ladder = buckets_for_limit(32768)
+    cfg = StoreConfig(rows=4, slots=1 << 12)  # small: drops and evictions
+    sk = SketchConfig(rows=2, width=1 << 12) if sketch else None
+    if shards:
+        mk = lambda **kw: MeshEngine(cfg, devices=["cuda:0"] * shards,  # noqa: E731
+                                     buckets=ladder, sketch=sk, **kw)
+    else:
+        mk = lambda **kw: TorchEngine(cfg, buckets=ladder, sketch=sk, **kw)  # noqa: E731
+    g_eng, e_eng = mk(), mk(cuda_graphs=False)
+    now = 1_700_000_000_000
+    for eng in (g_eng, e_eng):
+        eng.warmup(now=now)
+    rungs = g_eng.sub_buckets if shards else ladder
+    tiers = (False, True) if sketch else (False,)
+    pairs = [(r, g) for r in rungs for g in group_rungs(r)]
+    (dg,) = g_eng.device_graphs.values() if shards else (g_eng.graphs,)
+    assert (g_eng.graph_count, g_eng.graph_captures) == (len(pairs) * len(tiers), 0)
+    assert dg.warm == ({"exact", "sketch"} if sketch else {"exact"})
+    rng = np.random.default_rng(41)
+    for step, (r, g) in enumerate(pairs):
+        pool = rng.integers(1, 2**63, 8 * max(shards, 1) * g, np.int64).astype(np.uint64)
+        if shards:
+            owners = owner_of_np(pool, shards)
+            kh = np.concatenate([np.resize(pool[owners == s][:g], r) for s in range(shards)])
+        else:
+            kh = np.resize(pool[:g], r)
+        n = kh.shape[0]
+        fields = (kh, rng.integers(1, 3, n).astype(np.int64),
+                  rng.integers(1, 9, n).astype(np.int64),
+                  rng.choice([1000, 60_000], n).astype(np.int64),
+                  rng.integers(0, 4, n).astype(np.int32), rng.random(n) < 0.05)
+        for on in tiers:
+            now += int(rng.choice([1, 50, 1000]))
+            outs = []
+            for eng in (g_eng, e_eng):
+                eng.sketch_on = on
+                outs.append(eng.decide_arrays(*fields, now))
+            for a, b in zip(*outs):
+                np.testing.assert_array_equal(a, b, err_msg=f"pair {(r, g)}, sketch_on {on}")
+    torch.cuda.synchronize()
+    snap = g_eng.stats.snapshot()
+    assert snap == e_eng.stats.snapshot()
+    assert snap["evictions"] + snap["dropped"] > 0
+    np.testing.assert_array_equal(g_eng.store_numpy(), e_eng.store_numpy())
+    if sketch:
+        np.testing.assert_array_equal(g_eng.sketch_numpy(), e_eng.sketch_numpy())
+    assert (g_eng.graph_captures, dg.replays) == (0, len(pairs) * len(tiers))
+    g_eng.close()
+
+
 def test_owner_masked_reads_on_card_match_the_flat_engine():
     """On the card, the mesh's owner-masked reads (snapshot_read,
     live_mask, sketch_estimates) and a GLOBAL sync answer as the flat
