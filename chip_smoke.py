@@ -1726,17 +1726,12 @@ BOOT_S = 600  # the daemon's boot (warmup of every rung) must end within
 
 
 def free_ports(n: int) -> list:
-    """n distinct ephemeral localhost ports (bind-then-release)."""
-    import socket
+    """n distinct localhost ports free to bind, from below the ephemeral
+    range (cli/chaos_soak.py's free_ports): a daemon restarted on its old
+    port does not find it taken by an outgoing connection."""
+    from gubernator_tpu_torch.cli.chaos_soak import free_ports as pick
 
-    socks = [socket.socket() for _ in range(n)]
-    try:
-        for s in socks:
-            s.bind(("127.0.0.1", 0))
-        return [s.getsockname()[1] for s in socks]
-    finally:
-        for s in socks:
-            s.close()
+    return pick(n)
 
 
 def spawn_daemon(env: dict, root: str) -> tuple:

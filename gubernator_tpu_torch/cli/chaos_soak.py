@@ -79,6 +79,7 @@ import argparse
 import json
 import os
 import pathlib
+import random
 import signal
 import socket
 import subprocess
@@ -111,16 +112,58 @@ OBSERVER, DRAIN_NODE, VICTIM = 0, 1, 2
 TPU_ENV = {"GUBER_SKETCH": "0", "GUBER_STORE_MIB": "1024"}
 
 
-def free_ports(n):
-    """n distinct ephemeral localhost ports (bind-then-release)."""
-    socks = [socket.socket() for _ in range(n)]
+#: the lowest outgoing source port assumed where the kernel does not say
+#: (Linux's default range starts at 32768, gVisor's netstack's at 16000)
+EPHEMERAL_FLOOR = 16000
+
+
+def ephemeral_floor() -> int:
+    """The lowest port the kernel may hand an outgoing connection as its
+    source port: the start of ip_local_port_range, never above
+    EPHEMERAL_FLOOR."""
     try:
-        for s in socks:
-            s.bind(("127.0.0.1", 0))
-        return [s.getsockname()[1] for s in socks]
-    finally:
-        for s in socks:
-            s.close()
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            return min(int(f.read().split()[0]), EPHEMERAL_FLOOR)
+    except (OSError, ValueError, IndexError):
+        return EPHEMERAL_FLOOR
+
+
+#: every port free_ports has handed out in this process, never handed twice
+_HANDED = set()
+
+
+def free_ports(n):
+    """n distinct localhost ports, each free to bind now and none handed
+    out before by this process, drawn at random from below the ephemeral
+    range. A node restarted on its old ports cannot then find one taken
+    as the source port of some client's outgoing connection, which an
+    ephemeral pick (bind to port 0) allows: a rolling restart under load
+    then fails to bind with EADDRINUSE."""
+    top = ephemeral_floor()
+    if top - 1024 < 64 * n:
+        # no room below the range: fall back to ephemeral picks
+        socks = [socket.socket() for _ in range(n)]
+        try:
+            for s in socks:
+                s.bind(("127.0.0.1", 0))
+            return [s.getsockname()[1] for s in socks]
+        finally:
+            for s in socks:
+                s.close()
+    rng = random.SystemRandom()
+    ports = []
+    while len(ports) < n:
+        port = rng.randrange(1024, top)
+        if port in _HANDED:
+            continue
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        _HANDED.add(port)
+        ports.append(port)
+    return ports
 
 
 class Cluster:
@@ -206,8 +249,10 @@ class Cluster:
         while time.monotonic() < deadline:
             if self.procs[i].poll() is not None:
                 raise RuntimeError(
-                    f"node {i} died at boot; log: "
-                    f"{self.log_dir}/node{i}.log"
+                    f"node {i} died at boot (exit code "
+                    f"{self.procs[i].returncode}); log: "
+                    f"{self.log_dir}/node{i}.log, its tail:\n"
+                    f"{self.log_tail(i, lines=40)}"
                 )
             try:
                 h = get_json(
