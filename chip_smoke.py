@@ -338,6 +338,27 @@ Phases, one JSON line each:
              chip scaling;
 16. kernels  the contract line over every kernel of the path.
 
+The installs, GLOBAL steps, reads and the promoter's top-k fold are
+captured graphs too (core/graphs.py), and three phases hold them graphed
+against eager and the CPU: the `graphs` phase's two-tier engine
+(update_globals of 4,096 and 32,768 keys, live_mask and
+sketch_estimates of 1,024, and `observe_arrays` of one fold through a
+graphed, an eager and a CPU `DeviceTopK`), the mesh's leg (g) at 4
+two-tier and 8 exact shards (apply_global_hits and sync_globals of
+4,096, update_globals of 4,096 and 32,768, a full-lane install_windows
+of 32,768, the reads of 1,024): each call once on the graphed, the eager
+and the CPU engine of one state (answers identical, then every shard's
+store and sketch), then PROGRAM_REPS timed calls a kind in turns
+(medians, every answer identical), the launches balanced with every
+install and GLOBAL step replayed; and the multihost leg (a), whose
+GLOBAL step is timed MH_GLOBAL_STEPS more times beside its all_reduce ms
+(the first captures its charge and install graphs). The `graphs` phase
+also times what stays eager, the store's `rebase`, on both deployments.
+After warmup nothing of those that the warmup walks captures again: the
+flat engines of the `graphs` phase, the serving mesh, the mesh daemon,
+the multihost leader (its follower holds as many graphs) and the doors
+daemon (`program_graphs` and `topk_graph` in /v1/debug/stats).
+
 The writeback kernel's launch count is set to 0 before each in-process
 path (each durability leg, each workloads scenario) and read after it; a
 replay of a captured decide adds the launch its capture recorded, and a
@@ -401,7 +422,13 @@ GRAPH_AB_BATCHES = 24  # batches each deployment's graphs phase decides eager an
 #: card_tests phase runs: 3 replay-vs-eager, the decide_wait, the failed capture
 #: and the capture beside a collector, a synchronize and a second capture
 GRAPH_CARD_TESTS = ("graph_replays or decide_wait_does_not_wait or failing_capture "
-                    "or failing_mesh_capture or capture_survives", 10)
+                    "or failing_mesh_capture or capture_survives or failing_program_capture",
+                    11)
+#: each program of the program A/B (graphed against eager): one untimed
+#: call (it captures on first use, and is held against the CPU), then
+#: this many timed calls of each kind
+PROGRAM_REPS = 8
+TOPK_CAPACITY = 2048  # the promoter's table: 4 x GUBER_SKETCH_TOPK's default 512
 
 
 _STARTED = time.monotonic()
@@ -1087,11 +1114,176 @@ def two_tier_path(card: str, ladder, writeback) -> dict:
 
 
 def graph_fields(eng) -> dict:
-    """A flat engine's captured decides for a phase's line: the graphs,
-    the first-use captures since warmup (0 where warmup walked every
-    shape the phase sends) and the warmup's capture seconds."""
+    """An engine's captured programs for a phase's line: the decide
+    graphs, their first-use captures since warmup (0 where warmup walked
+    every shape the phase sends), the warmup's capture seconds (every
+    program's, and the installs', GLOBAL steps' and reads' alone); the
+    other programs' graphs and their captures since warmup (0 likewise),
+    and apart from those the captures of the programs the reference too
+    compiles only on first use (full-lane installs, reads past the walked
+    rungs)."""
     return dict(graph_count=eng.graph_count, graph_captures=eng.graph_captures,
-                capture_s=eng.capture_s)
+                capture_s=eng.capture_s, program_graph_count=eng.program_graph_count,
+                program_captures=eng.program_captures,
+                first_use_captures=eng.first_use_captures,
+                program_capture_s=eng.program_capture_s)
+
+
+def program_ops(mesh: bool, sketch: bool, dur: int) -> list:
+    """The calls of the program A/B, the same inputs on every engine: on
+    a mesh apply_global_hits and sync_globals of 4,096 keys; update_globals
+    of 4,096 and of 32,768; on a mesh a full-lane install_windows of
+    32,768; live_mask and (two tiers) sketch_estimates of 1,024. Each is
+    (name, fn(engine, now) -> its answers, or None for an install)."""
+    from gubernator_tpu_torch.core.store import FLAG_STICKY_OVER
+
+    rng = np.random.default_rng(0x9A0)
+
+    def keys(n):
+        return np.unique(rng.integers(1, 2**63, 2 * n).astype(np.uint64))[:n]
+
+    k4, k32, k1 = keys(4096), keys(32768), keys(1024)
+    o4, o32, o1 = (np.ones(n, np.int64) for n in (4096, 32768, 1024))
+    over4, over32 = rng.random(4096) < 0.2, rng.random(32768) < 0.2
+    ops = []
+    if mesh:
+        ops += [("apply_global_hits_4096",
+                 lambda e, now: e.apply_global_hits(k4, o4 * 2, o4 * LIMIT, o4 * dur, now)),
+                ("sync_globals_4096", lambda e, now: e.sync_globals(k4, o4 * LIMIT, o4 * dur,
+                                                                    now))]
+    for n, k, o, over in ((4096, k4, o4, over4), (32768, k32, o32, over32)):
+        ops.append((f"update_globals_{n}", lambda e, now, k=k, o=o, over=over: e.update_globals(
+            key_hash=k, limit=o * LIMIT, remaining=o * 3, reset_time=o * (now + dur),
+            is_over=over, now=now)))
+    if mesh:
+        flags = np.where(over32, FLAG_STICKY_OVER, 0).astype(np.int64)
+        ts = rng.integers(0, 1000, 32768)
+        ops.append(("install_windows_full_32768", lambda e, now: e.install_windows(
+            k32, o32 * LIMIT, o32 * 7, o32 * (now + dur), over32, now=now, duration=o32 * dur,
+            ts=ts, flags=flags)))
+    ops.append(("live_mask_1024", lambda e, now: (e.live_mask(k1, now),)))
+    if sketch:
+        ops.append(("sketch_estimates_1024",
+                    lambda e, now: (e.sketch_estimates(k1, o1 * dur, now),)))
+    return ops
+
+
+def _same_answers(a, b, what: str) -> None:
+    if (a is None) != (b is None):
+        fail(f"{what}: one engine answered, the other did not")
+    for x, y in zip(a or (), b or ()):
+        if not np.array_equal(np.asarray(x), np.asarray(y)):
+            fail(f"{what}: answers differ")
+
+
+def program_checks(graphed, eager, cpu, ops, now: int, what: str) -> int:
+    """Each call of `ops` once on the graphed, the eager and the CPU
+    engine of one state, answers identical (the graphed engine captures
+    a program at its first use here). Returns the last `now`."""
+    for name, fn in ops:
+        now += 1
+        res = [fn(e, now) for e in (graphed, eager, cpu)]
+        _same_answers(res[0], res[2], f"{what} {name}: graphed vs the CPU")
+        _same_answers(res[1], res[2], f"{what} {name}: eager vs the CPU")
+    return now
+
+
+def program_timings(graphed, eager, ops, now: int, what: str):
+    """PROGRAM_REPS timed calls of each of `ops` on the graphed and the
+    eager engine, in turns (eager first on even calls), the card drained
+    before and after each; answers identical. Returns ({name: medians,
+    every ms}, the last `now`)."""
+    out = {}
+    for name, fn in ops:
+        ms = {"graphed": [], "eager": []}
+        for i in range(PROGRAM_REPS):
+            now += 1
+            res = {}
+            turn = (("eager", eager), ("graphed", graphed))
+            for label, eng in (turn if i % 2 == 0 else turn[::-1]):
+                device_sync()
+                t0 = time.perf_counter()
+                res[label] = fn(eng, now)
+                device_sync()
+                ms[label].append((time.perf_counter() - t0) * 1e3)
+            _same_answers(res["graphed"], res["eager"], f"{what} {name} call {i}: graphed "
+                          "vs eager")
+        g, e = statistics.median(ms["graphed"]), statistics.median(ms["eager"])
+        out[name] = dict(graphed_ms_median=g, eager_ms_median=e, eager_over_graphed=e / g,
+                         graphed_ms=ms["graphed"], eager_ms=ms["eager"])
+    return out, now
+
+
+def rebase_timing(eng) -> dict:
+    """What stays eager: the clock's store rebase (core/store.py `rebase`,
+    every ~12 days of engine uptime) on this engine's store, one untimed
+    call then PROGRAM_REPS timed ones, the card drained before and after
+    each, and the sketch clear that goes with it on two tiers. Shifts the
+    store's times: call it last."""
+    from gubernator_tpu_torch.core.store import rebase
+
+    ms, clear_ms = [], []
+    for i in range(PROGRAM_REPS + 1):
+        device_sync()
+        t0 = time.perf_counter()
+        rebase(eng.store, 1)
+        device_sync()
+        t1 = time.perf_counter()
+        if eng.sketch is not None:
+            eng.sketch.data.zero_()
+            device_sync()
+        if i:
+            ms.append((t1 - t0) * 1e3)
+            clear_ms.append((time.perf_counter() - t1) * 1e3)
+    nbytes = eng.store.data.numel() * 4
+    return dict(rebase_ms_median=statistics.median(ms), rebase_ms=ms, store_bytes=nbytes,
+                bound_ms=2 * nbytes / HBM_BYTES_PER_S * 1e3,
+                sketch_clear_ms_median=statistics.median(clear_ms) if eng.sketch is not None
+                else None)
+
+
+def topk_ab(what: str) -> dict:
+    """The promoter's top-k fold (DeviceTopK.observe_arrays, TOPK_CAPACITY
+    slots, OBSERVE_TOP zipf100m keys a fold) graphed (the graph captured
+    when the table is built) against the eager fold on the card and the
+    CPU fold, one untimed fold then PROGRAM_REPS timed ones a kind, the
+    card drained before and after each; the three tables identical after
+    every fold, and no capture after the build."""
+    from gubernator_tpu_torch.serve.promoter import OBSERVE_TOP, DeviceTopK
+
+    t0 = time.monotonic()
+    graphed = DeviceTopK(TOPK_CAPACITY)
+    build_s = time.monotonic() - t0
+    tables = {"graphed": graphed, "eager": DeviceTopK(TOPK_CAPACITY, cuda_graphs=False),
+              "cpu": DeviceTopK(TOPK_CAPACITY, device="cpu")}
+    pool = zipf_hashes(OBSERVE_TOP * 8 * (PROGRAM_REPS + 1), seed=107,
+                       key_space=KEY_SPACE_100M)
+    ms = {"graphed": [], "eager": []}
+    for i in range(PROGRAM_REPS + 1):
+        uk, counts = np.unique(pool[i * OBSERVE_TOP * 8:(i + 1) * OBSERVE_TOP * 8],
+                               return_counts=True)
+        top = np.argsort(-counts, kind="stable")[:OBSERVE_TOP]
+        kh, w = uk[top], counts[top].astype(np.int64)
+        pay = {int(k): (LIMIT, DURATION_100M) for k in kh}
+        turn = ("eager", "graphed") if i % 2 == 0 else ("graphed", "eager")
+        for label in turn + ("cpu",):
+            device_sync()
+            t = time.perf_counter()
+            tables[label].observe_arrays(kh, w, pay)
+            device_sync()
+            if i and label != "cpu":
+                ms[label].append((time.perf_counter() - t) * 1e3)
+        for label in ("graphed", "eager"):
+            if not (torch.equal(tables[label]._kh.cpu(), tables["cpu"]._kh)
+                    and torch.equal(tables[label]._cnt.cpu(), tables["cpu"]._cnt)):
+                fail(f"{what} observe_arrays fold {i}: the {label} table differs from the CPU")
+    stats = graphed.graph_stats()
+    if stats["captures"] or stats["replays"] != PROGRAM_REPS + 1:
+        fail(f"{what} observe_arrays: the graphed table's fold graph {stats}")
+    g, e = statistics.median(ms["graphed"]), statistics.median(ms["eager"])
+    return dict(graphed_ms_median=g, eager_ms_median=e, eager_over_graphed=e / g,
+                graphed_ms=ms["graphed"], eager_ms=ms["eager"], build_s=build_s,
+                capture_s=graphed.capture_s, cpu_identical=True)
 
 
 def card_tests_phase() -> dict:
@@ -1157,6 +1349,11 @@ def graphs_path(card: str, ladder, writeback) -> dict:
             fail(f"graphs {name}: warmup left {graphed.graph_count} graphs "
                  f"({graphed.graph_captures} first-use captures), not {pairs} (B, G) "
                  f"pairs x {programs} programs")
+        # a token install a rung, and with a sketch both reads a read rung
+        reads = 2 * 5 if skc is not None else 0
+        if graphed.program_graph_count != len(ladder) + reads:
+            fail(f"graphs {name}: warmup left {graphed.program_graph_count} install and "
+                 f"read graphs, not {len(ladder)} + {reads}")
         pool_bytes = graphed.graph_pool_bytes
         reserved_warm = torch.cuda.memory_reserved()
         writeback.writeback_add.launches = 0  # count this phase only
@@ -1194,9 +1391,15 @@ def graphs_path(card: str, ladder, writeback) -> dict:
                     stats=(ds[0], ds[2]))
         same_as_cpu(eager, cpu, outs[1], outs[2], f"graphs {name}: eager vs CPU",
                     stats=(ds[1], ds[2]))
-        del cpu, engines
         if skc is not None and ds[0]["dropped"] <= 0:
             fail(f"graphs {name}: the checked batch had no sketch-served groups")
+        # the installs and reads (two tiers): once on each, held against
+        # the CPU; the warmup walked every rung they use
+        ops = program_ops(False, True, dur) if skc is not None else []
+        now = program_checks(graphed, eager, cpu, ops, now, f"graphs {name}")
+        for eng, label in ((graphed, "graphed"), (eager, "eager")):
+            same_as_cpu(eng, cpu, (), (), f"graphs {name} programs: {label} vs CPU")
+        del cpu, engines
 
         # the A/B: the same batches through both, eager first on even ones
         dispatch_ms = {"graphed": [], "eager": []}
@@ -1250,13 +1453,25 @@ def graphs_path(card: str, ladder, writeback) -> dict:
             fail(f"graphs {name}: store bytes differ between graphed and eager")
         if skc is not None and not torch.equal(graphed.sketch.data, eager.sketch.data):
             fail(f"graphs {name}: sketch bytes differ between graphed and eager")
-        launches = writeback.writeback_add.launches
-        if launches != decides or graphed.graph_captures:
-            fail(f"graphs {name}: writeback kernel launched {launches} times for {decides} "
-                 f"decides, {graphed.graph_captures} first-use captures")
         replay_ms = [a.elapsed_time(b) for a, b in replay_ev]
         if len(replay_ms) != GRAPH_AB_BATCHES:
             fail(f"graphs {name}: {len(replay_ms)} timed replays, not {GRAPH_AB_BATCHES}")
+        del graphed.graphs.replay, graphed._dispatch, eager._dispatch  # the timers
+        # the programs' A/B, then the promoter's fold's (two tiers)
+        programs, now = program_timings(graphed, eager, ops, now, f"graphs {name}")
+        if skc is not None:
+            programs["observe_arrays_128"] = topk_ab(f"graphs {name}")
+        if not torch.equal(graphed.store.data, eager.store.data) or (
+                skc is not None and not torch.equal(graphed.sketch.data, eager.sketch.data)):
+            fail(f"graphs {name}: the programs left the graphed and eager state apart")
+        launches = writeback.writeback_add.launches
+        owed = decides + sum(e.install_chunks + e.gossip_chunks for e in (graphed, eager))
+        if (launches != owed or graphed.graph_captures or graphed.program_captures
+                or graphed.first_use_captures):
+            fail(f"graphs {name}: writeback kernel launched {launches} times for {decides} "
+                 f"decides and the chunks ({owed}); captures after warmup: "
+                 f"{graph_fields(graphed)}")
+        rebase_t = rebase_timing(graphed)
         n = GRAPH_AB_BATCHES
         busy = sum(replay_ms)
         kinds = {}
@@ -1280,8 +1495,8 @@ def graphs_path(card: str, ladder, writeback) -> dict:
             phase="graphs", path=name, card=card, store_shape=list(graphed.store.data.shape),
             sketch_shape=None if skc is None else list(graphed.sketch.data.shape),
             batch=DEPTH, batches=n, ladder=list(ladder), prefill_s=prefill_s,
-            graph_count=graphed.graph_count, graph_pairs=pairs, programs=programs,
-            graph_captures=graphed.graph_captures, capture_s=graphed.capture_s,
+            graph_pairs=pairs, decide_programs=2 if skc is not None else 1,
+            **graph_fields(graphed), programs=programs, rebase=rebase_t,
             graph_pool_bytes=pool_bytes, memory_reserved_before=reserved0,
             memory_reserved_after_warmups=reserved_warm,
             max_memory_allocated=torch.cuda.max_memory_allocated(),
@@ -1997,11 +2212,16 @@ def doors_path(card: str) -> dict:
                  f"in /metrics)")
         if s1["decide_graphs"]["captures"] or not s1["decide_graphs"]["count"]:
             died(f"the window: the daemon's decide graphs {s1['decide_graphs']}")
+        if (s1["program_graphs"]["captures"] or not s1["program_graphs"]["count"]
+                or s1["topk_graph"]["captures"] or not s1["topk_graph"]["graphed"]):
+            died(f"the window: the daemon's other graphs {s1['program_graphs']}, the top-k "
+                 f"fold's {s1['topk_graph']}")
         window.update(device_batches=nb, mean_device_batch=rows / nb,
                       stages=stages["stages"],
                       shed=stages.get("shed_cache"),
                       kernel_launches=launches, decides=decides, chunks=chunks,
-                      decide_graphs=s1["decide_graphs"])
+                      decide_graphs=s1["decide_graphs"], program_graphs=s1["program_graphs"],
+                      topk_graph=s1["topk_graph"])
         emit(dict(phase="window", path="doors", card=card, **window))
 
         # a profiled stretch of the same traffic: the device's idle share
@@ -4285,7 +4505,10 @@ def _capture_shapes(eng, pool, fields, step: int) -> dict:
     eng.clock.epoch = None
     eng.stats = EngineStats()
     eng.install_chunks = eng.gossip_chunks = 0
-    eng._graphs_warmed()
+    sets = eng._graph_sets()
+    eng.capture_s = sum(g.capture_s for g in sets)
+    for g in sets:
+        g.zero_counts()
     return dict(seconds=time.monotonic() - t0, graphs=eng.graph_count)
 
 
@@ -4572,6 +4795,15 @@ def mesh_graphs_leg(card: str, ladder, writeback) -> dict:
         for label, i in (("graphed", 0), ("eager", 1)):
             _same_outs([outs[i]], [outs[2]], f"graphs {name}: {label} vs the CPU")
             _same_shards(engines[i], cpu, f"graphs {name}: {label} vs the CPU")
+        # the GLOBAL step, the installs and the reads: once on each, held
+        # against the CPU (the graphed mesh captures each at first use:
+        # this leg warms no ladder)
+        ops = program_ops(True, skc is not None, dur)
+        t0 = time.monotonic()
+        now = program_checks(graphed, eager, cpu, ops, now, f"mesh graphs {name}")
+        program_check_s = time.monotonic() - t0
+        for label, i in (("graphed", 0), ("eager", 1)):
+            _same_shards(engines[i], cpu, f"graphs {name} programs: {label} vs the CPU")
         del cpu, engines
         decides = 2
 
@@ -4629,13 +4861,25 @@ def mesh_graphs_leg(card: str, ladder, writeback) -> dict:
                                                    eager.sketches[s].data):
                 fail(f"mesh graphs {name}: shard {s}'s sketch differs between graphed and "
                      "eager")
-        launches = writeback.writeback_add.launches
-        if launches != n * decides or graphed.graph_captures:
-            fail(f"mesh graphs {name}: writeback launched {launches} times for {n} x "
-                 f"{decides} decides, {graphed.graph_captures} first-use captures")
         replay_ms = [a.elapsed_time(b) for a, b in replay_ev]
         if len(replay_ms) != MESH_GRAPH_BATCHES:
             fail(f"mesh graphs {name}: {len(replay_ms)} timed replays, not one a batch")
+        for dg in graphed.device_graphs.values():
+            del dg.replay  # the timer
+        del graphed._dispatch, eager._dispatch
+        # the programs' A/B: every graph captured above, so replays only
+        p0 = (graphed.program_captures, graphed.first_use_captures)
+        programs_ab, now = program_timings(graphed, eager, ops, now, f"mesh graphs {name}")
+        for s in range(n):
+            if not torch.equal(graphed.stores[s].data, eager.stores[s].data):
+                fail(f"mesh graphs {name}: the programs left shard {s}'s store apart")
+        launches = writeback.writeback_add.launches
+        chunks = sum(e.install_chunks + e.gossip_chunks for e in (graphed, eager))
+        if (launches != n * (decides + chunks) or graphed.graph_captures
+                or (graphed.program_captures, graphed.first_use_captures) != p0):
+            fail(f"mesh graphs {name}: writeback launched {launches} times for {n} x "
+                 f"({decides} decides + {chunks} chunks); captures in the A/B: "
+                 f"{graph_fields(graphed)} (after the checks: {p0})")
         busy = sum(replay_ms)
         kinds = {label: dict(
             dispatch_ms_median=statistics.median(dispatch_ms[label]),
@@ -4659,8 +4903,11 @@ def mesh_graphs_leg(card: str, ladder, writeback) -> dict:
             store_shape=[n] + list(graphed.stores[0].data.shape),
             sketch_shape=None if skc is None else [n] + list(graphed.sketches[0].data.shape),
             batch=DEPTH, batches=MESH_GRAPH_BATCHES, sub_buckets=list(graphed.sub_buckets),
-            graph_count=graphed.graph_count, programs=programs,
+            graph_count=graphed.graph_count, decide_programs=programs,
             graph_captures=graphed.graph_captures, capture_s=graphed.capture_s,
+            program_graph_count=graphed.program_graph_count,
+            program_captures_at_first_use=p0, program_check_s=program_check_s,
+            programs=programs_ab, graph_pool_bytes_after_programs=graphed.graph_pool_bytes,
             graph_pool_bytes=pool_bytes, memory_reserved_before=reserved0,
             memory_reserved_after_captures=reserved_warm,
             cpu_identical=True, graphed_identical_to_eager=True, stats=st["graphed"],
@@ -4716,11 +4963,10 @@ async def _mesh_serving_window(card, writeback, devices) -> dict:
     launches = writeback.writeback_add.launches
     if launches != owed or launches == 0:
         fail(f"mesh serving: writeback launched {launches} times, owed {owed}")
-    if eng.graph_captures:
-        fail(f"mesh serving: {eng.graph_captures} decide graphs captured after warmup")
+    if eng.graph_captures or eng.program_captures:
+        fail(f"mesh serving: graphs captured after warmup: {graph_fields(eng)}")
     out = dict(shards=eng.n, warmup_s=warm_s, warmup_launches=eng.warmup_launches,
-               graph_count=eng.graph_count, graph_captures=eng.graph_captures,
-               capture_s=eng.capture_s, graph_pool_bytes=eng.graph_pool_bytes,
+               **graph_fields(eng), graph_pool_bytes=eng.graph_pool_bytes,
                launches=launches, max_memory_allocated=torch.cuda.max_memory_allocated(),
                **{k: window[k] for k in ("decisions_per_s", "mean_device_batch",
                                           "device_batches", "seconds")})
@@ -4781,6 +5027,9 @@ def mesh_daemon(card: str) -> dict:
         graphs = s1["decide_graphs"]
         if graphs["captures"] or not graphs["count"]:
             died(f"decide graphs after warmup: {graphs}")
+        program_graphs = s1["program_graphs"]
+        if program_graphs["captures"] or not program_graphs["count"]:
+            died(f"install, GLOBAL step and read graphs after warmup: {program_graphs}")
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=120)
         reader.join(10)
@@ -4791,7 +5040,8 @@ def mesh_daemon(card: str) -> dict:
             proc.kill()
             proc.wait(30)
     return dict(boot_s=boot_s, policy=policy, launches=launches, decides=decides,
-                chunks=chunks, n_shards=n_shards, decide_graphs=graphs, **window)
+                chunks=chunks, n_shards=n_shards, decide_graphs=graphs,
+                program_graphs=program_graphs, **window)
 
 
 def mesh_serving_leg(card: str, writeback, serving_rate: float) -> dict:
@@ -4969,6 +5219,7 @@ MH_STORE_MIB = 1024  # each shard: the two-tier zipf100m deployment's geometry
 MH_CHECKED = 16  # batches of 32,768 held byte for byte against the in-process mesh
 MH_TIMED = 16  # then timed (and held too)
 MH_GLOBAL_KEYS = 4096  # the GLOBAL sync and hit apply
+MH_GLOBAL_STEPS = 8  # timed GLOBAL steps after the first (which captures its graphs)
 MH_CELLS = 64  # way-saturated (shard, bucket) cells: 16 fillers and 16 keys each
 MH_DAEMON_S = 5.0  # leg (b)'s gRPC window
 MH_LEG_S = 600  # each leg's processes must end within
@@ -5061,6 +5312,19 @@ def multihost_script(eng) -> tuple:
                                                           ones * DURATION_100M, now))
     outs.extend(ghits)
     c3 = dict(eng.collective_stats)
+    # then MH_GLOBAL_STEPS more, each timed with its all_reduce ms: the
+    # first one captured the step's graphs (the leg warms no ladder)
+    step_ms, step_all_reduce_ms = [], []
+    p0 = eng.program_captures
+    for _ in range(MH_GLOBAL_STEPS):
+        now += 2
+        a0 = eng.collective_stats["all_reduce_ms"]
+        ghits, ms_ = timed(lambda: eng.apply_global_hits(gk, ones, ones * LIMIT,
+                                                         ones * DURATION_100M, now))
+        outs.extend(ghits)
+        step_ms.append(ms_)
+        step_all_reduce_ms.append(eng.collective_stats["all_reduce_ms"] - a0)
+    step_captures = eng.program_captures - p0
     fillers, keys = saturated_cells(config.slots, config.rows, MH_PROCS * MH_PER)
     k = keys.shape[0]
     onek = np.ones(k, np.int64)
@@ -5084,6 +5348,10 @@ def multihost_script(eng) -> tuple:
         gather_wait_ms_per_batch=(c1["gather_wait_ms"] - c0["gather_wait_ms"]) / len(ms),
         gathers=c1["gathers"] - c0["gathers"], sketch_served_creates=dropped,
         graph_count=eng.graph_count, graph_captures_timed=eng.graph_captures - cap0,
+        global_step_ms=step_ms, global_step_ms_median=statistics.median(step_ms),
+        global_step_all_reduce_ms=step_all_reduce_ms,
+        global_step_all_reduce_ms_median=statistics.median(step_all_reduce_ms),
+        global_step_captures=step_captures, program_graph_count=eng.program_graph_count,
         promoted=int(np.asarray(promoted[0]).sum()), global_keys=g, promote_keys=k)
     return outs, timings
 
@@ -5209,6 +5477,9 @@ def multihost_engine_leg(card: str, ladder, writeback) -> dict:
     if foll["decides"] != lead["decides"]:
         fail(f"multihost: the follower ran {foll['decides']} decides, the leader "
              f"{lead['decides']}")
+    if lead["timings"]["global_step_captures"]:
+        fail(f"multihost: the processes captured {lead['timings']['global_step_captures']} "
+             "graphs in the timed GLOBAL steps")
     if lead["timings"]["sketch_served_creates"] < lead["timings"]["promote_keys"]:
         fail(f"multihost: only {lead['timings']['sketch_served_creates']} creates were "
              "sketch-served before the promote")
@@ -5220,6 +5491,9 @@ def multihost_engine_leg(card: str, ladder, writeback) -> dict:
                       mesh_shape=(MH_PROCS, MH_PER), sketch=skc)
     writeback.writeback_add.launches = 0
     want, mesh_t = multihost_script(mesh)
+    if mesh_t["global_step_captures"]:
+        fail(f"multihost: the in-process mesh captured {mesh_t['global_step_captures']} "
+             "graphs in the timed GLOBAL steps")
     in_process_launches = _mesh_launches(writeback, [mesh], "in-process (2, 4)")
     peak = torch.cuda.max_memory_allocated()
     if len(got) != len(want):
@@ -5250,6 +5524,13 @@ def multihost_engine_leg(card: str, ladder, writeback) -> dict:
         sync_all_reduce_ms=lt["sync_all_reduce_ms"], ghits_all_reduce_ms=lt["ghits_all_reduce_ms"],
         all_reduces_per_global_step=lt["all_reduces_per_global_step"],
         in_process_sync_ms=mt["sync_ms"], in_process_ghits_ms=mt["ghits_ms"],
+        global_step_ms_median=lt["global_step_ms_median"], global_step_ms=lt["global_step_ms"],
+        global_step_all_reduce_ms_median=lt["global_step_all_reduce_ms_median"],
+        global_step_all_reduce_ms=lt["global_step_all_reduce_ms"],
+        in_process_global_step_ms_median=mt["global_step_ms_median"],
+        in_process_global_step_ms=mt["global_step_ms"],
+        program_graph_count=lt["program_graph_count"],
+        in_process_program_graph_count=mt["program_graph_count"],
         promote_keys=lt["promote_keys"], promoted=lt["promoted"],
         sketch_served_creates=lt["sketch_served_creates"], promote_ms=lt["promote_ms"],
         in_process_promote_ms=mt["promote_ms"],
@@ -5346,6 +5627,10 @@ def multihost_daemons(card: str) -> dict:
         graphs = s1["decide_graphs"]
         if graphs["captures"] or not graphs["count"]:
             died(f"the leader's decide graphs after warmup: {graphs}")
+        program_graphs = s1["program_graphs"]
+        if program_graphs["captures"] or not program_graphs["count"]:
+            died(f"the leader's install, GLOBAL step and read graphs after warmup: "
+                 f"{program_graphs}")
         leader.send_signal(signal.SIGTERM)
         l_rc = leader.wait(timeout=120)
         f_rc = follower.wait(timeout=60)
@@ -5361,6 +5646,9 @@ def multihost_daemons(card: str) -> dict:
         if report["graph_count"] != graphs["count"]:
             died(f"the follower holds {report['graph_count']} decide graphs, the leader "
                  f"{graphs['count']}: a shape captured on one side only")
+        if report["program_graph_count"] != program_graphs["count"]:
+            died(f"the follower holds {report['program_graph_count']} install, GLOBAL step "
+                 f"and read graphs, the leader {program_graphs['count']}")
         if report["decides"] < decides:
             died(f"the follower ran {report['decides']} decides, the window alone {decides}")
     finally:
@@ -5371,7 +5659,8 @@ def multihost_daemons(card: str) -> dict:
     rec = dict(phase="multihost", leg="daemons", card=card, policy=policy, boot_s=boot_s,
                walk=[[r.remaining, int(r.status), r.reset_time] for r in walk],
                leader_launches=launches, decides=decides, chunks=chunks, n_local=n_local,
-               decide_graphs=graphs, follower=report, follower_launches=follower_launches,
+               decide_graphs=graphs, program_graphs=program_graphs, follower=report,
+               follower_launches=follower_launches,
                exit_codes=[l_rc, f_rc], **window)
     emit(rec)
     return rec

@@ -92,7 +92,7 @@ def follower_report(eng) -> dict:
     """A follower's count of what it ran: steps by kind, the decides
     among them, its chunks and shards, its writeback launches (on a
     GPU launches = n_local x (decides + install + gossip chunks)) and
-    its captured decide graphs."""
+    its captured decide graphs and other program graphs."""
     from gubernator_tpu_torch.core.writeback import writeback_add
 
     return dict(
@@ -100,6 +100,7 @@ def follower_report(eng) -> dict:
         decides=eng.decides,
         install_chunks=eng.install_chunks, gossip_chunks=eng.gossip_chunks,
         launches=writeback_add.launches, graph_count=eng.graph_count,
+        program_graph_count=eng.program_graph_count,
     )
 
 

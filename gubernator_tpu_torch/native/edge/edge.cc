@@ -625,6 +625,31 @@ void wait_logged(std::condition_variable& cv, std::unique_lock<std::mutex>& lk,
   cv.wait(lk, pred);
 }
 
+// A blocking socket call that names itself when it took over a second:
+// once it returns, one stderr line "guber-edge: call '<name>' over 1 s:
+// <ms> ms on fd <fd>, rc <rc>, errno <errno>"; errno is kept for the
+// caller. Only calls that no idle peer explains use it: the accept loops'
+// accept (after poll found a connection waiting), the client connection
+// threads' writes, and their reads once part of a request or frame has
+// arrived. The accept loops' poll and the first read of a request or
+// frame wait on a quiet listener or keep-alive peer and are not timed.
+// So a call the host holds is named the way wait_logged names a wait.
+template <class Call>
+auto call_logged(const char* name, int fd, Call call) -> decltype(call()) {
+  auto t0 = std::chrono::steady_clock::now();
+  auto rc = call();
+  int err = errno;
+  long long ms = std::chrono::duration_cast<std::chrono::milliseconds>(
+                     std::chrono::steady_clock::now() - t0)
+                     .count();
+  if (ms > 1000) {
+    fprintf(stderr, "guber-edge: call '%s' over 1 s: %lld ms on fd %d, rc %lld, errno %d\n",
+            name, ms, fd, (long long)rc, rc < 0 ? err : 0);
+  }
+  errno = err;
+  return rc;
+}
+
 // Bridge endpoint: a unix path (the co-located daemon) or host:port (a
 // peer's TCP bridge listener).
 struct Endpoint {
@@ -1800,7 +1825,9 @@ bool http_reply(int fd, int code, const char* reason,
   out.append(body);
   size_t off = 0;
   while (off < out.size()) {
-    ssize_t w = write(fd, out.data() + off, out.size() - off);
+    ssize_t w = call_logged("http write", fd, [&] {
+      return write(fd, out.data() + off, out.size() - off);
+    });
     if (w <= 0) return false;
     off += (size_t)w;
   }
@@ -1836,7 +1863,10 @@ void serve_connection(int fd, Router* router) {
     // read until end of headers
     size_t hdr_end;
     while ((hdr_end = buf.find("\r\n\r\n")) == std::string::npos) {
-      ssize_t r = read(fd, tmp, sizeof tmp);
+      // nothing of the next request yet: an idle keep-alive peer
+      ssize_t r = buf.empty()
+                      ? read(fd, tmp, sizeof tmp)
+                      : call_logged("http read", fd, [&] { return read(fd, tmp, sizeof tmp); });
       if (r <= 0 || expired()) {
         close(fd);
         return;
@@ -1874,7 +1904,7 @@ void serve_connection(int fd, Router* router) {
     }
     size_t body_start = hdr_end + 4;
     while (buf.size() < body_start + content_len) {
-      ssize_t r = read(fd, tmp, sizeof tmp);
+      ssize_t r = call_logged("http read", fd, [&] { return read(fd, tmp, sizeof tmp); });
       if (r <= 0 || expired()) { close(fd); return; }
       buf.append(tmp, (size_t)r);
     }
@@ -2096,7 +2126,8 @@ int main(int argc, char** argv) {
       if (poll(pfds, 2, -1) < 0) continue;  // EINTR etc: re-check flag
       if (g_shutdown.load() || (pfds[1].revents & POLLIN)) break;
       if (!(pfds[0].revents & POLLIN)) continue;
-      int fd = accept(lsrv, nullptr, nullptr);
+      int fd = call_logged(grpc ? "grpc accept" : "http accept", lsrv,
+                           [&] { return accept(lsrv, nullptr, nullptr); });
       if (fd < 0) continue;
       setsockopt(fd, IPPROTO_TCP, TCP_NODELAY, &one, sizeof one);
       // receive timeout: a slow-loris / idle keep-alive client gets its

@@ -338,9 +338,12 @@ class MultiHostMeshEngine:
     with no pipe, as the reference's is without jax.distributed.
 
     On a GPU each process decides its shards as one captured graph
-    replay a device (MeshEngine's default): the lockstep warmup
-    makes every process capture the same shapes in the same order, and
-    a follower's decide steps replay them.
+    replay a device (MeshEngine's default), and so runs its installs,
+    GLOBAL steps and reads: the lockstep warmup makes every process
+    capture the same shapes in the same order, and a follower's steps
+    replay them. A GLOBAL step or a read replays each process's charge
+    (or read) graph, all_reduces the parts between the replays, and (a
+    GLOBAL step) replays each process's install graph.
     """
 
     def __init__(
@@ -463,6 +466,23 @@ class MultiHostMeshEngine:
     @property
     def capture_s(self):
         return self.inner.capture_s
+
+    # and its captured installs, GLOBAL steps and reads
+    @property
+    def program_graph_count(self):
+        return self.inner.program_graph_count
+
+    @property
+    def program_captures(self):
+        return self.inner.program_captures
+
+    @property
+    def first_use_captures(self):
+        return self.inner.first_use_captures
+
+    @property
+    def program_capture_s(self):
+        return self.inner.program_capture_s
 
     def _graphs_warmed(self) -> None:
         """warmup_public's last step, on this process's graphs only (a
@@ -732,7 +752,9 @@ class MultiHostMeshEngine:
         reset()."""
         if self.inner.sketch is None:
             return
-        for B in (64, 128, 256, 512, 1024):
+        from gubernator_tpu_torch.parallel.sharded import READ_RUNGS
+
+        for B in READ_RUNGS:
             kh = np.arange(1, B + 1, dtype=np.uint64) << np.uint64(32)
             self.promote_from_sketch(
                 kh, np.full(B, 10, np.int64), np.full(B, 1000, np.int64),

@@ -91,7 +91,17 @@ from gubernator_tpu_torch.core.engine import (
     to_device,
     unpermute_responses,
 )
-from gubernator_tpu_torch.core.graphs import PROGRAMS, DecideGraphs, synchronize
+from gubernator_tpu_torch.core.graphs import (
+    PROGRAMS,
+    DecideLayout,
+    DeviceGraphs,
+    EagerPrograms,
+    InstallLayout,
+    ReadLayout,
+    RequestLayout,
+    copy_to_host,
+    synchronize,
+)
 from gubernator_tpu_torch.core.kernels import (
     BatchGroups,
     BatchRequest,
@@ -570,6 +580,93 @@ def pad_request_chained(
     return req, order, take_idx, groups, chain_local
 
 
+# -- the device programs of the installs, the GLOBAL step and the reads -------
+# Each runs every shard of one device (`shards`: their global indices,
+# in order; None on the flat engine, whose one store owns every key)
+# from inputs those shards share (TorchEngine._device_shards). On the
+# card each is captured as one graph a device (core/graphs.py); the CPU
+# and cuda_graphs=False run the same programs eagerly, a device at a
+# time (EagerPrograms), and the tests hold them against the reference's
+# jitted programs.
+
+
+def install_program(stores, shards, n: int, cols, full: bool) -> None:
+    """One padded install chunk (cols: InstallLayout's columns as
+    tensors) on each of `stores`, each shard keeping only the keys it
+    owns: the reference's `_shard_upsert` / `_shard_upsert_full`
+    (upsert_globals_jit / upsert_windows_jit on the flat engine). One
+    writeback launch a store."""
+    *tensors, valid = cols
+    owner = None if shards is None else owner_of(tensors[0], n)
+    for st, s in zip(stores, shards or (None,)):
+        mine = valid if s is None else valid & (owner == s)
+        (upsert_windows if full else upsert_globals)(st, *tensors, mine)
+
+
+def sync_charge_program(stores, shards, n: int, req: BatchRequest, now) -> torch.Tensor:
+    """The owner half of the reference's `_shard_sync_globals` on each
+    of `stores`: each shard charges `req.hits` on the keys it owns (hits
+    0: a peek) and keeps its answers for them; returns the sum of the
+    shards' masked answers, int32[4, B] (status, limit, remaining,
+    reset), their device's part of the owner-masked sum. One writeback
+    launch a store."""
+    owner = owner_of(req.key_hash, n)
+    total = None
+    for st, s in zip(stores, shards):
+        m = owner == s
+        _st, resp, _stats = decide_presorted(st, req._replace(valid=req.valid & m), now)
+        keep = m & req.valid
+        part = torch.stack([torch.where(keep, x, 0) for x in resp])
+        total = part if total is None else total + part  # int32 wraps as psum
+    return total
+
+
+def sync_install_program(stores, shards, n: int, req: BatchRequest, total) -> None:
+    """The replica half of `_shard_sync_globals`: every shard installs
+    the summed windows (`total`, int32[4, B]) of the keys it does not
+    own. One writeback launch a store."""
+    owner = owner_of(req.key_hash, n)
+    status, r_limit, remaining, reset = total
+    for st, s in zip(stores, shards):
+        upsert_globals(st, req.key_hash, r_limit, remaining, reset, status == 1,
+                       req.valid & (owner != s))
+
+
+def rows_program(stores, shards, n: int, kh: torch.Tensor, slots: int) -> torch.Tensor:
+    """Each key's bucket row, int32[B, W]: the reference's `_rows_flat`
+    on the flat engine; on a mesh the owner-masked sum of the shards'
+    gathers (`_rows_sharded`, `_rows_coll`'s device part)."""
+    b = bucket_index(kh, slots)
+    if shards is None:
+        return stores[0].data.index_select(0, b)
+    owner = owner_of(kh, n)
+    acc = None
+    for st, s in zip(stores, shards):
+        part = torch.where((owner == s)[:, None], st.data.index_select(0, b), 0)
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def sketch_min_program(sketches, shards, n: int, kh: torch.Tensor, idx) -> torch.Tensor:
+    """Each key's count-min estimate at `idx` (int64[rows, B]): the
+    reference's `_sketch_min_flat`; on a mesh the owner-masked sum of the
+    shards' row-mins (`_sketch_min_sharded`, `_sketch_min_coll`'s device
+    part)."""
+    if shards is None:
+        return sketch_min(sketches[0].data, idx)
+    owner = owner_of(kh, n)
+    acc = None
+    for sk, s in zip(sketches, shards):
+        part = torch.where(owner == s, sketch_min(sk.data, idx), 0)
+        acc = part if acc is None else acc + part
+    return acc
+
+
+#: the pow2 rungs of the promoter's reads that the warmups walk (with a
+#: sketch): a read graph missing there on a warmed engine raises
+READ_RUNGS = (64, 128, 256, 512, 1024)
+
+
 class TorchEngine:
     """Single-device engine over a slot store on `device` (cuda unless
     the caller passes another; see core.store.resolve_device), with the
@@ -577,11 +674,21 @@ class TorchEngine:
 
     On a GPU every decide is a replay of a captured CUDA graph, one per
     (program, request rung, group rung) (core/graphs.py), captured by
-    `warmup` or on a shape's first use. `cuda_graphs=False` decides
-    eagerly instead: the A/B leg of chip_smoke.py and the card tests
-    set it, no serving path does. The store and sketch tensors are
-    updated in place and never rebound, because the graphs hold their
-    pointers."""
+    `warmup` or on a shape's first use; so is every window install
+    chunk, one per (token or full lanes, rung), and every state read
+    (`snapshot_read`, `live_mask`, `sketch_estimates`), one per pow2
+    rung. `cuda_graphs=False` runs them eagerly instead: the A/B leg of
+    chip_smoke.py and the card tests set it, no serving path does. The
+    store and sketch tensors are updated in place and never rebound,
+    because the graphs hold their pointers.
+
+    The warmup captures every decide pair, the token install at every
+    rung and, with a sketch, the reads at READ_RUNGS; after it
+    `graph_captures` and `program_captures` stay 0 on serving traffic.
+    Captured on first use, and counted apart in `first_use_captures`
+    (the reference too compiles them only then): the full-lane install
+    (restore, handoff, repartition, replication) and reads at other
+    rungs; the chain decide counts in `graph_captures`, as before."""
 
     def __init__(
         self,
@@ -632,12 +739,15 @@ class TorchEngine:
         # mask on the device (through the sync its count needs) and the
         # copy to the host; the bytes copied off the device; the windows
         self.last_export = dict(ms=0.0, mask_ms=0.0, copy_ms=0.0, bytes=0, windows=0)
-        # the flat engine's captured decides (core/graphs.py; on a GPU
-        # only; a mesh holds one set a device, MeshEngine.device_graphs)
-        # and the seconds the last warmup spent capturing them
+        # the flat engine's captured programs (core/graphs.py; on a GPU
+        # only; a mesh holds one set a device, MeshEngine.device_graphs),
+        # the seconds the last warmup spent capturing them (all, and the
+        # non-decide programs'), and whether a warmup filled them
         self.cuda_graphs = True
         self.graphs = None
         self.capture_s = 0.0
+        self.program_capture_s = 0.0
+        self._warmed = False
 
     @property
     def n_local(self) -> int:
@@ -645,13 +755,21 @@ class TorchEngine:
         decide, an install chunk or a gossip chunk on a GPU."""
         return self.n
 
+    def _staging_bytes(self, rung: int, rows: int) -> int:
+        """The staging slots' first size: the largest layout a set of
+        `rows` rows uploads at the ladder's top (decide rung `rung`)."""
+        top = max(self.buckets)
+        return max(DecideLayout(rung, rung, True, rows).nbytes,
+                   InstallLayout(top, True).nbytes, RequestLayout(top).nbytes)
+
     def _new_graphs(self) -> None:
-        """An empty set of captured decides (on a GPU with graphs on)."""
+        """An empty set of captured programs (on a GPU with graphs on)."""
+        self._warmed = False
         if self.cuda_graphs and self.device.type == "cuda":
-            self.graphs = DecideGraphs(self.device, max(self.buckets))
+            self.graphs = DeviceGraphs(self.device, self._staging_bytes(max(self.buckets), 1))
 
     def _graph_sets(self) -> list:
-        """Every DecideGraphs of the engine (one flat, one a device on a
+        """Every DeviceGraphs of the engine (one flat, one a device on a
         mesh; none on the CPU or with cuda_graphs=False)."""
         return [] if self.graphs is None else [self.graphs]
 
@@ -659,14 +777,33 @@ class TorchEngine:
     def graph_count(self) -> int:
         """Captured decide graphs, one per (program, B, G) used so far (a
         device)."""
-        return sum(len(g.graphs) for g in self._graph_sets())
+        return sum(g.count(decide=True) for g in self._graph_sets())
 
     @property
     def graph_captures(self) -> int:
-        """Graphs captured on first use since the last warmup (a shape
-        the warmup did not reach, or the chain program): the
+        """Decide graphs captured on first use since the last warmup (a
+        shape the warmup did not reach, or the chain program): the
         counterpart of a JAX recompile."""
         return sum(g.captures for g in self._graph_sets())
+
+    @property
+    def program_graph_count(self) -> int:
+        """Captured graphs of the other programs (installs, GLOBAL steps,
+        reads), one per (program, rung) used so far (a device)."""
+        return sum(g.count(decide=False) for g in self._graph_sets())
+
+    @property
+    def program_captures(self) -> int:
+        """Captures since the last warmup of the programs it walks (token
+        installs, GLOBAL steps): 0 on a warmed engine's serving traffic."""
+        return sum(g.program_captures for g in self._graph_sets())
+
+    @property
+    def first_use_captures(self) -> int:
+        """Captures since the last warmup of the programs the reference
+        too compiles only on first use: full-lane installs, reads past
+        the walked rungs."""
+        return sum(g.first_use_captures for g in self._graph_sets())
 
     @property
     def graph_pool_bytes(self) -> int:
@@ -674,13 +811,25 @@ class TorchEngine:
         return sum(g.pool_bytes() for g in self._graph_sets())
 
     def _graphs_warmed(self) -> None:
-        """The end of a warmup: keep its capture seconds, zero the
-        graphs' capture and replay counts."""
+        """The end of a warmup (`warmup`, `warmup_public`, the only
+        callers: they walk the reads' rungs): keep its capture seconds,
+        zero the graphs' capture and replay counts; from now on a read
+        graph missing at a walked rung raises."""
         sets = self._graph_sets()
         self.capture_s = sum(g.capture_s for g in sets)
+        self.program_capture_s = sum(g.program_capture_s for g in sets)
         for g in sets:
-            g.captures = g.replays = 0
-            g.capture_s = 0.0
+            g.zero_counts()
+        self._warmed = bool(sets)
+
+    def _read(self, g, key: tuple, record, args, layout):
+        """Run a read's program on `g`: at a rung the warmup walks (with a
+        sketch) a warmed engine must hold its graph, elsewhere it is
+        captured on first use."""
+        walked = self.sketch is not None and key[1] in READ_RUNGS
+        if walked and self._warmed and key not in g.graphs:
+            raise RuntimeError(f"read graph {key} missing on a warmed engine")
+        return g.run(key, record, args, lambda: layout, first_use=not walked)
 
     def close(self) -> None:
         """Release the captured graphs and their memory pools (an engine
@@ -694,6 +843,21 @@ class TorchEngine:
 
     def _shard_stores(self) -> list:
         return [self.store]
+
+    def _device_shards(self):
+        """(device, its programs' runner, its stores, their sketches or
+        None, their global shard indices) for each distinct device, in
+        shard order: what one run of an install, GLOBAL step or read
+        program covers. The runner is the device's DeviceGraphs, else
+        EagerPrograms (the CPU, cuda_graphs=False). Here one device whose
+        one store owns every key (shard indices None)."""
+        g = EagerPrograms(self.device) if self.graphs is None else self.graphs
+        yield (self.device, g, [self.store], None if self.sketch is None else [self.sketch],
+               None)
+
+    def _psum(self, parts: list) -> torch.Tensor:
+        """The owner-masked sum of the devices' parts: here the one part."""
+        return parts[0]
 
     def _shard_sketches(self) -> list:
         return [] if self.sketch is None else [self.sketch]
@@ -859,7 +1023,7 @@ class TorchEngine:
             start = torch.cuda.Event(enable_timing=True)
             start.record()
             if self.graphs is not None:
-                packed = self.graphs.run(
+                packed = self.graphs.decide(
                     program, [self.store], [self.sketch], req, groups, e_now, chain_id
                 )
                 return packed[0], start
@@ -1105,14 +1269,25 @@ class TorchEngine:
 
     def _gather_entries(self, kh_padded: np.ndarray):
         """(rows int32[B, ways, LANES], fp int32[B]) as host arrays: each
-        key's bucket row and tag, gathered on the device. The one lookup
+        key's bucket row and tag, gathered on the device from its owner's
+        store (rows_program a device, the parts' owner-masked sum; on the
+        card one graph replay a device a pow2 rung, the sum copied to
+        pinned host memory and waited on alone). The one lookup
         snapshot_read and live_mask share."""
-        kh = key_hash_tensor(kh_padded, self.device)
-        rows = self.store.data.index_select(0, bucket_index(kh, self.config.slots))
-        return (
-            rows.cpu().numpy().reshape(kh_padded.shape[0], -1, LANES),
-            fingerprints(kh).cpu().numpy(),
-        )
+        B = kh_padded.shape[0]
+        layout = ReadLayout(B)
+        parts = []
+        for dev, g, stores, _sks, shards in self._device_shards():
+            with _on(dev):
+                parts.append(self._read(
+                    g, ("rows", B, 0),
+                    lambda static: rows_program(stores, shards, self.n,
+                                                layout.views(static)[0], self.config.slots),
+                    (kh_padded,), layout,
+                ))
+        rows = copy_to_host(self._psum(parts))
+        return (rows.numpy().reshape(B, -1, LANES),
+                fingerprints(key_hash_tensor(kh_padded)).numpy())
 
     def snapshot_read(self, key_hash: np.ndarray, now: Optional[int] = None):
         """NON-MUTATING host read of the store for these uint64 key
@@ -1324,12 +1499,19 @@ class TorchEngine:
     def _install_chunk(self, cols, full: bool) -> None:
         """One padded install: upsert_windows (`full`: key, limit,
         remaining, reset, duration, ts, flags, valid) or upsert_globals
-        (key, limit, remaining, reset, is_over, valid) on the store."""
-        tensors = self._cols_to_device(cols)
-        if full:
-            upsert_windows(self.store, *tensors)
-        else:
-            upsert_globals(self.store, *tensors)
+        (key, limit, remaining, reset, is_over, valid) on every store,
+        each keeping only the keys it owns (install_program a device: the
+        reference's upsert_*_jit, on a mesh _shard_upsert[_full]). One
+        writeback launch a store; on the card one replay a device of its
+        (lanes, rung) graph."""
+        B = cols[0].shape[0]
+        layout = InstallLayout(B, full)
+        for dev, g, stores, _sks, shards in self._device_shards():
+            with _on(dev):
+                g.run(("install_full" if full else "install", B),
+                      lambda static: install_program(stores, shards, self.n,
+                                                     layout.views(static), full),
+                      (cols,), lambda: layout, launches=len(stores), first_use=full)
 
     def update_globals(self, *args, now: Optional[int] = None, **kw):
         """Install owner-broadcast GLOBAL statuses (the UpdatePeerGlobals
@@ -1426,13 +1608,6 @@ class TorchEngine:
                 key_hash, np.zeros(n, np.int64), limit, duration, now, algo=algo
             )
 
-    def _cols_to_device(self, cols, device: Optional[torch.device] = None):
-        dev = self.device if device is None else device
-        kh, *rest = cols
-        return [key_hash_tensor(kh, dev)] + [
-            torch.from_numpy(np.ascontiguousarray(c)).to(dev) for c in rest
-        ]
-
     # -- sketch cold tier ----------------------------------------------------
 
     def _sketch_windows(self, durations: np.ndarray, now: int):
@@ -1459,12 +1634,26 @@ class TorchEngine:
         )
         wid, _ = self._sketch_windows(dur, now)
         idx = sketch_indices_np(kh, wid, self.sketch_config)
-        return self._sketch_min(kh, idx).cpu().numpy().astype(np.int64)[:n]
+        return self._sketch_min(kh, idx).numpy().astype(np.int64)[:n]
 
     def _sketch_min(self, kh: np.ndarray, idx: np.ndarray) -> torch.Tensor:
-        """The count-min read of sketch_estimates: the min over rows r of
-        the counters at idx[r] (int32[rows, n] indices)."""
-        return sketch_min(self.sketch.data, torch.from_numpy(idx).to(self.device))
+        """The count-min read of sketch_estimates, on the host: each key's
+        min over rows r of its owner's counters at idx[r] (int64[rows, n]
+        indices; sketch_min_program a device, the parts' owner-masked
+        sum; on the card one graph replay a device a pow2 rung, the sum
+        copied to pinned host memory)."""
+        B, rows = kh.shape[0], idx.shape[0]
+        layout = ReadLayout(B, rows)
+        parts = []
+        for dev, g, _stores, sks, shards in self._device_shards():
+            with _on(dev):
+                parts.append(self._read(
+                    g, ("sketch_min", B, rows),
+                    lambda static: sketch_min_program(sks, shards, self.n,
+                                                      *layout.views(static)),
+                    (kh, idx), layout,
+                ))
+        return copy_to_host(self._psum(parts))
 
     def promote_from_sketch(
         self,
@@ -1505,7 +1694,7 @@ class TorchEngine:
         """Run the promoter's host reads at their pow2 rungs once."""
         if self.sketch is None:
             return
-        for B in (64, 128, 256, 512, 1024):
+        for B in READ_RUNGS:
             kh = np.arange(1, B + 1, dtype=np.uint64) << np.uint64(32)
             self.sketch_estimates(kh, np.full(B, 1000, np.int64), now)
             self.live_mask(kh, now)
@@ -1516,12 +1705,14 @@ class TorchEngine:
         rows over g distinct fingerprints, with the exact program and,
         when a sketch is configured, the two-tier one too (`sketch_on`
         flips at run time). On a GPU each such decide captures its CUDA
-        graph (`graph_count` pairs x programs; `capture_s` their
-        seconds). One window install a ladder rung, and the sketch reads,
-        so that none of it lands inside a serving deadline; then wipe the
-        state and counters the warmup traffic dirtied. The chain program
-        is captured on first use (the reference's warmup does not compile
-        it either)."""
+        graph (`graph_count` pairs x programs; `capture_s` the seconds of
+        every capture, `program_capture_s` of the non-decide ones). One
+        token window install a ladder rung, and the sketch reads at
+        READ_RUNGS, each capturing its graph too, so that none of it
+        lands inside a serving deadline; then wipe the state and counters
+        the warmup traffic dirtied. The chain program and the full-lane
+        install are captured on first use (the reference's warmup does
+        not compile them either)."""
         if now is None:
             now = api_types.millisecond_now()
         sketch_on = self.sketch_on
@@ -1577,13 +1768,14 @@ def _rows(batch, rows: slice):
 
 
 def _hier_psum(parts: Sequence[torch.Tensor], policy: ShardingPolicy,
-               leader: torch.Tensor) -> torch.Tensor:
+               leader: torch.device) -> torch.Tensor:
     """The reference's psum over the shard axis, in one process: the sum
-    of per-shard tensors, on the device of `leader` (a tensor there). On
-    a 2-D ("host", "chip") policy each host's chips combine first (on the
-    host's first shard's device), then the hosts: the reference's
+    of the parts of the distinct devices of `policy.devices` (in order
+    of first appearance; each already its shards' sum), on `leader`. On
+    a 2-D ("host", "chip") policy each host's devices combine first (on
+    the host's first device), then the hosts: the reference's
     hierarchical staging. Elementwise adds of one dtype, so int32 wraps
-    as psum does (a torch.sum would widen to int64)."""
+    as psum does (a torch.sum would widen to int64), in any order."""
 
     def add(xs, dev):
         with _on(dev):
@@ -1592,9 +1784,14 @@ def _hier_psum(parts: Sequence[torch.Tensor], policy: ShardingPolicy,
                 acc = acc + x.to(dev)
         return acc
 
-    partial = [add([parts[i] for i in grp], parts[grp[0]].device)
-               for grp in policy.host_groups()]
-    return add(partial, leader.device)
+    left = dict(zip(dict.fromkeys(policy.devices), parts))
+    partial = []
+    for grp in policy.host_groups():
+        devs = [policy.devices[s] for s in grp]
+        xs = [left.pop(d) for d in dict.fromkeys(devs) if d in left]
+        if xs:
+            partial.append(add(xs, devs[0]))
+    return add(partial, leader)
 
 
 class MeshEngine(TorchEngine):
@@ -1606,22 +1803,30 @@ class MeshEngine(TorchEngine):
     sub-batches, and every shard runs the single-device decide on its own
     sub-batch (every shard runs every batch, as shard_map does). The
     cross-shard steps (GLOBAL sync, the promoter's reads) are owner-masked
-    sums over the shard list on the leader, devices[0] (_hier_psum). A
-    device may repeat: on one GPU or the CPU, N shards share it.
+    sums on the leader, devices[0] (_psum). A device may repeat: on one
+    GPU or the CPU, N shards share it.
 
     Each shard's writeback is one launch, so on a GPU a decide, an install
     chunk and a gossip chunk launch `n_local` writebacks each, and a GLOBAL
     sync step counts one gossip chunk (the owner charge) and one install
     chunk (the replica install).
 
-    On a GPU the decide is captured (core/graphs.py): one DecideGraphs a
+    On a GPU the decide is captured (core/graphs.py): one DeviceGraphs a
     distinct device (`device_graphs`), whose graph for a (program,
     B_sub, G_sub) decides every local shard on that device in shard
     order, so a batch is one staged upload and one replay a device, the
     counterpart of the reference's one jitted shard_map program over
-    every shard. `warmup` captures every pair; the chain program captures
-    on first use. `cuda_graphs=False` decides eagerly, a shard at a time
-    (the A/B leg and the card tests; no serving path).
+    every shard. So are the collectives: an install chunk, a GLOBAL step
+    and a read are one program a device over its shards, each masked by
+    owner (install_program, sync_charge_program / sync_install_program,
+    rows_program, sketch_min_program), with the devices' parts summed
+    between runs (`_sync_step`, `_psum`). `warmup` captures every decide
+    pair, the token install and GLOBAL step at every host rung and the
+    reads at READ_RUNGS; the chain program, the full-lane install and
+    other read rungs capture on first use. `cuda_graphs=False` (the A/B
+    leg and the card tests; no serving path) and the CPU run the same
+    programs eagerly, a device at a time (EagerPrograms), and the decide
+    a shard at a time.
 
     Under a policy that spans processes (ShardingPolicy.over_processes)
     `n` is the GLOBAL shard count and this process holds the shards
@@ -1680,11 +1885,20 @@ class MeshEngine(TorchEngine):
         self._new_graphs()
 
     def _new_graphs(self) -> None:
+        self._warmed = False
         self.device_graphs = {}
         if self.cuda_graphs and self.device.type == "cuda":
             top = max(self.sub_buckets)
             for dev, (rows, _idx) in self._device_rows.items():
-                self.device_graphs[dev] = DecideGraphs(dev, top, len(rows))
+                self.device_graphs[dev] = DeviceGraphs(
+                    dev, self._staging_bytes(top, len(rows)), len(rows))
+
+    def _device_shards(self):
+        for dev, (rows, _idx) in self._device_rows.items():
+            g = self.device_graphs[dev] if self.device_graphs else EagerPrograms(dev)
+            yield (dev, g, [self.stores[s] for s in rows],
+                   None if self.sketches is None else [self.sketches[s] for s in rows],
+                   [self._local.start + s for s in rows])
 
     def _graph_sets(self) -> list:
         return list(self.device_graphs.values())
@@ -1742,7 +1956,7 @@ class MeshEngine(TorchEngine):
                 with _on(dev):
                     starts[dev] = torch.cuda.Event(enable_timing=True)
                     starts[dev].record()
-                    out = self.device_graphs[dev].run(
+                    out = self.device_graphs[dev].decide(
                         program, [self.stores[s] for s in rows],
                         [self.sketches[s] if two_tier else None for s in rows],
                         _rows(req, idx), _rows(groups, idx), e_now,
@@ -1829,28 +2043,27 @@ class MeshEngine(TorchEngine):
                 self.collective_stats["all_reduces"] += 1
                 self.collective_stats["all_reduce_ms"] += ms
 
-    def _psum(self, parts: Sequence[torch.Tensor], leader: torch.Tensor) -> torch.Tensor:
-        """The owner-masked sum of every shard's part: _hier_psum over
-        this process's shards onto the leader tensor's device, then, on a
-        mesh that spans processes, one all_reduce(SUM) of that pre-reduced
-        tensor across processes, staged through host memory (gloo), its
-        result back on that device in every process. Elementwise in the
+    def _psum(self, parts: list) -> torch.Tensor:
+        """The owner-masked sum of the devices' parts (one a distinct
+        device, in `_device_shards` order, each its shards' masked parts
+        summed by their program): _hier_psum onto the leader, then, on a
+        mesh that spans processes, one all_reduce(SUM) of that
+        pre-reduced tensor across processes, staged through pinned host
+        memory (gloo), whose result stays on the host. Elementwise in the
         dtype, so int32 wraps as psum does."""
-        total = _hier_psum(parts, self.policy, leader)
+        total = _hier_psum(parts, self.policy, self.device)
         if not self.policy.spans_processes:
             return total
         import torch.distributed as dist
 
         t0 = time.perf_counter()
-        if total.device.type == "cuda":
+        if total.is_cuda:
             host = torch.empty(total.shape, dtype=total.dtype, pin_memory=True)
             host.copy_(total, non_blocking=True)
             # gloo reads the buffer from its own thread
             torch.cuda.current_stream(total.device).synchronize()
-            dist.all_reduce(host)
-            total = host.to(total.device)
-        else:
-            dist.all_reduce(total)  # a fresh sum: nothing else holds it
+            total = host
+        dist.all_reduce(total)  # a fresh sum or its copy: nothing else holds it
         self._count_collective("all_reduce", t0)
         return total
 
@@ -2006,60 +2219,7 @@ class MeshEngine(TorchEngine):
         blocks, starts = self._dispatch(req, groups, e_now, chain_id=chain_local)
         return self._mesh_handle(blocks, starts, order, take_idx, n, req.key_hash.shape[1])
 
-    # -- host-side state reads (owner-masked sums on the leader) --------------
-
-    def _gather_entries(self, kh_padded: np.ndarray):
-        """Each key's bucket row gathered from its OWNER's store: every
-        shard gathers the rows, zeroes the keys it does not own, and the
-        sum on the leader leaves the owner's (the reference's
-        _shard_rows; one shard contributes per key, so it equals its
-        direct _rows_sharded read)."""
-        owner = owner_of_np(kh_padded, self.n)
-        kh = self._per_device(lambda dev: key_hash_tensor(kh_padded, dev))
-        own = self._per_device(lambda dev: torch.from_numpy(owner).to(dev))
-        parts = []
-        for s, dev in enumerate(self.devices):
-            with _on(dev):
-                rows = self.stores[s].data.index_select(
-                    0, bucket_index(kh[dev], self.config.slots)
-                )
-                mine = own[dev] == self._local.start + s
-                parts.append(torch.where(mine[:, None], rows, 0))
-        rows = self._psum(parts, kh[self.device])
-        return (
-            rows.cpu().numpy().reshape(kh_padded.shape[0], -1, LANES),
-            fingerprints(kh[self.device]).cpu().numpy(),
-        )
-
-    def _sketch_min(self, kh: np.ndarray, idx: np.ndarray) -> torch.Tensor:
-        """Each key's count-min estimate from its OWNER's sub-sketch: the
-        owner-masked row-min summed on the leader (the reference's
-        _shard_sketch_min)."""
-        owner = owner_of_np(kh, self.n)
-        idx_t = self._per_device(lambda dev: torch.from_numpy(idx).to(dev))
-        own = self._per_device(lambda dev: torch.from_numpy(owner).to(dev))
-        parts = []
-        for s, dev in enumerate(self.devices):
-            with _on(dev):
-                est = sketch_min(self.sketches[s].data, idx_t[dev])
-                parts.append(torch.where(own[dev] == self._local.start + s, est, 0))
-        return self._psum(parts, idx_t[self.device])
-
-    # -- owner-masked installs and the GLOBAL sync ----------------------------
-
-    def _install_chunk(self, cols, full: bool) -> None:
-        """One padded install on every shard, each keeping only the keys
-        it owns (the reference's _shard_upsert / _shard_upsert_full): one
-        writeback launch a shard."""
-        up = self._per_device(lambda dev: self._cols_to_device(cols, dev))
-        for s, dev in enumerate(self.devices):
-            *tensors, valid = up[dev]
-            with _on(dev):
-                mine = valid & (owner_of(tensors[0], self.n) == self._local.start + s)
-                if full:
-                    upsert_windows(self.stores[s], *tensors, mine)
-                else:
-                    upsert_globals(self.stores[s], *tensors, mine)
+    # -- the GLOBAL sync ------------------------------------------------------
 
     def _sync_padded(self, key_hash, hits, limit, duration, algo, now):
         """One owner-charge + combine + replica-install step (the
@@ -2067,8 +2227,8 @@ class MeshEngine(TorchEngine):
         keys it owns (hits 0: a peek) and keeps its answers for them, the
         owner-masked sum on the leader gives every key its owner's
         post-charge window, and every other shard installs it as a
-        replica. Returns (status, limit, remaining, reset) tensors in the
-        padded sorted order, and that order. Neither the observer nor the
+        replica. Returns the int32[4, B] (status, limit, remaining, reset)
+        in the padded sorted order, and that order. Neither the observer nor the
         stats see it (gossip is not traffic)."""
         n = key_hash.shape[0]
         if algo is None:
@@ -2082,27 +2242,49 @@ class MeshEngine(TorchEngine):
         )
         self.gossip_chunks += 1  # the owner charge: one writeback a shard
         self.install_chunks += 1  # the replica install: one a shard
-        up = self._per_device(lambda dev: to_device(req, dev))
-        mine, parts = [], []
-        for s, dev in enumerate(self.devices):
-            r = up[dev]
+        return self._sync_step(req, e_now), order
+
+    def _sync_step(self, req: BatchRequest, e_now) -> torch.Tensor:
+        """`_sync_padded`'s step: the summed int32[4, B] answers (on the
+        leader, or on the host across processes). On one device in one
+        process the charge, the sum and the install are one program
+        ("sync"); otherwise each device runs its charge program, the
+        parts are summed (and all_reduced across processes) between the
+        runs, and each device runs its install program, which reads the
+        sum fed to it and the request from the charge's input. On the
+        card each program is a graph replay."""
+        B = req.key_hash.shape[0]
+        layout = RequestLayout(B)
+        devices = list(self._device_shards())
+        if len(devices) == 1 and not self.policy.spans_processes:
+            dev, g, stores, _sks, shards = devices[0]
+
+            def fused(static):
+                r, now = layout.views(static)
+                total = self._psum([sync_charge_program(stores, shards, self.n, r, now)])
+                sync_install_program(stores, shards, self.n, r, total)
+                return total
+
             with _on(dev):
-                m = owner_of(r.key_hash, self.n) == self._local.start + s
-                peek = r._replace(valid=r.valid & m)
-                _st, resp, _stats = decide_presorted(self.stores[s], peek, e_now)
-                keep = m & r.valid
-                parts.append(torch.stack([torch.where(keep, x, 0) for x in resp]))
-            mine.append(m)
-        # the four int32 columns in one sum (one all_reduce across processes)
-        status, r_limit, remaining, reset = self._psum(parts, up[self.device].key_hash)
-        for s, dev in enumerate(self.devices):
-            r = up[dev]
+                return g.run(("sync", B), fused, (req, e_now), lambda: layout,
+                             launches=2 * len(shards))
+        parts = []
+        for dev, g, stores, _sks, shards in devices:
             with _on(dev):
-                upsert_globals(
-                    self.stores[s], r.key_hash, r_limit.to(dev), remaining.to(dev),
-                    reset.to(dev), (status == 1).to(dev), r.valid & ~mine[s],
-                )
-        return (status, r_limit, remaining, reset), order
+                parts.append(g.run(
+                    ("sync_charge", B),
+                    lambda static: sync_charge_program(stores, shards, self.n,
+                                                       *layout.views(static)),
+                    (req, e_now), lambda: layout, launches=len(shards)))
+        total = self._psum(parts)
+        for dev, g, stores, _sks, shards in devices:
+            charged, static = g.inputs(("sync_charge", B))
+            with _on(dev):
+                g.run(("sync_install", B),
+                      lambda t: sync_install_program(
+                          stores, shards, self.n, charged.views(static)[0], t),
+                      feed=total, launches=len(shards))
+        return total
 
     def sync_globals(
         self,
@@ -2138,14 +2320,14 @@ class MeshEngine(TorchEngine):
             return z, z, z, z
         resp, order = self._sync_padded(key_hash, hits, limit, duration, algo, now)
         epoch = self.clock.epoch
+        resp = copy_to_host(resp).numpy()  # the four columns in one copy
 
-        def unpad(t):
-            a = t.cpu().numpy()
+        def unpad(a):
             out = np.empty(a.shape[0], a.dtype)
             out[order] = a
             return out[:n]
 
-        status, rlimit, remaining, reset = (unpad(t) for t in resp)
+        status, rlimit, remaining, reset = (unpad(a) for a in resp)
         r = reset.astype(np.int64)
         return status, rlimit, remaining, np.where(r == 0, 0, r + epoch)
 
@@ -2163,8 +2345,8 @@ def warmup_public(engine: MeshEngine, now: Optional[int] = None) -> None:
     keys), with the exact program and, when a sketch is configured, the
     two-tier one too (`sketch_on` flips at run time); on a GPU each
     captures that pair's graph on every device. Then one replica install
-    and one GLOBAL sync a host rung, and the sketch reads (first
-    launches, allocator pools, the kernel's build and load), then wipe
+    and one GLOBAL sync a host rung, and the sketch reads at READ_RUNGS
+    (on a GPU each capturing its graphs on every device), then wipe
     the state and zero the counters the warmup dirtied. `warmup_launches`
     keeps the writebacks it made on a GPU: n_shards x (decides + install
     chunks + gossip chunks), n_shards being this process's. Driving only

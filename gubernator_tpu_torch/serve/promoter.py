@@ -77,6 +77,7 @@ import torch
 # freeze whichever clock was live when this module first loaded
 from gubernator_tpu_torch.api import types as api_types
 from gubernator_tpu_torch.core.algorithms import PROMOTABLE_ALGOS
+from gubernator_tpu_torch.core.graphs import DeviceGraphs, TopKLayout
 from gubernator_tpu_torch.core.store import DeviceLike, resolve_device
 from gubernator_tpu_torch.serve import metrics
 
@@ -169,16 +170,20 @@ class DeviceTopK:
 
     On CUDA the table lives on a stream of its own: its uploads, updates
     and read-backs never wait for the decide batches queued on the
-    engine's stream, nor those wait for it. Every update ends with a
-    non-blocking copy of the table into pinned host buffers and an
-    event, and a sync waits on that event only (the reference's read
-    waits for its one array the same way).
+    engine's stream, nor those wait for it. The fold is one CUDA graph
+    (core/graphs.py), captured on that stream when the table is built
+    (a zero-weight fold, which changes nothing) and replayed by every
+    observe: a batch goes up through a pinned staging ring into the
+    graph's static buffer (`cuda_graphs=False` folds eagerly instead).
+    Every update ends with a non-blocking copy of the table into pinned
+    host buffers and an event, and a sync waits on that event only (the
+    reference's read waits for its one array the same way).
 
     Thread safety: observe lands on the engine's submit thread while
     sync/decay run on the promoter's flush loop, and the update writes
     the table tensors in place, so every touch of _kh/_cnt holds _lock."""
 
-    def __init__(self, capacity: int, device: DeviceLike = None):
+    def __init__(self, capacity: int, device: DeviceLike = None, cuda_graphs: bool = True):
         self.capacity = int(capacity)
         self.device = resolve_device(device)
         cuda = self.device.type == "cuda"
@@ -198,6 +203,40 @@ class DeviceTopK:
         self._counts: Dict[int, int] = {}
         self._dirty = False
         self._lock = threading.Lock()
+        # the fold's graph (CUDA with graphs on), captured here; its
+        # capture seconds, and its counts zeroed after it
+        self.graphs = None
+        self.capture_s = 0.0
+        if cuda and cuda_graphs:
+            self.graphs = DeviceGraphs(self.device, TopKLayout(OBSERVE_TOP).nbytes,
+                                       stream=self._stream)
+            zero = np.zeros(OBSERVE_TOP, np.int64)
+            with self._lock, self._on_stream():
+                self._fold(zero, zero)
+            self.capture_s = self.graphs.capture_s
+            self.graphs.zero_counts()
+
+    def _fold(self, kb: np.ndarray, wb: np.ndarray) -> None:
+        """One `_topk_update` of a batch (int64 keys and weights) into
+        the table, on the table's stream: a replay of its graph, or
+        eagerly (the CPU, cuda_graphs=False). The caller holds _lock."""
+        if self.graphs is None:
+            _topk_update(self._kh, self._cnt, self._upload(kb), self._upload(wb))
+            return
+        B = kb.shape[0]
+        self.graphs.run(
+            ("topk", B),
+            lambda static: _topk_update(self._kh, self._cnt, *TopKLayout(B).views(static)),
+            (kb, wb), lambda: TopKLayout(B),
+        )
+
+    def graph_stats(self) -> dict:
+        """The fold's graph: whether the table folds graphed, captures
+        after the one at build (0: the fold has one shape), replays, and
+        the build's capture seconds."""
+        g = self.graphs
+        return dict(graphed=g is not None, captures=0 if g is None else g.program_captures,
+                    replays=0 if g is None else g.program_replays, capture_s=self.capture_s)
 
     def _on_stream(self):
         return (
@@ -230,8 +269,7 @@ class DeviceTopK:
         kb[:n] = kh[:OBSERVE_TOP]
         wb[:n] = np.maximum(weights[:OBSERVE_TOP], 0)
         with self._lock, self._on_stream():
-            _topk_update(self._kh, self._cnt, self._upload(kb.view(np.int64)),
-                         self._upload(wb))
+            self._fold(kb.view(np.int64), wb)
             self._payloads.update(payloads)
             self._updated_locked()
 

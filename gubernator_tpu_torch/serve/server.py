@@ -843,6 +843,19 @@ class Server:
                 "captures": getattr(eng, "graph_captures", 0),
                 "capture_s": getattr(eng, "capture_s", 0.0),
             }
+            # its captured installs, GLOBAL steps and reads likewise; the
+            # programs the reference too compiles only on first use (full
+            # installs, reads past the warmup's rungs) count apart
+            body["program_graphs"] = {
+                "count": getattr(eng, "program_graph_count", 0),
+                "captures": getattr(eng, "program_captures", 0),
+                "first_use_captures": getattr(eng, "first_use_captures", 0),
+                "capture_s": getattr(eng, "program_capture_s", 0.0),
+            }
+        promoter = getattr(self.instance, "promoter", None)
+        if promoter is not None:
+            # the top-k fold's graph: captured when the promoter was built
+            body["topk_graph"] = promoter.tracker.ss.graph_stats()
         return web.json_response(body)
 
     async def _http_debug_stages(self, request: web.Request):

@@ -20,8 +20,8 @@ its outputs to <outdir>/responses.npz. Every process writes its local
 shards' store and sketch to <outdir>/state-<process_id>.npz at shutdown.
 Roles "leader-mismatch"/"follower-mismatch" exercise the connect-time
 config handshake. Roles "leader-graphs"/"follower-graphs" (on the card)
-run the lockstep warmup, which captures every decide graph in both
-processes, then the traffic script, while a side thread in each process
+run the lockstep warmup, which captures every decide, install, GLOBAL
+step and read graph in both processes, then the traffic script, while a side thread in each process
 keeps capturing a flat engine's warmup; they print LEADER-GRAPHS-OK and
 FOLLOWER-GRAPHS-OK.
 
@@ -520,10 +520,20 @@ def main():
                 outs = traffic_script(eng, eng.n)
                 np.savez(os.path.join(outdir, "responses.npz"), *outs)
                 print("GRAPHS", warmed, eng.graph_count, eng.graph_captures, flush=True)
+                # the script's GLOBAL steps, installs and reads replayed the
+                # warmup's graphs: a charge and an install graph a rung
+                # (the parts all_reduced between), the reads at every rung
+                assert (eng.program_captures, eng.first_use_captures) == (0, 0), (
+                    eng.program_captures, eng.first_use_captures)
             rounds = side.stop()
             pairs = sum(len(group_rungs(r)) for r in eng.sub_buckets)
             # both processes captured the warmup's pairs, once a program
             assert eng.inner.graph_count >= 2 * pairs, eng.inner.graph_count
+            # and its install, GLOBAL step halves and reads
+            from gubernator_tpu_torch.parallel.sharded import READ_RUNGS
+
+            want = 3 * len(eng.buckets) + 2 * len(READ_RUNGS)
+            assert eng.program_graph_count == want, (eng.program_graph_count, want)
             _save_state(eng, outdir, pid)
             if role == "leader-graphs":
                 eng.close()

@@ -968,7 +968,9 @@ def test_every_serving_rung_captured_cold_replays_the_eager_decide_on_card(shard
     pairs = [(r, g) for r in rungs for g in group_rungs(r)]
     (dg,) = g_eng.device_graphs.values() if shards else (g_eng.graphs,)
     assert (g_eng.graph_count, g_eng.graph_captures) == (len(pairs) * len(tiers), 0)
-    assert dg.warm == ({"exact", "sketch"} if sketch else {"exact"})
+    # the decide programs run eagerly once each, before their first capture
+    assert dg.warm & {"exact", "sketch", "chain"} == ({"exact", "sketch"} if sketch
+                                                      else {"exact"})
     rng = np.random.default_rng(41)
     for step, (r, g) in enumerate(pairs):
         pool = rng.integers(1, 2**63, 8 * max(shards, 1) * g, np.int64).astype(np.uint64)
@@ -1033,6 +1035,288 @@ def test_owner_masked_reads_on_card_match_the_flat_engine():
                                np.full(100, 60_000, np.int64), now + 2)
     for x, y in zip(a, b):
         np.testing.assert_array_equal(np.asarray(x, np.int64), np.asarray(y, np.int64))
+
+
+# -- the installs, GLOBAL steps, reads and top-k fold as graphs --------------------
+
+
+def _program_engines(shards: int, sketch: bool, ladder, slots: int = 64):
+    """A graphed, an eager (cuda_graphs=False) and a CPU engine of one
+    shape: flat (`shards` 0) or that many shards of cuda:0."""
+    from gubernator_tpu_torch.core.sketches import SketchConfig
+    from gubernator_tpu_torch.parallel.sharded import MeshEngine
+
+    cfg = StoreConfig(rows=4, slots=slots)  # small: drops and evictions
+    sk = SketchConfig(rows=2, width=1 << 10) if sketch else None
+    if shards:
+        mk = lambda dev, **kw: MeshEngine(cfg, devices=[dev] * shards,  # noqa: E731
+                                          buckets=ladder, sketch=sk, **kw)
+    else:
+        mk = lambda dev, **kw: TorchEngine(cfg, buckets=ladder, device=dev,  # noqa: E731
+                                           sketch=sk, **kw)
+    return mk("cuda:0"), mk("cuda:0", cuda_graphs=False), mk("cpu")
+
+
+def _same_state(engines, what: str) -> None:
+    g, e, c = engines
+    for other in (e, c):
+        np.testing.assert_array_equal(g.store_numpy(), other.store_numpy(), err_msg=what)
+        if g.sketch is not None:
+            np.testing.assert_array_equal(g.sketch_numpy(), other.sketch_numpy(),
+                                          err_msg=what)
+    assert g.stats.snapshot() == e.stats.snapshot() == c.stats.snapshot(), what
+
+
+def _same_outs(outs, what: str) -> None:
+    for other in outs[1:]:
+        for a, b in zip(outs[0], other):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b), err_msg=what)
+
+
+@pytest.mark.parametrize("shards", [0, 4])  # 0: the flat engine
+@pytest.mark.parametrize("sketch", [False, True])
+def test_program_graphs_match_the_eager_engine_and_the_cpu_on_card(shards, sketch):
+    """The graphed engine's installs, GLOBAL steps and reads (warmup
+    captures the token install and, on a mesh, the GLOBAL step at every
+    rung, and with a sketch both reads at every READ_RUNGS rung) against
+    the eager engine on the card and the CPU run, on the same calls
+    between decides, byte for byte: apply_global_hits and sync_globals
+    answers, update_globals, a full install_windows of an export (captured
+    on first use), snapshot_read, live_mask and sketch_estimates (one
+    read past the walked rungs: first use), promote_from_sketch; every
+    shard's store and sketch and the stats after each. Launches balance
+    with every install and GLOBAL step replayed, and no walked program
+    captures after warmup."""
+    _need_card()
+    from gubernator_tpu_torch.core.engine import choose_bucket
+    from gubernator_tpu_torch.parallel.sharded import READ_RUNGS
+
+    ladder = _MESH_LADDER if shards else _GRAPH_LADDER
+    engines = _program_engines(shards, sketch, ladder)
+    g_eng, e_eng, c_eng = engines
+    now = 1_700_000_000_000
+    for eng in engines:
+        eng.warmup(now=now)
+    reads = 2 * len(READ_RUNGS) if sketch else 0
+    assert g_eng.program_graph_count == len(ladder) * (2 if shards else 1) + reads
+    assert (g_eng.program_captures, g_eng.first_use_captures) == (0, 0)
+    assert g_eng.program_capture_s > 0 and e_eng.program_graph_count == 0
+    rng = np.random.default_rng(51 + shards + sketch)
+    pool = rng.integers(1, 2**64, 2000, dtype=np.uint64)
+    n_local = max(shards, 1)
+    before = writeback_add.launches
+    first_use = set()  # the (program, rung)s the reference too compiles on first use
+    for step in range(16):
+        now += int(rng.choice([1, 50, 1000]))
+        fields = _mesh_graph_batch(rng, pool, step % 4, False, n_local)
+        _same_outs([eng.decide_arrays(*fields, now) for eng in engines], f"decide {step}")
+        m = int(rng.integers(8, max(ladder) + 1))
+        kh = pool[rng.choice(pool.shape[0], m, replace=False)]
+        ones = np.ones(m, np.int64)
+        op = step % 8
+        what = f"step {step} op {op}"
+        if op == 0:
+            hits, algo = rng.integers(0, 4, m).astype(np.int64), rng.integers(0, 4, m)
+            outs = [eng.apply_global_hits(kh, hits, ones * 7, ones * 60_000, now,
+                                          algo=algo.astype(np.int32)) for eng in engines]
+            _same_outs(outs, what)
+        elif op == 1:
+            for eng in engines:
+                eng.sync_globals(kh, ones * 7, ones * 60_000, now)
+        elif op == 2:
+            for eng in engines:
+                eng.update_globals(key_hash=kh, limit=ones * 9, remaining=ones * 3,
+                                   reset_time=ones * (now + 30_000), is_over=kh % 3 == 0,
+                                   now=now)
+        elif op == 3:
+            w = c_eng.export_windows(now)
+            n = min(w["key_hash"].shape[0], max(ladder))
+            assert n > 0
+            first_use.add(("install_full", choose_bucket(ladder, n)))
+            for eng in engines:
+                eng.install_windows(*(w[k][:n] for k in ("key_hash", "limit", "remaining",
+                                                          "reset_time", "is_over")),
+                                    now=now, duration=w["duration"][:n], ts=w["ts"][:n],
+                                    flags=w["flags"][:n])
+        elif op in (4, 5):
+            B = READ_RUNGS[step % len(READ_RUNGS)] if op == 4 else 2048
+            rk = pool[rng.integers(0, pool.shape[0], B)]
+            for rung in (B, 128):  # the snapshot_read below pads 100 keys to 128
+                if not (sketch and rung in READ_RUNGS):
+                    first_use.add(("rows", rung))
+                    if sketch:
+                        first_use.add(("sketch_min", rung))
+            outs = [(eng.live_mask(rk, now), eng.sketch_estimates(rk, np.full(B, 60_000), now))
+                    for eng in engines]
+            _same_outs(outs, what)
+            snaps = [eng.snapshot_read(rk[:100], now) for eng in engines]
+            assert snaps[0] == snaps[1] == snaps[2], what
+        elif sketch and op == 6:
+            outs = [eng.promote_from_sketch(kh, ones * 3, ones * 60_000, now)
+                    for eng in engines]
+            _same_outs(outs, what)
+        _same_state(engines, what)
+    torch.cuda.synchronize()
+    stats = g_eng.stats.snapshot()
+    chunks = sum(e.install_chunks + e.gossip_chunks for e in (g_eng, e_eng))
+    assert g_eng.install_chunks == e_eng.install_chunks > 0
+    assert writeback_add.launches - before == n_local * (2 * stats["batches"] + chunks)
+    assert g_eng.program_captures == 0 and g_eng.graph_captures == 0
+    assert g_eng.first_use_captures == len(first_use), sorted(first_use)
+    g_eng.close()
+    assert g_eng.program_graph_count == 0
+
+
+@pytest.mark.parametrize("shards", [0, 4])  # 0: the flat engine
+def test_every_host_rung_program_captured_cold_replays_the_eager_one_on_card(shards):
+    """Warmup runs each program eagerly only before its first capture on
+    a device; its other rungs of the serving ladder (buckets_for_limit
+    (32768)) are captured cold. Each such graph, replayed at its rung,
+    installs (update_globals), charges and installs (apply_global_hits,
+    sync_globals, on a mesh) and reads (live_mask, sketch_estimates,
+    snapshot_read at every READ_RUNGS rung) as the eager engine does,
+    store and sketch bytes after each; nothing captures."""
+    _need_card()
+    from gubernator_tpu_torch.core.engine import buckets_for_limit
+    from gubernator_tpu_torch.parallel.sharded import READ_RUNGS
+
+    ladder = buckets_for_limit(32768)
+    g_eng, e_eng, _c = _program_engines(shards, True, ladder, slots=1 << 12)
+    now = 1_700_000_000_000
+    for eng in (g_eng, e_eng):
+        eng.warmup(now=now)
+    assert g_eng.program_graph_count == len(ladder) * (2 if shards else 1) + 2 * len(READ_RUNGS)
+    rng = np.random.default_rng(61 + shards)
+    pool = rng.integers(1, 2**64, 2 * max(ladder), dtype=np.uint64)
+    for b in ladder:
+        now += 7
+        kh = pool[rng.choice(pool.shape[0], b, replace=False)]
+        ones = np.ones(b, np.int64)
+        fields = (kh, rng.integers(1, 3, b).astype(np.int64), ones * 5, ones * 60_000,
+                  np.zeros(b, np.int32), np.zeros(b, bool))
+        _same_outs([eng.decide_arrays(*fields, now) for eng in (g_eng, e_eng)], f"decide {b}")
+        for eng in (g_eng, e_eng):
+            eng.update_globals(key_hash=kh[::-1].copy(), limit=ones * 9, remaining=ones * 2,
+                               reset_time=ones * (now + 9_000), is_over=kh % 2 == 0, now=now)
+        if shards:
+            _same_outs([eng.apply_global_hits(kh, ones, ones * 6, ones * 60_000, now)
+                        for eng in (g_eng, e_eng)], f"ghits {b}")
+            for eng in (g_eng, e_eng):
+                eng.sync_globals(kh, ones * 6, ones * 60_000, now)
+        np.testing.assert_array_equal(g_eng.store_numpy(), e_eng.store_numpy(), f"rung {b}")
+        np.testing.assert_array_equal(g_eng.sketch_numpy(), e_eng.sketch_numpy(), f"rung {b}")
+    for B in READ_RUNGS:
+        rk = pool[rng.integers(0, pool.shape[0], B)]
+        outs = [(eng.live_mask(rk, now), eng.sketch_estimates(rk, np.full(B, 60_000), now))
+                for eng in (g_eng, e_eng)]
+        _same_outs(outs, f"reads {B}")
+        assert g_eng.snapshot_read(rk, now) == e_eng.snapshot_read(rk, now)
+    assert (g_eng.program_captures, g_eng.first_use_captures, g_eng.graph_captures) == (0, 0, 0)
+    assert g_eng.sketch_estimates(pool[:64], np.full(64, 60_000), now).any()
+    g_eng.close()
+
+
+def test_a_failing_program_capture_raises_on_card(monkeypatch):
+    """An install or GLOBAL step whose capture records other than one
+    writeback launch a shard a half, or a read that syncs the stream it
+    captures, raises; the engine keeps no such graph and falls back to
+    nothing. A read graph missing on a warmed engine raises. With the
+    programs restored each shape captures and replays."""
+    _need_card()
+    from gubernator_tpu_torch.core.sketches import SketchConfig
+    from gubernator_tpu_torch.parallel import sharded
+    from gubernator_tpu_torch.parallel.sharded import MeshEngine
+
+    cfg = StoreConfig(rows=4, slots=64)
+    flat = TorchEngine(cfg, buckets=(64,), sketch=SketchConfig(rows=2, width=1 << 10))
+    mesh = MeshEngine(cfg, devices=["cuda:0"] * 4, buckets=(64,))
+    kh = np.arange(1, 65, dtype=np.uint64) << np.uint64(32)
+    one = np.ones(64, np.int64)
+    now = 1_700_000_000_000
+    install = lambda eng: eng.update_globals(  # noqa: E731
+        key_hash=kh, limit=one, remaining=one, reset_time=one * now,
+        is_over=np.zeros(64, bool), now=now)
+    ghits = lambda: mesh.apply_global_hits(kh, one, one * 5, one * 60_000, now)  # noqa: E731
+
+    def twice(real):
+        def fn(*a):
+            real(*a)
+            return real(*a)
+        return fn
+
+    def syncs(real):
+        def fn(*a):
+            out = real(*a)
+            torch.cuda.current_stream().synchronize()
+            return out
+        return fn
+
+    for name, call, err in (
+        ("install_program", lambda: install(flat), "recorded 2 writeback launches, not 1"),
+        ("install_program", lambda: install(mesh), "recorded 8 writeback launches, not 4"),
+        ("sync_install_program", ghits, "recorded 12 writeback launches, not 8"),
+    ):
+        real = getattr(sharded, name)
+        monkeypatch.setattr(sharded, name, twice(real))
+        eng = mesh if call is ghits or "not 4" in err else flat
+        before = eng.program_graph_count
+        with pytest.raises(RuntimeError, match=err):
+            call()
+        assert eng.program_graph_count == before, name
+        monkeypatch.setattr(sharded, name, real)
+    real = sharded.rows_program
+    monkeypatch.setattr(sharded, "rows_program", syncs(real))
+    with pytest.raises(RuntimeError):
+        flat.live_mask(kh, now)
+    assert flat.program_graph_count == 0
+    monkeypatch.setattr(sharded, "rows_program", real)
+    for _ in range(2):  # each: a capture, then a replay
+        for eng in (flat, mesh):
+            install(eng)
+        ghits()
+        flat.live_mask(kh, now)
+    torch.cuda.synchronize()
+    (gr,) = mesh.device_graphs.values()
+    assert (flat.program_graph_count, flat.graphs.program_replays) == (2, 2)
+    assert (mesh.program_graph_count, gr.program_replays) == (2, 2)
+    # a warmed engine must hold the reads its warmup walked
+    flat.warmup(now=now)
+    key = ("rows", 64, 0)
+    flat.graphs.graphs.pop(key).graph.reset()
+    with pytest.raises(RuntimeError, match="missing on a warmed engine"):
+        flat.live_mask(kh, now)
+
+
+def test_graphed_topk_fold_matches_the_eager_fold_and_the_cpu_on_card():
+    """DeviceTopK folds through its graph (captured when it was built,
+    replayed by every observe) as the eager fold on the card and the CPU
+    fold do, fold for fold and across decays; nothing captures after the
+    build."""
+    _need_card()
+    from gubernator_tpu_torch.serve.promoter import OBSERVE_TOP, DeviceTopK
+
+    graphed = DeviceTopK(256)
+    tables = (graphed, DeviceTopK(256, cuda_graphs=False), DeviceTopK(256, device="cpu"))
+    assert graphed.graphs is not None and graphed.capture_s > 0
+    assert tables[1].graphs is None and tables[2].graphs is None
+    rng = np.random.default_rng(71)
+    pool = rng.integers(1, 2**64, 600, dtype=np.uint64)
+    for step in range(16):
+        n = int(rng.integers(1, OBSERVE_TOP + 1))
+        kh = np.unique(pool[rng.integers(0, pool.shape[0], n)])
+        w = rng.choice([0, 1, 2, 5, 40], kh.shape[0]).astype(np.int64)
+        for t in tables:
+            t.observe_arrays(kh, w, {int(k): (5, 1000) for k in kh})
+        if step % 5 == 4:
+            for t in tables:
+                t.decay()
+        tops = [t.top_with_payload(256) for t in tables]
+        assert tops[0] == tops[1] == tops[2], step
+        for t in tables[1:]:
+            assert torch.equal(graphed._kh.cpu(), t._kh.cpu()), step
+            assert torch.equal(graphed._cnt.cpu(), t._cnt.cpu()), step
+    assert graphed.graph_stats() == dict(graphed=True, captures=0, replays=16,
+                                         capture_s=graphed.capture_s)
 
 
 # -- the multi-process mesh: two processes sharing the card over gloo --------------

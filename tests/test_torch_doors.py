@@ -256,8 +256,10 @@ def _http_cases(base, addresses):
     status, stats = _http(base, "/v1/debug/stats")
     # the port adds its kernel launch count, the engine's install and
     # gossip chunks (the launches no decide batch counts), the card's
-    # time inside decides and its captured decide graphs
-    port_only = ("kernel_launches", "engine_chunks", "device_span_ms", "decide_graphs")
+    # time inside decides, its captured decide graphs, its other captured
+    # programs and the promoter's top-k fold graph
+    port_only = ("kernel_launches", "engine_chunks", "device_span_ms", "decide_graphs",
+                 "program_graphs", "topk_graph")
     out["debug_stats_route"] = [(status, sorted(k for k in stats if k not in port_only),
                                  stats["distinct_keys_estimate"])]
     return out

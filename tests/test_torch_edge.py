@@ -270,23 +270,44 @@ def test_edge_builds_from_the_ports_sources_into_build(edge_bin):
     assert edge_build.SOURCE_DIR.parent.parent.name == "gubernator_tpu_torch"
     assert edge_build.build() == edge_bin  # up to date: no second build
     ref = edge_build._PKG.parent / "gubernator_tpu" / "native" / "edge"
-    for name in edge_build.SOURCES:  # a byte-for-byte copy, but for the wait log
+    # a byte-for-byte copy, but for the logs of a wait or a socket call
+    # over a second: the reference's two waits became wait_logged calls,
+    # the accept loops' accept and the client connections' reads and
+    # writes call_logged calls (the gRPC reads through recv_all, which
+    # now says whether part of the frame has arrived), and nothing else
+    # of it went
+    import difflib
+
+    went = {
+        "edge.cc": [
+            "st->cv.wait(lk, [&] {", "return st->dead || st->inflight.size() < window;",
+            "});", "p.cv.wait(lk, [&p] { return p.shards_left == 0; });",
+            "ssize_t w = write(fd, out.data() + off, out.size() - off);",
+            "ssize_t r = read(fd, tmp, sizeof tmp);", "ssize_t r = read(fd, tmp, sizeof tmp);",
+            "int fd = accept(lsrv, nullptr, nullptr);",
+        ],
+        "h2_grpc.inc": [
+            "ssize_t w = write(c->fd, p, n);", "auto recv_all = [&](char* p, size_t n) {",
+            "ssize_t r = read(fd, p, n);",
+            "if (!recv_all(preface, 24) || memcmp(preface, kPreface, 24) != 0) {",
+            "if (!recv_all((char*)hdr, 9)) break;",
+            "if (len && !recv_all(payload.data(), len)) break;",
+        ],
+    }
+    for name in edge_build.SOURCES:
         ours, theirs = (edge_build.SOURCE_DIR / name).read_text(), (ref / name).read_text()
-        if name != "edge.cc":
+        if name not in went:
             assert ours == theirs, name
             continue
-        # edge.cc logs a lane or credit wait over a second: the reference's
-        # two waits became wait_logged calls, and nothing else of it went
-        import difflib
-
         removed = [ln[1:].strip() for ln in difflib.unified_diff(
             theirs.splitlines(), ours.splitlines(), lineterm="", n=0)
             if ln.startswith("-") and not ln.startswith("---")]
-        assert removed == [
-            "st->cv.wait(lk, [&] {", "return st->dead || st->inflight.size() < window;",
-            "});", "p.cv.wait(lk, [&p] { return p.shards_left == 0; });",
-        ]
-        assert ours.count("wait_logged(") == 3  # its definition and the two waits
+        assert removed == went[name], name
+    cc = (edge_build.SOURCE_DIR / "edge.cc").read_text()
+    inc = (edge_build.SOURCE_DIR / "h2_grpc.inc").read_text()
+    assert cc.count("wait_logged(") == 3  # its definition and the two waits
+    # its definition, the http write, two reads and the accept
+    assert cc.count("call_logged(") == 5 and inc.count("call_logged(") == 2
 
 
 def test_failed_edge_build_raises(tmp_path, monkeypatch):
@@ -428,3 +449,69 @@ def test_edge_names_a_wait_over_one_second(edge_bin, tmp_path):
     assert len(shards) == 2 and len(credit) == 1, err
     assert f"lane {sock_path} " in credit[0] and "inflight=1 window=1" in credit[0], err
     assert "workers_busy=1" in shards[-1], err
+
+
+def test_edge_names_a_socket_call_over_one_second(edge_bin, tmp_path):
+    """A connection thread's read that returns after more than a second
+    once part of a request has arrived names itself on stderr once it
+    returns ("call '<name>' over 1 s: <ms> ms on fd ..."): a client that
+    sends half a request and the rest 1.3 s later still gets its answer,
+    and that read is the one line. Quiet peers log nothing: a listener
+    idle for 1.3 s, a connection idle 1.3 s before its first request and
+    again between keep-alive requests, and a gRPC connection idle 1.3 s
+    before its preface and after it."""
+    import struct
+    import threading
+
+    sock_path = str(tmp_path / "bridge.sock")
+    srv = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+    srv.bind(sock_path)
+    srv.listen(8)
+    conns = []
+
+    def serve():
+        while True:
+            try:
+                c, _ = srv.accept()
+            except OSError:
+                return
+            conns.append(c)
+            c.sendall(struct.pack("<IIII", 0x49424547, 2 | (1 << 16), 0, 0))
+
+    threading.Thread(target=serve, daemon=True).start()
+    eh, eg = free_ports(2)
+    edge = subprocess.Popen(
+        [str(edge_bin), "--listen", str(eh), "--grpc-listen", str(eg), "--backend",
+         sock_path, "--workers", "1"],
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    health = b"GET /v1/HealthCheck HTTP/1.1\r\nHost: x\r\n\r\n"
+    replies = []
+    try:
+        _wait_port(eh, edge)
+        _wait_port(eg, edge)
+        time.sleep(1.3)  # idle listeners
+        with socket.create_connection(("127.0.0.1", eh), timeout=10) as c, \
+                socket.create_connection(("127.0.0.1", eg), timeout=10) as g:
+            time.sleep(1.3)  # both connections idle before their first bytes
+            g.sendall(b"PRI * HTTP/2.0\r\n\r\nSM\r\n\r\n")
+            c.sendall(health)
+            replies.append(c.recv(4096))
+            time.sleep(1.3)  # an idle keep-alive, and gRPC idle after its preface
+            c.sendall(health[:-2])
+            time.sleep(1.3)  # half a request: this read is the one named
+            c.sendall(b"\r\n")
+            replies.append(c.recv(4096))
+    finally:
+        edge.kill()
+        err = edge.communicate(timeout=10)[1]
+        srv.close()
+        for c in conns:
+            c.close()
+    assert all(r.startswith(b"HTTP/1.1 200") for r in replies), replies
+    calls = [ln for ln in err.splitlines() if ln.startswith("guber-edge: call '")]
+    reads = [ln for ln in calls if ln.startswith("guber-edge: call 'http read' over 1 s: ")]
+    assert len(calls) == 1 and len(reads) == 1, err
+    ms = int(reads[0].split("over 1 s: ")[1].split(" ms")[0])
+    assert 1000 < ms < 10_000 and ", rc " in reads[0] and ", errno 0" in reads[0], err
+    # no wait was logged: the lanes were idle
+    assert not [ln for ln in err.splitlines() if ln.startswith("guber-edge: wait '")], err

@@ -78,11 +78,11 @@ def test_engine_classes_are_one_implementation():
         "decide_arrays", "decide_chain_arrays", "snapshot_read", "live_mask",
         "install_windows", "update_globals", "sketch_estimates",
         "promote_from_sketch", "export_windows", "repartition", "load_state",
-        "reset", "store_numpy",
+        "reset", "store_numpy", "_install_chunk", "_gather_entries", "_sketch_min",
     ):
         assert getattr(MeshEngine, name) is getattr(TorchEngine, name), name
     for name in ("_dispatch", "decide_submit", "decide_wait", "apply_global_hits",
-                 "_install_chunk", "_gather_entries", "_sketch_min", "warmup"):
+                 "_device_shards", "_psum", "warmup"):
         assert getattr(MeshEngine, name) is not getattr(TorchEngine, name), name
 
 
