@@ -53,7 +53,12 @@ Phases, one JSON line each:
              ms / plain_ms / library_ms are device time per call of a run
              of back-to-back calls (CUDA events around the run, over the
              count), cycling through 8 batches whose rows exceed the L2
-             cache; bound_ms is bytes over the H100's 3.35 TB/s, and
+             cache; graph_ms the same 8-batch cycle captured as one CUDA
+             graph and replayed (the paths launch the kernel from
+             graphs), per call; the kernels line's decide_ms is its
+             device time a call inside the graphed decides of the exact
+             and two-tier paths' profile phases (after the decide's torch
+             kernels); bound_ms is bytes over the H100's 3.35 TB/s, and
              share_of_floor the same bytes over the measured floor at the
              store's size: the fastest of add_one, its plain version and
              x.add_(1) there (floor_by names which);
@@ -381,6 +386,12 @@ Prints the card's name and power limit (nvidia-smi) on a line of its own
 and, last, {"ok": true, "device": {...}}. Exits non-zero, printing no
 result, if there is no CUDA device, if the port is not importable, or if
 any phase fails. Imports nothing of JAX or of gubernator_tpu.
+
+    python3 chip_smoke.py --decide-profile [BATCHES]
+
+is a probe, not the smoke: the writeback kernel's device time a call
+inside graphed decides (decide_profile_main), to compare builds of
+csrc/writeback.cu run each from its own checkout on one card.
 """
 
 from __future__ import annotations
@@ -518,9 +529,27 @@ def group_buckets(ladder, buckets: int, kh: np.ndarray) -> np.ndarray:
     return bucket_index(key_hash_tensor(groups.key_hash), buckets).numpy()
 
 
+def capture(calls: list) -> torch.cuda.CUDAGraph:
+    """One CUDA graph of `calls` in order, captured on a side stream."""
+    graph = torch.cuda.CUDAGraph()
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            for c in calls:
+                c()
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream().wait_stream(s)
+    return graph
+
+
 def kernel_case(name: str, buckets: int, bkts: list, seed: int, cyc: float) -> dict:
     """The kernel against its plain version on the first of `bkts`, then
-    per-call device times of runs cycling through all of them."""
+    per-call device times of runs cycling through all of them: on the
+    stream (ms, plain_ms, library_ms), and as the paths launch it, from a
+    CUDA graph (graph_ms: the same cycle captured as one graph, replayed)."""
     from gubernator_tpu_torch.cli.ablate_writeback import CALLS, run_ms, spin_up
     from gubernator_tpu_torch.core.writeback import writeback_add, writeback_add_plain
 
@@ -562,12 +591,19 @@ def kernel_case(name: str, buckets: int, bkts: list, seed: int, cyc: float) -> d
         for k in order:
             samples[k].append(run_ms(fns[k], cyc))
     times = {k: statistics.median(v) for k, v in samples.items()}
+    t0 = time.monotonic()
+    graph = capture(fns["ms"])
+    graph_samples = [run_ms([graph.replay], cyc, n=CALLS // len(sets)) / len(sets)
+                     for _ in range(4)]
+    del graph
+    graph_s = time.monotonic() - t0  # what the graph timing adds to the phase
     bound_ms = mean_bytes / HBM_BYTES_PER_S * 1e3
     out = dict(
         shape=name, buckets=buckets, G=G, touched_rows=sets[0][2],
         bytes_mean=mean_bytes, sets=len(sets), calls_per_run=CALLS,
         max_abs_err=max_abs_err, **times,
-        ms_samples=samples["ms"],
+        ms_samples=samples["ms"], graph_ms=statistics.median(graph_samples),
+        graph_ms_samples=graph_samples, graph_s=graph_s,
         l2_warm_ms=run_ms(fns["ms"][:1], cyc),  # one batch repeated
         single_call_ms=single_call_ms(lambda: writeback_add(work, bkt, drow)),
         bound_ms=bound_ms, bound_by="bytes", share_of_bound=bound_ms / times["ms"],
@@ -748,6 +784,55 @@ def profile_batches(eng, pool, fields, now: int, step: int):
         device_sync()
         wall_us = (time.perf_counter() - t0) * 1e6
     return device_profile(prof, wall_us, len(pool)), now
+
+
+def decide_profile_main(argv: list) -> int:
+    """`chip_smoke.py --decide-profile [BATCHES]`: the writeback kernel as
+    the decide runs it, after the decide's torch kernels in one graph
+    replay. At the exact and the two-tier paths' stores (no prefill, no
+    checks), 20 zipf batches of DEPTH warm the store, then the `profile`
+    phases' reading (profile_batches) over BATCHES more (default 20):
+    writeback_add_kernel's device time a call, and the decide's device
+    time a batch. One JSON line a path, the card's name on each."""
+    from gubernator_tpu_torch.core.engine import TorchEngine, buckets_for_limit
+    from gubernator_tpu_torch.core.sketches import derive_two_tier_config
+    from gubernator_tpu_torch.core.store import derive_store_config
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: --decide-profile needs a CUDA device", file=sys.stderr)
+        return 2
+    n = int(argv[0]) if argv else 20
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
+    ladder = buckets_for_limit(DEPTH)
+    two_tier, skc = derive_two_tier_config(1024)
+    paths = (("exact", derive_store_config(mib=1024), None, KEY_SPACE, DURATION),
+             ("two_tier", two_tier, skc, KEY_SPACE_100M, DURATION_100M))
+    for path, config, sketch, key_space, duration in paths:
+        eng = TorchEngine(config, buckets=ladder, sketch=sketch)
+        eng.warmup(now=T0)
+        pool = zipf_hashes((20 + n) * DEPTH, key_space=key_space).reshape(20 + n, DEPTH)
+        ones = np.ones(DEPTH, np.int64)
+        fields = (ones * HITS, ones * LIMIT, ones * duration, np.zeros(DEPTH, np.int32),
+                  np.zeros(DEPTH, bool))
+        now = T0 + 10
+        for kh in pool[:20]:
+            now += 1
+            eng.decide_arrays(kh, *fields, now)
+        replays = eng.graphs.replays
+        prof, now = profile_batches(eng, pool[20:], fields, now, 1)
+        if eng.graphs.replays - replays != n or eng.graph_captures:
+            fail(f"decide_profile {path}: {eng.graphs.replays - replays} graph replays "
+                 f"for {n} decides, {eng.graph_captures} captures after warmup")
+        emit(dict(phase="decide_profile", path=path, card=card,
+                  **{k: prof[k] for k in ("batches", "writeback_device_us_per_call",
+                                          "writeback_launches",
+                                          "device_busy_us_per_batch")}))
+        del eng
+        torch.cuda.empty_cache()
+    return 0
 
 
 def device_profile(prof, wall_us: float, nb: int) -> dict:
@@ -932,7 +1017,8 @@ def exact_path(card: str, ladder, writeback) -> dict:
     emit(dict(phase="profile", path="exact", card=card, **prof))
     del eng
     torch.cuda.empty_cache()
-    return dict(launches=launches, decides=decides)
+    return dict(launches=launches, decides=decides,
+                decide_ms=prof["writeback_device_us_per_call"] / 1e3)
 
 
 def two_tier_path(card: str, ladder, writeback) -> dict:
@@ -1065,6 +1151,7 @@ def two_tier_path(card: str, ladder, writeback) -> dict:
     prof, now = profile_batches(eng, profiled, tok, now, 1)
     decides += len(profiled)
     emit(dict(phase="profile", path="two_tier", card=card, **prof))
+    decide_ms = prof["writeback_device_us_per_call"] / 1e3
 
     # eviction -> sketch fold at full size: move the clock past the expiry
     # of the first EXPIRED_PREFILL prefill batches (a few % of the exact
@@ -1110,7 +1197,7 @@ def two_tier_path(card: str, ladder, writeback) -> dict:
     del eng
     torch.cuda.empty_cache()
     return dict(launches=launches, decides=decides, install_chunks=install_chunks,
-                decisions_per_s=main["decisions_per_s"])
+                decisions_per_s=main["decisions_per_s"], decide_ms=decide_ms)
 
 
 def graph_fields(eng) -> dict:
@@ -5705,7 +5792,7 @@ def _owner(ring_hash, addrs: list, key: str) -> int:
 
 def ablation_entry(step: str, ablation: dict, launches: int) -> dict:
     """The kernels line's entry for one ablation step: its numbers at the
-    two-tier path's shape and kRows 8 (the product's chunk height), with
+    two-tier path's shape and kRows 8 (the product's tile height), with
     every kRows and the script's shape beside them (that shape's store
     sits in L2: its bytes at the HBM rate and at the L2 copy rate this
     run measured, but no bound). `launches` is the step's count over the
@@ -5884,7 +5971,8 @@ def main() -> int:
         max_abs_err=max(c["max_abs_err"] for c in cases.values()),
         ms=main_case["ms"], plain_ms=main_case["plain_ms"],
         bound_ms=main_case["bound_ms"], bound_by="bytes",
-        library_ms=main_case["library_ms"],
+        library_ms=main_case["library_ms"], graph_ms=main_case["graph_ms"],
+        decide_ms={"exact": exact["decide_ms"], "two_tier": two["decide_ms"]},
         share_of_floor=main_case["share_of_floor"], floor_by=main_case["floor_by"],
         launches_by_path={"exact": exact["launches"], "two_tier": two["launches"],
                           "graphs": graphs["launches"],
@@ -5924,4 +6012,6 @@ if __name__ == "__main__":
         sys.exit(geb_window_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--multihost-engine"]:
         sys.exit(multihost_engine_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--decide-profile"]:
+        sys.exit(decide_profile_main(sys.argv[2:]))
     sys.exit(main())

@@ -7,9 +7,9 @@ The TPU script timed three modes of the Pallas store sweep (the tile
 copy, plus the chunk DMA, plus the one-hot matmul) at several TILE_ROWS.
 The Hopper writeback has none of those mechanics, so this asks the same
 question of it, with three exactly defined steps (core/writeback.py,
-kernels in csrc/writeback.cu), each at the kernel's chunk heights
-kRows in {4, 8, 16} (the product runs 8; the counterpart of the script's
-TILE_ROWS sweep):
+kernels in csrc/writeback.cu), each at the kernels' chunk (for `full`,
+tile) heights kRows in {4, 8, 16} (the product runs 8; the counterpart of
+the script's TILE_ROWS sweep):
 
 - `rows`: the store side, each touched store row loaded and stored back
   plus one in every int32 (the +1 makes the store observable, so the

@@ -30,14 +30,15 @@ either (cli/ablate_writeback.py times them):
   (its kernel: one warp a row through shared memory, evict-first hints,
   by default launched to overlap the tail of the kernel before it, which
   `overlap=False` turns off; bound by bytes);
-- `writeback_full(data, bkt, drow, krows=4|8|16)`: the whole writeback at
-  each chunk height (the product's writeback_add runs 8).
+- `writeback_full(data, bkt, drow, krows=4|8|16)`: the whole writeback,
+  the product's kernel at each tile height (writeback_add runs 8).
 
 The kernel is compiled with nvcc at first use into a shared library with
 a C interface under `gubernator_tpu_torch/_build/` (keyed by a hash of
 the source and flags) and loaded with ctypes. Nothing is imported or
-built when this module is imported. PERF.md lists the designs the copy
-floor and the deltas step were chosen from, with their times on an H100.
+built when this module is imported. PERF.md lists the designs the
+writeback, the copy floor and the deltas step were chosen from, with
+their times on an H100.
 
 Preconditions, checked where cheap and documented where not (as the TPU
 kernel's `_apply_inline` documents its own): `bkt` is sorted
@@ -185,7 +186,7 @@ def _check(data: torch.Tensor, bkt: torch.Tensor, drow: Optional[torch.Tensor]):
         )
 
 
-#: the chunk heights the ablation compiles (kRows of csrc/writeback.cu)
+#: the tile and chunk heights the ablation compiles (csrc/writeback.cu)
 ABLATION_ROWS = (4, 8, 16)
 
 
@@ -248,9 +249,9 @@ def count_replay(n: int) -> None:
 def writeback_full(
     data: torch.Tensor, bkt: torch.Tensor, drow: torch.Tensor, krows: int = 8
 ) -> torch.Tensor:
-    """The ablation's `full` step: writeback_add's function, launched at
-    the kernel's chunk height `krows` (4, 8 or 16) through the ablation's
-    own entry; returns data. CPU tensors take writeback_add_plain; CUDA
+    """The ablation's `full` step: writeback_add's function and kernel,
+    launched at a tile height of `krows` rows (4, 8 or 16) through the
+    ablation's own entry; returns data. CPU tensors take writeback_add_plain; CUDA
     tensors count the launch in `writeback_full.launches` (not in
     writeback_add's, which counts the paths' writebacks)."""
     _check(data, bkt, drow)
@@ -318,8 +319,7 @@ writeback_rows.launches = 0
 
 def run_ends(bkt: torch.Tensor, krows: int) -> torch.Tensor:
     """int64[G]: for every row, the last row of its run of equal buckets
-    cut at chunks of `krows` rows (the runs the warp's segmented sum
-    forms)."""
+    cut at chunks of `krows` rows (the runs the deltas step sums)."""
     G = bkt.shape[0]
     idx = torch.arange(G, device=bkt.device)
     last = torch.ones(G, dtype=torch.bool, device=bkt.device)

@@ -10,49 +10,100 @@
 // - data is int32[buckets, W], row-major and contiguous, W = ways * 8 with
 //   ways in {1, 2, 4, 8, 16}, so a row is 32..512 bytes, a whole number
 //   of 16-byte vectors;
-// - bkt is int32[G], sorted non-decreasing, every value in [0, buckets);
+// - bkt is int32[G], sorted non-decreasing; rows whose bucket lies outside
+//   [0, buckets) (the sentinel -1) are skipped;
 // - drow is int32[G, W]; non-writers carry zero rows.
-//
-// Design. The TPU kernel swept every store tile and folded its updates in
-// with one-hot matmuls on the MXU (split into four 8-bit parts to stay
-// exact in bf16). None of that carries over: Hopper has no reason to touch
-// rows nobody updates. Here the update stream is cut into chunks of kRows
-// consecutive rows, one warp per chunk; each lane owns one 16-byte vector
-// of the row (a 128-lane row is one coalesced 512-byte warp access).
-//   1. The warp loads its chunk's kRows delta vectors at once (independent
-//      loads, so they are in flight together) and its kRows bucket ids.
-//   2. A segmented sum in registers, in uint32 (the wrap is the arithmetic
-//      the decide relies on: old + (new - old) = new mod 2^32), leaves each
-//      run of equal buckets summed at its last row.
-//   3. Each run is added into its store row ONCE. A run wholly inside the
-//      chunk belongs to this warp alone: plain load-add-store, the loads of
-//      all such runs in flight together. Only a run that continues into the
-//      previous or next chunk (bkt[first] == bkt[first-1] or bkt[last] ==
-//      bkt[last+1]) shares its row with another warp; it is added with
-//      integer atomicAdd (zero components skipped). Integer atomics commute,
-//      so the result is exact and independent of order. Since a bucket's
-//      rows are one contiguous run, a row is never written both ways.
-// A first design gave each run to the warp of its leader row, with no
-// atomics at all; it serialised long runs in one warp, and the decide's
-// padded group tail is one run of hundreds of zero rows (PERF.md).
 //
 // Bound: bytes, not operations. The function must read G*W*4 bytes of
 // drow and G*4 of bkt, and read and write the U touched store rows,
 // 2*U*W*4 bytes; it does one add per int32 it reads. At the decide's
-// shapes (G <= 32768, W = 128) that is at most ~48 MiB, so launch latency
-// dominates at the top of the ladder and memory latency below it.
+// G = 8,192 (W = 128, U ~ 7,500) that is ~12 MB, 3.56 us at 3.35 TB/s:
+// the whole stream fits in one wave of the card, so the time is the
+// launch, two dependent memory latencies and the transfer.
 //
-// kRows is a template parameter: the product entry guber_writeback_add
-// runs it at 8; guber_writeback_add_rows runs 4, 8 or 16 for the
-// ablation below.
+// Design. The TPU kernel swept every store tile and folded its updates in
+// with one-hot matmuls on the MXU. None of that carries over: Hopper has
+// no reason to touch rows nobody updates. Here the update stream is cut
+// into tiles of kTile consecutive rows, one block a tile and one warp a
+// row; lane l owns the row's 16-byte vector l (a 128-lane row is one
+// coalesced 512-byte warp access). At G = 8,192 that is 1,024 blocks of
+// 8 warps, all resident at once (24 registers a thread; the launch bounds
+// cap it at 32, so an SM holds 64 warps).
+//   1. Each lane issues its delta vector's load first (evict-first: the
+//      stream is read once), then the row's bucket id and its neighbours'
+//      (bkt[row + 1], and the tile's first row and the one before it).
+//   2. As soon as those land, the lane of a run's last row in the tile
+//      issues the load of its store row, while the delta loads are still
+//      in flight: the store-row gather no longer waits for the deltas.
+//   3. The delta vectors and bucket ids go to shared memory; after one
+//      barrier each run's last row sums its run's earlier rows in the tile
+//      from there (uint32: the wrap is the arithmetic the decide relies
+//      on, old + (new - old) = new mod 2^32).
+//   4. Each run is added into its store row once. A run wholly inside the
+//      tile belongs to this block alone: plain load-add-store. A run that
+//      continues into the tile before or after (bkt[first] == bkt[first-1]
+//      or bkt[last] == bkt[last+1]) shares its row with another block; its
+//      tile's part is added with integer atomicAdd, zero components
+//      skipped. Integer atomics commute, so the result is exact and
+//      independent of order, and since a bucket's rows are one contiguous
+//      run, a row is never written both ways. The decide's padded group
+//      tail (one run of hundreds of zero rows) is thus one atomic-free sum
+//      a tile, in parallel, never a serial walk in one warp (an earlier
+//      design did that).
+//   5. The launch is a programmatic dependent launch: the grid may be
+//      scheduled while the kernel before it in the stream drains, and
+//      waits (griddepcontrol.wait) for that kernel's memory before its
+//      first read; once its loads are issued it lets the next grid start
+//      launching. Stream capture records it as a programmatic edge (the
+//      card test reads the edge's type): the decide, install and GLOBAL
+//      step graphs replay it so, byte-identical to the eager call.
+//
+// What each variant took on the card (a one-off sweep, timed in turns in
+// one call, each variant held bit for bit against index_add_, eager and
+// replayed from a graph; only the product's code remains, and PERF.md
+// lists every number). Two-tier shape (G = 8,192, 2^20 buckets),
+// us a call: 192 calls over 8 batches on the stream / the 8-batch cycle as
+// one CUDA graph / one batch repeated; NVIDIA H100 80GB HBM3 at a 700.00 W
+// power limit:
+//   chunk K8 (the design this replaced: a warp a chunk of 8 rows in
+//     registers, the store loads after the deltas land)
+//                                          7.405 / 6.223 / 5.575
+//   tile K8, plain loads, plain launch     7.129 / 5.842 / 4.685
+//   + evict-first delta loads              5.671 / 4.672 / 4.764
+//   + dependent launch: the product        4.326 / 4.347 / 3.571 (82% of
+//     the 3.56 us bound; the dependent launch alone 5.303 / 5.174)
+//   tile K4 / K16 with both                4.582 / 4.695 (graph 4.640 / 4.596)
+//   cp.async gathers into shared memory    7.160 / 5.937 (with the
+//     dependent launch 5.320 / 5.230)
+//   index_add_                             11.643 / 10.551 / 9.617
+// The gather issued early gained 4% alone; the evict-first hints ~20%, and
+// the dependent launch ~1.3 us on the stream and ~0.3 us inside a graph.
+// Those times are of writebacks run back to back, where each writeback
+// lets the next one start launching early. On the paths the kernel runs
+// after the decide's torch kernels, in one graph replay; there
+// (chip_smoke.py --decide-profile, torch.profiler over 20 graphed
+// decides, each variant built from its own checkout, two passes in
+// turns, same card) it took, us a call exact / two-tier: the product
+// 3.868 / 4.419, tile K8 plainly 3.821 / 4.386, with only the hints 3.800
+// / 4.408, only the dependent launch 3.857 / 4.364, chunk K8 4.250 /
+// 4.801. Inside a decide the hints and the dependent launch gain nothing;
+// the tile layout ~0.4 us. The product keeps both: they cost nothing
+// there and win back to back. The exact shape (2^21 buckets) read within
+// 4% of the back-to-back times above. At 4,096 buckets and G = 32,768 (runs
+// of ~8 rows) K16 led (9.418 us, K8 10.567, chunk K8 12.569); the product
+// runs the paths' shape's best, K8.
+//
+// kTile is a template parameter: the product entry guber_writeback_add
+// runs kProductTile = 8; guber_writeback_add_rows (the ablation's `full`)
+// runs the same kernel at kTile = krows in {4, 8, 16}.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-constexpr int kProductRows = 8;  // delta rows per warp in the product
+constexpr int kWarpsPerBlock = 8;  // the rows step's warps a block
+constexpr int kProductTile = 8;    // rows a tile in the product
 
 __device__ __forceinline__ uint4 add4(uint4 a, uint4 b) {
   return make_uint4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
@@ -66,57 +117,63 @@ __device__ __forceinline__ void atomic_add4(uint4* dst, uint4 v) {
   if (v.w) atomicAdd(p + 3, v.w);
 }
 
-template <int kRows>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+// Programmatic dependent launch: wait for the grid before this one in the
+// stream (a no-op when the launch did not ask for the overlap), and let the
+// next one start launching.
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void grid_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+template <int kTile>
+__global__ void __launch_bounds__(kTile * 32, 2048 / (kTile * 32))
 writeback_add_kernel(int32_t* __restrict__ data,
                      const int32_t* __restrict__ bkt,
                      const int32_t* __restrict__ drow,
                      int g, int nvec, int buckets) {
-  const int chunk = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  const int base = chunk * kRows;
-  if (base >= g || lane >= nvec) return;
-  const int n = min(kRows, g - base);
-
-  const uint4* src = reinterpret_cast<const uint4*>(drow);
+  __shared__ uint4 part[kTile][32];
+  __shared__ int bs[kTile];
+  grid_dependency_wait();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int base = blockIdx.x * kTile;
+  const int row = base + warp;
+  const int last = min(base + kTile, g) - 1;  // the tile's last row
   uint4* dst = reinterpret_cast<uint4*>(data);
-  int b[kRows];
-  uint4 v[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    if (r < n) {
-      b[r] = bkt[base + r];
-      v[r] = src[static_cast<size_t>(base + r) * nvec + lane];
-    } else {
-      b[r] = -1;  // never equal to an in-range bucket
-      v[r] = make_uint4(0u, 0u, 0u, 0u);
-    }
+  uint4 v = make_uint4(0u, 0u, 0u, 0u), old;
+  int b = -1;
+  bool own = false, shared = false;
+  if (row <= last) {
+    const bool active = lane < nvec;
+    const uint4* src = reinterpret_cast<const uint4*>(drow) +
+                       static_cast<size_t>(row) * nvec + lane;
+    if (active) v = __ldcs(src);
+    b = bkt[row];
+    const int after = row + 1 < g ? bkt[row + 1] : -1;
+    const int head = bkt[base];
+    const int before = base > 0 ? bkt[base - 1] : -1;
+    const bool end = row == last || after != b;
+    const bool in_range = b >= 0 && b < buckets;
+    // the run continues into the next tile, or began in the one before
+    const bool crosses = (row == last && after == b) || (b == head && before == b);
+    own = active && end && in_range && !crosses;
+    shared = active && end && in_range && crosses;
+    if (own) old = dst[static_cast<size_t>(b) * nvec + lane];
+    part[warp][lane] = v;
+    if (lane == 0) bs[warp] = b;
   }
-  const int prev = base > 0 ? bkt[base - 1] : -1;
-  const int next = base + kRows < g ? bkt[base + kRows] : -1;
-
-  // segmented inclusive sum: v[r] holds its run's sum where the run ends
-#pragma unroll
-  for (int r = 1; r < kRows; ++r) {
-    if (b[r] == b[r - 1]) v[r] = add4(v[r], v[r - 1]);
-  }
-
-  bool own[kRows];
-  uint4 old[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const bool end = r < n && (r == kRows - 1 || b[r + 1] != b[r]);
-    const bool in_range = b[r] >= 0 && b[r] < buckets;
-    const bool shared = b[r] == prev || b[r] == next;
-    own[r] = end && in_range && !shared;
-    if (end && in_range && shared) {
-      atomic_add4(dst + static_cast<size_t>(b[r]) * nvec + lane, v[r]);
-    }
-    if (own[r]) old[r] = dst[static_cast<size_t>(b[r]) * nvec + lane];
-  }
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    if (own[r]) dst[static_cast<size_t>(b[r]) * nvec + lane] = add4(old[r], v[r]);
+  grid_launch_dependents();
+  __syncthreads();
+  if (!own && !shared) return;
+  uint4 acc = v;  // plus the run's earlier rows in the tile
+  for (int r = warp - 1; r >= 0 && bs[r] == b; --r) acc = add4(acc, part[r][lane]);
+  uint4* out = dst + static_cast<size_t>(b) * nvec + lane;
+  if (own) {
+    *out = add4(old, acc);
+  } else {
+    atomic_add4(out, acc);
   }
 }
 
@@ -134,11 +191,11 @@ writeback_add_kernel(int32_t* __restrict__ data,
 //           touched twice or the wrong row shows). Bytes: 2*U*W*4 + G*4.
 //   deltas  the delta stream alone: read every delta row and bucket id and
 //           reduce each run of equal buckets within a chunk of kRows rows
-//           (the segmented sum writeback_add does in registers) into
+//           (the segmented sum writeback_add does a tile) into
 //           out[run end]; other rows of out are not written. The store is
 //           not touched. Bytes: G*W*4 + G*4 read, the run ends' rows
 //           written. Its own design follows (ablate_deltas_kernel).
-//   full    writeback_add itself, at kRows in {4, 8, 16}.
+//   full    writeback_add itself, at kTile = kRows in {4, 8, 16}.
 
 template <int kRows>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
@@ -178,8 +235,8 @@ ablate_rows_kernel(int32_t* __restrict__ data, const int32_t* __restrict__ bkt,
 // programmatic dependent launch: the grid may be scheduled while the kernel
 // before it in the stream finishes, and waits (griddepcontrol.wait) for
 // that kernel's memory before it reads anything; once its loads are in
-// flight it lets the next grid start launching. No other kernel here
-// launches so.
+// flight it lets the next grid start launching (writeback_add launches so
+// too).
 //
 // Bound: bytes (at the two-tier path's G = 8,192, W = 128: 4 MiB read,
 // ~3.8 MB written). What a variant sweep found on the H100 (PERF.md lists
@@ -194,17 +251,6 @@ ablate_rows_kernel(int32_t* __restrict__ data, const int32_t* __restrict__ bkt,
 // before: 4.1 us, 58% of the bound, but only where the kernel before it is
 // one that the overlap can hide behind.
 constexpr int kDeltaChunks = 2;
-
-// Programmatic dependent launch: wait for the grid before this one in the
-// stream (a no-op when the launch did not ask for the overlap), and let the
-// next one start launching.
-__device__ __forceinline__ void grid_dependency_wait() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void grid_launch_dependents() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
 
 template <int kRows>
 __global__ void ablate_deltas_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ bkt,
@@ -285,22 +331,41 @@ add_one_resident_kernel(int32_t* __restrict__ x, long long n) {
   }
 }
 
-// One warp per chunk of kRows rows, kWarpsPerBlock warps a block.
+// The rows step: one warp per chunk of kRows rows, kWarpsPerBlock warps a
+// block.
 template <int kRows>
 dim3 chunk_grid(int g) {
   const int chunks = (g + kRows - 1) / kRows;
   return dim3((chunks + kWarpsPerBlock - 1) / kWarpsPerBlock);
 }
 
-template <int kRows>
+// Launches `kernel` on `stream`, as a programmatic dependent launch if
+// `overlap`; returns the launch's error code (0 on success).
+template <typename... Params, typename... Args>
+int launch_ex(void (*kernel)(Params...), dim3 grid, dim3 block, bool overlap,
+              void* stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute dependent[1];
+  dependent[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  dependent[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = dependent;
+  cfg.numAttrs = overlap ? 1 : 0;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(e != cudaSuccess ? e : last);
+}
+
+// One block a tile of kTile rows, as a programmatic dependent launch.
+template <int kTile>
 int launch_writeback_add(void* data, const void* bkt, const void* drow,
                          int g, int w, int buckets, void* stream) {
-  writeback_add_kernel<kRows>
-      <<<chunk_grid<kRows>(g), kWarpsPerBlock * 32, 0,
-         static_cast<cudaStream_t>(stream)>>>(
-          static_cast<int32_t*>(data), static_cast<const int32_t*>(bkt),
-          static_cast<const int32_t*>(drow), g, w / 4, buckets);
-  return static_cast<int>(cudaGetLastError());
+  return launch_ex(writeback_add_kernel<kTile>, dim3((g + kTile - 1) / kTile),
+                   dim3(kTile * 32), true, stream, static_cast<int32_t*>(data),
+                   static_cast<const int32_t*>(bkt), static_cast<const int32_t*>(drow), g,
+                   w / 4, buckets);
 }
 
 template <int kRows>
@@ -318,20 +383,11 @@ template <int kRows>
 int launch_ablate_deltas(void* out, const void* bkt, const void* drow, int g, int w,
                          bool overlap, void* stream) {
   const int chunks = (g + kRows - 1) / kRows;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((chunks + kDeltaChunks - 1) / kDeltaChunks);
-  cfg.blockDim = dim3(kDeltaChunks * kRows * 32);
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute dependent[1];
-  dependent[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  dependent[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = dependent;
-  cfg.numAttrs = overlap ? 1 : 0;
-  const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, ablate_deltas_kernel<kRows>, static_cast<int32_t*>(out),
-      static_cast<const int32_t*>(bkt), static_cast<const int32_t*>(drow), g, w / 4);
-  const cudaError_t last = cudaGetLastError();
-  return static_cast<int>(e != cudaSuccess ? e : last);
+  return launch_ex(ablate_deltas_kernel<kRows>,
+                   dim3((chunks + kDeltaChunks - 1) / kDeltaChunks),
+                   dim3(kDeltaChunks * kRows * 32), overlap, stream,
+                   static_cast<int32_t*>(out), static_cast<const int32_t*>(bkt),
+                   static_cast<const int32_t*>(drow), g, w / 4);
 }
 
 }  // namespace
@@ -342,13 +398,12 @@ extern "C" int guber_writeback_add(void* data, const void* bkt,
                                    const void* drow, int g, int w,
                                    int buckets, void* stream) {
   if (g <= 0) return 0;
-  return launch_writeback_add<kProductRows>(data, bkt, drow, g, w, buckets,
-                                            stream);
+  return launch_writeback_add<kProductTile>(data, bkt, drow, g, w, buckets, stream);
 }
 
 // The ablation's entries (see above): `krows` is 4, 8 or 16; any other
 // value returns cudaErrorInvalidValue without a launch. The `full` step is
-// guber_writeback_add_rows, the writeback at each chunk height.
+// guber_writeback_add_rows, the product's design at each tile height.
 extern "C" int guber_writeback_add_rows(void* data, const void* bkt,
                                         const void* drow, int g, int w,
                                         int buckets, int krows, void* stream) {

@@ -11,6 +11,8 @@ Tolerance is zero throughout: the kernel and the decide are integer
 math, and the card must reproduce the CPU bit for bit.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +24,7 @@ from gubernator_tpu_torch.core.writeback import (
     ABLATION_ROWS,
     add_one,
     add_one_plain,
+    count_replay,
     run_ends,
     writeback_add,
     writeback_add_plain,
@@ -31,7 +34,12 @@ from gubernator_tpu_torch.core.writeback import (
     writeback_rows,
     writeback_rows_plain,
 )
-from _torch_cases import DELTAS_EDGES, deltas_edge  # tests/, on the path under pytest
+from _torch_cases import (  # tests/, on the path under pytest
+    DELTAS_EDGES,
+    WRITEBACK_EDGES,
+    deltas_edge,
+    writeback_edge,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -131,6 +139,91 @@ def test_deltas_kernel_at_the_tiling_edges(case, krows, overlap):
     written[ends] = True
     assert torch.equal(got[written], want[written])
     assert bool((got[~written] == 12345).all())
+
+
+@pytest.mark.parametrize("krows", ABLATION_ROWS)
+@pytest.mark.parametrize("case", WRITEBACK_EDGES)
+@pytest.mark.parametrize("W", [8, 32, 128])
+def test_writeback_at_the_tiling_edges(case, krows, W):
+    """writeback_add and writeback_full at tiles of `krows` rows, where the
+    tiling has edges (tests/_torch_cases.py writeback_edge), bit for bit
+    against the plain version over the rows whose bucket lies in the store
+    (the kernel skips the others); each launch counted once in its own
+    counter."""
+    _need_card()
+    data, bkt, drow, keep = (torch.from_numpy(x).cuda()
+                             for x in writeback_edge(case, krows, W))
+    want = writeback_add_plain(data.clone(), bkt[keep], drow[keep])
+    before = writeback_add.launches, writeback_full.launches
+    got_add = writeback_add(data.clone(), bkt, drow)
+    got_full = writeback_full(data.clone(), bkt, drow, krows)
+    torch.cuda.synchronize()
+    assert (writeback_add.launches, writeback_full.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got_add, want)
+    assert torch.equal(got_full, want)
+
+
+def _edge_types(graph: torch.cuda.CUDAGraph) -> list:
+    """The dependency type of every edge of a captured graph kept as a
+    cudaGraph_t (CUgraphEdgeData.type: 0 default, 1 programmatic), read
+    with cuGraphGetEdges_v2 from libcuda."""
+    get_edges = ctypes.CDLL("libcuda.so.1").cuGraphGetEdges_v2
+    get_edges.restype = ctypes.c_int
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert get_edges(raw, None, None, None, ctypes.byref(n)) == 0
+    ends = [(ctypes.c_void_p * n.value)() for _ in range(2)]
+    data = (ctypes.c_ubyte * (8 * n.value))()  # 8 bytes an edge, type at 2
+    assert get_edges(raw, ends[0], ends[1], data, ctypes.byref(n)) == 0
+    return [data[8 * i + 2] for i in range(n.value)]
+
+
+def test_writeback_replayed_from_a_graph_matches_the_eager_calls_on_card():
+    """writeback_add captured into a CUDA graph on a side stream (as
+    core/graphs.py captures the decide): the capture records one launch a
+    call in `writeback_add.captured` and launches nothing, and each launch
+    after the first hangs on the one before by a programmatic edge (the
+    dependent launch survives capture); two replays leave the store byte
+    for byte as the eager calls do, and count_replay counts each replay's
+    launches."""
+    _need_card()
+    batches = [_recipe(60 + i, 4096, 2048, 128) for i in range(3)]
+    data = torch.from_numpy(batches[0][0]).cuda()
+    sets = [(torch.from_numpy(b).cuda(), torch.from_numpy(d).cuda()) for _, b, d in batches]
+    eager = data.clone()
+    for _ in range(2):
+        for b, d in sets:
+            writeback_add(eager, b, d)
+    work = data.clone()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    launches, captured = writeback_add.launches, writeback_add.captured
+    with torch.cuda.stream(side):
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            for b, d in sets:
+                writeback_add(work, b, d)
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    assert writeback_add.captured - captured == len(sets)
+    assert writeback_add.launches == launches
+    torch.cuda.synchronize()
+    assert torch.equal(work, data)  # the capture ran nothing
+    assert _edge_types(graph) == [1] * (len(sets) - 1)
+    graph.instantiate()
+    for _ in range(2):
+        graph.replay()
+        count_replay(len(sets))
+    torch.cuda.synchronize()
+    assert writeback_add.launches - launches == 2 * len(sets)
+    assert torch.equal(work, eager)
+    want = data.clone()
+    for _ in range(2):
+        for b, d in sets:
+            writeback_add_plain(want, b, d)
+    assert torch.equal(work, want)
 
 
 def test_deltas_rejects_a_misaligned_delta_stream():

@@ -44,7 +44,12 @@ from gubernator_tpu_torch.core.writeback import (
     writeback_rows,
     writeback_rows_plain,
 )
-from _torch_cases import DELTAS_EDGES, deltas_edge  # tests/, on the path under pytest
+from _torch_cases import (  # tests/, on the path under pytest
+    DELTAS_EDGES,
+    WRITEBACK_EDGES,
+    deltas_edge,
+    writeback_edge,
+)
 
 
 def _recipe(seed: int, buckets: int, B: int, W: int = 128):
@@ -351,6 +356,23 @@ def test_ablation_full_plain_matches_pallas_sweep_interpret(krows):
     wide = data.astype(np.int64)
     np.add.at(wide, bkt, drow.astype(np.int64))
     np.testing.assert_array_equal(((wide + 2**31) % 2**32 - 2**31).astype(np.int32), want)
+
+
+@pytest.mark.parametrize("krows", ABLATION_ROWS)
+@pytest.mark.parametrize("case", WRITEBACK_EDGES)
+def test_writeback_edges_plain_matches_xla_scatter_add(case, krows):
+    """The function at the edges of the kernel's tiling that the card tests
+    give writeback_add and writeback_full (tests/test_torch_cuda.py): over
+    the rows whose bucket lies in the store, both CPU wrappers (the plain
+    version) against the JAX package's XLA scatter-add, which wraps."""
+    data, bkt, drow, keep = writeback_edge(case, krows, 32)
+    want = np.asarray(jnp.asarray(data).at[jnp.asarray(bkt[keep])].add(
+        jnp.asarray(drow[keep]), indices_are_sorted=True))
+    b, d = torch.from_numpy(bkt[keep]), torch.from_numpy(drow[keep])
+    got_add = writeback_add(torch.from_numpy(data.copy()), b, d)
+    got_full = writeback_full(torch.from_numpy(data.copy()), b, d, krows)
+    np.testing.assert_array_equal(got_add.numpy(), want)
+    np.testing.assert_array_equal(got_full.numpy(), want)
 
 
 @pytest.mark.parametrize("call", [
