@@ -523,7 +523,10 @@ def unpermute_responses(order: np.ndarray, sorted_arrays):
 
 class EngineStats:
     """Monotonic counters; batch results land via add_batch under a
-    lock."""
+    lock. `groups` counts the distinct keys of the counted batches at
+    their dispatch (the host knows them before the device runs; the
+    serving backends' stats() carry it, snapshot(groups=True)), the
+    rest land when a batch is fetched."""
 
     def __init__(self):
         self.hits = 0
@@ -531,7 +534,12 @@ class EngineStats:
         self.batches = 0
         self.dropped = 0
         self.evictions = 0
+        self.groups = 0
         self._lock = threading.Lock()
+
+    def add_groups(self, groups: int) -> None:
+        with self._lock:
+            self.groups += groups
 
     def add_batch(
         self, hits: int, misses: int, dropped: int = 0, evictions: int = 0
@@ -543,15 +551,20 @@ class EngineStats:
             self.evictions += evictions
             self.batches += 1
 
-    def snapshot(self):
+    def snapshot(self, groups: bool = False):
+        """The counters; `groups` adds the distinct keys, read under the
+        same lock."""
         with self._lock:
-            return dict(
+            snap = dict(
                 hits=self.hits,
                 misses=self.misses,
                 batches=self.batches,
                 dropped=self.dropped,
                 evictions=self.evictions,
             )
+            if groups:
+                snap["groups"] = self.groups
+            return snap
 
 
 def __getattr__(name):

@@ -494,6 +494,7 @@ class MultiHostMeshEngine:
     install_chunks = _inner("install_chunks", "window-install chunks in this process")
     gossip_chunks = _inner("gossip_chunks", "gossip-charge chunks in this process")
     warmup_launches = _inner("warmup_launches", "writebacks the last warmup made here")
+    stages = _inner("stages", "the stage clock the leader's submit and fetch spans go to")
 
     @property
     def reset_generation(self):

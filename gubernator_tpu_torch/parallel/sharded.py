@@ -52,6 +52,13 @@ copies of the packed outputs into pinned host memory and records an event
 a device, so `decide_wait` waits for its own batch only, never for
 batches submitted after it.
 
+Spans: where the backend sets `stages` (the serving tier's stage clock,
+serve/stages.py; the engine imports nothing of serve/), the submit records
+`observe` (the hook), `launch` (upload and decide) and `readback` (the
+output copy and its event), and decide_wait records `fetch_sync` (the
+wait on the events) and `unpack` (the rest). `stats.groups` counts the
+distinct keys of every dispatched batch that `stats` counts.
+
 Thread model (the reference's): submits are serialized on one thread;
 decide_wait calls may run concurrently on fetch threads, touching only
 their own handle and the stats, which land under EngineStats' lock.
@@ -731,6 +738,9 @@ class TorchEngine:
         # every dispatched numpy BatchRequest, before it goes to the
         # device; must never fail a dispatch
         self.observe_hook = None
+        # the stage clock the submit and fetch spans go to (set by the
+        # serving backend, as observe_hook is); None records nothing
+        self.stages = None
         # `sketch_on` flips between the two-tier and the exact-only
         # decide at run time (the reference's A/B flag)
         self.sketch_config = sketch
@@ -754,6 +764,31 @@ class TorchEngine:
         """The shards this process holds: its writeback launches a
         decide, an install chunk or a gossip chunk on a GPU."""
         return self.n
+
+    def _span(self, name: str, t0: float) -> None:
+        """Record the span `name` from `t0` (time.monotonic) to now into
+        the stage clock, if the backend set one."""
+        stages = self.stages
+        if stages is not None:
+            t1 = time.monotonic()
+            stages.add(name, t1 - t0, end=t1)
+
+    def _observe(self, req, groups, observe: bool) -> None:
+        """The dispatch funnel's host-side bookkeeping of a decide batch:
+        count its groups (distinct keys; `valid` marks them) and feed the
+        hot-key observer. `observe=False` (a GLOBAL gossip chunk, which
+        `stats` leaves out) does neither."""
+        if not observe:
+            return
+        self.stats.add_groups(int(np.count_nonzero(groups.valid)))
+        hook = self.observe_hook
+        if hook is not None:
+            t0 = time.monotonic()
+            try:
+                hook(req)
+            except Exception:  # pragma: no cover - defensive
+                pass  # observability must never fail a dispatch
+            self._span("observe", t0)
 
     def _staging_bytes(self, rung: int, rows: int) -> int:
         """The staging slots' first size: the largest layout a set of
@@ -1006,18 +1041,14 @@ class TorchEngine:
         recorded before the upload, or None off the card). On a GPU with
         graphs the copy is one staged upload and the decide a replay
         (core/graphs.py); a capture or replay that fails raises."""
-        hook = self.observe_hook if observe else None
-        if hook is not None:
-            try:
-                hook(req)
-            except Exception:  # pragma: no cover - defensive
-                pass  # observability must never fail a dispatch
+        self._observe(req, groups, observe)
         if chain_id is not None:
             program = "chain"
         elif self.sketch is not None and self.sketch_on:
             program = "sketch"
         else:
             program = "exact"
+        t0 = time.monotonic()
         start = None
         if self.device.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
@@ -1026,11 +1057,13 @@ class TorchEngine:
                 packed = self.graphs.decide(
                     program, [self.store], [self.sketch], req, groups, e_now, chain_id
                 )
+                self._span("launch", t0)
                 return packed[0], start
         req_t = to_device(req, self.device)
         groups_t = to_device(groups, self.device)
         chain_t = None if chain_id is None else torch.from_numpy(chain_id).to(self.device)
         packed = PROGRAMS[program](self.store, self.sketch, req_t, groups_t, e_now, chain_t)
+        self._span("launch", t0)
         return packed, start
 
     def decide_submit(
@@ -1071,6 +1104,7 @@ class TorchEngine:
         None, order, n, B, epoch). On CUDA the packed outputs start
         copying into pinned host memory at once and the event marks that
         copy's end in stream order."""
+        t0 = time.monotonic()
         event = None
         if packed.device.type == "cuda":
             host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
@@ -1078,6 +1112,7 @@ class TorchEngine:
             event = torch.cuda.Event(enable_timing=True)
             event.record()
             packed = host
+        self._span("readback", t0)
         return packed, event, start, order, n, B, self.clock.epoch
 
     def prep_run(self, fields: dict) -> dict:
@@ -1155,10 +1190,13 @@ class TorchEngine:
         this batch's own copy event only. `count=False` leaves the batch
         out of `stats`."""
         packed, event, start, order, n, B, epoch = handle
+        t0 = time.monotonic()
         if event is not None:
             event.synchronize()
             if count and start is not None:
                 self.device_span_ms += start.elapsed_time(event)
+        self._span("fetch_sync", t0)
+        t0 = time.monotonic()
         packed = packed.numpy()
         if count:
             self.stats.add_batch(
@@ -1178,6 +1216,7 @@ class TorchEngine:
             )
         r = np.asarray(reset[:n], np.int64)
         reset = np.where(r == 0, 0, r + epoch)
+        self._span("unpack", t0)
         return status[:n], rlimit[:n], remaining[:n], reset
 
     def decide_arrays(
@@ -1938,12 +1977,8 @@ class MeshEngine(TorchEngine):
         (the index of their local shards, a slice or a list; their packed
         outputs [k, 4*B_sub+4]) in shard order, {device: CUDA event
         recorded before its upload})."""
-        hook = self.observe_hook if observe else None
-        if hook is not None:
-            try:
-                hook(req)
-            except Exception:  # pragma: no cover - defensive
-                pass  # observability must never fail a dispatch
+        self._observe(req, groups, observe)
+        t0 = time.monotonic()
         starts = {}
         req, groups = _rows(req, self._local), _rows(groups, self._local)
         if chain_id is not None:
@@ -1963,6 +1998,7 @@ class MeshEngine(TorchEngine):
                         None if chain_id is None else chain_id[idx],
                     )
                 blocks.append((idx, out))
+            self._span("launch", t0)
             return blocks, starts
 
         def upload(dev):
@@ -1987,6 +2023,7 @@ class MeshEngine(TorchEngine):
                 else:
                     _st, p = decide_packed(self.stores[s], r, e_now, g)
             blocks.append((slice(s, s + 1), p[None]))
+        self._span("launch", t0)
         return blocks, starts
 
     def _mesh_handle(self, blocks, starts, order, take_idx, n: int, B_sub: int):
@@ -1997,6 +2034,7 @@ class MeshEngine(TorchEngine):
         once (one copy a device when its shards are contiguous). On a mesh
         that spans processes the first item is, on process 0, the list of
         every process's rows that the posted gather fills."""
+        t0 = time.monotonic()
         ends = {}
         if self.devices[0].type == "cuda":
             host = torch.empty((len(self.devices), blocks[0][1].shape[1]), dtype=torch.int32,
@@ -2015,6 +2053,7 @@ class MeshEngine(TorchEngine):
         work = None
         if self.policy.spans_processes:
             host, work = self._post_gather(host, ends)
+        self._span("readback", t0)
         return host, ends, starts, order, take_idx, n, B_sub, self.clock.epoch, work
 
     def _post_gather(self, rows: torch.Tensor, ends: dict):
@@ -2147,6 +2186,7 @@ class MeshEngine(TorchEngine):
         own copy events; the stats land once for the batch, summed over
         its shards."""
         host, ends, starts, order, take_idx, n, B_sub, epoch, work = handle
+        t_sync = time.monotonic()
         for ev in ends.values():
             ev.synchronize()
         if count and ends:
@@ -2156,6 +2196,8 @@ class MeshEngine(TorchEngine):
             work.wait()
             self._count_collective("gather", t0)
             host = torch.cat(host)
+        self._span("fetch_sync", t_sync)
+        t_unpack = time.monotonic()
         packed = host.numpy()
         if count:
             self.stats.add_batch(
@@ -2181,6 +2223,7 @@ class MeshEngine(TorchEngine):
 
             status, rlimit, remaining, reset = (unflatten(c) for c in range(4))
         r = np.asarray(reset, np.int64)
+        self._span("unpack", t_unpack)
         return status, rlimit, remaining, np.where(r == 0, 0, r + epoch)
 
     def decide_chain_submit(

@@ -54,6 +54,7 @@ from gubernator_tpu_torch.core.cache import LRUCache
 from gubernator_tpu_torch.core.hashing import slot_hash_batch
 from gubernator_tpu_torch.core.oracle import get_rate_limit
 from gubernator_tpu_torch.core.store import DeviceLike, StoreConfig
+from gubernator_tpu_torch.serve.stages import STAGES
 
 log = logging.getLogger("gubernator_tpu_torch.backends")
 
@@ -295,6 +296,17 @@ class _ArrayOps:
             return z, z, z, z
         return self.engine.decide_wait(handle)
 
+    def stats(self) -> dict:
+        """The engine's counters, with the distinct keys of the batches
+        it dispatched (`groups`)."""
+        return self.engine.stats.snapshot(groups=True)
+
+    def attach_stages(self) -> None:
+        """Point the engine's submit and fetch spans at the stage clock
+        (serve/stages.py), as set_hot_observer points its observer; a
+        replaced engine (repartition) is attached again."""
+        self.engine.stages = STAGES
+
     @staticmethod
     def resps_from_arrays(status, limit, remaining, reset):
         return resps_from_columns(status, limit, remaining, reset)
@@ -418,6 +430,7 @@ class TorchBackend(_ArrayOps):
         from gubernator_tpu_torch.parallel.sharded import TorchEngine
 
         self.engine = TorchEngine(store, buckets=buckets, device=device, sketch=sketch)
+        self.attach_stages()
 
     @property
     def device(self):
@@ -444,9 +457,6 @@ class TorchBackend(_ArrayOps):
         (TorchEngine.load_state)."""
         self.engine.load_state(store_np, epoch, sketch_np)
 
-    def stats(self) -> dict:
-        return self.engine.stats.snapshot()
-
 
 class MeshBackend(_ArrayOps):
     """Key-space sharded slot-store backend (the reference's MeshBackend):
@@ -471,6 +481,7 @@ class MeshBackend(_ArrayOps):
             store, devices=devices, buckets=buckets, mesh_shape=mesh_shape,
             sketch=sketch,
         )
+        self.attach_stages()
 
     @property
     def device(self):
@@ -535,6 +546,7 @@ class MeshBackend(_ArrayOps):
         )
         old = self.engine
         self.engine = old.repartition(policy, now=now)
+        self.attach_stages()
         old.close()  # the old engine's graphs and their pools
 
     def warmup(self) -> None:
@@ -547,9 +559,6 @@ class MeshBackend(_ArrayOps):
         """Carry another mesh's [n_shards, ...] store, clock epoch and
         sketch across (MeshEngine.load_state)."""
         self.engine.load_state(store_np, epoch, sketch_np)
-
-    def stats(self) -> dict:
-        return self.engine.stats.snapshot()
 
 
 class MultiHostBackend(MeshBackend):
@@ -578,6 +587,7 @@ class MultiHostBackend(MeshBackend):
             store, followers=list(followers), buckets=buckets, sketch=sketch,
             devices=devices,
         )
+        self.attach_stages()
 
     def close(self) -> None:
         """Shut the step pipe (each follower's loop ends) and release

@@ -204,6 +204,9 @@ class DeviceBatcher:
             else None
         )
         self._flushing = False
+        # the id of the last collected batch: the stage clock's timeline
+        # tags every span of a batch with it (serve/stages.py)
+        self._batch_seq = 0
         self._live_batch: List = []
         # one-slot park for a group that would have pushed the previous
         # batch past batch_limit (aio.collect_batch carry contract)
@@ -473,6 +476,7 @@ class DeviceBatcher:
 
     async def _run(self) -> None:
         while True:
+            t_top = time.monotonic()
             batch: List[Tuple] = []
             # collected-but-unflushed groups, visible to queue_stats and
             # drain
@@ -493,9 +497,13 @@ class DeviceBatcher:
                         self._inflight.locked if self.deep_batch else None
                     ),
                 )
+                self._batch_seq += 1
+                t_collected = time.monotonic()
+                STAGES.add("collect", t_collected - t_top, end=t_collected,
+                           batch=self._batch_seq)
                 self._flushing = True
                 try:
-                    await self._flush(batch)
+                    await self._flush(batch, self._batch_seq)
                 finally:
                     self._flushing = False
             except asyncio.CancelledError:
@@ -515,7 +523,9 @@ class DeviceBatcher:
                         break
                 raise
 
-    async def _flush(self, batch) -> None:
+    async def _flush(self, batch, bid: Optional[int] = None) -> None:
+        """Decide one collected batch; `bid` is its id on the stage
+        clock's timeline."""
         if FAULTS.enabled:
             # device_submit injection point (GUBER_FAULT_SPEC): an
             # error fails THIS batch's callers (per-item errors, the
@@ -539,7 +549,7 @@ class DeviceBatcher:
         for it in decide_items + chain_items:
             m = it[-2]
             if m.frame:
-                STAGES.add("batch_queue", t_collect - m.t)
+                STAGES.add("batch_queue", t_collect - m.t, end=t_collect, batch=bid)
             if m.trace is not None:
                 m.trace.add_span("batch_queue", start=m.t, end=t_collect)
 
@@ -587,12 +597,12 @@ class DeviceBatcher:
             # pre-sorted run; the submit thread merges runs instead of
             # re-sorting the flattened batch. Object-only batches ride
             # it too — their conversion/hashing happened at arrival.
-            await self._flush_merged(decide_items, t_collect)
+            await self._flush_merged(decide_items, t_collect, bid)
             return
         if any(b[0] == "decide_arrays" for b in decide_items):
             # mixed/array batch: flatten everything to dense arrays and
             # take the array submit path
-            await self._flush_arrays(decide_items, t_collect)
+            await self._flush_arrays(decide_items, t_collect, bid)
             return
         reqs = [r for it in decide_items for r in it[1]]
         gnp = [g for it in decide_items for g in it[2]]
@@ -619,11 +629,14 @@ class DeviceBatcher:
         # fetch in a background task so the flusher can collect and
         # submit the NEXT batch while the device computes this one.
         await self._submit_pipelined(
-            lambda: self.backend.decide_submit(reqs, gnp),
+            lambda: self._submit_call(
+                lambda t0: self.backend.decide_submit(reqs, gnp), bid
+            ),
             decide_items,
             lambda handle, submit_s: self._finish(
-                handle, decide_items, submit_s, t_collect
+                handle, decide_items, submit_s, t_collect, bid
             ),
+            bid,
         )
 
     async def _flush_chains(self, chain_items, t_collect) -> None:
@@ -681,7 +694,7 @@ class DeviceBatcher:
             pass
 
     async def _submit_pipelined(
-        self, submit_call, decide_items, finish_factory
+        self, submit_call, decide_items, finish_factory, bid=None
     ) -> None:
         """The pipelined paths' shared submit discipline: semaphore
         admission (bounds outstanding batches at fetch_depth), shielded
@@ -721,7 +734,7 @@ class DeviceBatcher:
             self._fail(decide_items, e)
             return
         submit_s = time.monotonic() - t0
-        STAGES.add("submit_host", submit_s)
+        STAGES.add("submit_host", submit_s, batch=bid)
         task = asyncio.ensure_future(finish_factory(handle, submit_s))
         # hold the reference until done (stop() drains the set); discard
         # on completion so an idle batcher doesn't pin the last batches'
@@ -738,7 +751,7 @@ class DeviceBatcher:
         un-prepped; flush preps it on the submit thread)."""
         return it[3] if it[0] == "decide" else it[2]
 
-    async def _flush_merged(self, decide_items, t_collect) -> None:
+    async def _flush_merged(self, decide_items, t_collect, bid=None) -> None:
         """Merge-combine flush (r9): resolve every group's pre-sorted
         run (arrival prep result, or flush-time prep for stragglers),
         k-way merge the runs into one sorted batch, and dispatch — no
@@ -755,8 +768,7 @@ class DeviceBatcher:
             for it in decide_items
         ]
 
-        def submit_call():
-            t0 = time.monotonic()
+        def submit_body(t0):
             runs = []
             for it in decide_items:
                 p = self._prep_of(it)
@@ -775,20 +787,21 @@ class DeviceBatcher:
             t2 = time.monotonic()
             handle = self.backend.decide_submit_merged(merged)
             t3 = time.monotonic()
-            STAGES.add("prep", t1 - t0)
-            STAGES.add("merge", t2 - t1)
-            STAGES.add("dispatch", t3 - t2)
+            STAGES.add("prep", t1 - t0, end=t1)
+            STAGES.add("merge", t2 - t1, end=t2)
+            STAGES.add("dispatch", t3 - t2, end=t3)
             return handle
 
         await self._submit_pipelined(
-            submit_call,
+            lambda: self._submit_call(submit_body, bid),
             decide_items,
             lambda handle, submit_s: self._finish_arrays(
-                handle, decide_items, lens, submit_s, t_collect
+                handle, decide_items, lens, submit_s, t_collect, bid
             ),
+            bid,
         )
 
-    async def _flush_arrays(self, decide_items, t_collect) -> None:
+    async def _flush_arrays(self, decide_items, t_collect, bid=None) -> None:
         """Array-path sibling of the pipelined branch in _flush: convert
         request-object groups, concatenate all groups into one dense
         field set, submit once, and let _finish_arrays slice responses
@@ -805,13 +818,12 @@ class DeviceBatcher:
             for it in decide_items
         ]
 
-        def submit_call():
+        def submit_body(t0):
             # flush-time prep baseline: record the same prep/dispatch
             # sub-stages the merged path does (merge has no analogue —
             # the full argsort hides inside decide_submit_arrays'
             # dispatch), so the BENCH_SUBMIT_r9 A/B compares the same
             # submit-thread interior either way
-            t0 = time.monotonic()
             parts = []
             for it in decide_items:
                 if it[0] == "decide":
@@ -837,33 +849,61 @@ class DeviceBatcher:
             t1 = time.monotonic()
             handle = self.backend.decide_submit_arrays(fields)
             t2 = time.monotonic()
-            STAGES.add("prep", t1 - t0)
-            STAGES.add("dispatch", t2 - t1)
+            STAGES.add("prep", t1 - t0, end=t1)
+            STAGES.add("dispatch", t2 - t1, end=t2)
             return handle
 
         await self._submit_pipelined(
-            submit_call,
+            lambda: self._submit_call(submit_body, bid),
             decide_items,
             lambda handle, submit_s: self._finish_arrays(
-                handle, decide_items, lens, submit_s, t_collect
+                handle, decide_items, lens, submit_s, t_collect, bid
             ),
+            bid,
         )
 
+    @staticmethod
+    def _submit_call(body, bid):
+        """`body(t0)` on the submit thread as one `submit_call` span of
+        batch `bid`, the thread bound to `bid` meanwhile (the engine's
+        spans carry it)."""
+        t0 = time.monotonic()
+        STAGES.bind_batch(bid)
+        try:
+            return body(t0)
+        finally:
+            STAGES.bind_batch(None)
+            t1 = time.monotonic()
+            STAGES.add("submit_call", t1 - t0, end=t1, batch=bid)
+
+    @staticmethod
+    def _fetch(wait, handle, bid):
+        """`wait(handle)` (the backend's decide_wait or
+        decide_wait_arrays) on a fetch thread, its spans tagged with
+        batch `bid`."""
+        STAGES.bind_batch(bid)
+        try:
+            return wait(handle)
+        finally:
+            STAGES.bind_batch(None)
+
     async def _finish_arrays(
-        self, handle, decide_items, lens, submit_s, t_collect
+        self, handle, decide_items, lens, submit_s, t_collect, bid=None
     ):
         t1 = time.monotonic()
         loop = asyncio.get_running_loop()
         try:
             status, limit, remaining, reset = await loop.run_in_executor(
-                self._fetch_pool, self.backend.decide_wait_arrays, handle
+                self._fetch_pool, self._fetch, self.backend.decide_wait_arrays,
+                handle, bid,
             )
         except Exception as e:
             self._fail(decide_items, e)
             return
         finally:
             self._inflight.release()
-            STAGES.add("fetch_wait", time.monotonic() - t1)
+            STAGES.add("fetch_wait", time.monotonic() - t1, batch=bid)
+        t_resolve = time.monotonic()
         k = 0
         for it, n in zip(decide_items, lens):
             span = (
@@ -880,13 +920,15 @@ class DeviceBatcher:
                 fut.set_result(self.backend.resps_from_arrays(*span))
             else:
                 fut.set_result(span)
+        t_resolved = time.monotonic()
+        STAGES.add("resolve", t_resolved - t_resolve, end=t_resolved, batch=bid)
         # device stage: collect -> responses resolved, per
         # frame-flagged caller group (covers submit + device execute +
         # fetch + pipeline wait)
         dev_span = time.monotonic() - t_collect
         nf = sum(1 for it in decide_items if it[-2].frame)
         if nf:
-            STAGES.add("device", dev_span * nf, nf)
+            STAGES.add("device", dev_span * nf, nf, batch=bid)
         self._trace_device(
             decide_items, t_collect, k,
             extra=dict(
@@ -904,30 +946,35 @@ class DeviceBatcher:
             pass
 
     async def _finish(
-        self, handle, decide_items, submit_s: float, t_collect: float
+        self, handle, decide_items, submit_s: float, t_collect: float,
+        bid=None,
     ):
         t1 = time.monotonic()
         loop = asyncio.get_running_loop()
         try:
             resps = await loop.run_in_executor(
-                self._fetch_pool, self.backend.decide_wait, handle
+                self._fetch_pool, self._fetch, self.backend.decide_wait,
+                handle, bid,
             )
         except Exception as e:
             self._fail(decide_items, e)
             return
         finally:
             self._inflight.release()
-            STAGES.add("fetch_wait", time.monotonic() - t1)
+            STAGES.add("fetch_wait", time.monotonic() - t1, batch=bid)
         # own cost only: host submit + own fetch span — NOT the time
         # spent queued behind earlier batches, which would double-count
         # device time under steady pipelining
+        t_resolve = time.monotonic()
         self._resolve(
-            decide_items, resps, submit_s + (time.monotonic() - t1)
+            decide_items, resps, submit_s + (t_resolve - t1)
         )
+        t_resolved = time.monotonic()
+        STAGES.add("resolve", t_resolved - t_resolve, end=t_resolved, batch=bid)
         dev_span = time.monotonic() - t_collect
         nf = sum(1 for it in decide_items if it[-2].frame)
         if nf:
-            STAGES.add("device", dev_span * nf, nf)
+            STAGES.add("device", dev_span * nf, nf, batch=bid)
         self._trace_device(
             decide_items, t_collect, len(resps),
             extra=dict(

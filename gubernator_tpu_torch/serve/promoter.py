@@ -80,6 +80,7 @@ from gubernator_tpu_torch.core.algorithms import PROMOTABLE_ALGOS
 from gubernator_tpu_torch.core.graphs import DeviceGraphs, TopKLayout
 from gubernator_tpu_torch.core.store import DeviceLike, resolve_device
 from gubernator_tpu_torch.serve import metrics
+from gubernator_tpu_torch.serve.stages import STAGES
 
 log = logging.getLogger("gubernator_tpu_torch.promoter")
 
@@ -427,6 +428,16 @@ class SketchPromoter:
     # -- the flush tick ------------------------------------------------------
 
     async def flush_once(self) -> None:
+        """One tick, recorded whole as the stage clock's `promoter_tick`
+        (its awaits included: the promotion call on the submit thread)."""
+        t0 = time.monotonic()
+        try:
+            await self._tick()
+        finally:
+            t1 = time.monotonic()
+            STAGES.add("promoter_tick", t1 - t0, end=t1)
+
+    async def _tick(self) -> None:
         now = api_types.millisecond_now()
         # demote: release promotions whose installed window expired —
         # the exact entry is dead (lazy expiry) and the key's next

@@ -87,13 +87,51 @@ Tracing tie-in (r16, serve/tracing.py): when the caller's context
 carries an active trace, `add` forwards the same span into it — the
 distributed tracer reuses these timings instead of running a second
 clock. One ContextVar read per record when tracing is idle.
+
+The port's batch timeline. The totals say how long each stage took, not
+when it ran, on which thread or for which batch. `arm_timeline(capacity)`
+preallocates a bounded list; while it is armed every `add` also keeps
+(name, start_ns, end_ns, thread name, batch id) on the monotonic clock,
+and counts `dropped` once the list is full. `disarm_timeline()` returns
+the records with a (monotonic_ns, time_ns) pair read at arm and one at
+disarm, which map the records onto another clock (the torch profiler's
+timestamps are Unix-epoch nanoseconds). Disarmed, a record pays one
+attribute check more. No setting arms it: an operator has no switch
+(no environment variable, no config field); the benchmark and the tests
+arm it by call.
+
+The timeline's own stages, recorded only by the port (each through
+`add`, so each is in the totals too: `/v1/debug/stages` lists them under
+`per_batch_stages` and `per_tick_stages`, and `/metrics` exports them in
+`serving_stage_seconds_total{stage}`; `batch` is the batcher's id of the
+device batch, carried to the threads that work on it). The pipelined
+decide paths record all of them; the chain lane and the non-pipelined
+backends record `collect` alone:
+
+    collect          the flusher's loop top -> collect_batch returned
+                     (incl. the deep-batch hold); assigns the batch id
+    submit_call      the whole submit-thread body (parent of prep,
+                     merge, dispatch)
+    observe          the engine's hot-key observer call (dispatch child)
+    launch           staging pack, upload and replay (or the eager
+                     programs) (dispatch child)
+    readback         pinned output buffer, D2H copy call, event record
+                     (dispatch child)
+    fetch_sync       the fetch thread's wait on the batch's copy event
+    unpack           after the wait: numpy view, stats, unpermute
+    resolve          the loop slicing answers and setting the futures
+                     (on the request-object path its batch metrics too)
+    promoter_tick    one SketchPromoter.flush_once (no batch)
+    gc               a generation-2 collection while the timeline is
+                     armed (no batch; reaches the totals at disarm)
 """
 
 from __future__ import annotations
 
+import gc
 import threading
 import time
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from gubernator_tpu_torch.serve import tracing
 
@@ -105,8 +143,56 @@ PER_FRAME = (
     "device",
     "encode",
 )
-PER_BATCH = ("submit_host", "prep", "merge", "dispatch", "fetch_wait")
+PER_BATCH = ("submit_host", "prep", "merge", "dispatch", "fetch_wait",
+             "collect", "submit_call", "observe", "launch", "readback",
+             "fetch_sync", "unpack", "resolve")
 PER_CALL = ("instance_route",)
+#: recorded on their own clock, tied to no batch or frame
+PER_TICK = ("promoter_tick", "gc")
+
+
+def clock_pair() -> Tuple[int, int]:
+    """(time.monotonic_ns(), time.time_ns()) read together: the wall
+    reading between two monotonic ones, paired with their midpoint."""
+    m0 = time.monotonic_ns()
+    w = time.time_ns()
+    m1 = time.monotonic_ns()
+    return (m0 + m1) // 2, w
+
+
+class _Timeline:
+    """The armed timeline: a preallocated list of records filled in
+    order, the count that found it full, and the gen-2 collections."""
+
+    __slots__ = ("records", "n", "dropped", "arm", "gc_spans", "gc_t0")
+
+    def __init__(self, capacity: int):
+        self.records: List[Optional[tuple]] = [None] * int(capacity)
+        self.n = 0
+        self.dropped = 0
+        self.arm = clock_pair()
+        self.gc_spans: list = []
+        self.gc_t0 = None
+
+    def put(self, rec: tuple) -> None:
+        if self.n < len(self.records):
+            self.records[self.n] = rec
+            self.n += 1
+        else:
+            self.dropped += 1
+
+    def on_gc(self, phase, info) -> None:
+        """gc.callbacks hook. It takes no lock (a collection may start
+        inside a locked `add`); its spans join the records at disarm."""
+        if info.get("generation") != 2:
+            return
+        if phase == "start":
+            self.gc_t0 = time.monotonic_ns()
+        elif self.gc_t0 is not None:
+            self.gc_spans.append(
+                (self.gc_t0, time.monotonic_ns(), threading.current_thread().name)
+            )
+            self.gc_t0 = None
 
 
 class StageStats:
@@ -118,18 +204,79 @@ class StageStats:
         self._e2e_s = 0.0
         self._frames = 0
         self._started = time.monotonic()
+        self._timeline: Optional[_Timeline] = None
+        self._local = threading.local()
 
-    def add(self, stage: str, seconds: float, n: int = 1) -> None:
+    def add(
+        self,
+        stage: str,
+        seconds: float,
+        n: int = 1,
+        end: Optional[float] = None,
+        batch: Optional[int] = None,
+    ) -> None:
+        """One span of `stage` that lasted `seconds` and ended at `end`
+        (time.monotonic seconds; now by default). `batch` is the device
+        batch's id, else the one this thread is bound to (bind_batch);
+        both matter only to an armed timeline."""
         if seconds < 0:  # clock skew guard (edge stamp from the future)
             return
         tr = tracing.active()
         if tr is not None:
-            # the span just ended and lasted `seconds`: the trace gets
-            # the stage clock's own timing, not a parallel measurement
-            tr.add_span(stage, duration_s=seconds)
+            # the span ended at `end` and lasted `seconds`: the trace
+            # gets the stage clock's own timing, not a parallel
+            # measurement
+            tr.add_span(stage, duration_s=seconds, end=end)
         with self._lock:
             total, count = self._stages.get(stage, (0.0, 0))
             self._stages[stage] = (total + seconds, count + n)
+            tl = self._timeline
+            if tl is not None:
+                # a record of n spans (the per-frame stages) keeps their
+                # mean. The start is taken in seconds first: a span
+                # timed as t1 - t0 then starts at exactly t0, as its
+                # parent or sibling from t0 does
+                end_s = time.monotonic() if end is None else end
+                tl.put((
+                    stage, round((end_s - seconds / max(n, 1)) * 1e9), round(end_s * 1e9),
+                    threading.current_thread().name,
+                    getattr(self._local, "batch", None) if batch is None else batch,
+                ))
+
+    def bind_batch(self, batch: Optional[int]) -> None:
+        """Tag this thread's next spans with device batch `batch` (None
+        unbinds): the engine's spans on the submit and fetch threads
+        carry the batcher's id this way."""
+        self._local.batch = batch
+
+    def arm_timeline(self, capacity: int) -> None:
+        """Start keeping every span's record, up to `capacity` of them,
+        and time the gen-2 collections meanwhile. Arming an armed
+        timeline starts it afresh."""
+        tl = _Timeline(capacity)
+        with self._lock:
+            old, self._timeline = self._timeline, tl
+        if old is not None:
+            gc.callbacks.remove(old.on_gc)
+        gc.callbacks.append(tl.on_gc)
+
+    def disarm_timeline(self) -> Optional[dict]:
+        """Stop keeping records; returns {records: [(name, start_ns,
+        end_ns, thread, batch)] on the monotonic clock, dropped, arm,
+        disarm: (monotonic_ns, time_ns) pairs}, or None if not armed.
+        The collections timed meanwhile join the records and the totals
+        as `gc` spans."""
+        with self._lock:
+            tl, self._timeline = self._timeline, None
+        if tl is None:
+            return None
+        gc.callbacks.remove(tl.on_gc)
+        disarm = clock_pair()
+        records = tl.records[: tl.n]
+        for s, e, thread in tl.gc_spans:
+            self.add("gc", (e - s) / 1e9, end=e / 1e9)
+            records.append(("gc", s, e, thread, None))
+        return dict(records=records, dropped=tl.dropped, arm=tl.arm, disarm=disarm)
 
     def add_frame(self, e2e_seconds: float) -> None:
         """One edge frame fully served (edge send stamp when the frame
@@ -170,12 +317,27 @@ class StageStats:
             "per_frame_stages": list(PER_FRAME),
             "per_batch_stages": list(PER_BATCH),
             "per_call_stages": list(PER_CALL),
+            "per_tick_stages": list(PER_TICK),
             "frames": frames,
             "frame_e2e_total_s": round(e2e_s, 6),
             "attributed_total_s": round(attributed, 6),
             "coverage": round(attributed / e2e_s, 4) if e2e_s else 0.0,
             "window_s": round(window_s, 3),
         }
+
+
+def wall_records(timeline: dict) -> list:
+    """The records of a disarmed timeline (disarm_timeline's dict) with
+    their times moved onto time.time_ns's clock, the torch profiler's:
+    linear through the arm and disarm pairs."""
+    (m0, w0), (m1, w1) = timeline["arm"], timeline["disarm"]
+    scale = (w1 - w0) / (m1 - m0) if m1 > m0 else 1.0
+
+    def wall(t: int) -> int:
+        return w0 + round((t - m0) * scale)
+
+    return [(name, wall(s), wall(e), thread, batch)
+            for name, s, e, thread, batch in timeline["records"]]
 
 
 #: process-global clock; the bridge, batcher, and instance record here

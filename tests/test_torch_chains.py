@@ -598,8 +598,14 @@ def test_fallbacks_never_decide_chains_as_plain(clock):
 
 
 def _stage_counts(stages):
+    """(frames, {stage: count}, coverage); the port's timeline stages
+    (collect, submit_call, the dispatch and fetch children, promoter_tick,
+    gc), which the JAX package does not record, are left out."""
     snap = stages.STAGES.snapshot()
-    return snap["frames"], {k: v["count"] for k, v in snap["stages"].items()}, snap["coverage"]
+    own = set(getattr(stages, "PER_TICK", ())) | (
+        set(stages.PER_BATCH) - {"submit_host", "prep", "merge", "dispatch", "fetch_wait"})
+    counts = {k: v["count"] for k, v in snap["stages"].items() if k not in own}
+    return snap["frames"], counts, snap["coverage"]
 
 
 def test_chain_lane_records_frame_stages(clock):

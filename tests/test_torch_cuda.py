@@ -524,6 +524,65 @@ def test_instance_on_card_matches_cpu(monkeypatch):
     asyncio.run(run())
 
 
+@pytest.mark.parametrize("sketch", [False, True], ids=["exact", "two_tier"])
+def test_timeline_shares_the_profiler_clock_on_card(sketch):
+    """A short pipelined serving run (DeviceBatcher, deep batches, two in
+    flight) under torch.profiler, the stage clock's timeline armed inside
+    the profile: mapped through its clock pairs onto the profiler's clock,
+    at least 99% of the decides' graph-launch runtime calls fall inside a
+    `launch` span, with 50 us of slack on each side."""
+    _need_card()
+    import asyncio
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from gubernator_tpu_torch.core.sketches import SketchConfig
+    from gubernator_tpu_torch.serve.backends import TorchBackend
+    from gubernator_tpu_torch.serve.batcher import DeviceBatcher
+    from gubernator_tpu_torch.serve.stages import STAGES, wall_records
+
+    backend = TorchBackend(StoreConfig(rows=16, slots=16), buckets=(64, 256, 1024),
+                           sketch=SketchConfig(2, 1 << 12, 4) if sketch else None)
+    backend.warmup()
+    rng = np.random.default_rng(21)
+    pool = rng.integers(1, 2**63, 5000, dtype=np.uint64)
+
+    async def serve(seconds):
+        batcher = DeviceBatcher(backend, batch_limit=1024, fetch_depth=2, deep_batch=True)
+        batcher.start()
+        stop = time.monotonic() + seconds
+
+        async def caller():
+            while time.monotonic() < stop:
+                n = int(rng.integers(1, 256))
+                await batcher.decide_arrays(dict(
+                    key_hash=pool[np.minimum(rng.zipf(1.2, n) - 1, pool.shape[0] - 1)],
+                    hits=np.ones(n, np.int64), limit=np.full(n, 100, np.int64),
+                    duration=np.full(n, 60_000, np.int64), algo=np.zeros(n, np.int32)))
+
+        await asyncio.gather(*[caller() for _ in range(8)])
+        await batcher.drain()
+        await batcher.stop()
+
+    asyncio.run(serve(0.3))  # first uses outside the traced run
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        STAGES.arm_timeline(1 << 16)
+        try:
+            asyncio.run(serve(1.0))
+        finally:
+            tl = STAGES.disarm_timeline()
+    slack = 50_000
+    spans = sorted((s - slack, e + slack) for name, s, e, _t, _b in wall_records(tl)
+                   if name == "launch")
+    calls = [(int(e.start_ns()), int(e.start_ns()) + int(e.duration_ns()))
+             for e in prof.profiler.kineto_results.events()
+             if "cudaGraphLaunch" in e.name() and "CUDA" not in str(e.device_type())]
+    inside = sum(any(s <= c0 and c1 <= e for s, e in spans) for c0, c1 in calls)
+    assert tl["dropped"] == 0 and len(spans) >= 20 and len(calls) >= 20
+    assert inside >= 0.99 * len(calls), (inside, len(calls), len(spans))
+
+
 def test_decide_wait_does_not_wait_for_later_work():
     """decide_wait returns once its own batch's copy is done, while work
     queued after that batch still runs on the stream: for a batch whose

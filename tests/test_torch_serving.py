@@ -165,7 +165,10 @@ def _assert_state_same(t, j, msg):
     np.testing.assert_array_equal(
         te.sketch.data.numpy(), np.asarray(je.sketch.data), err_msg=f"sketch {msg}"
     )
-    assert t.backend.stats() == j.backend.stats(), msg
+    t_stats = t.backend.stats()
+    # the port counts the distinct keys of its batches too
+    assert t_stats.pop("groups") >= t_stats["batches"], msg
+    assert t_stats == j.backend.stats(), msg
     assert t.shed.stats() == j.shed.stats(), msg
     assert dict(t.shed._entries) == dict(j.shed._entries), msg
     assert te.reset_generation == je.reset_generation, msg
