@@ -61,7 +61,16 @@ Phases, one JSON line each:
              kernels); bound_ms is bytes over the H100's 3.35 TB/s, and
              share_of_floor the same bytes over the measured floor at the
              store's size: the fastest of add_one, its plain version and
-             x.add_(1) there (floor_by names which);
+             x.add_(1) there (floor_by names which); then the segmented-
+             scan kernel (csrc/segscan.cu through core/scan.py's four
+             wrappers) bit for bit against its plain version at each call
+             one decide or install makes at 32,768 rows and at the 32,768
+             and 8,192 group counts (SCAN_SHAPES), timed the same way with
+             library_ms the torch composition it replaced; the kernels
+             line counts its calls path by path (launches_by_path: this
+             process's, with each daemon's from /v1/debug/stats), and the
+             exact and two-tier paths hold them to 6 a decide and 3 an
+             install chunk;
    ablation  the writeback ablation (cli/ablate_writeback.py, the port of
              scripts/ablate_sweep.py): its steps rows, deltas and full at
              kRows 4, 8 and 16, each bit for bit against its plain version
@@ -80,7 +89,10 @@ Phases, one JSON line each:
              for its 4 shards) byte for byte against the eager mesh and
              the CPU mesh for the three programs, and a failed mesh
              capture raising (the multihost phase runs graphed
-             processes);
+             processes); the scan kernel's card tests: each wrapper
+             against its plain version over row counts 1 to 131,072 and
+             1 to 17 columns, a captured cycle replayed against the eager
+             calls, the decide and install graphs' scans counted on replay;
 3. walk      get_rate_limits: a limit-2 key goes 1 -> 0 -> OVER_LIMIT;
 4. main      exact tier: 3 batches held against the same port on the CPU
              (identical outputs and store bytes), 50 timed, then a profile;
@@ -389,9 +401,9 @@ any phase fails. Imports nothing of JAX or of gubernator_tpu.
 
     python3 chip_smoke.py --decide-profile [BATCHES]
 
-is a probe, not the smoke: the writeback kernel's device time a call
-inside graphed decides (decide_profile_main), to compare builds of
-csrc/writeback.cu run each from its own checkout on one card.
+is a probe, not the smoke: the writeback kernel's and the segmented
+scans' device time a call inside graphed decides (decide_profile_main),
+to compare builds of csrc/ run each from its own checkout on one card.
 """
 
 from __future__ import annotations
@@ -431,10 +443,18 @@ KERNEL_SETS = 8  # batches cycled per kernel timing run
 GRAPH_AB_BATCHES = 24  # batches each deployment's graphs phase decides eager and graphed
 #: the card tests of the captured decide (tests/test_torch_cuda.py) the
 #: card_tests phase runs: 3 replay-vs-eager, the decide_wait, the failed capture
-#: and the capture beside a collector, a synchronize and a second capture
+#: and the capture beside a collector, a synchronize and a second capture;
+#: and the segmented-scan kernel's 244: each wrapper against its plain
+#: version, a captured cycle of calls replayed against the eager calls,
+#: and the decide and install graphs' recorded scans counted on replay
 GRAPH_CARD_TESTS = ("graph_replays or decide_wait_does_not_wait or failing_capture "
-                    "or failing_mesh_capture or capture_survives or failing_program_capture",
-                    11)
+                    "or failing_mesh_capture or capture_survives or failing_program_capture "
+                    "or seg_scan or segment_bounds or row_cumsum or their_scans",
+                    255)
+#: the scan kernel's calls a decide (the request rows' two prefix sums, the
+#: groups' sticky flips, the bucket-segment ends, the writeback plan's sums
+#: and its empty-way ranks) and an install chunk (core/kernels.py)
+SCANS_PER_DECIDE, SCANS_PER_INSTALL = 6, 3
 #: each program of the program A/B (graphed against eager): one untimed
 #: call (it captures on first use, and is held against the CPU), then
 #: this many timed calls of each kind
@@ -670,6 +690,126 @@ def copy_floor_cases(cyc: float) -> dict:
     return out
 
 
+
+#: the segmented-scan kernel's calls a decide or an install makes (csrc/
+#: segscan.cu, core/scan.py), at the deep cells' 32,768 rows and their
+#: group counts. name: (rows, columns, share of rows that lead a segment,
+#: mode, what the decide uses it for); the request rows' segments are
+#: groups (4.27 rows a group at deep_zipf), the groups' segments buckets
+#: (2^20 of them: a bucket rarely holds two groups)
+SCAN_SHAPES = {
+    "rows_k2": (32768, 2, 1 / 4.27, "sum",
+                "the request rows' prefix sums, twice a decide (32,768 rows)"),
+    "rows_k1": (32768, 1, 1 / 4.27, "sum", "each group's count of sticky flips, once a decide"),
+    "plan_k17_g32768": (32768, 17, 1.0, "sum", "the writeback plan at churn's 32,768 groups"),
+    "plan_k17_g8192": (8192, 17, 0.99, "sum",
+                       "the writeback plan at deep_zipf's and exact's 8,192-group rung"),
+    "ends_g32768": (32768, 1, 1.0, "end", "the bucket-segment ends at 32,768 groups"),
+    "ends_g8192": (8192, 1, 0.99, "end", "the bucket-segment ends at 8,192 groups"),
+    "starts_32768": (32768, 1, 1 / 4.27, "start",
+                     "the segment starts of the device-sorted decide's grouping"),
+    "ways_g32768": (32768, 16, 0.0, "row",
+                    "the writeback plan's empty-way ranks along each group's 16 ways"),
+    "ways_g8192": (8192, 16, 0.0, "row", "the same at the 8,192-group rung"),
+}
+#: calls a timed run of the torch compositions (10-15 launches each): a run
+#: of CALLS of them would fill the card's launch queue while the sleep ahead
+#: of it still runs, and the host would enqueue the rest after the start
+COMPOSED_CALLS = 32
+
+
+def _library_sum(lead, vals):
+    """The decide's composition before the kernel: a cumsum over the
+    transpose, a cummax of the segment starts and a gather."""
+    from gubernator_tpu_torch.core.scan import I32_MAX
+
+    ar = torch.arange(lead.shape[0], dtype=torch.int64, device=lead.device)
+    c = torch.cumsum(vals.to(torch.int64).t().contiguous(), dim=1).t()
+    start = (c - vals)[torch.cummax(torch.where(lead, ar, 0), dim=0).values]
+    return torch.clamp_max(c - start, I32_MAX).to(torch.int32)
+
+
+def _library_starts(lead):
+    ar = torch.arange(lead.shape[0], dtype=torch.int64, device=lead.device)
+    return torch.cummax(torch.where(lead, ar, 0), dim=0).values
+
+
+def scan_fns(name: str):
+    """(kernel, plain, library) of a SCAN_SHAPES entry, each called as
+    fn(is_leader, values): the wrapper on card tensors, its plain version,
+    and the torch composition the decide ran in the kernel's place."""
+    from gubernator_tpu_torch.core import scan
+
+    mode = SCAN_SHAPES[name][3]
+    if mode == "row":
+        return (lambda lead, vals: scan.row_cumsum(vals),
+                lambda lead, vals: scan.row_cumsum_plain(vals),
+                lambda lead, vals: torch.cumsum(vals, dim=1).to(torch.int32))
+    if mode == "end":
+        return (lambda lead, vals: scan.segment_ends(lead),
+                lambda lead, vals: scan.segment_ends_plain(lead),
+                lambda lead, vals: scan.segment_ends_plain(lead))  # flip, cummin, flip
+    if mode == "start":
+        return (lambda lead, vals: scan.leader_pos(lead),
+                lambda lead, vals: scan.leader_pos_plain(lead),
+                lambda lead, vals: _library_starts(lead))
+    library = _library_sum
+    if name == "rows_k1":  # the whole-batch count it replaced
+        library = lambda lead, vals: torch.cumsum(vals[:, 0], dim=0).to(torch.int32)  # noqa: E731
+    return scan.seg_scan, scan.seg_scan_plain, library
+
+
+def scan_case(name: str, cyc: float) -> dict:
+    """The scan kernel at one SCAN_SHAPES entry: bit for bit against its
+    plain version on the first two of KERNEL_SETS input sets (small
+    non-negative values, each row after the first leading a segment with
+    the shape's share), then per-call device times of runs cycling
+    through all of them, as kernel_case times the writeback: ms on the
+    stream, graph_ms from one captured graph of the cycle, l2_warm_ms on
+    one set repeated, plain_ms, library_ms (the torch composition it
+    replaced), and bound_ms: the call's bytes (values read and written,
+    flags read) over the H100's 3.35 TB/s."""
+    from gubernator_tpu_torch.cli.ablate_writeback import CALLS, run_ms, spin_up
+
+    n, k, share, mode, what = SCAN_SHAPES[name]
+    kernel, plain, library = scan_fns(name)
+    sets = []
+    for seed in range(KERNEL_SETS):
+        rng = np.random.default_rng([seed, n, k])
+        lead = rng.random(n) < share
+        lead[0] = True
+        vals = rng.integers(0, 3, (n, k), dtype=np.int64).astype(np.int32)
+        sets.append((torch.from_numpy(lead).cuda(), torch.from_numpy(vals).cuda()))
+    for lead, vals in sets[:2]:
+        if not torch.equal(kernel(lead, vals), plain(lead, vals)):
+            fail(f"kernel seg_scan {name}: the kernel disagrees with its plain version")
+    fns = dict(ms=[lambda a=a: kernel(*a) for a in sets],
+               plain_ms=[lambda a=a: plain(*a) for a in sets],
+               library_ms=[lambda a=a: library(*a) for a in sets])
+    calls = dict(ms=CALLS, plain_ms=COMPOSED_CALLS, library_ms=COMPOSED_CALLS)
+    spin_up()
+    samples = {key: [] for key in fns}
+    for order in (list(fns), list(fns)[::-1], list(fns), list(fns)[::-1]):
+        for key in order:
+            samples[key].append(run_ms(fns[key], cyc, n=calls[key]))
+    times = {key: statistics.median(v) for key, v in samples.items()}
+    graph = capture(fns["ms"])
+    graph_samples = [run_ms([graph.replay], cyc, n=CALLS // len(sets)) / len(sets)
+                     for _ in range(4)]
+    del graph
+    nbytes = {"sum": n + 2 * n * k * 4, "row": 2 * n * k * 4}.get(mode, n + n * 4)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    out = dict(shape=name, what=what, n=n, k=k, leader_share=share, mode=mode, bytes=nbytes,
+               max_abs_err=0, **times, ms_samples=samples["ms"],
+               graph_ms=statistics.median(graph_samples), graph_ms_samples=graph_samples,
+               l2_warm_ms=run_ms(fns["ms"][:1], cyc), bound_ms=bound_ms, bound_by="bytes",
+               share_of_bound=bound_ms / times["ms"],
+               library_vs_kernel=times["library_ms"] / times["ms"])
+    del sets, fns
+    torch.cuda.empty_cache()
+    return out
+
+
 @contextlib.contextmanager
 def numpy_twins():
     """The engine, the merge and TorchEngine on their numpy twins: no
@@ -787,13 +927,16 @@ def profile_batches(eng, pool, fields, now: int, step: int):
 
 
 def decide_profile_main(argv: list) -> int:
-    """`chip_smoke.py --decide-profile [BATCHES]`: the writeback kernel as
-    the decide runs it, after the decide's torch kernels in one graph
-    replay. At the exact and the two-tier paths' stores (no prefill, no
-    checks), 20 zipf batches of DEPTH warm the store, then the `profile`
-    phases' reading (profile_batches) over BATCHES more (default 20):
-    writeback_add_kernel's device time a call, and the decide's device
-    time a batch. One JSON line a path, the card's name on each."""
+    """`chip_smoke.py --decide-profile [BATCHES]`: the writeback kernel and
+    the segmented scans as the decide runs them, among the decide's torch
+    kernels in one graph replay. At the exact and the two-tier paths'
+    stores (no prefill, no checks), 20 zipf batches of DEPTH warm the
+    store, then the `profile` phases' reading (profile_batches) over
+    BATCHES more (default 20): writeback_add_kernel's device time a call,
+    each scan kernel's (and any torch scan left), and the decide's device
+    time a batch; the two-tier store again with every key fresh
+    (`two_tier_churn`: a group a row). One JSON line a path, the card's
+    name on each."""
     from gubernator_tpu_torch.core.engine import TorchEngine, buckets_for_limit
     from gubernator_tpu_torch.core.sketches import derive_two_tier_config
     from gubernator_tpu_torch.core.store import derive_store_config
@@ -809,11 +952,16 @@ def decide_profile_main(argv: list) -> int:
     ladder = buckets_for_limit(DEPTH)
     two_tier, skc = derive_two_tier_config(1024)
     paths = (("exact", derive_store_config(mib=1024), None, KEY_SPACE, DURATION),
-             ("two_tier", two_tier, skc, KEY_SPACE_100M, DURATION_100M))
+             ("two_tier", two_tier, skc, KEY_SPACE_100M, DURATION_100M),
+             ("two_tier_churn", two_tier, skc, None, DURATION_100M))
     for path, config, sketch, key_space, duration in paths:
         eng = TorchEngine(config, buckets=ladder, sketch=sketch)
         eng.warmup(now=T0)
-        pool = zipf_hashes((20 + n) * DEPTH, key_space=key_space).reshape(20 + n, DEPTH)
+        if key_space is None:  # every key fresh
+            pool = np.random.default_rng(7).integers(
+                1, 2**64, (20 + n, DEPTH), dtype=np.uint64)
+        else:
+            pool = zipf_hashes((20 + n) * DEPTH, key_space=key_space).reshape(20 + n, DEPTH)
         ones = np.ones(DEPTH, np.int64)
         fields = (ones * HITS, ones * LIMIT, ones * duration, np.zeros(DEPTH, np.int32),
                   np.zeros(DEPTH, bool))
@@ -828,7 +976,7 @@ def decide_profile_main(argv: list) -> int:
                  f"for {n} decides, {eng.graph_captures} captures after warmup")
         emit(dict(phase="decide_profile", path=path, card=card,
                   **{k: prof[k] for k in ("batches", "writeback_device_us_per_call",
-                                          "writeback_launches",
+                                          "writeback_launches", "scan_kernels",
                                           "device_busy_us_per_batch")}))
         del eng
         torch.cuda.empty_cache()
@@ -866,6 +1014,11 @@ def device_profile(prof, wall_us: float, nb: int) -> dict:
         device_events_per_batch=sum(r[2] for r in rows) / nb,
         writeback_device_us_per_call=wb[0][1] / wb[0][2],
         writeback_launches=wb[0][2],
+        # csrc/segscan.cu's grids, and any torch scan still launched
+        scan_kernels=[dict(name=k[:90], device_us_per_call=d / c, count=c)
+                      for k, d, c in rows
+                      if any(w in k for w in ("seg_scan_kernel", "seg_totals_kernel",
+                                              "scan_innermost", "scan_outer"))],
         busy_share=dict(
             writeback=share("writeback_add_kernel"),
             gathers=share("index", "gather", "Gather"),
@@ -946,6 +1099,7 @@ def rate_fields(ladder, slots: int, pool, fields, batch_ms, per_batch) -> dict:
 def exact_path(card: str, ladder, writeback) -> dict:
     """The exact-tier 1 GiB zipf10m path (GUBER_SKETCH=0)."""
     from gubernator_tpu_torch import RateLimitReq, Status
+    from gubernator_tpu_torch.core import scan
     from gubernator_tpu_torch.core.engine import TorchEngine
     from gubernator_tpu_torch.core.store import derive_store_config, store_to_numpy
 
@@ -955,6 +1109,7 @@ def exact_path(card: str, ladder, writeback) -> dict:
     eng.warmup(now=T0)
     warm_s = time.monotonic() - t0
     writeback.writeback_add.launches = 0  # count this path only
+    scans0 = scan.seg_scan.launches
     decides = 0
 
     walk = []
@@ -1001,11 +1156,14 @@ def exact_path(card: str, ladder, writeback) -> dict:
     launches = writeback.writeback_add.launches
     if launches != decides or launches == 0:
         fail(f"exact path: writeback kernel launched {launches} times for {decides} decides")
+    scans = scan.seg_scan.launches - scans0
+    if scans != SCANS_PER_DECIDE * decides:
+        fail(f"exact path: the scan kernel launched {scans} times for {decides} decides")
     emit(dict(
         phase="main", path="exact", card=card, store_shape=list(eng.store.data.shape),
         store_bytes=eng.store.data.numel() * 4, batch=DEPTH, warmup_s=warm_s,
         **rate_fields(ladder, config.slots, timed, fields, batch_ms, per_batch),
-        decides=decides, kernel_launches=launches,
+        decides=decides, kernel_launches=launches, scan_launches=scans,
         stats=eng.stats.snapshot(), **graph_fields(eng),
         max_memory_allocated=torch.cuda.max_memory_allocated(),
     ))
@@ -1023,6 +1181,7 @@ def exact_path(card: str, ladder, writeback) -> dict:
 
 def two_tier_path(card: str, ladder, writeback) -> dict:
     """The default decide path (sketch on) at the zipf100m deployment."""
+    from gubernator_tpu_torch.core import scan
     from gubernator_tpu_torch.core.engine import TorchEngine
     from gubernator_tpu_torch.core.sketches import derive_two_tier_config, sketch_footprint_bytes
 
@@ -1039,6 +1198,7 @@ def two_tier_path(card: str, ladder, writeback) -> dict:
     warm_s = time.monotonic() - t0
     top = max(ladder)
     writeback.writeback_add.launches = 0  # count this path only
+    scans0 = scan.seg_scan.launches
     decides = install_chunks = 0
     ones = np.ones(DEPTH, np.int64)
     tok = (ones * HITS, ones * LIMIT, ones * DURATION_100M, np.zeros(DEPTH, np.int32),
@@ -1190,10 +1350,14 @@ def two_tier_path(card: str, ladder, writeback) -> dict:
     if launches != decides + install_chunks or launches == 0:
         fail(f"two-tier path: writeback kernel launched {launches} times for "
              f"{decides} decides + {install_chunks} install chunks")
+    scans = scan.seg_scan.launches - scans0
+    if scans != SCANS_PER_DECIDE * decides + SCANS_PER_INSTALL * install_chunks:
+        fail(f"two-tier path: the scan kernel launched {scans} times for {decides} decides "
+             f"+ {install_chunks} install chunks")
     if eng.graph_captures:
         fail(f"two-tier path: {eng.graph_captures} decide graphs captured after warmup")
     emit(dict(main, decides=decides, install_chunks=install_chunks, kernel_launches=launches,
-              **graph_fields(eng)))
+              scan_launches=scans, **graph_fields(eng)))
     del eng
     torch.cuda.empty_cache()
     return dict(launches=launches, decides=decides, install_chunks=install_chunks,
@@ -1378,7 +1542,8 @@ def card_tests_phase() -> dict:
     their own (tests/test_torch_cuda.py, no conftest: it imports no JAX):
     graph replays byte for byte against the eager decide, launches
     counted from replays, decide_wait not waiting on later work, a
-    failed capture raising with no fallback."""
+    failed capture raising with no fallback; and the segmented-scan
+    kernel's card tests."""
     expr, want = GRAPH_CARD_TESTS
     root = os.path.dirname(os.path.abspath(__file__))
     t0 = time.monotonic()
@@ -2178,6 +2343,12 @@ def client_window(target: str, seed: int, name: str, seconds: float) -> dict:
                           seconds, f"the window against {target}")
 
 
+def scan_delta(s0: dict, s1: dict) -> int:
+    """A daemon's segmented-scan kernel calls between two /v1/debug/stats
+    reads (`kernel_launches.seg_scan`)."""
+    return s1["kernel_launches"]["seg_scan"] - s0["kernel_launches"]["seg_scan"]
+
+
 def quiet_stats(base: str, what: str = "doors") -> dict:
     """/v1/debug/stats once two reads 0.3 s apart agree on the kernel
     launches, the decides and the engine's chunks (a promoter tick or a
@@ -2297,6 +2468,9 @@ def doors_path(card: str) -> dict:
             died(f"the window: writeback kernel launched {launches} times for {decides} "
                  f"decides + {chunks} install and gossip chunks ({nb} device batches "
                  f"in /metrics)")
+        scans = scan_delta(s0, s1)
+        if scans <= 0:
+            died(f"the window: {decides} decides launched no scan kernel")
         if s1["decide_graphs"]["captures"] or not s1["decide_graphs"]["count"]:
             died(f"the window: the daemon's decide graphs {s1['decide_graphs']}")
         if (s1["program_graphs"]["captures"] or not s1["program_graphs"]["count"]
@@ -2306,7 +2480,8 @@ def doors_path(card: str) -> dict:
         window.update(device_batches=nb, mean_device_batch=rows / nb,
                       stages=stages["stages"],
                       shed=stages.get("shed_cache"),
-                      kernel_launches=launches, decides=decides, chunks=chunks,
+                      kernel_launches=launches, scan_launches=scans, decides=decides,
+                      chunks=chunks,
                       decide_graphs=s1["decide_graphs"], program_graphs=s1["program_graphs"],
                       topk_graph=s1["topk_graph"])
         emit(dict(phase="window", path="doors", card=card, **window))
@@ -3033,7 +3208,7 @@ def geb_path(card: str, edge_build_result: dict) -> dict:
                  "the fast door counted one key apart, or the edge's hits were not fast")
 
         # the windows, each with its callers in a client process
-        windows, launches = {}, 0
+        windows, launches, scan_launches = {}, 0, 0
         targets = dict(geb_1000=f"127.0.0.1:{geb}", geb_deep=f"127.0.0.1:{geb}",
                        shm_deep=sock, unix_deep=sock, shm_fast=sock,
                        edge_http=f"127.0.0.1:{eh}")
@@ -3061,6 +3236,9 @@ def geb_path(card: str, edge_build_result: dict) -> dict:
             if nb <= 0 or decides <= 0 or wl != decides + chunks:
                 died(f"{kind}: writeback kernel launched {wl} times for {decides} decides + "
                      f"{chunks} install and gossip chunks ({nb} device batches in /metrics)")
+            ws = scan_delta(s0, s1)
+            if ws <= 0:
+                died(f"{kind}: {decides} decides launched no scan kernel")
             if kind in SHM_WINDOWS and counters["geb_shm_frames_total"] <= 0:
                 died(f"{kind}: geb_shm_frames_total did not rise")
             # the edge pre-hashes XXH64 like the store: its items ride fast frames
@@ -3070,7 +3248,7 @@ def geb_path(card: str, edge_build_result: dict) -> dict:
             st = stages["stages"]
             shed = stages.get("shed_cache") or {}
             w.update(device_batches=nb, mean_device_batch=rows_ / nb, kernel_launches=wl,
-                     decides=decides, chunks=chunks, counters=counters,
+                     scan_launches=ws, decides=decides, chunks=chunks, counters=counters,
                      merge_ms=st.get("merge", {}).get("mean_ms"),
                      dispatch_ms=st.get("dispatch", {}).get("mean_ms"),
                      shed_hits=shed.get("hits"), shed_share=(shed.get("hits", 0) / w["items"]),
@@ -3083,6 +3261,7 @@ def geb_path(card: str, edge_build_result: dict) -> dict:
             emit(dict(phase="window", path="geb", card=card, **w))
             windows[kind] = w
             launches += wl
+            scan_launches += ws
 
         # SIGTERM: the frame doors drain first, then the rest
         proc.send_signal(signal.SIGTERM)
@@ -3098,7 +3277,8 @@ def geb_path(card: str, edge_build_result: dict) -> dict:
             if p is not None and p.poll() is None:
                 p.kill()
                 p.wait(30)
-    return dict(windows=windows, launches=launches, boot_s=boot_s)
+    return dict(windows=windows, launches=launches, scan_launches=scan_launches,
+                boot_s=boot_s)
 
 
 def _geb_checked_frames(types, rng, ring: int) -> list:
@@ -4154,7 +4334,7 @@ def _wait_listening(proc, log, what: str, t0: float) -> float:
 def _launch_balance(s0: list, s1: list, what: str) -> list:
     """Each daemon's writeback launches between two /v1/debug/stats reads
     against its decides and install and gossip chunks; fails on a
-    difference."""
+    difference, or on decides that launched no scan kernel."""
     per_node = []
     for i, (a, b) in enumerate(zip(s0, s1)):
         launches = b["kernel_launches"]["writeback_add"] - a["kernel_launches"]["writeback_add"]
@@ -4164,7 +4344,11 @@ def _launch_balance(s0: list, s1: list, what: str) -> list:
         if launches != decides + chunks:
             fail(f"{what} daemon {i}: writeback launched {launches} times for "
                  f"{decides} decides + {chunks} install and gossip chunks")
-        per_node.append(dict(launches=launches, decides=decides, chunks=chunks))
+        scans = scan_delta(a, b)
+        if decides > 0 and scans <= 0:
+            fail(f"{what} daemon {i}: {decides} decides launched no scan kernel")
+        per_node.append(dict(launches=launches, scan_launches=scans, decides=decides,
+                             chunks=chunks))
     return per_node
 
 
@@ -4238,7 +4422,8 @@ def workloads_daemons(card: str, single_rate: float, cluster_rate: float) -> dic
                 fail(f"workloads ring_route: the client did not route by owner: {summary}")
             legs[name] = dict(seconds=leg_s, summary=summary, per_node=per_node,
                               decisions_per_s=summary["decisions_per_sec"],
-                              launches=sum(n["launches"] for n in per_node))
+                              launches=sum(n["launches"] for n in per_node),
+                              scan_launches=sum(n["scan_launches"] for n in per_node))
             emit(dict(phase="workloads", leg="daemons", loadgen=name, card=card,
                       processes=1,
                       decisions_per_s_per_process=[summary["decisions_per_sec"]],
@@ -4257,6 +4442,7 @@ def workloads_daemons(card: str, single_rate: float, cluster_rate: float) -> dic
     fwd = legs["forward"]["decisions_per_s"]
     out = dict(boot_s=boot_s, legs=legs,
                launches=sum(leg["launches"] for leg in legs.values()),
+               scan_launches=sum(leg["scan_launches"] for leg in legs.values()),
                forward_decisions_per_s=fwd, one_daemon_decisions_per_s=single_rate,
                one_loop_cluster_decisions_per_s=cluster_rate,
                forward_over_one_loop_cluster=fwd / cluster_rate if cluster_rate else None,
@@ -4275,7 +4461,7 @@ def workloads_path(card: str, writeback, single_rate: float, cluster_rate: float
     emit(dict(phase="workloads", seconds=time.monotonic() - t0,
               scenario_seconds={k: v["seconds"] for k, v in scenarios.items()}))
     return dict(launches=sum(s["launches"] for s in scenarios.values()),
-                daemon_launches=daemons["launches"])
+                daemon_launches=daemons["launches"], scan_launches=daemons["scan_launches"])
 
 
 # -- the discovery phase: membership through etcd, and the chaos soak --------
@@ -4399,7 +4585,8 @@ def discovery_ring(card: str) -> dict:
                        forwarded_share=[sum(o != addrs[i] for o in got) / len(got)
                                         for i, got in enumerate(owners)],
                        owners_agree=True, per_node=per_node,
-                       launches=sum(n["launches"] for n in per_node))
+                       launches=sum(n["launches"] for n in per_node),
+                       scan_launches=sum(n["scan_launches"] for n in per_node))
             emit(dict(phase="discovery", leg="ring", traffic=name, card=card, **rec))
             return rec
 
@@ -4439,7 +4626,8 @@ def discovery_ring(card: str) -> dict:
     out = dict(addresses=addrs, boot_s=boot_s, join_s=join_s, departure_s=depart_s,
                drain_s=drain_s, restart_boot_s=reboot_s, rejoin_s=rejoin_s,
                membership_bound_s=MEMBERSHIP_BOUND_S,
-               launches=sum(p["launches"] for p in passes))
+               launches=sum(p["launches"] for p in passes),
+               scan_launches=sum(p["scan_launches"] for p in passes))
     emit(dict(phase="discovery", leg="ring", card=card, **out))
     return out
 
@@ -4543,7 +4731,8 @@ def discovery_path(card: str) -> dict:
                  for c in soak["restore"]["doc"].get("cycles", [])],
     )
     emit(dict(phase="discovery", card=card, **summary))
-    return dict(launches=ring["launches"], seconds=seconds)
+    return dict(launches=ring["launches"], scan_launches=ring["scan_launches"],
+                seconds=seconds)
 
 
 # -- the mesh phase: the key space over shards of the one card -----------------
@@ -5466,6 +5655,7 @@ def multihost_engine_main(argv: list) -> int:
 
     from gubernator_tpu_torch.cli.daemon import follower_report
     from gubernator_tpu_torch.core.engine import buckets_for_limit
+    from gubernator_tpu_torch.core.scan import seg_scan
     from gubernator_tpu_torch.core.sketches import derive_two_tier_config
     from gubernator_tpu_torch.core.writeback import writeback_add
     from gubernator_tpu_torch.parallel.multihost import (
@@ -5492,7 +5682,8 @@ def multihost_engine_main(argv: list) -> int:
                        collectives=dict(eng.collective_stats), policy=eng.policy.describe(),
                        stats=eng.stats.snapshot(), n_local=eng.n_local,
                        decides=eng.stats.batches, install_chunks=eng.install_chunks,
-                       gossip_chunks=eng.gossip_chunks, launches=writeback_add.launches)
+                       gossip_chunks=eng.gossip_chunks, launches=writeback_add.launches,
+                       scan_launches=seg_scan.launches)
             eng.close()
         else:
             eng.follower_loop(f"127.0.0.1:{step_port}")
@@ -5629,6 +5820,7 @@ def multihost_engine_leg(card: str, ladder, writeback) -> dict:
         pipe_ack_wait_ms=lead["pipe"]["ack_wait_ms"] / lead["pipe"]["steps"],
         gather_wait_ms_per_batch=lt["gather_wait_ms_per_batch"], gathers=lt["gathers"],
         launches=launches, in_process_launches=in_process_launches,
+        scan_launches=lead["scan_launches"] + foll["scan_launches"],
         follower_steps=foll["steps"], ready_s={"leader": lead["ready_s"],
                                                 "follower": foll["ready_s"]},
         max_memory_allocated={"leader": lead["max_memory_allocated"],
@@ -5711,6 +5903,9 @@ def multihost_daemons(card: str) -> dict:
         if decides <= 0 or launches != n_local * (decides + chunks):
             died(f"the leader's window: writeback launched {launches} times for {n_local} x "
                  f"({decides} decides + {chunks} chunks)")
+        scans = scan_delta(s0, s1)
+        if scans <= 0:
+            died(f"the leader's window: {decides} decides launched no scan kernel")
         graphs = s1["decide_graphs"]
         if graphs["captures"] or not graphs["count"]:
             died(f"the leader's decide graphs after warmup: {graphs}")
@@ -5746,6 +5941,7 @@ def multihost_daemons(card: str) -> dict:
     rec = dict(phase="multihost", leg="daemons", card=card, policy=policy, boot_s=boot_s,
                walk=[[r.remaining, int(r.status), r.reset_time] for r in walk],
                leader_launches=launches, decides=decides, chunks=chunks, n_local=n_local,
+               leader_scan_launches=scans,
                decide_graphs=graphs, program_graphs=program_graphs, follower=report,
                follower_launches=follower_launches,
                exit_codes=[l_rc, f_rc], **window)
@@ -5761,7 +5957,10 @@ def multihost_path(card: str, ladder, writeback) -> dict:
     daemons = multihost_daemons(card)
     launches = (sum(engine["launches"].values()) + daemons["leader_launches"]
                 + daemons["follower_launches"])
-    out = dict(launches=launches, engine_vs_in_process=engine["vs_in_process"],
+    scans = (engine["scan_launches"] + daemons["leader_scan_launches"]
+             + daemons["follower"]["scan_launches"])
+    out = dict(launches=launches, scan_launches=scans,
+               engine_vs_in_process=engine["vs_in_process"],
                daemons_decisions_per_s=daemons["decisions_per_s"],
                seconds=time.monotonic() - t0)
     emit(dict(phase="multihost", leg="summary", card=card, **out))
@@ -5826,7 +6025,7 @@ def main() -> int:
               "false); this script measures the port on a GPU", file=sys.stderr)
         return 2
     # the port, from this checkout (fails here when run outside the repo)
-    from gubernator_tpu_torch.core import writeback
+    from gubernator_tpu_torch.core import scan, writeback
     from gubernator_tpu_torch.core.engine import buckets_for_limit
     from gubernator_tpu_torch.core.sketches import derive_two_tier_config
     from gubernator_tpu_torch.core.store import derive_store_config
@@ -5919,6 +6118,10 @@ def main() -> int:
         c["share_of_floor"] = c["floor_bound_ms"] / c["ms"]
     for path, c in cases.items():
         emit(dict(phase="kernel", kernel="writeback_add", path=path, card=card, **c))
+    scans = {}
+    for name in SCAN_SHAPES:
+        scans[name] = scan_case(name, cyc)
+        emit(dict(phase="kernel", kernel="seg_scan", path=name, card=card, **scans[name]))
 
     # the writeback ablation (its kernels are checked against their plain
     # versions inside, and fail the run on a difference)
@@ -5936,23 +6139,38 @@ def main() -> int:
     writeback.add_one.launches = 0
     writeback.writeback_rows.launches = writeback.writeback_deltas.launches = 0
     writeback.writeback_full.launches = 0
+    # the scan kernel's calls in this process, path by path (its daemons'
+    # and processes' come from their stats: each path's `scan_launches`)
+    scan.seg_scan.launches = 0
+    scans_by_path = {}
+
+    def counted(path: str, fn, *args):
+        before = scan.seg_scan.launches
+        out = fn(*args)
+        scans_by_path[path] = scan.seg_scan.launches - before + out.get("scan_launches", 0)
+        return out
+
     card_tests_phase()
-    exact = exact_path(card, ladder, writeback)
-    two = two_tier_path(card, ladder, writeback)
-    graphs = graphs_path(card, ladder, writeback)
-    serving = serving_path(card, writeback, two["decisions_per_s"])
-    doors = doors_path(card)
-    cluster = cluster_path(card, writeback)
+    exact = counted("exact", exact_path, card, ladder, writeback)
+    two = counted("two_tier", two_tier_path, card, ladder, writeback)
+    graphs = counted("graphs", graphs_path, card, ladder, writeback)
+    serving = counted("serving", serving_path, card, writeback, two["decisions_per_s"])
+    doors = counted("doors", doors_path, card)
+    cluster = counted("cluster", cluster_path, card, writeback)
     edge_thread.join()
-    geb = geb_path(card, edge_res)
-    geb_checked = geb_checked_leg(card, writeback)
-    chain = chain_path(card, ladder, writeback)
-    durability = durability_path(card, ladder, writeback)
-    workloads = workloads_path(card, writeback, doors["decisions_per_s"],
-                               cluster["window"]["decisions_per_s"])
-    discovery = discovery_path(card)
-    mesh = mesh_path(card, ladder, writeback, serving["decisions_per_s"])
-    multihost = multihost_path(card, ladder, writeback)
+    geb = counted("geb", geb_path, card, edge_res)
+    geb_checked = counted("geb_checked", geb_checked_leg, card, writeback)
+    chain = counted("chain", chain_path, card, ladder, writeback)
+    durability = counted("durability", durability_path, card, ladder, writeback)
+    workloads = counted("workloads", workloads_path, card, writeback, doors["decisions_per_s"],
+                        cluster["window"]["decisions_per_s"])
+    discovery = counted("discovery", discovery_path, card)
+    mesh = counted("mesh", mesh_path, card, ladder, writeback, serving["decisions_per_s"])
+    multihost = counted("multihost", multihost_path, card, ladder, writeback)
+    for path in ("exact", "two_tier", "graphs", "serving", "doors", "chain", "mesh",
+                 "multihost"):
+        if scans_by_path[path] <= 0:
+            fail(f"{path}: the decides launched no scan kernel ({scans_by_path})")
     floor_launches = writeback.add_one.launches
     if floor_launches:
         fail(f"the copy floor's kernel launched {floor_launches} times on the paths")
@@ -5963,6 +6181,7 @@ def main() -> int:
         fail(f"the ablation's kernels launched on the paths: {ablation_launches}")
 
     main_case, floor_case = cases["two_tier"], floor["512m"]
+    rows_case, plan_case = scans["rows_k2"], scans["plan_k17_g32768"]
     emit({"kernels": [dict(
         name="writeback_add", route="cuda",
         source="gubernator_tpu_torch/csrc/writeback.cu",
@@ -5998,6 +6217,24 @@ def main() -> int:
         shape=floor_case["shape"], bytes_per_s=floor_case["bytes_per_s"],
         ms_by_shape={key: f["ms"] for key, f in floor.items()},
         library_ms_by_shape={key: f["library_ms"] for key, f in floor.items()},
+    ), dict(
+        # one entry for the four wrappers' calls (core/scan.py); the main
+        # numbers at the rows' prefix sums, each shape's in *_by_shape
+        name="seg_scan", route="cuda",
+        source="gubernator_tpu_torch/csrc/segscan.cu",
+        replaces="gubernator_tpu/core/kernels.py:244 (lax.associative_scan, no Pallas kernel)",
+        launches=sum(scans_by_path.values()),
+        max_abs_err=max(c["max_abs_err"] for c in scans.values()),
+        ms=rows_case["ms"], plain_ms=rows_case["plain_ms"],
+        bound_ms=rows_case["bound_ms"], bound_by="bytes",
+        library_ms=rows_case["library_ms"], graph_ms=rows_case["graph_ms"],
+        shape=rows_case["what"], plan_ms=plan_case["ms"],
+        ms_by_shape={k: c["ms"] for k, c in scans.items()},
+        graph_ms_by_shape={k: c["graph_ms"] for k, c in scans.items()},
+        plain_ms_by_shape={k: c["plain_ms"] for k, c in scans.items()},
+        library_ms_by_shape={k: c["library_ms"] for k, c in scans.items()},
+        bound_ms_by_shape={k: c["bound_ms"] for k, c in scans.items()},
+        launches_by_path=scans_by_path,
     )] + [ablation_entry(step, ablation, ablation_launches[step]) for step in
           ("rows", "deltas", "full")]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -91,15 +91,18 @@ def run_role(conf: ServerConfig, device: DeviceLike = None) -> int:
 def follower_report(eng) -> dict:
     """A follower's count of what it ran: steps by kind, the decides
     among them, its chunks and shards, its writeback launches (on a
-    GPU launches = n_local x (decides + install + gossip chunks)) and
-    its captured decide graphs and other program graphs."""
+    GPU launches = n_local x (decides + install + gossip chunks)), its
+    segmented-scan kernel calls, and its captured decide graphs and
+    other program graphs."""
+    from gubernator_tpu_torch.core.scan import seg_scan
     from gubernator_tpu_torch.core.writeback import writeback_add
 
     return dict(
         process=eng.policy.process_index, n_local=eng.n_local, steps=dict(eng.steps),
         decides=eng.decides,
         install_chunks=eng.install_chunks, gossip_chunks=eng.gossip_chunks,
-        launches=writeback_add.launches, graph_count=eng.graph_count,
+        launches=writeback_add.launches, scan_launches=seg_scan.launches,
+        graph_count=eng.graph_count,
         program_graph_count=eng.program_graph_count,
     )
 

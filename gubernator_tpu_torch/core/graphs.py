@@ -94,9 +94,10 @@ every later call of that shape is one replay:
   device's current stream: the next replay of any graph may overwrite
   that output only after the copy. The top-k table replays on its own
   stream, so it has a `DeviceGraphs`, and so a pool, of its own.
-- **Counting.** A replay runs no Python, so `writeback_add`'s launch
-  count does not move by itself: each replay adds the launches its
-  capture recorded (`writeback.count_replay`), in `DeviceGraphs.replay`.
+- **Counting.** A replay runs no Python, so `writeback_add`'s and the
+  segmented scans' launch counts do not move by themselves: each replay
+  adds the launches its capture recorded (`writeback.count_replay`,
+  `scan.count_replay`), in `DeviceGraphs.replay`.
   A set counts its decides (`captures`, `replays`) apart from its other
   programs (`program_captures`, `program_replays`), and those apart from
   the captures of programs the reference too compiles only on first use
@@ -120,7 +121,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from gubernator_tpu_torch.core import writeback
+from gubernator_tpu_torch.core import scan, writeback
 from gubernator_tpu_torch.core.engine import (
     decide_packed,
     decide_packed_chain,
@@ -460,7 +461,7 @@ class CapturedGraph(NamedTuple):
     static input (the byte buffer the graph reads through the layout's
     views, or the fed tensor), the graph, its static output (a tensor, a
     tuple of tensors or None), the writeback launches one replay makes,
-    and whether it is a decide."""
+    whether it is a decide, and the segmented scans one replay makes."""
 
     layout: Optional[Layout]
     static: torch.Tensor
@@ -468,6 +469,7 @@ class CapturedGraph(NamedTuple):
     out: object
     launches: int
     decide: bool
+    scans: int
 
 
 def _record_stream(out, stream) -> None:
@@ -560,9 +562,10 @@ class DeviceGraphs:
 
     def replay(self, g: CapturedGraph):
         """Launch one captured program on the current stream and count
-        its writeback launches."""
+        its writeback launches and scans."""
         g.graph.replay()
         writeback.count_replay(g.launches)
+        scan.count_replay(g.scans)
         if g.decide:
             self.replays += 1
         else:
@@ -598,6 +601,7 @@ class DeviceGraphs:
                     answer = record(static)
                     self.warm.add(program)
                 before = writeback.writeback_add.captured
+                scans_before = scan.seg_scan.captured
                 with _collector_off():
                     graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
                     try:
@@ -605,6 +609,7 @@ class DeviceGraphs:
                     finally:
                         graph.capture_end()
                 recorded = writeback.writeback_add.captured - before
+                scans = scan.seg_scan.captured - scans_before
                 if recorded != launches:
                     raise RuntimeError(
                         f"graph {key}: its capture recorded {recorded} writeback "
@@ -613,6 +618,7 @@ class DeviceGraphs:
                 if not warm:
                     graph.replay()  # this call's answer
                     writeback.count_replay(recorded)
+                    scan.count_replay(scans)
                     answer = out
         except BaseException:
             # destroyed here, under the lock, not wherever the traceback
@@ -627,7 +633,7 @@ class DeviceGraphs:
             cur.wait_stream(s)  # later work on the state waits for the program
         if warm:
             _record_stream(answer, cur)
-        self.graphs[key] = CapturedGraph(layout, static, graph, out, recorded, decide)
+        self.graphs[key] = CapturedGraph(layout, static, graph, out, recorded, decide, scans)
         seconds = time.perf_counter() - t0
         self.capture_s += seconds
         if decide:

@@ -26,12 +26,12 @@ updated IN PLACE (JAX donates it), and every tensor of one call lives on
 the store's device. What differs from jnp and is handled here:
 
 - key hashes are int64 bit patterns (core.store explains why);
-- torch.cumsum of int32 returns int64: results that reach the store or
-  the packed output are cast back to int32;
 - `lax.associative_scan` has no eager counterpart: the segmented
-  saturating scan is an int64 cumsum minus the segment's exclusive
-  start, clamped at 2^31-1 (exact for the non-negative inputs it gets),
-  and the reverse min-scan is flip + cummin + flip;
+  saturating scan, the segment starts, the reverse min-scan of the
+  segment ends and jnp.cumsum along a row are core.scan's (a hand-written
+  CUDA kernel on the card; on the CPU an int64 cumsum minus the
+  segment's exclusive start, clamped at 2^31-1, a cummax, flip + cummin
+  + flip, and an int64 cumsum cast back to int32);
 - first-index ties of jnp.argmax/argmin are computed explicitly
   (`_first_true`), so they hold on every device;
 - torch indexing raises on out-of-range indices where jnp.take clips, so
@@ -52,6 +52,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from gubernator_tpu_torch.core import scan
 from gubernator_tpu_torch.core.algorithms import SLIDING_MAX_DURATION_MS
 from gubernator_tpu_torch.core.sketches import (
     SKETCH_SALTS_I64,
@@ -161,47 +162,10 @@ def _shift1(x: torch.Tensor, fill) -> torch.Tensor:
     return torch.cat([pad, x[:-1]])
 
 
-def _cumsum32(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
-    """int32 cumsum with jnp's int32 result (torch widens to int64)."""
-    return torch.cumsum(x, dim=dim).to(_i32)
-
-
-def _cumsum_rows(x: torch.Tensor) -> torch.Tensor:
-    """cumsum down axis 0 of a narrow [N, K] tensor, taken as K scans
-    along contiguous rows: torch's outer-dimension scan is only K-way
-    parallel and measured ~2.5 ms a call at N = 32768, K = 2 on an H100
-    (PERF.md), where the innermost-dimension scan is not."""
-    return torch.cumsum(x.t().contiguous(), dim=1).t()
-
-
-def _leader_pos(is_leader: torch.Tensor) -> torch.Tensor:
-    """[B] position of each element's segment leader (lax.cummax of the
-    leader positions)."""
-    ar = torch.arange(is_leader.shape[0], dtype=_i64, device=is_leader.device)
-    return torch.cummax(torch.where(is_leader, ar, 0), dim=0).values
-
-
-def _seg_scan(is_leader: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
-    """Segmented saturating inclusive prefix sums of non-negative int32
-    values [B, K] over contiguous segments led by is_leader.
-
-    The JAX package runs a saturating add under lax.associative_scan;
-    for non-negative inputs that equals min(plain segment sum, 2^31-1),
-    which an int64 cumsum gives exactly (B * 2^31 < 2^63)."""
-    c = _cumsum_rows(values.to(_i64))
-    start_excl = (c - values)[_leader_pos(is_leader)]
-    return torch.clamp_max(c - start_excl, _I32_MAX).to(_i32)
-
-
-def _segment_ends(is_leader: torch.Tensor) -> torch.Tensor:
-    """[B] int32 inclusive end position of each element's segment: the
-    predecessor of the next leader (B-1 for the final segment). The
-    reverse min-scan is flip + cummin + flip."""
-    B = is_leader.shape[0]
-    ar = torch.arange(B, dtype=_i32, device=is_leader.device)
-    lead_idx = torch.where(is_leader, ar, B)
-    next_incl = torch.flip(torch.cummin(torch.flip(lead_idx, [0]), dim=0).values, [0])
-    return torch.cat([next_incl[1:], next_incl.new_full((1,), B)]) - 1
+# The request rows' segmented prefix sums (core/scan.py), by the JAX
+# package's name: they alone go through `_seg_scan`, so that
+# portbench/control.py's `dedup` control can replace just them.
+_seg_scan = scan.seg_scan
 
 
 def _sketch_lookup(sketch: Sketch, kh: torch.Tensor, wid: torch.Tensor):
@@ -250,17 +214,16 @@ def _writeback_plan(
     onehotF = (found_w[:, None] & (fway[:, None] == way_ids)).to(_i32)
 
     # bucket-segment prefix/total machinery over [G, 1+ways] in ONE
-    # cumsum: col 0 ranks miss-writers, cols 1.. count found-writers/way
+    # segmented scan: col 0 ranks miss-writers, cols 1.. count
+    # found-writers/way (counts <= G: the saturation never engages)
     stacked = torch.cat([miss_w.to(_i32)[:, None], onehotF], dim=1)
-    c = _cumsum_rows(stacked).to(_i32)
-    before = c - stacked
-    start_excl = before[_leader_pos(is_b_leader)]
-    prefix = before - start_excl  # strictly-before-j within my bucket
-    totals = c[b_end.long()] - start_excl
+    incl = scan.seg_scan(is_b_leader, stacked)
+    prefix = incl - stacked  # strictly-before-j within my bucket
+    totals = incl[b_end.long()]
 
     rank = prefix[:, 0]  # earlier miss-writers in my bucket
     empty = cand[:, :, L_TAG] == 0
-    cumempty = _cumsum32(empty.to(_i32), 1)
+    cumempty = scan.row_cumsum(empty.to(_i32))
     n_empty = cumempty[:, -1]
     # the (rank)-th empty way (0-indexed) of my bucket
     pick = empty & (cumempty == (rank + 1)[:, None])
@@ -431,9 +394,9 @@ def _decide_presorted(
         groups = BatchGroups(
             key_hash=req.key_hash,
             leader_pos=ar,
-            end_pos=_segment_ends(is_leader),
+            end_pos=scan.segment_ends(is_leader),
             valid=is_leader & valid,
-            group_id=_leader_pos(is_leader).to(_i32),
+            group_id=scan.leader_pos(is_leader),
         )
     else:
         gi = groups.group_id
@@ -558,7 +521,7 @@ def _decide_presorted(
     # ---- writeback plan (before the responses, as in the JAX kernel) ------
     w_mask = groups.valid & ~leaky_zero
     is_b_leader_G = torch.cat([true1, bkt[1:] != bkt[:-1]])
-    b_end_G = _segment_ends(is_b_leader_G)
+    b_end_G = scan.segment_ends(is_b_leader_G)
     writer_G, way_G, dropped_G, evicted_G = _writeback_plan(
         cand, bkt, w_mask, found, fway, eway, is_b_leader_G, b_end_G
     )
@@ -730,16 +693,15 @@ def _decide_presorted(
 
     # token-only sticky flip
     z = viable & (eff_algo_r == 0) & (R0_r - S_chg == 0) & ~is_creation_leader
-    c3 = _cumsum32(z.to(_i32))
+    z3 = scan.seg_scan(is_leader, z.to(_i32)[:, None])  # z's count in its group
     sticky_live = sticky0_r | (same_prev & _shift1(z, False))
 
     # ONE gather at the group end positions pulls every group total
-    ends = torch.cat([incl1, incl2, c3[:, None]], dim=1)[end_pos_G]  # [G, 5]
+    ends = torch.cat([incl1, incl2, z3], dim=1)[end_pos_G]  # [G, 5]
     any_hits = ends[:, 1] > 0
     total_charged = ends[:, 2]
     any_decr = ends[:, 3] > 0
-    z_lead = torch.stack([c3, z.to(_i32)], dim=-1)[lead_clip]
-    any_z = (ends[:, 4] - (z_lead[:, 0] - z_lead[:, 1])) > 0
+    any_z = ends[:, 4] > 0
 
     # ---- sketch conservative update at [G] --------------------------------
     if sketch is not None:
@@ -852,14 +814,12 @@ def _decide_presorted(
                 dim=-1,
             ),
         )
-        z_w = z & m_ok
-        c3_w = _cumsum32(z_w.to(_i32))
-        ends_w = torch.cat([incl_w, c3_w[:, None]], dim=1)[end_pos_G]
+        z3_w = scan.seg_scan(is_leader, (z & m_ok).to(_i32)[:, None])
+        ends_w = torch.cat([incl_w, z3_w], dim=1)[end_pos_G]
         total_charged_w = ends_w[:, 0]
         any_decr_w = ends_w[:, 1] > 0
         any_hits_w = ends_w[:, 2] > 0
-        z_lead_w = torch.stack([c3_w, z_w.to(_i32)], dim=-1)[lead_clip]
-        any_z_w = (ends_w[:, 3] - (z_lead_w[:, 0] - z_lead_w[:, 1])) > 0
+        any_z_w = ends_w[:, 3] > 0
         ldr_chg_w = torch.where(m_ok[lead_clip], ldr_chg, 0)  # the leader's mask
     else:
         total_charged_w, any_decr_w, any_hits_w, any_z_w = (
@@ -1061,7 +1021,7 @@ def upsert_globals(
     # not the owner-side admission state the over-admission alarm watches
     _writeback_delta_add(
         data, bkt, writer, found, fway, eway, new_vals, cand,
-        is_b_leader, _segment_ends(is_b_leader),
+        is_b_leader, scan.segment_ends(is_b_leader),
     )
     return store
 

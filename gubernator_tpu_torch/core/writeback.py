@@ -63,6 +63,10 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "writeback.cu"
+#: every CUDA source of the port's one library (core/scan.py launches
+#: segscan.cu's kernels), and the header they share
+SOURCES = (SOURCE, _PKG / "csrc" / "segscan.cu")
+HEADERS = (_PKG / "csrc" / "pdl.cuh",)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -86,17 +90,18 @@ def _nvcc() -> str:
     if found is None:
         raise RuntimeError(
             "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin "
-            "and PATH): the writeback kernel is built from "
-            f"{SOURCE} at first use"
+            "and PATH): the port's kernels are built from "
+            f"{', '.join(str(p) for p in SOURCES)} at first use"
         )
     return found
 
 
 def build() -> Path:
-    """Compile csrc/writeback.cu into _build/ unless an up-to-date
-    library is there already; returns the library's path. What nvcc and
-    ptxas printed (registers, spills) is kept beside it as `.log`."""
-    src = SOURCE.read_bytes()
+    """Compile the CUDA sources (SOURCES) into one library in _build/, in
+    one nvcc call, unless an up-to-date library is there already; returns
+    the library's path. What nvcc and ptxas printed (registers, spills)
+    is kept beside it as `.log`."""
+    src = b"".join(p.read_bytes() for p in SOURCES + HEADERS)
     tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     out = BUILD_DIR / f"libguber_writeback-{tag}.so"
     if out.is_file():
@@ -104,7 +109,7 @@ def build() -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)],
         capture_output=True,
         text=True,
         timeout=600,
@@ -112,7 +117,7 @@ def build() -> Path:
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed building {SOURCE}:\n{log}")
+        raise RuntimeError(f"nvcc failed building {', '.join(map(str, SOURCES))}:\n{log}")
     out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)
     return out
@@ -149,6 +154,13 @@ def _load() -> ctypes.CDLL:
                 ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
             ]
             lib.guber_add_one.restype = ctypes.c_int
+            lib.guber_seg_scan.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ]
+            lib.guber_seg_scan.restype = ctypes.c_int
+            lib.guber_seg_scan_totals.argtypes = [ctypes.c_int, ctypes.c_int]
+            lib.guber_seg_scan_totals.restype = ctypes.c_longlong
             lib.guber_cuda_error_string.argtypes = [ctypes.c_int]
             lib.guber_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

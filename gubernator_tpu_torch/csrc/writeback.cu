@@ -100,6 +100,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "pdl.cuh"
+
 namespace {
 
 constexpr int kWarpsPerBlock = 8;  // the rows step's warps a block
@@ -115,17 +117,6 @@ __device__ __forceinline__ void atomic_add4(uint4* dst, uint4 v) {
   if (v.y) atomicAdd(p + 1, v.y);
   if (v.z) atomicAdd(p + 2, v.z);
   if (v.w) atomicAdd(p + 3, v.w);
-}
-
-// Programmatic dependent launch: wait for the grid before this one in the
-// stream (a no-op when the launch did not ask for the overlap), and let the
-// next one start launching.
-__device__ __forceinline__ void grid_dependency_wait() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void grid_launch_dependents() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
 template <int kTile>
@@ -337,25 +328,6 @@ template <int kRows>
 dim3 chunk_grid(int g) {
   const int chunks = (g + kRows - 1) / kRows;
   return dim3((chunks + kWarpsPerBlock - 1) / kWarpsPerBlock);
-}
-
-// Launches `kernel` on `stream`, as a programmatic dependent launch if
-// `overlap`; returns the launch's error code (0 on success).
-template <typename... Params, typename... Args>
-int launch_ex(void (*kernel)(Params...), dim3 grid, dim3 block, bool overlap,
-              void* stream, Args... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = block;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute dependent[1];
-  dependent[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  dependent[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = dependent;
-  cfg.numAttrs = overlap ? 1 : 0;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
-  const cudaError_t last = cudaGetLastError();
-  return static_cast<int>(e != cudaSuccess ? e : last);
 }
 
 // One block a tile of kTile rows, as a programmatic dependent launch.

@@ -810,7 +810,9 @@ class Server:
         the engine's shard counts: launches = n_local_shards x (backend
         batches + install_chunks + gossip_chunks), n_local_shards being the
         shards this process holds (n_shards, unless the mesh spans
-        processes)."""
+        processes). `seg_scan` counts the segmented-scan kernel's calls
+        (core/scan.py: every decide and install makes several)."""
+        from gubernator_tpu_torch.core.scan import seg_scan
         from gubernator_tpu_torch.core.writeback import writeback_add
 
         try:
@@ -821,7 +823,8 @@ class Server:
             )
         body = self.instance.traffic.snapshot(max(top_n, 0))
         body["backend"] = self.backend.stats()
-        body["kernel_launches"] = {"writeback_add": writeback_add.launches}
+        body["kernel_launches"] = {"writeback_add": writeback_add.launches,
+                                   "seg_scan": seg_scan.launches}
         eng = getattr(self.backend, "engine", None)
         if eng is not None:
             body["engine_chunks"] = {

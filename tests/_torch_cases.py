@@ -65,3 +65,32 @@ def writeback_edge(case: str, ktile: int, W: int = 128):
         drow[38:] = 0  # the padding rows carry zero deltas
     keep = (bkt >= 0) & (bkt < buckets)
     return data, bkt, drow, keep
+
+
+#: the leader patterns of the segmented-scan tests, as scan_case names them
+SCAN_PATTERNS = ("all_leaders", "one_segment", "random_runs", "zipf_runs")
+
+
+def scan_case(pattern: str, n: int, k: int, seed: int = 0):
+    """(is_leader bool[n], values int32[n, k]) for the segmented scans:
+    every row a leader (the churn cells' groups), one segment over all
+    of n, runs of random length, or zipf-distributed run lengths (hot
+    keys' groups). Values are non-negative; about a third of the rows
+    carry values near 2^31-1, so any segment of a few rows saturates."""
+    rng = np.random.default_rng([seed, n, k, SCAN_PATTERNS.index(pattern)])
+    if pattern == "all_leaders":
+        lead = np.ones(n, bool)
+    elif pattern == "one_segment":
+        lead = np.zeros(n, bool)
+        lead[:1] = True
+    elif pattern == "random_runs":
+        lead = rng.random(n) < 0.3
+    else:
+        starts = np.cumsum(np.minimum(rng.zipf(1.3, n), n))
+        lead = np.zeros(n, bool)
+        lead[:1] = True
+        lead[starts[starts < n]] = True
+    values = rng.integers(0, 50, (n, k), dtype=np.int64)
+    big = rng.random((n, k)) < 0.3
+    values[big] = rng.integers(2**30, 2**31 - 1, int(big.sum()), dtype=np.int64)
+    return lead, values.astype(np.int32)

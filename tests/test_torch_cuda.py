@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from gubernator_tpu_torch.core import scan
 from gubernator_tpu_torch.core.engine import TorchEngine
 from gubernator_tpu_torch.core.sketches import derive_sketch_config
 from gubernator_tpu_torch.core.store import StoreConfig
@@ -36,8 +37,10 @@ from gubernator_tpu_torch.core.writeback import (
 )
 from _torch_cases import (  # tests/, on the path under pytest
     DELTAS_EDGES,
+    SCAN_PATTERNS,
     WRITEBACK_EDGES,
     deltas_edge,
+    scan_case,
     writeback_edge,
 )
 
@@ -224,6 +227,159 @@ def test_writeback_replayed_from_a_graph_matches_the_eager_calls_on_card():
         for b, d in sets:
             writeback_add_plain(want, b, d)
     assert torch.equal(work, want)
+
+
+# the segmented scans (csrc/segscan.cu): tiles of 64 rows a warp up to 4
+# columns, 32 above; 1 and 63-64 rows are one or two warps' tiles, 1,025
+# and 32,769 a ragged last tile, 1,024 rows and up more than 32 tiles of
+# totals (the carry's look-back takes more than one step on long segments)
+_SCAN_N = (1, 63, 64, 1024, 1025, 7680, 32768, 32769, 131072)
+
+
+@pytest.mark.parametrize("pattern", SCAN_PATTERNS)
+@pytest.mark.parametrize("k", [1, 2, 3, 17])
+@pytest.mark.parametrize("n", _SCAN_N)
+def test_seg_scan_kernel_matches_plain(n, k, pattern):
+    """The kernel's sums against seg_scan_plain on the card, bit for bit,
+    at every tiling edge and leader pattern, with values whose segment
+    sums pass 2^31-1 (they saturate); one launch is counted."""
+    _need_card()
+    lead, vals = (torch.from_numpy(x).cuda() for x in scan_case(pattern, n, k))
+    want = scan.seg_scan_plain(lead, vals)
+    before = scan.seg_scan.launches
+    got = scan.seg_scan(lead, vals)
+    torch.cuda.synchronize()
+    assert scan.seg_scan.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == (n, k)
+    assert torch.equal(got, want)
+    if pattern == "one_segment" and n >= 64:
+        assert bool((want == 2**31 - 1).any())  # the saturation engaged
+
+
+@pytest.mark.parametrize("pattern", SCAN_PATTERNS)
+@pytest.mark.parametrize("mode", ["start", "end"])
+@pytest.mark.parametrize("n", _SCAN_N)
+def test_segment_bounds_kernel_match_plain(n, mode, pattern):
+    """Each row's segment start (the forward walk) and end (the reverse
+    walk) from the kernel against leader_pos_plain / segment_ends_plain,
+    with and without a leader at row 0."""
+    _need_card()
+    lead = torch.from_numpy(scan_case(pattern, n, 1)[0]).cuda()
+    fn, plain = ((scan.leader_pos, scan.leader_pos_plain) if mode == "start"
+                 else (scan.segment_ends, scan.segment_ends_plain))
+    want = plain(lead)
+    before = scan.seg_scan.launches
+    got = fn(lead)
+    torch.cuda.synchronize()
+    assert scan.seg_scan.launches == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("width", [1, 2, 16, 17, 32])
+@pytest.mark.parametrize("rows", [1, 63, 8192, 32768, 131072])
+def test_row_cumsum_kernel_matches_plain(rows, width):
+    """Each row's prefix along its columns (the kernel with a segment
+    every `width` elements and no flags) against row_cumsum_plain, with
+    values near 2^31-1 so that the sums saturate."""
+    _need_card()
+    x = torch.from_numpy(scan_case("random_runs", rows, width)[1]).cuda()
+    want = scan.row_cumsum_plain(x)
+    before = scan.seg_scan.launches
+    got = scan.row_cumsum(x)
+    torch.cuda.synchronize()
+    assert scan.seg_scan.launches == before + 1
+    assert torch.equal(got, want)
+
+
+def test_seg_scans_replayed_from_a_graph_match_the_eager_calls_on_card():
+    """Scans of every kind at the decide's shapes captured into one CUDA
+    graph on a side stream: the capture counts each call in
+    `seg_scan.captured` and runs nothing, every grid hangs on the one
+    before by a programmatic edge, and each of three replays, on inputs
+    rewritten in place, gives the eager calls' results bit for bit while
+    count_replay moves `seg_scan.launches` by the calls recorded."""
+    _need_card()
+    shapes = [(32768, 2), (32768, 17), (8192, 17), (64, 3), (32768, 1)]
+    ins = [tuple(torch.from_numpy(x).cuda() for x in scan_case("zipf_runs", n, k))
+           for n, k in shapes]
+    ways = torch.from_numpy(scan_case("zipf_runs", 32768, 16)[1]).cuda()
+
+    def calls():
+        return ([scan.seg_scan(lead, vals) for lead, vals in ins]
+                + [scan.segment_ends(ins[1][0]), scan.leader_pos(ins[2][0]),
+                   scan.row_cumsum(ways)])
+
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    launches, captured = scan.seg_scan.launches, scan.seg_scan.captured
+    with torch.cuda.stream(side):
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            outs = calls()
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    recorded = scan.seg_scan.captured - captured
+    assert recorded == len(shapes) + 3
+    assert scan.seg_scan.launches == launches
+    torch.cuda.synchronize()
+    edges = _edge_types(graph)
+    assert edges and edges == [1] * len(edges)
+    graph.instantiate()
+    for rep, pattern in enumerate(("random_runs", "all_leaders", "one_segment")):
+        for (lead, vals), (n, k) in zip(ins, shapes):
+            new_lead, new_vals = scan_case(pattern, n, k, seed=rep + 1)
+            lead.copy_(torch.from_numpy(new_lead))
+            vals.copy_(torch.from_numpy(new_vals))
+        ways.copy_(torch.from_numpy(scan_case(pattern, 32768, 16, seed=rep + 1)[1]))
+        before = scan.seg_scan.launches
+        graph.replay()
+        scan.count_replay(recorded)
+        assert scan.seg_scan.launches - before == recorded
+        eager = calls()
+        torch.cuda.synchronize()
+        for got, want in zip(outs, eager):
+            assert torch.equal(got, want), pattern
+        plain = ([scan.seg_scan_plain(lead, vals) for lead, vals in ins]
+                 + [scan.segment_ends_plain(ins[1][0]), scan.leader_pos_plain(ins[2][0]),
+                    scan.row_cumsum_plain(ways)])
+        for got, want in zip(outs, plain):
+            assert torch.equal(got, want), pattern
+
+
+@pytest.mark.parametrize("sketch", [False, True], ids=["exact", "two_tier"])
+def test_decide_graphs_record_and_replay_their_scans_on_card(sketch):
+    """Every captured decide of the warmup recorded its six scans (the
+    two row-level prefix sums, the per-group count of sticky flips, the
+    bucket-segment ends, the writeback plan's sums and its empty-way
+    ranks) and every install chunk its three; a replayed decide adds its
+    six to `seg_scan.launches`, and so does an eager one."""
+    _need_card()
+    sk = derive_sketch_config(1) if sketch else None
+    now = 1_700_000_000_000
+    engines = [TorchEngine(StoreConfig(rows=4, slots=64), buckets=_GRAPH_LADDER, sketch=sk,
+                           cuda_graphs=graphed) for graphed in (True, False)]
+    for eng in engines:
+        eng.warmup(now=now)
+    graphs = engines[0].graphs.graphs
+    decides = [g for g in graphs.values() if g.decide]
+    assert decides and all(g.scans == 6 for g in decides)
+    installs = [g for key, g in graphs.items() if key[0].startswith("install")]
+    assert installs and all(g.scans == 3 for g in installs)
+    rng = np.random.default_rng(3)
+    pool = rng.integers(0, 2**64, 600, dtype=np.uint64)
+    for step in range(4):
+        fields = _graph_batch(rng, pool, step, False)
+        counts = []
+        for eng in engines:
+            before = scan.seg_scan.launches
+            eng.decide_arrays(*fields, now + step)
+            torch.cuda.synchronize()
+            counts.append(scan.seg_scan.launches - before)
+        assert counts == [6, 6]
+    for eng in engines:
+        eng.close()
 
 
 def test_deltas_rejects_a_misaligned_delta_stream():
@@ -837,10 +993,13 @@ def test_server_on_card_walks_a_key_through_grpc():
     """A one-node port Server (the doors) on the card: a limit-2 key
     walks 1 -> 0 -> OVER_LIMIT with one reset_time through gRPC, every
     answer decided by batches that launched the writeback kernel, and the
-    launches equal to the decides plus the engine's chunks."""
+    launches equal to the decides plus the engine's chunks; each decide
+    also ran its six scans, and /v1/debug/stats reports both counts."""
     _need_card()
     import asyncio
+    import json
     import socket
+    from types import SimpleNamespace
 
     from gubernator_tpu_torch.api.types import RateLimitReq, Status
     from gubernator_tpu_torch.client import AsyncV1Client
@@ -861,7 +1020,7 @@ def test_server_on_card_walks_a_key_through_grpc():
             assert server.backend.device.type == "cuda"
             assert (await client.health_check(timeout=10)).status == "healthy"
             eng = server.backend.engine
-            before = writeback_add.launches
+            before, scans = writeback_add.launches, scan.seg_scan.launches
             counted = eng.stats.batches + eng.install_chunks + eng.gossip_chunks
             req = RateLimitReq(name="card", unique_key="walk", hits=1, limit=2,
                                duration=60_000)
@@ -875,6 +1034,10 @@ def test_server_on_card_walks_a_key_through_grpc():
             launched = writeback_add.launches - before
             counted = eng.stats.batches + eng.install_chunks + eng.gossip_chunks - counted
             assert launched >= 3 and launched == counted
+            assert scan.seg_scan.launches - scans >= 6 * 3
+            stats = json.loads((await server._http_debug_stats(SimpleNamespace(query={}))).text)
+            assert stats["kernel_launches"] == {"writeback_add": writeback_add.launches,
+                                                "seg_scan": scan.seg_scan.launches}
         finally:
             await client.close()
             await server.stop()

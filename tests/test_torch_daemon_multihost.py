@@ -191,6 +191,8 @@ def test_two_process_serving_on_the_cpu(tmp_path):
         assert report["process"] == 1 and report["n_local"] == 1, report
         # the warmup's decides and the walk's three, each run in lockstep
         assert report["decides"] >= 3 and report["steps"]["hello"] == 1, report
+        # the scan kernel's count sits beside the writeback's (0 on the CPU)
+        assert report["scan_launches"] == report["launches"] == 0, report
     finally:
         for p in (leader, follower):
             if p.poll() is None:

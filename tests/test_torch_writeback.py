@@ -31,6 +31,7 @@ import torch
 from gubernator_tpu.core import kernels as jk
 from gubernator_tpu.core import pallas_sweep as ps
 from gubernator_tpu_torch.core import kernels as tk
+from gubernator_tpu_torch.core import scan
 from gubernator_tpu_torch.core.writeback import (
     ABLATION_ROWS,
     add_one,
@@ -208,7 +209,7 @@ def test_segment_ends_matches_reverse_min_scan():
     is_leader, _ = _seg_inputs(5, 777, False)
     ar = jnp.arange(777, dtype=jnp.int32)
     want = np.asarray(jk._segment_ends(jnp.asarray(is_leader), ar))
-    got = tk._segment_ends(torch.from_numpy(is_leader)).numpy()
+    got = scan.segment_ends(torch.from_numpy(is_leader)).numpy()
     np.testing.assert_array_equal(got, want)
 
 
