@@ -8,13 +8,19 @@ wraps the backend's group prep, merge, dispatch of a merged batch and the
 promoter's install call (all but the prep run on the one submit thread,
 in stream order on the device) to learn which of the harness's groups
 went into each device batch. At times drawn from the seed it opens a
-span: it copies the whole store and sketch on the device, in stream
-order, into buffers of its own (no sync; about a millisecond of device
-time), records the next batches and any promoter installs among them,
-running pipelined as every other batch does, and copies the state again
-after the span's last batch. The reference then replays the span from
-the first copy and is compared with every answer the span's groups got,
-with the promoter's results, and with the whole second copy.
+span: on the device, in stream order and with no sync, it takes a 64-bit
+digest of every store row and of every chunk of 128 sketch counters
+(`devread.py`). Before each event of the span (the next batches, and any
+promoter installs among them, running pipelined as every other batch
+does) it gathers into buffers of its own the rows of the event's buckets
+and, on a two-tier store, the counters that the event's keys and its
+rows' eviction victims can read. After the span's last batch it gathers
+the same rows and counters again and takes the digests again. The
+reference then replays the span from the first gather of each row and
+counter and is compared with every answer the span's groups got, with
+the promoter's results, with the rows and counters at the close, and, by
+the digests, with every row and chunk of the state that no event
+touched. What it holds follows the spans' rows, not the store's size.
 """
 
 from __future__ import annotations
@@ -27,11 +33,14 @@ from collections import deque
 
 import numpy as np
 
+from portbench.check import distinct
+from portbench.devread import CHUNK, Digester, lane_salts, victim_counters
 from portbench.keyhash import hash_ids
 from portbench.load import Load, open_schedule
-from portbench.reference.limiter import Geometry
+from portbench.reference.limiter import Geometry, bucket_index, sketch_indices
 
 TRACE_MARK = "portbench.traced_window"
+DIGEST_BLOCK_ROWS = 1 << 16  # rows (of 128 words) the digest takes at once
 
 
 def geometry(cfg: dict) -> Geometry:
@@ -54,6 +63,12 @@ def read_counters(data, idx: np.ndarray, device) -> np.ndarray:
                      for r in range(idx.shape[0])]).astype(np.int64)
 
 
+def block_rows(*rows: int) -> int:
+    """Rows of state read at once: at most DIGEST_BLOCK_ROWS, and a quarter
+    of the smallest of `rows` (so that no temporary is the state's size)."""
+    return max(1, min(DIGEST_BLOCK_ROWS, *(r // 4 for r in rows)))
+
+
 def device_sync(device) -> None:
     """Wait for the device, through the port's capture lock (a device-wide
     sync must not land inside a capture)."""
@@ -64,10 +79,10 @@ def device_sync(device) -> None:
 
 
 class Span:
-    """Consecutive submit-thread events from one whole-state copy to the
-    next: `at` is what opens it ("batch": the first batch submitted after
+    """Consecutive submit-thread events between two digests of the whole
+    state: `at` is what opens it ("batch": the first batch submitted after
     `due`; "promote": the first promoter install call after it), and it
-    closes after `batches` batches."""
+    closes after `batches` batches. `bufs` holds what it gathered."""
 
     def __init__(self, at: str, batches: int, due: float):
         self.at, self.batches, self.due = at, int(batches), due
@@ -76,7 +91,44 @@ class Span:
         self.n = 0
         self.broken = False
         self.epoch = None
-        self.bufs = None  # (start, end), each a (store, sketch or None) pair of device tensors
+        self.bufs = None  # SpanBuffers
+        self.rows_used = self.ctr_used = 0
+        self.union = np.zeros(0, np.int64)
+
+
+class SpanBuffers:
+    """One span's device buffers, made before the window: the store rows
+    of each event's buckets just before it (`rows0`, in event order, their
+    buckets in `bk`), and at the close the rows of every bucket the span
+    touched (`union`, `rows1`) with the change of their digests, and the
+    digests of `rows0` and `rows1` (`d_rows0`, `d_rows1`); on a
+    two-tier store likewise the sketch counters each event can read (flat
+    indices `ctr_idx`, values `ctr0` before the event and `ctr1` at the
+    close) and the digest change of their chunks; and how many rows and
+    chunks that no event touched changed their digest (`untouched`)."""
+
+    def __init__(self, rows_cap: int, ctr_cap: int, width: int, ctr_dtype, device):
+        import torch
+
+        i64 = torch.int64
+        self.rows_cap, self.ctr_cap = int(rows_cap), int(ctr_cap)
+        self.bk = torch.empty(self.rows_cap, dtype=i64, device=device)
+        self.union = torch.empty(self.rows_cap, dtype=i64, device=device)
+        self.rows0 = torch.empty((self.rows_cap, width), dtype=torch.int32, device=device)
+        self.rows1 = torch.empty_like(self.rows0)
+        self.row_delta = torch.empty(self.rows_cap, dtype=i64, device=device)
+        self.d_rows0 = torch.empty(self.rows_cap, dtype=i64, device=device)
+        self.d_rows1 = torch.empty(self.rows_cap, dtype=i64, device=device)
+        self.ctr_idx = torch.empty(self.ctr_cap, dtype=i64, device=device)
+        self.ctr0 = torch.empty(self.ctr_cap, dtype=ctr_dtype, device=device)
+        self.ctr1 = torch.empty_like(self.ctr0)
+        self.chunk = torch.empty(self.ctr_cap, dtype=i64, device=device)
+        self.chunk_delta = torch.empty(self.ctr_cap, dtype=i64, device=device)
+        self.untouched = torch.zeros(2, dtype=i64, device=device)
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in vars(self).values() if hasattr(t, "numel"))
 
 
 class ReplayClock:
@@ -119,15 +171,19 @@ class ReplayClock:
 
 class Recorder:
     """Tags groups through prep and merge, and records the spans (see the
-    module docstring). Its copy buffers are made once, before the window,
-    and their bytes are taken out of the memory peak."""
+    module docstring). Its buffers are made once, before the window, sized
+    by the spans' rows, never by the store; their bytes are taken out of
+    the memory peak."""
 
-    def __init__(self, backend, device, n_spans: int):
+    PROMOTE_CALLS = 8  # promoter install calls a span's buffers leave room for
+
+    def __init__(self, backend, device, spans: list, geo: Geometry, seed: int, topk: int):
         import torch
 
         self.backend = backend
         self.eng = backend.engine
         self.device = device
+        self.geo = geo
         self.orig_prep = backend.prep_group
         self.orig_merge = backend.merge_prepped
         self.orig_submit = backend.decide_submit_merged
@@ -137,16 +193,28 @@ class Recorder:
         self.spans: list = []
         self.cur = None
         self.answered_ids = set()
-        cuda = device.type == "cuda"
+        self.cuda = device.type == "cuda"
         graphs = getattr(self.eng, "graphs", None)
-        self.replay_clock = ReplayClock(graphs, device) if cuda and graphs is not None else None
-        self.peak_before = int(torch.cuda.max_memory_allocated(device)) if cuda else 0
-        sk = self.eng.sketch.data if self.eng.sketch is not None else None
-        self.free = [(torch.empty_like(self.eng.store.data),
-                      None if sk is None else torch.empty_like(sk)) for _ in range(2 * n_spans)]
-        self.buffer_bytes = sum(t.numel() * t.element_size() for pair in self.free for t in pair
-                                if t is not None)
-        if cuda:
+        self.replay_clock = ReplayClock(graphs, device) if self.cuda and graphs is not None else None
+        self.peak_before = int(torch.cuda.max_memory_allocated(device)) if self.cuda else 0
+        store = self.eng.store.data
+        sk = self.eng.sketch.data if geo.two_tier else None
+        self.width = store.shape[1]
+        self.salts = lane_salts(seed, max(self.width, CHUNK))
+        block = block_rows(store.shape[0], *([sk.numel() // CHUNK] if sk is not None else []))
+        self.digester = Digester(self.salts, max(self.width, CHUNK), block, device)
+        self.d_store = torch.empty(store.shape[0], dtype=torch.int64, device=device)
+        self.d_sketch = (torch.empty(sk.numel() // CHUNK, dtype=torch.int64, device=device)
+                         if sk is not None else None)
+        rung = max(self.eng.buckets)  # the most rows the engine dispatches in one batch
+        self.bufs = []
+        for sp in spans:
+            rows = int(sp["batches"]) * rung + (self.PROMOTE_CALLS * int(topk) if sk is not None else 0)
+            self.bufs.append(SpanBuffers(rows, 2 * geo.sketch_rows * rows, self.width,
+                                         sk.dtype if sk is not None else torch.int64, device))
+        self.buffer_bytes = (self.digester.nbytes + sum(b.nbytes for b in self.bufs)
+                             + sum(t.numel() * 8 for t in (self.d_store, self.d_sketch) if t is not None))
+        if self.cuda:
             torch.cuda.reset_peak_memory_stats(device)
         backend.prep_group = self._prep
         backend.merge_prepped = self._merge
@@ -155,6 +223,9 @@ class Recorder:
             backend.promote_hashes = self._promote
 
     def arm(self, spans):
+        """`spans` in the configuration's order, which is the buffers'."""
+        for sp, buf in zip(spans, self.bufs):
+            sp.bufs = buf
         self.spans = sorted(spans, key=lambda sp: sp.due)
 
     def _prep(self, fields):
@@ -166,28 +237,89 @@ class Recorder:
         self.last = [self.run_of.pop(id(r), None) for r in runs]
         return self.orig_merge(runs)
 
-    def _copy(self):
-        store, sk = self.free.pop()
-        store.copy_(self.eng.store.data)
-        if sk is not None:
-            sk.copy_(self.eng.sketch.data)
-        return store, sk
+    def _sketch_chunks(self):
+        return self.eng.sketch.data.view(-1, CHUNK)
+
+    def _upload(self, dst, arr: np.ndarray) -> None:
+        """Host int64 `arr` into the device slice `dst`, in stream order."""
+        import torch
+
+        src = torch.from_numpy(np.ascontiguousarray(arr, np.int64))
+        dst.copy_(src.pin_memory() if self.cuda else src, non_blocking=self.cuda)
 
     def _opening(self, at: str):
-        """The span this event opens, if one is due."""
+        """The span this event opens, if one is due: digest the state."""
         if self.cur is not None:
             return self.cur
         now = time.monotonic()
         for sp in self.spans:
             if sp.state == "waiting" and sp.at == at and sp.due <= now and self.eng.clock.epoch is not None:
                 sp.state, sp.epoch = "open", int(self.eng.clock.epoch)
-                sp.bufs = [self._copy(), None]
+                self.digester.into(self.d_store, self.eng.store.data)
+                if self.d_sketch is not None:
+                    self.digester.into(self.d_sketch, self._sketch_chunks())
                 self.cur = sp
                 return sp
         return None
 
+    def _gather(self, sp, ev: dict, kh: np.ndarray, duration: np.ndarray, victims: bool) -> bool:
+        """Before event `ev` of keys `kh`, in stream order: the rows of its
+        buckets, and on a two-tier store the counters its keys' windows and
+        (`victims`) its rows' eviction victims can read. False, with
+        nothing gathered, where the span's buffers have no room left."""
+        import torch
+
+        geo, b = self.geo, sp.bufs
+        e_now = ev["now"] - sp.epoch
+        bk = distinct(bucket_index(kh, geo.buckets))
+        nb = bk.shape[0]
+        own = np.zeros(0, np.int64)
+        if geo.two_tier:
+            d = np.maximum(np.asarray(duration, np.int64), 1)
+            idx = sketch_indices(kh, e_now // d, geo.sketch_rows, geo.sketch_width)
+            own = distinct(idx + (np.arange(geo.sketch_rows) * geo.sketch_width)[:, None])
+        nv = nb * geo.sketch_rows if victims and geo.two_tier else 0
+        a, c = sp.rows_used, sp.ctr_used
+        nc = own.shape[0] + nv
+        if a + nb > b.rows_cap or c + nc > b.ctr_cap:
+            return False
+        self._upload(b.bk[a:a + nb], bk)
+        torch.index_select(self.eng.store.data, 0, b.bk[a:a + nb], out=b.rows0[a:a + nb])
+        if geo.two_tier:
+            self._upload(b.ctr_idx[c:c + own.shape[0]], own)
+            if nv:
+                victim_counters(b.rows0[a:a + nb], e_now, geo.ways, geo.sketch_rows, geo.sketch_width,
+                                b.ctr_idx[c + own.shape[0]:c + nc])
+            torch.index_select(self.eng.sketch.data.view(-1), 0, b.ctr_idx[c:c + nc], out=b.ctr0[c:c + nc])
+        ev["bk"] = bk
+        sp.rows_used, sp.ctr_used = a + nb, c + nc
+        return True
+
     def _close(self, sp):
-        sp.bufs[1] = self._copy()
+        """After the span's last event, in stream order: the touched rows
+        and counters again, and the digests' change."""
+        import torch
+
+        b = sp.bufs
+        bks = [ev["bk"] for ev in sp.events]
+        sp.union = distinct(np.concatenate(bks)) if bks else np.zeros(0, np.int64)
+        nu, nc = sp.union.shape[0], sp.ctr_used
+        store = self.eng.store.data
+        self._upload(b.union[:nu], sp.union)
+        torch.index_select(store, 0, b.union[:nu], out=b.rows1[:nu])
+        self.digester.subtract(self.d_store, store)
+        torch.index_select(self.d_store, 0, b.union[:nu], out=b.row_delta[:nu])
+        self.d_store.index_fill_(0, b.union[:nu], 0)
+        torch.sum(self.d_store.ne_(0), dim=0, out=b.untouched[0])
+        self.digester.into(b.d_rows0[:sp.rows_used], b.rows0[:sp.rows_used])
+        self.digester.into(b.d_rows1[:nu], b.rows1[:nu])
+        if self.d_sketch is not None:
+            torch.index_select(self.eng.sketch.data.view(-1), 0, b.ctr_idx[:nc], out=b.ctr1[:nc])
+            self.digester.subtract(self.d_sketch, self._sketch_chunks())
+            torch.div(b.ctr_idx[:nc], CHUNK, rounding_mode="floor", out=b.chunk[:nc])
+            torch.index_select(self.d_sketch, 0, b.chunk[:nc], out=b.chunk_delta[:nc])
+            self.d_sketch.index_fill_(0, b.chunk[:nc], 0)
+            torch.sum(self.d_sketch.ne_(0), dim=0, out=b.untouched[1])
         sp.state = "done"
         self.cur = None
 
@@ -205,10 +337,18 @@ class Recorder:
         if not groups or any(g is None for g in groups):
             sp.broken = True
         n = int(merged["n"])
-        sp.events.append(dict(
-            kind="batch", groups=groups or [], now=int(now), merged_n=n,
-            merged_kh=np.sort(np.asarray(merged["req"].key_hash[:n]).view(np.uint64)),
-        ))
+        req = merged["req"]
+        kh = np.asarray(req.key_hash[:n]).view(np.uint64)
+        ev = dict(kind="batch", groups=groups or [], now=int(now), merged_n=n, merged_kh=np.sort(kh))
+        if sp.broken:
+            duration = np.asarray(req.duration[:n])
+        else:
+            kh = np.concatenate([g["key_hash"] for g in groups]).astype(np.uint64)
+            duration = np.concatenate([g["duration"] for g in groups])
+        if not self._gather(sp, ev, kh, duration, victims=True):
+            self._close(sp)
+            return self.orig_submit(merged, now)
+        sp.events.append(ev)
         self.answered_ids.update(id(g) for g in groups or [] if g is not None)
         handle = self.orig_submit(merged, now)
         sp.n += 1
@@ -224,12 +364,14 @@ class Recorder:
             return self.orig_promote(key_hash, limits, durations, now)
         if now is None:
             now = api_types.millisecond_now()
+        ev = dict(kind="promote", key_hash=np.array(key_hash, np.uint64), limit=np.array(limits, np.int64),
+                  duration=np.array(durations, np.int64), now=int(now))
+        if not self._gather(sp, ev, ev["key_hash"], ev["duration"], victims=False):
+            self._close(sp)
+            return self.orig_promote(key_hash, limits, durations, now)
         res = self.orig_promote(key_hash, limits, durations, now)
-        sp.events.append(dict(
-            kind="promote", key_hash=np.array(key_hash, np.uint64), limit=np.array(limits, np.int64),
-            duration=np.array(durations, np.int64), now=int(now),
-            result=[np.array(x).astype(np.int64) for x in res],
-        ))
+        ev["result"] = [np.array(x).astype(np.int64) for x in res]
+        sp.events.append(ev)
         return res
 
     def finish(self):
@@ -242,22 +384,27 @@ class Recorder:
                 sp.state = "never"
 
     def host_spans(self) -> list:
-        """The finished spans with their copies on the host, the device
-        buffers freed."""
+        """The finished spans with what they gathered on the host (the used
+        part of each buffer), the device buffers freed."""
         out = []
         for sp in self.spans:
             if sp.state != "done":
                 out.append(dict(at=sp.at, opened=False, events=[]))
                 continue
-            (s0, k0), (s1, k1) = sp.bufs
+            b = sp.bufs
+            na, nu, nc = sp.rows_used, sp.union.shape[0], sp.ctr_used
+            host = lambda t: t.cpu().numpy()  # noqa: E731
             out.append(dict(
                 at=sp.at, opened=True, broken=sp.broken, epoch=sp.epoch, events=sp.events,
-                store0=s0.cpu().numpy(), store1=s1.cpu().numpy(),
-                sketch0=None if k0 is None else k0.cpu().numpy(),
-                sketch1=None if k1 is None else k1.cpu().numpy(),
+                salts=self.salts, union=sp.union, rows0=host(b.rows0[:na]), rows1=host(b.rows1[:nu]),
+                row_delta=host(b.row_delta[:nu]), d_rows0=host(b.d_rows0[:na]), d_rows1=host(b.d_rows1[:nu]),
+                untouched=host(b.untouched),
+                ctr_idx=host(b.ctr_idx[:nc]), ctr0=host(b.ctr0[:nc]), ctr1=host(b.ctr1[:nc]),
+                chunk_delta=host(b.chunk_delta[:nc]),
             ))
             sp.bufs = None
-        self.free = []
+        self.bufs = []
+        self.d_store = self.d_sketch = self.digester = None
         return out
 
 
@@ -391,11 +538,10 @@ def batch_histogram():
     return s["device_batch_size_sum"], s["device_batch_size_count"]
 
 
-def prefill(eng, cfg: dict, geo: Geometry, seed: int, device):
+def prefill(eng, cfg: dict) -> dict:
     """The configuration's prefill through the engine: `ids` sequential
-    fresh token keys in batches of `batch_rows`, two batches in flight;
-    then the start state the comparison checks (sampled bucket rows and
-    sketch counters). Returns the record the comparison needs."""
+    fresh token keys in batches of `batch_rows`, two batches in flight.
+    Returns what the comparison needs to replay it."""
     from gubernator_tpu_torch.api import types as api_types
 
     p = cfg.get("prefill")
@@ -418,19 +564,39 @@ def prefill(eng, cfg: dict, geo: Geometry, seed: int, device):
                 rec["refused"] = rec.get("refused", 0) + int(np.count_nonzero(status))
         rec.update(ids=n, batch_rows=rows, nows=nows)
     rec["epoch"] = eng.clock.epoch
-    rng = np.random.default_rng(seed ^ 0x5EED)
-    nb = min(geo.buckets, int(cfg["check"]["start_buckets"]))
-    bk = np.sort(rng.choice(geo.buckets, nb, replace=False))
+    return rec
+
+
+def sample_sorted(rng, n: int, k: int) -> np.ndarray:
+    """k distinct sorted integers drawn uniformly from 0 .. n-1, with no
+    array of n elements."""
+    if k >= n:
+        return np.arange(n, dtype=np.int64)
+    got = np.zeros(0, np.int64)
+    while got.shape[0] < k:
+        got = distinct(np.concatenate([got, rng.integers(0, n, 2 * (k - got.shape[0]) + 16)]))
+    return np.sort(rng.choice(got, k, replace=False))
+
+
+def read_start(eng, cfg: dict, geo: Geometry, seed: int, device, rec: dict) -> dict:
+    """Into the prefill's record, the start state the comparison checks:
+    sampled bucket rows and sketch counters, and the store's nonzero
+    words (a cell with no prefill starts from an empty store)."""
     import torch
 
+    rng = np.random.default_rng(seed ^ 0x5EED)
+    bk = sample_sorted(rng, geo.buckets, int(cfg["check"]["start_buckets"]))
     device_sync(device)
     rec["buckets"] = bk
     rec["rows"] = read_rows(eng.store.data, bk, device)
-    rec["store_nonzero"] = int(torch.count_nonzero(eng.store.data).item())
+    nonzero = torch.zeros((), dtype=torch.int64, device=device)
+    block = block_rows(geo.buckets)
+    for i in range(0, geo.buckets, block):
+        nonzero += torch.count_nonzero(eng.store.data[i:i + block])
+    rec["store_nonzero"] = int(nonzero.item())
     if geo.two_tier:
-        nc = min(geo.sketch_width, int(cfg["check"]["start_counters"]))
-        idx = np.stack([np.sort(rng.choice(geo.sketch_width, nc, replace=False))
-                        for _ in range(geo.sketch_rows)])
+        nc = int(cfg["check"]["start_counters"])
+        idx = np.stack([sample_sorted(rng, geo.sketch_width, nc) for _ in range(geo.sketch_rows)])
         rec["counter_idx"] = idx
         rec["counters"] = read_counters(eng.sketch.data, idx, device)
     return rec
@@ -470,9 +636,9 @@ async def boot(cfg: dict, check: dict, seed: int, device, patch=None) -> dict:
     await asyncio.to_thread(backend.warmup)
     warmup_s = time.monotonic() - t0
     t0 = time.monotonic()
-    start = prefill(eng, cfg, geo, seed, device)
+    start = read_start(eng, cfg, geo, seed, device, prefill(eng, cfg))
     prefill_s = time.monotonic() - t0
-    rec = Recorder(backend, device, len(check["spans"]))
+    rec = Recorder(backend, device, check["spans"], geo, seed, conf.sketch_topk)
     if patch is not None:
         patch.on_backend(backend)
     inst = Instance(conf, backend)

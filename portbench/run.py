@@ -109,7 +109,9 @@ def main(argv=None, device=None, bench_file=None, root=None, patch=None) -> int:
         start_unix=w["start_unix"], rows_per_second=w["per_second"])), file=sys.stderr)
     t0 = time.monotonic()
     out = result_of(run, spec, workload, bool(args.trace), chips)
-    print(f"portbench: the comparison took {time.monotonic() - t0:.3f} s", file=sys.stderr)
+    part = run["compare_s"]
+    print(f"portbench: the comparison took {time.monotonic() - t0:.3f} s (spans {part['spans']:.3f} s, "
+          f"start {part['start']:.3f} s)", file=sys.stderr)
     for k, c in out["checks"].items():
         print(f"check {k}: {c['value']} (limit: {c['must'].replace('_', ' ')} {c['limit']})",
               file=sys.stderr)

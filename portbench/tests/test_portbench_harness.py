@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 
 from portbench.control import Control
+from portbench.devread import CHUNK
+from portbench.reference.limiter import bucket_index
 
 from conftest import PORTBENCH, REPO
 
@@ -45,6 +47,7 @@ class Fault:
 
     def __init__(self, kind):
         self.kind = kind
+        self.planted = 0
 
     def before_boot(self):
         if self.kind == "state_unchanged":
@@ -53,6 +56,33 @@ class Fault:
             kernels._writeback_apply = lambda data, *a, **k: data
 
     def on_backend(self, backend):
+        if self.kind in ("stray_row", "stray_counter"):
+            # at each span's close, before its last reads: +1 to one word of
+            # a bucket (or a sketch chunk) that no event of the span touched
+            rec = backend.decide_submit_merged.__self__
+            close = rec._close
+
+            def stray_then_close(sp):
+                self.stray(rec, sp)
+                close(sp)
+
+            rec._close = stray_then_close
+        if self.kind == "stray_before_read":
+            # +1 to a word of a bucket that the span's next event reads but
+            # no earlier event of it touched, just before that event's
+            # gather: the gather sees it, so only the digests can tell
+            rec = backend.decide_submit_merged.__self__
+            gather = rec._gather
+
+            def stray_then_gather(sp, ev, kh, duration, victims):
+                seen = np.concatenate([e["bk"] for e in sp.events] or [np.zeros(0, np.int64)])
+                fresh = np.setdiff1d(bucket_index(kh, rec.geo.buckets), seen)
+                if sp.events and fresh.shape[0]:
+                    rec.eng.store.data[int(fresh[0]), 2] += 1
+                    self.planted += 1
+                return gather(sp, ev, kh, duration, victims)
+
+            rec._gather = stray_then_gather
         if self.kind == "answer_altered":
             orig = backend.decide_wait_arrays
 
@@ -83,6 +113,20 @@ class Fault:
             backend.engine.decide_submit_merged = submit
 
 
+    def stray(self, rec, sp):
+        import torch
+
+        if self.kind == "stray_row":
+            touched = np.unique(np.concatenate([ev["bk"] for ev in sp.events] or [np.zeros(0, np.int64)]))
+            free = np.setdiff1d(np.arange(rec.geo.buckets), touched)
+            rec.eng.store.data[int(free[0]), 3] += 1
+        else:
+            touched = torch.unique(sp.bufs.ctr_idx[:sp.ctr_used] // CHUNK).numpy()
+            free = np.setdiff1d(np.arange(rec.eng.sketch.data.numel() // CHUNK), touched)
+            rec.eng.sketch.data.view(-1, CHUNK)[int(free[0]), 5] += 1
+        self.planted += 1
+
+
 def restore_kernels():
     import importlib
 
@@ -99,6 +143,22 @@ def test_planted_faults_are_not_correct(run_cell, cell, kind):
     finally:
         restore_kernels()
     assert rc == 0 and out["correct"] is False, out["checks"]
+
+
+@pytest.mark.parametrize("kind,cell", [("stray_row", "tiny_two.deep_zipf"),
+                                       ("stray_row", "tiny_exact.deep_zipf_mixed"),
+                                       ("stray_counter", "tiny_two.deep_zipf"),
+                                       ("stray_counter", "tiny_two.deep_churn"),
+                                       ("stray_before_read", "tiny_exact.deep_zipf_mixed")])
+def test_a_stray_write_outside_the_touched_state_is_not_correct(run_cell, kind, cell):
+    """A word changed during a span in a row or chunk that no event of it
+    had touched is seen by the digests alone: every answer and every
+    touched word still match the reference's replay."""
+    fault = Fault(kind)
+    rc, out = run_cell(cell, seed=13, patch=fault)
+    assert rc == 0 and out["correct"] is False and fault.planted > 0, out["checks"]
+    assert out["checks"]["answers_differing"]["value"] == 0
+    assert out["checks"]["state_words_differing"]["value"] >= CHUNK * fault.planted
 
 
 def test_an_altered_promoter_install_is_not_correct(run_cell):

@@ -112,7 +112,7 @@ def test_prefill_fills_ways_in_batch_then_fingerprint_order():
     geo = Geometry(buckets=4, ways=2, sketch_rows=2, sketch_width=256)
     kh = np.arange(1, 41, dtype=np.uint64) * np.uint64(0x9E3779B97F4A7C15)
     nows = [100, 200, 300, 400]
-    rows, sketch, coll = prefill_state(kh, 10, nows, 1000, 60_000, geo, np.arange(4))
+    rows, sketch, coll = prefill_state(lambda lo, hi: kh[lo:hi], 40, 10, nows, 1000, 60_000, geo, np.arange(4))
     bk = bucket_index(kh, 4)
     fp = fingerprint_u32(kh)
     assert not coll
