@@ -158,6 +158,10 @@ from gubernator_tpu_torch.parallel.policy import ShardingPolicy
 _SHARD_SALT = np.uint64(0xA24BAED4963EE407)
 _SHARD_SALT_I64 = _i64(0xA24BAED4963EE407)
 
+#: store rows (128 MiB at 16 ways) that occupied_entries reads at once:
+#: its temporaries stay a few MiB whatever the store's size
+OCCUPIED_BLOCK_ROWS = 1 << 18
+
 _log = logging.getLogger("gubernator_tpu_torch.sharded")
 _warned_ladder_overflow = False
 
@@ -917,6 +921,26 @@ class TorchEngine:
             return None
         out = np.stack([s.data.cpu().numpy() for s in sks])
         return out.reshape(self._state_lead() + out.shape[1:])
+
+    def occupied_entries(self) -> int:
+        """Entries of every shard's store with a tag set, live or expired
+        (the count upstream's LRU reports as its size): counted on the
+        device `OCCUPIED_BLOCK_ROWS` rows at a time, so no temporary
+        grows with the store, in stream order after the batches already
+        submitted, with one sync a device. Recorded as the `store_size`
+        stage."""
+        t0 = time.monotonic()
+        counts = {}
+        for st in self._shard_stores():
+            data = st.data
+            n = counts.setdefault(
+                data.device, torch.zeros((), dtype=torch.int64, device=data.device))
+            for s in range(0, data.shape[0], OCCUPIED_BLOCK_ROWS):
+                block = data[s : s + OCCUPIED_BLOCK_ROWS]
+                n += torch.count_nonzero(block.view(-1, LANES)[:, L_TAG])
+        total = sum(int(n.item()) for n in counts.values())
+        self._span("store_size", t0)
+        return total
 
     def reset(self) -> None:
         """Wipe the store and the sketch in place (the clock keeps its

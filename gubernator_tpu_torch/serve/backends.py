@@ -296,10 +296,18 @@ class _ArrayOps:
             return z, z, z, z
         return self.engine.decide_wait(handle)
 
-    def stats(self) -> dict:
+    def counters(self) -> dict:
         """The engine's counters, with the distinct keys of the batches
-        it dispatched (`groups`)."""
+        it dispatched (`groups`): host numbers, what the batcher meters
+        after every batch."""
         return self.engine.stats.snapshot(groups=True)
+
+    def stats(self) -> dict:
+        """`counters()` and the store's occupied entries (`size`, the
+        `cache_size` gauge, as upstream's LRU reports its own size),
+        counted on the device when asked: a pass over the whole store in
+        the serving stream's order, for a scrape, never a batch."""
+        return dict(self.counters(), size=self.engine.occupied_entries())
 
     def attach_stages(self) -> None:
         """Point the engine's submit and fetch spans at the stage clock
@@ -593,6 +601,11 @@ class MultiHostBackend(MeshBackend):
         """Shut the step pipe (each follower's loop ends) and release
         this process's captured decides."""
         self.engine.close()
+
+    def stats(self) -> dict:
+        """`counters()` without `size`: the leader holds only its own
+        shards of the store."""
+        return self.counters()
 
 
 def mesh_devices(shards: int, device: DeviceLike = None) -> list:

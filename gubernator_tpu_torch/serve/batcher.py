@@ -1012,9 +1012,11 @@ class DeviceBatcher:
     def _observe_cache_stats(self) -> None:
         """Forward the backend's monotonic hit/miss counters into
         cache_access_count{type} (reference cache/lru.go:164-176) as
-        deltas since the last flush. Backends are duck-typed: anything
-        without a dict-shaped stats() is simply not metered."""
-        stats_fn = getattr(self.backend, "stats", None)
+        deltas since the last flush. Backends are duck-typed: their
+        `counters()` where they have it (the device backends, whose
+        stats() also counts the store on the device), else stats();
+        anything without a dict-shaped one is simply not metered."""
+        stats_fn = getattr(self.backend, "counters", None) or getattr(self.backend, "stats", None)
         if stats_fn is None:
             return
         s = stats_fn()

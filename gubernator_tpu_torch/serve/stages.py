@@ -122,6 +122,10 @@ backends record `collect` alone:
     resolve          the loop slicing answers and setting the futures
                      (on the request-object path its batch metrics too)
     promoter_tick    one SketchPromoter.flush_once (no batch)
+    store_size       the backend's count of the store's occupied entries
+                     for `stats()` (a `/metrics` scrape's `cache_size`):
+                     its device reads and sync, in the caller's thread
+                     (no batch)
     gc               a generation-2 collection while the timeline is
                      armed (no batch; reaches the totals at disarm)
 """
@@ -148,7 +152,7 @@ PER_BATCH = ("submit_host", "prep", "merge", "dispatch", "fetch_wait",
              "fetch_sync", "unpack", "resolve")
 PER_CALL = ("instance_route",)
 #: recorded on their own clock, tied to no batch or frame
-PER_TICK = ("promoter_tick", "gc")
+PER_TICK = ("promoter_tick", "gc", "store_size")
 
 
 def clock_pair() -> Tuple[int, int]:

@@ -166,8 +166,10 @@ def _assert_state_same(t, j, msg):
         te.sketch.data.numpy(), np.asarray(je.sketch.data), err_msg=f"sketch {msg}"
     )
     t_stats = t.backend.stats()
-    # the port counts the distinct keys of its batches too
+    # the port counts the distinct keys of its batches too, and the
+    # store's occupied entries (tag lane set)
     assert t_stats.pop("groups") >= t_stats["batches"], msg
+    assert t_stats.pop("size") == np.count_nonzero(np.asarray(je.store.data)[:, ::8]), msg
     assert t_stats == j.backend.stats(), msg
     assert t.shed.stats() == j.shed.stats(), msg
     assert dict(t.shed._entries) == dict(j.shed._entries), msg
